@@ -1,0 +1,62 @@
+"""Flax parameters of the JAX ``GraphModel`` -> ``state_dict`` of the port's.
+
+The input is the flax parameter tree with numpy arrays as leaves (for
+example ``jax.tree_util.tree_map(np.asarray, variables)``), so this module
+needs no JAX. Name map:
+
+- ``MLP_0/Dense_i``        -> ``encoder.layers.i``
+- ``EdgeConv_i/Dense_j``   -> ``convs.i.dense{j}``
+- ``LayerNorm_0``          -> ``norm``
+- ``OutputHead_0/Dense_i`` -> ``head.layers.i``
+
+A flax ``Dense.kernel`` is (in, out) and becomes ``Linear.weight`` (out, in);
+``LayerNorm.scale`` becomes ``weight``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_DENSE = re.compile(r"Dense_(\d+)$")
+
+
+def _dense(prefix: str, tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(tree["kernel"], np.float32).T))
+    out[f"{prefix}.bias"] = torch.from_numpy(np.asarray(tree["bias"], np.float32).copy())
+
+
+def _dense_layers(prefix: str, tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    for name, sub in tree.items():
+        m = _DENSE.match(name)
+        if m is None:
+            raise KeyError(f"unexpected parameter {prefix}/{name}")
+        _dense(f"{prefix}.{m.group(1)}", sub, out)
+
+
+def graph_model_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for :class:`nbody_tpu_torch.models.GraphModel` from a
+    flax ``GraphModel`` parameter tree (``variables`` or
+    ``variables["params"]``)."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        if name == "MLP_0":
+            _dense_layers("encoder.layers", sub, out)
+        elif name.startswith("EdgeConv_"):
+            i = int(name.split("_")[1])
+            for dname, dsub in sub.items():
+                _dense(f"convs.{i}.dense{_DENSE.match(dname).group(1)}", dsub, out)
+        elif name == "LayerNorm_0":
+            out["norm.weight"] = torch.from_numpy(np.asarray(sub["scale"], np.float32).copy())
+            out["norm.bias"] = torch.from_numpy(np.asarray(sub["bias"], np.float32).copy())
+        elif name == "OutputHead_0":
+            _dense_layers("head.layers", sub, out)
+        else:
+            raise KeyError(f"unexpected parameter group {name}")
+    return out

@@ -1,0 +1,251 @@
+"""All-pairs softened gravity and pairwise potential energy — the port of
+``nbody_tpu/ops/pairwise.py``.
+
+Two kernels, both hand-written CUDA C++ for Hopper in
+``nbody_tpu_torch/csrc/pairwise.cu``:
+
+- B1, :func:`partial_accelerations`: the rectangular force of sources J on
+  targets I (replaces the Pallas ``_force_kernel``);
+- B2, :func:`pair_potential`: the pairwise potential of one set (strict upper
+  triangle) or of two disjoint sets (replaces the Pallas ``_energy_kernel``).
+
+Each wrapper has a plain-torch twin of the same semantics in this module
+(``*_torch``). A wrapper takes its twin only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises. Each wrapper counts its kernel
+launches in a plain integer attribute, ``<wrapper>.launches``, so a run can
+show which kernels its path went through.
+
+The public entry points keep the JAX package's names without the ``pallas_``
+prefix: :func:`accelerations`, :func:`potential_energy`,
+:func:`cross_potential` and :func:`chunked_potential_energy`. They fold a
+validity mask into the masses (a zero-mass source exerts no force and has no
+potential) and zero masked output rows, as the JAX entry points do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from nbody_tpu_torch.ops import build
+
+# rsqrt floor: keeps inv^3 finite for a coincident pair at softening 0, so
+# the zero displacement cancels the self-pair exactly (as in the JAX kernel).
+_D2_FLOOR = 1e-18
+# distance floor of the potential: no 0/0 for coincident zero-mass slots.
+_DIST_FLOOR = 1e-30
+# target rows per block of the twins: O(rows * nj) memory, never (ni, nj, 3).
+_TWIN_ROWS = 2048
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = build.load_library("pairwise")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        i64 = ctypes.c_longlong
+        lib.nbody_force.argtypes = [ptr, ptr, i32, i32, f32, f32, ptr, ptr]
+        lib.nbody_force.restype = i32
+        lib.nbody_energy_num_partials.argtypes = [i32, i32]
+        lib.nbody_energy_num_partials.restype = i64
+        lib.nbody_energy.argtypes = [
+            ptr, ptr, i32, ptr, i32, f32, i32, ptr, i64, ptr, ptr]
+        lib.nbody_energy.restype = i32
+        _LIB = lib
+    return _LIB
+
+
+def load_kernels() -> None:
+    """Build (or load) the kernels now, e.g. before a timed region."""
+    _lib()
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32).contiguous()
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    """True for CPU tensors (twin path), False for CUDA tensors (kernel
+    path); raises on anything else, or on tensors split across devices."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"tensors on different devices: {[str(t.device) for t in ts]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or twin for device {dev}")
+    return dev.type == "cpu"
+
+
+def _check(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _pack_sources(pos_j: torch.Tensor, mass_j: torch.Tensor) -> torch.Tensor:
+    """(nj, 4) [x, y, z, m] scratch: one 16-byte float4 load per source.
+    The wrappers may drop their scratch while a kernel still reads it: the
+    caching allocator reuses that memory only for later work on the same
+    stream, which runs after the kernel."""
+    return torch.cat([pos_j, mass_j[:, None]], dim=1)
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+# --------------------------------------------------------------------- B1
+
+def partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening):
+    """Plain-torch twin of B1: exact coordinate differences, rsqrt^3 with the
+    1e-18 floor, no self mask (a coincident pair adds an exact zero)."""
+    ni = pos_i.shape[0]
+    acc = torch.empty_like(pos_i)
+    eps2 = float(softening) ** 2
+    for r0 in range(0, ni, _TWIN_ROWS):
+        d = pos_j[None, :, :] - pos_i[r0:r0 + _TWIN_ROWS, None, :]
+        d2 = (d * d).sum(-1) + eps2
+        inv = torch.rsqrt(torch.clamp(d2, min=_D2_FLOOR))
+        w = inv * inv * inv * mass_j[None, :]
+        acc[r0:r0 + _TWIN_ROWS] = g_const * (w[..., None] * d).sum(1)
+    return acc
+
+
+def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
+    """Accelerations (Ni, 3) exerted on targets ``pos_i`` (Ni, 3) by sources
+    ``(pos_j (Nj, 3), mass_j (Nj,))``; the port of
+    ``pallas_partial_accelerations``. Float32, contiguous, one device.
+    Ragged sizes need no padding: the kernel masks the last tile itself."""
+    if _on_cpu(pos_i, pos_j, mass_j):
+        return partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening)
+    ni, nj = pos_i.shape[0], pos_j.shape[0]
+    _check("pos_i", pos_i, (ni, 3))
+    _check("pos_j", pos_j, (nj, 3))
+    _check("mass_j", mass_j, (nj,))
+    acc = torch.empty((ni, 3), dtype=torch.float32, device=pos_i.device)
+    if ni == 0:
+        return acc
+    src = _pack_sources(pos_j, mass_j)
+    with torch.cuda.device(pos_i.device):
+        rc = _lib().nbody_force(
+            pos_i.data_ptr(), src.data_ptr(), ni, nj, float(g_const),
+            float(softening), acc.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "nbody_force launch")
+    partial_accelerations.launches += 1
+    return acc
+
+
+partial_accelerations.launches = 0
+
+
+def accelerations(pos, mass, g_const, softening, mask=None):
+    """Softened direct-sum accelerations (N, 3) of one set through B1; the
+    port of ``pallas_accelerations``. ``mask`` (N,) is folded into the
+    masses, and masked rows of the result are zero."""
+    pos, mass = _f32(pos), _f32(mass)
+    if mask is not None:
+        m01 = mask.to(pos.device, torch.float32)
+        mass = mass * m01
+    acc = partial_accelerations(pos, pos, mass, g_const, softening)
+    if mask is not None:
+        acc = acc * m01[:, None]
+    return acc
+
+
+# --------------------------------------------------------------------- B2
+
+def pair_potential_torch(pos_i, mass_i, pos_j, mass_j, g_const, softening,
+                         masked):
+    """Plain-torch twin of B2: -G sum m_i m_j / max(d + eps, 1e-30) over the
+    strict upper triangle (``masked``, one set) or over all pairs of two
+    disjoint sets. Row blocks are summed in float64, like the kernel's
+    reduction."""
+    ni = pos_i.shape[0]
+    total = torch.zeros((), dtype=torch.float64, device=pos_i.device)
+    cols = torch.arange(pos_j.shape[0], device=pos_i.device)
+    for r0 in range(0, ni, _TWIN_ROWS):
+        rows = torch.arange(r0, min(r0 + _TWIN_ROWS, ni), device=pos_i.device)
+        d = pos_j[None, :, :] - pos_i[rows][:, None, :]
+        dist = torch.clamp(torch.sqrt((d * d).sum(-1)) + softening,
+                           min=_DIST_FLOOR)
+        pair = -(mass_i[rows][:, None] * mass_j[None, :]) / dist
+        if masked:
+            pair = torch.where(cols[None, :] > rows[:, None], pair, 0.0)
+        total = total + pair.sum(dtype=torch.float64)
+    return (g_const * total).to(torch.float32)
+
+
+def pair_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening,
+                   masked: bool):
+    """Pairwise potential (a 0-d float32 tensor on the inputs' device; no
+    host sync). ``masked``: ``pos_i`` and ``pos_j`` are the same set and each
+    unordered pair counts once. Otherwise the two sets must be disjoint."""
+    if _on_cpu(pos_i, mass_i, pos_j, mass_j):
+        return pair_potential_torch(pos_i, mass_i, pos_j, mass_j, g_const,
+                                    softening, masked)
+    ni, nj = pos_i.shape[0], pos_j.shape[0]
+    _check("pos_i", pos_i, (ni, 3))
+    _check("mass_i", mass_i, (ni,))
+    _check("pos_j", pos_j, (nj, 3))
+    _check("mass_j", mass_j, (nj,))
+    if masked and ni != nj:
+        raise ValueError("the masked potential takes one set (ni == nj)")
+    if ni == 0 or nj == 0:
+        return torch.zeros((), dtype=torch.float32, device=pos_i.device)
+    lib = _lib()
+    src = _pack_sources(pos_j, mass_j)
+    n_part = lib.nbody_energy_num_partials(ni, nj)
+    partials = torch.empty(n_part, dtype=torch.float64, device=pos_i.device)
+    out = torch.empty((), dtype=torch.float64, device=pos_i.device)
+    with torch.cuda.device(pos_i.device):
+        rc = lib.nbody_energy(
+            pos_i.data_ptr(), mass_i.data_ptr(), ni, src.data_ptr(), nj,
+            float(softening), int(masked), partials.data_ptr(), n_part,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "nbody_energy launch")
+    pair_potential.launches += 1
+    return (g_const * out).to(torch.float32)
+
+
+pair_potential.launches = 0
+
+
+def potential_energy(pos, mass, g_const, softening, mask=None):
+    """Total pairwise PE of one set through B2; the port of
+    ``pallas_potential_energy``."""
+    pos, mass = _f32(pos), _f32(mass)
+    if mask is not None:
+        mass = mass * mask.to(pos.device, torch.float32)
+    return pair_potential(pos, mass, pos, mass, g_const, softening, masked=True)
+
+
+def cross_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening):
+    """PE of every pair between two DISJOINT sets through B2; the port of
+    ``pallas_cross_potential``. A particle in both sets would pair with
+    itself at distance 0 and add -G m^2 / eps."""
+    return pair_potential(_f32(pos_i), _f32(mass_i), _f32(pos_j), _f32(mass_j),
+                          g_const, softening, masked=False)
+
+
+def chunked_potential_energy(pos, mass, g_const, softening, chunk: int) -> float:
+    """Exact total PE as a float from C diagonal and C(C-1)/2 cross launches
+    of ~``chunk`` rows each (block-triangle decomposition), summed on the host
+    in float64. Bounds the length of any single launch at very large N."""
+    n = pos.shape[0]
+    bounds = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+    total = 0.0
+    for a, (lo, hi) in enumerate(bounds):
+        total += float(potential_energy(pos[lo:hi], mass[lo:hi], g_const, softening))
+        for lo2, hi2 in bounds[a + 1:]:
+            total += float(cross_potential(
+                pos[lo:hi], mass[lo:hi], pos[lo2:hi2], mass[lo2:hi2],
+                g_const, softening))
+    return total
