@@ -17,14 +17,25 @@ the port's main path once:
 3. one 20,000-body spiral scene of 200 steps with energies;
 4. the EdgeConv surrogate at the reference width (seeded random weights):
    stepwise and 1000-step rollout evaluation over the phase-2 dataset, then
-   a 50-step rollout at 20,000 bodies.
+   a 50-step rollout at 20,000 bodies;
+5. the large-N kernels against their twins on spiral initial conditions:
+   the Morton select (B7) and merge (B8) at 20,000 and 100,000 bodies for
+   kNN(10) and the radius search's k = 32 with self edges, recall against
+   exact kNN, the ContConv collect (B3) on the geometry of a Morton radius
+   graph at D = 6 and 4, the full-width ContinuousConvModel on the card
+   against the CPU, and a refused gradient through B3;
+6. the large-N surrogate path through
+   ``nbody_tpu_torch.experiments.large_scale`` at 100,000 bodies, 20 steps,
+   modes direct, surrogate and hybrid, for the reference-width ContConv
+   model and the GNN with Morton kNN.
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
-JSON object with one entry per kernel (launches counted over phases 2-4,
-errors and times from phase 1 at 20,000 bodies), the card's ``nvidia-smi``
-name and power limit, and ``{"ok": true, "device": {...}}``. Without CUDA,
-or without the package beside this script, it exits non-zero.
+JSON object with one entry per kernel (launches counted over the path that
+runs it: phases 2-4 for B1 and B2, phase 6 for B3, B7 and B8; errors and
+times from phases 1 and 5), the card's ``nvidia-smi`` name and power limit,
+and ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
+beside this script, it exits non-zero.
 """
 
 from __future__ import annotations
@@ -45,8 +56,13 @@ B2_TOL = 1e-5      # relative PE error (tests/test_forces.py:114-130)
 DRIFT_500 = 1e-4   # 500-body leapfrog energy drift over 1000 steps
 DRIFT_20K = 1e-3   # 20k-body drift over 200 steps (treecode tests' bar)
 RECIPE_N = [3, 25, 50, 100, 250, 500]
+SOURCES = ("pairwise", "spatial", "contconv")
 RECIPE_STEPS = 1000
 BIG_N, BIG_STEPS, SURR_STEPS = 20_000, 200, 50
+LARGE_N, LARGE_STEPS = 100_000, 20
+RECALL = 0.99      # Morton kNN recall (tests/test_spatial.py:69-76,132-141)
+B3_TOL = 2e-4      # max |dout| / max |out| (tests/test_models.py:161)
+MODEL_RTOL, MODEL_ATOL = 2e-4, 1e-5  # atol times max |a|
 
 
 def log(msg: str) -> None:
@@ -74,7 +90,7 @@ def phase0_device():
         raise SystemExit("chip_smoke.py: CUDA required (torch.cuda.is_available() "
                          "is False); the port has no CPU fallback for this run")
     sys.path.insert(0, HERE)
-    from nbody_tpu_torch.ops import build, pairwise  # fails when run alone
+    from nbody_tpu_torch.ops import build  # fails when run alone
 
     card = card_line()
     log(f"[0] card: {card}")
@@ -83,13 +99,14 @@ def phase0_device():
     torch.backends.cudnn.allow_tf32 = False
     assert torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on"
     t0 = time.perf_counter()
-    pairwise.load_kernels()
-    info = build.BUILD_INFO["pairwise"]
-    log(f"[0] kernels built in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[0]   ptxas: {line.strip()}")
+    build.load_all(SOURCES)  # one nvcc per source, all at once
+    log(f"[0] kernels built in {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        info = build.BUILD_INFO[name]
+        log(f"[0] {name}.cu: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[0]   ptxas: {line.strip()}")
     return card
 
 
@@ -284,41 +301,249 @@ def phase4_surrogate(data_dir: str, traj):
             raise AssertionError("bad 20k surrogate rollout")
     log(f"[4] surrogate rollout N={BIG_N} x {SURR_STEPS} steps (chunked exact kNN): "
         f"{1e3 * sec / SURR_STEPS:.4f} ms/step")
+    return 1e3 * sec / SURR_STEPS
+
+
+def _recall(got, want) -> float:
+    import torch
+
+    (gi, gv), (wi, wv) = got, want
+    n = gi.shape[0]
+    big = n + 1  # never an id: marks invalid slots
+    a = torch.where(gv, gi.long(), big)
+    b = torch.where(wv, wi.long(), -1)
+    hits = (a[:, :, None] == b[:, None, :]).any(1).sum()
+    return float(hits) / max(float(wv.sum()), 1.0)
+
+
+def phase5_large_n_kernels():
+    """B7, B8 and B3 against their twins on the card; the full-width
+    ContConv model on the card against the CPU. Returns the numbers of the
+    kernels line: B7/B8 at 100k bodies, k = 32, B3 at 100k, D = 6."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.models import ContinuousConvModel
+    from nbody_tpu_torch.models.contconv import conv_geometry
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.ops import spatial as sp
+    from nbody_tpu_torch.ops.knn import knn_neighbors
+    from nbody_tpu_torch.ops.radius import radius_neighbors
+    from nbody_tpu_torch.train import predict_accelerations
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    out = {}
+    for n in (BIG_N, LARGE_N):
+        pos, _, _ = generate_spiral(torch.Generator().manual_seed(n + 5), n, device=dev)
+        order = sp._curve_order(pos, None, 4)
+        cand, qg = sp._candidates(pos, order, 256)
+        for k, inc in ((10, False), (32, True)):
+            ids, d2 = sp.morton_select(cand, k, 256, inc)
+            ids_t, d2_t = sp.morton_select_torch(cand, k, 256, inc)
+            ok7 = torch.equal(ids, ids_t) and torch.allclose(d2, d2_t, rtol=1e-6, atol=0)
+            err7 = float((d2 - d2_t).abs().max())
+            ms7 = cuda_time_ms(lambda: sp.morton_select(cand, k, 256, inc))
+            ms7t = cuda_time_ms(lambda: sp.morton_select_torch(cand, k, 256, inc),
+                                reps=3, warmup=1)
+            mc, md = sp._to_rows(qg, ids, d2, n)
+            m_ids, m_d2 = sp.morton_merge(mc, md, k)
+            t_ids, t_d2 = sp.morton_merge_torch(mc, md, k)
+            ok8 = torch.equal(m_ids, t_ids) and torch.allclose(m_d2, t_d2, rtol=1e-6, atol=0)
+            err8 = float((m_d2 - t_d2).abs().max())
+            ms8 = cuda_time_ms(lambda: sp.morton_merge(mc, md, k))
+            ms8t = cuda_time_ms(lambda: sp.morton_merge_torch(mc, md, k), reps=3, warmup=1)
+            ms_all = cuda_time_ms(lambda: sp.knn_morton(pos, k, include_self=inc,
+                                                        impl="kernel"), reps=5, warmup=1)
+            log(f"[5] B7 select N={n} k={k} self={inc}: ids identical {ok7}, max|dd2| "
+                f"{err7:.3e}; kernel {ms7:.4f} ms  twin {ms7t:.4f} ms")
+            log(f"[5] B8 merge  N={n} k={k}: ids identical {ok8}, max|dd2| {err8:.3e}; "
+                f"kernel {ms8:.4f} ms  twin {ms8t:.4f} ms; whole knn_morton(kernel) "
+                f"{ms_all:.4f} ms")
+            if not (ok7 and ok8):
+                raise AssertionError(f"B7/B8 disagree with their twins at N={n}, k={k}")
+            if n == BIG_N:
+                got = sp.knn_morton(pos, k, include_self=inc, impl="kernel")
+                cpu = sp.knn_morton(pos.cpu(), k, include_self=inc, impl="kernel")
+                same = all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
+                rec = _recall(got, knn_neighbors(pos, k, include_self=inc))
+                log(f"[5] knn_morton(kernel) N={n} k={k}: card == CPU twins {same}, "
+                    f"recall vs exact {rec:.5f} (bar {RECALL})")
+                if not (same and rec >= RECALL):
+                    raise AssertionError(f"Morton kNN at N={n}, k={k}: same {same}, "
+                                         f"recall {rec}")
+            if n == LARGE_N and k == 32:
+                out["b7"] = (err7, ms7, ms7t)
+                out["b8"] = (err8, ms8, ms8t)
+
+        # B3 on the geometry of this N's Morton radius graph
+        idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
+        geom = conv_geometry(pos[None], idx[None], valid[None], 1.0)
+        feat = torch.randn(n, 128, generator=torch.Generator().manual_seed(n)).to(dev)
+        fj = feat[idx.long()].contiguous()
+        win = geom["window"][0].contiguous()
+        for d in (6, 4):
+            grid = (geom["mapped"][0] + 1.0) * ((d - 1) / 2.0)
+            gx, gy, gz = (grid[..., a].contiguous() for a in range(3))
+            filters = torch.randn(d ** 3, 128, 128,
+                                  generator=torch.Generator().manual_seed(d)).to(dev)
+            args = (gx, gy, gz, win, fj, filters)
+            got = cck.contconv_collect(*args, d=d)
+            want = cck.contconv_collect_torch(*args, d=d)
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            ms = cuda_time_ms(lambda: cck.contconv_collect(*args, d=d), reps=5, warmup=1)
+            ms_t = cuda_time_ms(lambda: cck.contconv_collect_torch(*args, d=d),
+                                reps=3, warmup=1)
+            log(f"[5] B3 collect N={n} k=32 D={d} ci=co=128: max|d|/max|out| {rel:.3e} "
+                f"(bar {B3_TOL}); kernel {ms:.4f} ms  twin {ms_t:.4f} ms")
+            if not rel <= B3_TOL:
+                raise AssertionError(f"B3 disagrees with its twin at N={n}, D={d}: {rel}")
+            if n == LARGE_N and d == 6:
+                out["b3"] = (err, ms, ms_t)
+        del fj, geom
+
+    # the full-width model: kernels on the card, twins on the CPU, same weights
+    kw = dict(in_channels=4, out_channels=3, filter_resolution=(6, 4), radius=1.0,
+              agg="mean", self_loops=True, continuous_conv_layers=2,
+              continuous_conv_dim=128, encoder_hiddens=(32, 64),
+              decoder_hiddens=(64, 32), scale_factor=1e6, radius_method="morton",
+              radius_impl="kernel", conv_impl="kernel")
+    model = ContinuousConvModel(**kw, generator=torch.Generator().manual_seed(4)).eval()
+    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(2), 2_000)
+    a_cpu = predict_accelerations(model, pos, vel, mass)
+    model.to(dev)
+    before = cck.contconv_collect.launches
+    a_gpu = predict_accelerations(model, pos.to(dev), vel.to(dev), mass.to(dev)).cpu()
+    if cck.contconv_collect.launches != before + 2:
+        raise AssertionError("the model's layers did not go through B3")
+    scale = float(a_cpu.abs().max())
+    d_model = float((a_gpu - a_cpu).abs().max())
+    log(f"[5] ContinuousConvModel N=2000 card vs CPU: max|da| {d_model:.3e}, max|a| {scale:.3e}")
+    if not torch.allclose(a_gpu, a_cpu, rtol=MODEL_RTOL, atol=MODEL_ATOL * scale):
+        raise AssertionError("the ContConv model on the card disagrees with the CPU")
+
+    # no silent zero gradient through B3
+    x = torch.cat([pos, vel, mass[:, None]], -1)[None].to(dev).requires_grad_(True)
+    from nbody_tpu_torch.train.graphs import build_graph
+
+    g_idx, g_valid = build_graph(model.graph_spec, x[..., :3].detach())
+    try:
+        model(x, g_idx, g_valid).sum().backward()
+    except NotImplementedError as e:
+        log(f"[5] gradient through B3 refused: {e}")
+    else:
+        raise AssertionError("a gradient through B3 did not raise NotImplementedError")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase6_large_n_path(exact_20k_ms: float):
+    """The large-N surrogate path through the port's large_scale entry point at
+    100k bodies, both surrogate families; then the 20k GNN rollout with
+    Morton kNN beside phase 4's exact-kNN one."""
+    import torch
+
+    from nbody_tpu_torch.experiments import large_scale
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.models import GraphModel
+    from nbody_tpu_torch.train import autoregressive_rollout
+    from nbody_tpu_torch.utils.timing import device_time
+
+    base = ["--n-bodies", str(LARGE_N), "--steps", str(LARGE_STEPS), "--device", "cuda",
+            "--modes", "direct", "surrogate", "hybrid"]
+    runs = {"contconv": ["--model", "contconv", "--conv-impl", "kernel", "--knn-impl", "kernel"],
+            "gnn-morton": ["--model", "gnn", "--knn-method", "morton", "--knn-impl", "kernel"]}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        res = large_scale.main(base + argv)
+        wall = time.perf_counter() - t0
+        if set(res) != {"direct", "surrogate", "hybrid"}:
+            raise AssertionError(f"{name}: modes {sorted(res)}")
+        for mode, r in res.items():
+            vals = [r["seconds"], r["psteps_per_s"]]
+            if mode == "surrogate":
+                vals.append(r["final_pos_rmse_vs_direct"])
+            if not all(math.isfinite(v) and v >= 0 for v in vals):
+                raise AssertionError(f"{name} {mode}: non-finite result {r}")
+            log(f"[6] {name} {mode} N={LARGE_N}: {1e3 * r['seconds'] / LARGE_STEPS:.4f} "
+                f"ms/step" + (f", final pos RMSE vs direct {r['final_pos_rmse_vs_direct']:.3e}"
+                              if mode == "surrogate" else ""))
+        log(f"[6] {name}: {wall:.2f} s wall with warm-ups")
+
+    dev = torch.device("cuda")
+    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(7), BIG_N, device=dev)
+    model = GraphModel(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean",
+                       neighbors=10, scale_factor=1e6, knn_method="morton",
+                       knn_impl="kernel",
+                       generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    autoregressive_rollout(model, pos, vel, mass, 2, DT)
+    (ps, _, _), sec = device_time(
+        lambda: autoregressive_rollout(model, pos, vel, mass, SURR_STEPS, DT), dev)
+    if not bool(torch.isfinite(ps).all()):
+        raise AssertionError("bad 20k Morton surrogate rollout")
+    log(f"[6] GNN surrogate rollout N={BIG_N}: Morton kNN (kernels) "
+        f"{1e3 * sec / SURR_STEPS:.4f} ms/step; chunked exact kNN (phase 4) "
+        f"{exact_20k_ms:.4f} ms/step")
 
 
 def main() -> int:
     card = phase0_device()
     import torch
 
+    from nbody_tpu_torch.ops import contconv_kernel as cck
     from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import spatial as sp
 
     big = phase1_kernels()
+    slice2 = phase5_large_n_kernels()
 
-    # the main path: every launch counter starts at 0 here
-    pw.partial_accelerations.launches = 0
-    pw.pair_potential.launches = 0
+    # the datagen and GNN-eval path: every launch counter starts at 0 here
+    for w in (pw.partial_accelerations, pw.pair_potential):
+        w.launches = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data_dir = os.path.join(tmp, "test")
         os.makedirs(data_dir)
         phase2_datagen(data_dir)
         traj = phase3_real_size()
-        phase4_surrogate(data_dir, traj)
+        exact_20k_ms = phase4_surrogate(data_dir, traj)
     launches = {"b1": pw.partial_accelerations.launches,
                 "b2": pw.pair_potential.launches}
     torch.cuda.synchronize()
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+
+    # the large-N surrogate path: counters at 0 again
+    wrappers = {"b1": pw.partial_accelerations, "b3": cck.contconv_collect,
+                "b7": sp.morton_select, "b8": sp.morton_merge}
+    for w in wrappers.values():
+        w.launches = 0
+    phase6_large_n_path(exact_20k_ms)
+    torch.cuda.synchronize()
+    large = {name: w.launches for name, w in wrappers.items()}
+    log(f"[6] launches on the large-N path: {large}")
+    launches.update({k: v for k, v in large.items() if k != "b1"})
+    if min(launches.values()) == 0 or large["b1"] == 0:
+        raise AssertionError(f"a kernel of a path never launched: {launches}, {large}")
     if any(m.split(".")[0] in ("jax", "flax", "nbody_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
 
-    src = "nbody_tpu_torch/csrc/pairwise.cu"
+    def entry(name, source, replaces, key, numbers):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[key], "max_abs_err": numbers[0], "ms": numbers[1],
+                "plain_ms": numbers[2]}
+
+    pair_src = "nbody_tpu_torch/csrc/pairwise.cu"
+    spatial_src = "nbody_tpu_torch/csrc/spatial.cu"
     kernels = [
-        {"name": "B1 force (nbody_force)", "route": "cuda", "source": src,
-         "replaces": "nbody_tpu/ops/pairwise.py:50", "launches": launches["b1"],
-         "max_abs_err": big["b1"][0], "ms": big["b1"][1], "plain_ms": big["b1"][2]},
-        {"name": "B2 energy (nbody_energy)", "route": "cuda", "source": src,
-         "replaces": "nbody_tpu/ops/pairwise.py:113", "launches": launches["b2"],
-         "max_abs_err": big["b2"][0], "ms": big["b2"][1], "plain_ms": big["b2"][2]},
+        entry("B1 force (nbody_force)", pair_src, "nbody_tpu/ops/pairwise.py:50", "b1",
+              big["b1"]),
+        entry("B2 energy (nbody_energy)", pair_src, "nbody_tpu/ops/pairwise.py:113", "b2",
+              big["b2"]),
+        entry("B3 collect (contconv_collect)", "nbody_tpu_torch/csrc/contconv.cu",
+              "nbody_tpu/ops/contconv_kernel.py:105", "b3", slice2["b3"]),
+        entry("B7 select (morton_select)", spatial_src, "nbody_tpu/ops/spatial.py:272",
+              "b7", slice2["b7"]),
+        entry("B8 merge (morton_merge)", spatial_src, "nbody_tpu/ops/spatial.py:311",
+              "b8", slice2["b8"]),
     ]
     assert all(math.isfinite(k[f]) for k in kernels
                for f in ("max_abs_err", "ms", "plain_ms"))

@@ -10,7 +10,9 @@ LayerNorm, linear-or-MLP decoder, output divided by ``output_scale``.
 Messages live in dense (B, N, k, .) tensors: gather the neighbours, run the
 edge MLP, masked-reduce over k. Not ported yet, and raising
 ``NotImplementedError``: the fused EdgeConv forward, ``remat``, and the
-approximate and Morton neighbour searches.
+approximate (TPU-only) neighbour search. ``knn_method="morton"`` builds
+graphs with ``ops/spatial.py``; ``knn_impl`` takes the port's names, "dense"
+and "kernel".
 """
 
 from __future__ import annotations
@@ -65,6 +67,10 @@ class GraphModel(nn.Module):
         zero_init_output: bool = False,
         output_scale: float = 1.0,
         knn_method: Optional[str] = None,
+        knn_window: int = 64,
+        knn_impl: Optional[str] = None,
+        knn_copies: int = 4,
+        knn_block: int = 256,
         fused_edgeconv: bool = False,
         remat: bool = False,
         generator: Optional[torch.Generator] = None,
@@ -76,10 +82,12 @@ class GraphModel(nn.Module):
         if remat:
             raise NotImplementedError(
                 "remat=True is not ported yet (ROADMAP.md, queue A item 5)")
-        if knn_method not in (None, "exact"):
+        if knn_method == "approx":
             raise NotImplementedError(
-                f"knn_method={knn_method!r}: the port has exact kNN only "
-                "(Morton search: ROADMAP.md, queue A item 9)")
+                "knn_method='approx' selects with lax.approx_max_k, a TPU-only "
+                "top-k; use 'exact' or 'morton'")
+        if knn_method not in (None, "exact", "morton"):
+            raise ValueError(f"unknown knn_method {knn_method!r}")
         self.input_dim = input_dim
         self.output_hiddens = output_hiddens
         self.output_dim = output_dim
@@ -92,6 +100,11 @@ class GraphModel(nn.Module):
         self.scale_factor = scale_factor
         self.zero_init_output = zero_init_output
         self.output_scale = output_scale
+        self.knn_method = knn_method
+        self.knn_window = knn_window
+        self.knn_impl = knn_impl
+        self.knn_copies = knn_copies
+        self.knn_block = knn_block
 
         width = 4 if input_dim == 4 else NODE_FEATURES
         self.encoder = None
@@ -113,8 +126,15 @@ class GraphModel(nn.Module):
     @property
     def graph_spec(self):
         """How the data pipeline must build neighbour lists for this model."""
-        return ("knn", {"k": self.neighbors, "include_self": False,
-                        "method": "exact"})
+        method = self.knn_method or "exact"
+        spec = {"k": self.neighbors, "include_self": False, "method": method}
+        if method == "morton":
+            spec["window"] = self.knn_window
+            spec["block"] = self.knn_block
+            spec["n_copies"] = self.knn_copies
+            if self.knn_impl:
+                spec["impl"] = self.knn_impl
+        return ("knn", spec)
 
     def forward(self, x, nbr_idx, nbr_valid, node_mask=None):
         """:param x: (B, N, 7) node features [pos | vel | mass].

@@ -1,5 +1,5 @@
-"""Linear layers, the MLP block and the decoder head — the port of
-``nbody_tpu/models/mlp.py``.
+"""Linear layers, masked batch norm, the MLP block and the decoder head —
+the port of ``nbody_tpu/models/mlp.py``.
 
 ``Dense`` is ``nn.Linear`` with its default initialisation, U(-1/sqrt(fan_in),
 1/sqrt(fan_in)) for weight and bias, drawn from an explicit
@@ -37,25 +37,81 @@ def reset_dense(module: nn.Module, generator: Optional[torch.Generator]) -> None
             m.reset_parameters(generator)
 
 
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d whose batch statistics cover the valid nodes only — the
+    port of the JAX ``MaskedBatchNorm`` (torch's BatchNorm1d on PyG's
+    unpadded node batch). Train mode normalises with the biased batch
+    variance and updates the running variance with the unbiased one; eval
+    mode normalises with the running statistics. ``momentum`` keeps the flax
+    decay convention: 0.9 here is torch momentum 0.1. With ``mask=None`` the
+    statistics reduce over every leading axis.
+
+    Parameters ``weight`` (flax ``scale``) and ``bias``; buffers
+    ``running_mean`` and ``running_var`` (flax ``batch_stats`` ``mean`` and
+    ``var``).
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        f = x.shape[-1]
+        if self.training:
+            xf = x.reshape(-1, f)
+            if mask is not None:
+                w = mask.to(x.dtype)[..., None].expand(x.shape).reshape(-1, f)
+                cnt = torch.clamp(w[:, 0].sum(), min=1.0)
+                mean = (xf * w).sum(0) / cnt
+                var = (w * (xf - mean) ** 2).sum(0) / cnt
+            else:
+                cnt = torch.tensor(float(xf.shape[0]), dtype=x.dtype, device=x.device)
+                mean = xf.mean(0)
+                var = ((xf - mean) ** 2).mean(0)
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        return y * self.weight + self.bias
+
+
 class MLP(nn.Module):
-    """Per hidden layer Linear -> tanh -> dropout, plain final layer: PyG's
-    ``MLP`` as the GNN encoder uses it (``norm=None``, ``plain_last=True``;
-    the batch-norm variant comes with the ContConv slice).
+    """Per hidden layer Linear -> [norm] -> tanh -> dropout, plain final
+    layer: PyG's ``MLP`` as the reference uses it (``plain_last=True``). The
+    GNN encoder has ``norm=None``; the ContConv encoder keeps PyG's
+    ``"batch_norm"`` default (:class:`MaskedBatchNorm`, whose statistics see
+    only the nodes of ``mask``).
 
     :param in_features: input width.
     :param features: hidden widths followed by the output width.
     """
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, norm: Optional[str] = None):
         super().__init__()
+        if norm not in (None, "batch_norm"):
+            raise ValueError(f"unknown norm {norm!r}")
         dims = [in_features, *features]
         self.layers = nn.ModuleList(Dense(a, b) for a, b in zip(dims, dims[1:]))
+        self.norms = (nn.ModuleList(MaskedBatchNorm(f) for f in features[:-1])
+                      if norm == "batch_norm" else None)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x):
-        for layer in self.layers[:-1]:
-            x = self.dropout(torch.tanh(layer(x)))
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        for i, layer in enumerate(self.layers[:-1]):
+            x = layer(x)
+            if self.norms is not None:
+                x = self.norms[i](x, mask=mask)
+            x = self.dropout(torch.tanh(x))
         return self.layers[-1](x)
 
 

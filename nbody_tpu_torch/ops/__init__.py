@@ -8,6 +8,10 @@ from nbody_tpu_torch.ops.pairwise import (
 )
 from nbody_tpu_torch.ops.knn import knn_neighbors, batched_knn_neighbors
 from nbody_tpu_torch.ops.segment import masked_aggregate, masked_mean, masked_sum
+from nbody_tpu_torch.ops.spatial import batched_knn_morton, knn_morton, morton_keys
+from nbody_tpu_torch.ops.radius import batched_radius_neighbors, radius_neighbors
+from nbody_tpu_torch.ops.interpolate import trilinear_corners, trilinear_interpolate
+from nbody_tpu_torch.ops.contconv_kernel import contconv_collect
 
 __all__ = [
     "accelerations",
@@ -21,4 +25,12 @@ __all__ = [
     "masked_aggregate",
     "masked_mean",
     "masked_sum",
+    "batched_knn_morton",
+    "knn_morton",
+    "morton_keys",
+    "batched_radius_neighbors",
+    "radius_neighbors",
+    "trilinear_corners",
+    "trilinear_interpolate",
+    "contconv_collect",
 ]

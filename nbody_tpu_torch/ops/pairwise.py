@@ -68,37 +68,12 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).contiguous()
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    """True for CPU tensors (twin path), False for CUDA tensors (kernel
-    path); raises on anything else, or on tensors split across devices."""
-    dev = ts[0].device
-    if any(t.device != dev for t in ts):
-        raise ValueError(f"tensors on different devices: {[str(t.device) for t in ts]}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel or twin for device {dev}")
-    return dev.type == "cpu"
-
-
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
 def _pack_sources(pos_j: torch.Tensor, mass_j: torch.Tensor) -> torch.Tensor:
     """(nj, 4) [x, y, z, m] scratch: one 16-byte float4 load per source.
     The wrappers may drop their scratch while a kernel still reads it: the
     caching allocator reuses that memory only for later work on the same
     stream, which runs after the kernel."""
     return torch.cat([pos_j, mass_j[:, None]], dim=1)
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
 # --------------------------------------------------------------------- B1
@@ -123,12 +98,12 @@ def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
     ``(pos_j (Nj, 3), mass_j (Nj,))``; the port of
     ``pallas_partial_accelerations``. Float32, contiguous, one device.
     Ragged sizes need no padding: the kernel masks the last tile itself."""
-    if _on_cpu(pos_i, pos_j, mass_j):
+    if build.on_cpu(pos_i, pos_j, mass_j):
         return partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening)
     ni, nj = pos_i.shape[0], pos_j.shape[0]
-    _check("pos_i", pos_i, (ni, 3))
-    _check("pos_j", pos_j, (nj, 3))
-    _check("mass_j", mass_j, (nj,))
+    build.check("pos_i", pos_i, (ni, 3))
+    build.check("pos_j", pos_j, (nj, 3))
+    build.check("mass_j", mass_j, (nj,))
     acc = torch.empty((ni, 3), dtype=torch.float32, device=pos_i.device)
     if ni == 0:
         return acc
@@ -138,7 +113,7 @@ def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
             pos_i.data_ptr(), src.data_ptr(), ni, nj, float(g_const),
             float(softening), acc.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "nbody_force launch")
+    build.raise_on(rc, "nbody_force launch")
     partial_accelerations.launches += 1
     return acc
 
@@ -188,14 +163,14 @@ def pair_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening,
     """Pairwise potential (a 0-d float32 tensor on the inputs' device; no
     host sync). ``masked``: ``pos_i`` and ``pos_j`` are the same set and each
     unordered pair counts once. Otherwise the two sets must be disjoint."""
-    if _on_cpu(pos_i, mass_i, pos_j, mass_j):
+    if build.on_cpu(pos_i, mass_i, pos_j, mass_j):
         return pair_potential_torch(pos_i, mass_i, pos_j, mass_j, g_const,
                                     softening, masked)
     ni, nj = pos_i.shape[0], pos_j.shape[0]
-    _check("pos_i", pos_i, (ni, 3))
-    _check("mass_i", mass_i, (ni,))
-    _check("pos_j", pos_j, (nj, 3))
-    _check("mass_j", mass_j, (nj,))
+    build.check("pos_i", pos_i, (ni, 3))
+    build.check("mass_i", mass_i, (ni,))
+    build.check("pos_j", pos_j, (nj, 3))
+    build.check("mass_j", mass_j, (nj,))
     if masked and ni != nj:
         raise ValueError("the masked potential takes one set (ni == nj)")
     if ni == 0 or nj == 0:
@@ -210,7 +185,7 @@ def pair_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening,
             pos_i.data_ptr(), mass_i.data_ptr(), ni, src.data_ptr(), nj,
             float(softening), int(masked), partials.data_ptr(), n_part,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "nbody_energy launch")
+    build.raise_on(rc, "nbody_energy launch")
     pair_potential.launches += 1
     return (g_const * out).to(torch.float32)
 

@@ -8,7 +8,7 @@ every op has finished when it returns and no synchronisation is needed.
 from __future__ import annotations
 
 import time
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -28,6 +28,32 @@ def device_time(fn: Callable[[], object], device) -> Tuple[object, float]:
     out = fn()
     synchronize(device)
     return out, time.perf_counter() - t0
+
+
+def profile_ms(fn: Callable[[], object], device, top: int = 6
+               ) -> Tuple[float, List[Tuple[str, float]]]:
+    """Busy milliseconds of one call of ``fn`` under :mod:`torch.profiler`,
+    and its ``top`` largest rows as (name, ms). On a CUDA device the busy
+    time is the sum of the kernel and copy rows (the ``aten::`` rows would
+    count their kernels' time again); on the CPU, the operators' self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    synchronize(device)
+    with profile(activities=activities) as prof:
+        fn()
+        synchronize(device)
+    rows = []
+    for e in prof.key_averages():
+        if cuda and e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            rows.append((e.key, (e.self_cuda_time_total if us is None else us) / 1e3))
+        elif not cuda:
+            rows.append((e.key, e.self_cpu_time_total / 1e3))
+    rows.sort(key=lambda r: -r[1])
+    return sum(ms for _, ms in rows), rows[:top]
 
 
 def cuda_time_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> float:

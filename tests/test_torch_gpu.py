@@ -1,12 +1,14 @@
-"""The port's hand-written CUDA kernels (B1 force, B2 energy) against their
-plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
+"""The port's hand-written CUDA kernels (B1 force, B2 energy, B3 ContConv
+collect, B7 Morton select, B8 Morton merge) against their plain-torch twins
+on the card. A CUDA kernel has no CPU mode, so without a
 CUDA device every test here skips. On the card (which has no JAX, hence no
 conftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 Bars as on the CPU side: forces atol 2e-5 on max-scaled accelerations,
-potential energy relative 1e-5."""
+potential energy relative 1e-5, the collect 2e-4 of max |out|
+(tests/test_models.py:161); B7 and B8 equal their twins exactly."""
 
 import numpy as np
 import pytest
@@ -119,3 +121,103 @@ def test_surrogate_rollout_on_card_matches_cpu(cuda):
                                  mass.to(cuda), 10, 1e-4)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------ B7/B8 Morton search, B3 collect
+
+from nbody_tpu_torch.models import ContinuousConv  # noqa: E402
+from nbody_tpu_torch.ops import contconv_kernel as cck  # noqa: E402
+from nbody_tpu_torch.ops import spatial as sp  # noqa: E402
+from nbody_tpu_torch.ops.radius import radius_neighbors  # noqa: E402
+
+
+@pytest.mark.parametrize("n,k,include_self,block", [(1500, 10, False, 256),
+                                                    (2000, 32, True, 256),
+                                                    (1000, 7, False, 128)])
+def test_morton_kernels_match_twins(cuda, n, k, include_self, block):
+    pos, _, _ = _spiral(n, n + k, cuda)
+    order = sp._curve_order(pos, None, 4)
+    cand, _ = sp._candidates(pos, order, block)
+    ids, d2 = sp.morton_select(cand, k, block, include_self)
+    ids_t, d2_t = sp.morton_select_torch(cand, k, block, include_self)
+    assert torch.equal(ids, ids_t) and torch.equal(d2, d2_t)
+    cand_m = ids.permute(1, 0, 2).reshape(-1, 4 * k)[:n].contiguous()
+    d2_m = d2.permute(1, 0, 2).reshape(-1, 4 * k)[:n].contiguous()
+    got = sp.morton_merge(cand_m, d2_m, k)
+    want = sp.morton_merge_torch(cand_m, d2_m, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    before = (sp.morton_select.launches, sp.morton_merge.launches)
+    idx, valid = sp.knn_morton(pos, k, include_self=include_self, block=block,
+                               impl="kernel")
+    assert (sp.morton_select.launches, sp.morton_merge.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    idx_c, valid_c = sp.knn_morton(pos.cpu(), k, include_self=include_self,
+                                   block=block, impl="kernel")
+    assert torch.equal(idx.cpu(), idx_c) and torch.equal(valid.cpu(), valid_c)
+
+
+def _collect_inputs(m, k, ci, co, d, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    gx, gy, gz = (torch.rand(m, k, generator=g) * (d + 1) - 1.0 for _ in range(3))
+    window = torch.rand(m, k, generator=g) * (torch.rand(m, k, generator=g) > 0.2)
+    feat = torch.randn(m, k, ci, generator=g)
+    filters = torch.randn(d ** 3, ci, co, generator=g)
+    return [t.to(dev).contiguous() for t in (gx, gy, gz, window, feat, filters)]
+
+
+@pytest.mark.parametrize("m,k,ci,co,d", [(97, 32, 3, 5, 4), (130, 32, 128, 128, 6),
+                                         (45, 6, 128, 128, 4), (70, 40, 16, 16, 3)])
+def test_b3_collect_matches_twin(cuda, m, k, ci, co, d):
+    args = _collect_inputs(m, k, ci, co, d, m + d, cuda)
+    before = cck.contconv_collect.launches
+    got = cck.contconv_collect(*args, d=d)
+    assert cck.contconv_collect.launches == before + 1
+    want = cck.contconv_collect_torch(*args, d=d)
+    assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
+    again = cck.contconv_collect(*args, d=d)
+    assert torch.equal(got, again)  # fixed summation order: the same bits
+
+
+def test_b3_rejects_and_refuses_gradients(cuda):
+    gx, gy, gz, window, feat, filters = _collect_inputs(40, 8, 16, 16, 4, 1, cuda)
+    with pytest.raises(TypeError):
+        cck.contconv_collect(gx.double(), gy, gz, window, feat, filters, d=4)
+    with pytest.raises(ValueError):
+        cck.contconv_collect(gx, gy, gz, window, feat.transpose(0, 1), filters, d=4)
+    with pytest.raises(ValueError):
+        cck.contconv_collect(gx, gy, gz, window.cpu(), feat, filters, d=4)
+    with pytest.raises(RuntimeError):  # d = 1: refused by the launch, no twin
+        cck.contconv_collect(gx, gy, gz, window, feat, filters[:1].contiguous(), d=1)
+    filters.requires_grad_(True)
+    out = cck.contconv_collect(gx, gy, gz, window, feat, filters, d=4)
+    with pytest.raises(NotImplementedError):
+        out.sum().backward()
+
+
+def test_morton_wrappers_reject(cuda):
+    pos, _, _ = _spiral(600, 3, cuda)
+    with pytest.raises(TypeError):
+        sp.morton_merge(torch.zeros(10, 40, dtype=torch.int64, device=cuda),
+                        torch.zeros(10, 40, device=cuda), 10)
+    with pytest.raises(ValueError):
+        sp.morton_merge(torch.zeros(10, 40, dtype=torch.int32, device=cuda),
+                        torch.zeros(10, 40), 10)
+    with pytest.raises(ValueError):
+        sp.morton_select(torch.zeros(4, 1024, 4, device=cuda)[:, ::2], 10, 128, False)
+
+
+def test_contconv_layer_kernel_matches_dense_on_card(cuda):
+    pos, _, _ = _spiral(3000, 11, cuda)
+    feat = torch.randn(1, 3000, 128, generator=torch.Generator().manual_seed(0)).to(cuda)
+    idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
+    layer = ContinuousConv(128, 128, filter_resolution=6, radius=1.0,
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.no_grad():
+        want = layer(pos[None], feat, idx[None], valid[None])
+        layer.impl = "kernel"
+        got = layer(pos[None], feat, idx[None], valid[None])
+    assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
+    coarse = ContinuousConv(128, 128, filter_resolution=1, radius=1.0, impl="kernel",
+                            generator=torch.Generator().manual_seed(2)).to(cuda)
+    with pytest.raises(RuntimeError), torch.no_grad():  # D = 1: no kernel, no twin
+        coarse(pos[None], feat, idx[None], valid[None])

@@ -175,7 +175,7 @@ def test_seeded_init_and_config():
 
 
 @pytest.mark.parametrize("bad", [dict(fused_edgeconv=True), dict(remat=True),
-                                 dict(knn_method="morton")])
+                                 dict(knn_method="approx")])
 def test_unported_options_raise(bad):
     with pytest.raises(NotImplementedError):
         GraphModel(**bad)

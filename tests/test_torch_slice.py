@@ -132,6 +132,12 @@ m = GraphModel(input_dim=4, gnn_dim=8, message_passing_steps=2, aggr="mean",
                neighbors=3, generator=torch.Generator().manual_seed(0))
 s, r = Trainer(m, dt=1e-4).test_from_dir(d, sim_steps=4)
 assert len(s) == 2 and len(r) == 8
+from nbody_tpu_torch.experiments import large_scale
+from nbody_tpu_torch.ops import contconv_kernel, interpolate, radius, spatial
+res = large_scale.main(["--model", "contconv", "--n-bodies", "600", "--steps", "2",
+                        "--hybrid-warmup", "1", "--device", "cpu",
+                        "--conv-impl", "kernel", "--knn-impl", "kernel"])
+assert set(res) == {"direct", "surrogate", "hybrid"}
 assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "nbody_tpu")
             and sys.modules[k] is not None]
 print("JAX-FREE-OK")
