@@ -22,20 +22,37 @@ the port's main path once:
    the Morton select (B7) and merge (B8) at 20,000 and 100,000 bodies for
    kNN(10) and the radius search's k = 32 with self edges, recall against
    exact kNN, the ContConv collect (B3) on the geometry of a Morton radius
-   graph at D = 6 and 4, the full-width ContinuousConvModel on the card
-   against the CPU, and a refused gradient through B3;
+   graph at D = 6 and 4, and the full-width ContinuousConvModel on the card
+   against the CPU;
 6. the large-N surrogate path through
    ``nbody_tpu_torch.experiments.large_scale`` at 100,000 bodies, 20 steps,
    modes direct, surrogate and hybrid, for the reference-width ContConv
-   model and the GNN with Morton kNN.
+   model and the GNN with Morton kNN;
+7. the backward of B3 against its plain version: B4 (filters), B5
+   (features) and B6 (geometry) on the 100,000-body Morton radius graph's
+   geometry at D = 6 and 4 and on one small odd shape, each twice for the
+   same bits; then the full-width ContinuousConvModel's parameter and
+   position gradients with the kernels against the dense layer (the
+   position gradient is the path that launches B6);
+8. the training path: ``nbody_tpu_torch.experiments.run`` with
+   ``configs/contconv_adopted.json`` as it stands, at full width, whose
+   layers take the kernels on the card with no override (datagen cut to 2
+   files of 200 steps, 2 epochs, a checkpoint each), a
+   resumed third epoch and the evaluation from the checkpoints; the
+   recipe-shape training step timed and profiled; ``gnn_experiment
+   --quick``; and the 100,000-body training step (Morton radius search,
+   B3 + B4 + B5, batch 1) on a strided port-datagen dataset, beside the
+   dense layer's step at the largest N that fits.
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
 JSON object with one entry per kernel (launches counted over the path that
-runs it: phases 2-4 for B1 and B2, phase 6 for B3, B7 and B8; errors and
-times from phases 1 and 5), the card's ``nvidia-smi`` name and power limit,
-and ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
-beside this script, it exits non-zero.
+runs it, its counters set to 0 just before the path and read just after:
+phases 2-4 for B1 and B2, phase 6 for B3, B7 and B8, phase 8 for B4 and B5,
+the phase-7 position gradient for B6; errors and times from phases 1, 5 and
+7), the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
+"device": {...}}``. Without CUDA, or without the package beside this
+script, it exits non-zero.
 """
 
 from __future__ import annotations
@@ -61,8 +78,19 @@ RECIPE_STEPS = 1000
 BIG_N, BIG_STEPS, SURR_STEPS = 20_000, 200, 50
 LARGE_N, LARGE_STEPS = 100_000, 20
 RECALL = 0.99      # Morton kNN recall (tests/test_spatial.py:69-76,132-141)
-B3_TOL = 2e-4      # max |dout| / max |out| (tests/test_models.py:161)
-MODEL_RTOL, MODEL_ATOL = 2e-4, 1e-5  # atol times max |a|
+B3_TOL = 2e-4      # max |dout| / max |out| (tests/test_models.py:161); B4-B6 too
+MODEL_RTOL, MODEL_ATOL = 2e-4, 1e-5  # atol times max |a|; gradients too
+# (tests/test_models.py:387-391,429-430)
+GRAD_N = 2_000     # bodies of the full-width model's card checks
+# configs/contconv_adopted.json's widths with the Morton radius search
+FULL_CONTCONV = dict(in_channels=4, out_channels=3, filter_resolution=(6, 4), radius=1.0,
+                     agg="mean", self_loops=True, continuous_conv_layers=2,
+                     continuous_conv_dim=128, encoder_hiddens=(32, 64),
+                     decoder_hiddens=(64, 32), scale_factor=1e6, radius_method="morton",
+                     radius_impl="kernel", conv_impl="kernel")
+# the config's own model: its layers take the kernels for card tensors
+RUN_SETS = ["datagen.train_files=2", "datagen.steps=200", "train.save_every=1"]
+TRAIN_STEPS, TRAIN_STRIDE = 50, 10  # the 100k dataset: 5 snapshots
 
 
 def log(msg: str) -> None:
@@ -404,13 +432,9 @@ def phase5_large_n_kernels():
         del fj, geom
 
     # the full-width model: kernels on the card, twins on the CPU, same weights
-    kw = dict(in_channels=4, out_channels=3, filter_resolution=(6, 4), radius=1.0,
-              agg="mean", self_loops=True, continuous_conv_layers=2,
-              continuous_conv_dim=128, encoder_hiddens=(32, 64),
-              decoder_hiddens=(64, 32), scale_factor=1e6, radius_method="morton",
-              radius_impl="kernel", conv_impl="kernel")
-    model = ContinuousConvModel(**kw, generator=torch.Generator().manual_seed(4)).eval()
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(2), 2_000)
+    model = ContinuousConvModel(**FULL_CONTCONV,
+                                generator=torch.Generator().manual_seed(4)).eval()
+    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(2), GRAD_N)
     a_cpu = predict_accelerations(model, pos, vel, mass)
     model.to(dev)
     before = cck.contconv_collect.launches
@@ -422,18 +446,6 @@ def phase5_large_n_kernels():
     log(f"[5] ContinuousConvModel N=2000 card vs CPU: max|da| {d_model:.3e}, max|a| {scale:.3e}")
     if not torch.allclose(a_gpu, a_cpu, rtol=MODEL_RTOL, atol=MODEL_ATOL * scale):
         raise AssertionError("the ContConv model on the card disagrees with the CPU")
-
-    # no silent zero gradient through B3
-    x = torch.cat([pos, vel, mass[:, None]], -1)[None].to(dev).requires_grad_(True)
-    from nbody_tpu_torch.train.graphs import build_graph
-
-    g_idx, g_valid = build_graph(model.graph_spec, x[..., :3].detach())
-    try:
-        model(x, g_idx, g_valid).sum().backward()
-    except NotImplementedError as e:
-        log(f"[5] gradient through B3 refused: {e}")
-    else:
-        raise AssertionError("a gradient through B3 did not raise NotImplementedError")
     torch.cuda.synchronize()
     return out
 
@@ -487,6 +499,293 @@ def phase6_large_n_path(exact_20k_ms: float):
         f"{exact_20k_ms:.4f} ms/step")
 
 
+def _bwd_against_plain(args, dout, d: int, label: str, time_it: bool) -> dict:
+    """B4, B5 and B6 on one shape against the plain backward, each twice
+    for the same bits; {"b4"|"b5"|"b6": (max abs err, ms, plain ms)}."""
+    import torch
+
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    want = cck.contconv_collect_bwd_torch(*args, dout, d=d)
+    parts = {"b4": (cck.contconv_bwd_filters, (5,)), "b5": (cck.contconv_bwd_feat, (4,)),
+             "b6": (cck.contconv_bwd_geom, (0, 1, 2, 3))}
+    out = {}
+    for key, (fn, slots) in parts.items():
+        def call(fn=fn):
+            got = fn(*args, dout, d=d)
+            return got if isinstance(got, tuple) else (got,)
+
+        got, again = call(), call()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = [float((g - want[s]).abs().max()) for g, s in zip(got, slots)]
+        rel = max(e / max(float(want[s].abs().max()), 1e-30) for e, s in zip(errs, slots))
+        ms = plain_ms = float("nan")
+        if time_it:
+            need = tuple(i in slots for i in range(6))
+            ms = cuda_time_ms(call, reps=3, warmup=1)
+            plain_ms = cuda_time_ms(
+                lambda: cck.contconv_collect_bwd_torch(*args, dout, d=d, need=need),
+                reps=2, warmup=1)
+        log(f"[7] {key.upper()} {fn.__name__} {label}: max|d|/max|plain| {rel:.3e} "
+            f"(bar {B3_TOL}), same bits twice {same}; kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms")
+        if not (rel <= B3_TOL and same):
+            raise AssertionError(f"{key} disagrees with its plain version ({label}): "
+                                 f"{rel}, same bits {same}")
+        out[key] = (max(errs), ms, plain_ms)
+    return out
+
+
+def phase7_backward_kernels():
+    """B4-B6 against the plain backward; returns the kernels line's numbers
+    (100k, D = 6)."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.models.contconv import conv_geometry
+    from nbody_tpu_torch.ops.radius import radius_neighbors
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(17)
+    m, k, ci, co, d = 333, 7, 5, 3, 3  # a small odd shape, some edges clamped
+    g3 = [(torch.rand(m, k, generator=gen) * (d + 0.4) - 0.3).to(dev) for _ in range(3)]
+    win = (torch.rand(m, k, generator=gen) * (torch.rand(m, k, generator=gen) > 0.2)).to(dev)
+    args = (*g3, win, torch.randn(m, k, ci, generator=gen).to(dev),
+            torch.randn(d ** 3, ci, co, generator=gen).to(dev))
+    _bwd_against_plain(args, torch.randn(m, co, generator=gen).to(dev), d,
+                       f"M={m} k={k} ci={ci} co={co} D={d}", time_it=False)
+
+    pos, _, _ = generate_spiral(torch.Generator().manual_seed(LARGE_N + 5), LARGE_N,
+                                device=dev)
+    idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
+    geom = conv_geometry(pos[None], idx[None], valid[None], 1.0)
+    fj = torch.randn(LARGE_N, 128, generator=gen).to(dev)[idx.long()].contiguous()
+    win = geom["window"][0].contiguous()
+    dout = torch.randn(LARGE_N, 128, generator=gen).to(dev)
+    out = {}
+    for d in (6, 4):
+        grid = (geom["mapped"][0] + 1.0) * ((d - 1) / 2.0)
+        args = (*(grid[..., a].contiguous() for a in range(3)), win, fj,
+                torch.randn(d ** 3, 128, 128, generator=gen).to(dev))
+        res = _bwd_against_plain(args, dout, d, f"N={LARGE_N} k=32 ci=co=128 D={d}",
+                                 time_it=True)
+        if d == 6:
+            out = res
+    del fj, geom
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase7_model_gradients() -> int:
+    """The full-width model's parameter and position gradients, kernels
+    against the dense layer on one graph. Returns B6's launches on the
+    kernel run (the position-gradient path)."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.models import ContinuousConvModel
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.train.graphs import build_graph
+
+    dev = torch.device("cuda")
+    model = ContinuousConvModel(**FULL_CONTCONV,
+                                generator=torch.Generator().manual_seed(5)).to(dev).train()
+    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(6), GRAD_N, device=dev)
+    x = torch.cat([pos, vel, mass[:, None]], -1)[None]
+    idx, valid = build_graph(model.graph_spec, pos[None])
+    cot = torch.randn(1, GRAD_N, 3, generator=torch.Generator().manual_seed(7)).to(dev)
+    wrappers = (cck.contconv_collect, cck.contconv_bwd_filters, cck.contconv_bwd_feat,
+                cck.contconv_bwd_geom)
+
+    def grads(impl):
+        for conv in model.convs:
+            conv.impl = impl
+        model.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_(True)
+        (model(xg, idx, valid) * cot).sum().backward()
+        torch.cuda.synchronize()
+        return {n: p.grad for n, p in model.named_parameters()}, xg.grad[..., :3]
+
+    want, want_pos = grads("dense")
+    for w in wrappers:
+        w.launches = 0
+    got, got_pos = grads("kernel")
+    launches = [w.launches for w in wrappers]
+    log(f"[7] full-width model gradient N={GRAD_N} (kernel impl): launches B3 "
+        f"{launches[0]}, B4 {launches[1]}, B5 {launches[2]}, B6 {launches[3]}")
+    if launches != [2, 2, 2, 2]:
+        raise AssertionError(f"the model's gradient did not go through B3-B6: {launches}")
+    # A batch norm in train mode subtracts the batch mean, so the bias of
+    # the Linear layer before it has a zero gradient up to rounding noise,
+    # which differs between any two summation orders: left out.
+    noise = {f"encoder.layers.{i}.bias" for i in range(len(model.encoder.norms))}
+    worst = 0.0
+    for name, ref in [*want.items(), ("positions", want_pos)]:
+        if name in noise:
+            continue
+        g = got_pos if name == "positions" else got[name]
+        scale = float(ref.abs().max())
+        worst = max(worst, float((g - ref).abs().max()) / max(scale, 1e-30))
+        if not torch.allclose(g, ref, rtol=MODEL_RTOL, atol=MODEL_ATOL * scale):
+            raise AssertionError(f"gradient of {name}: kernels disagree with dense")
+    log(f"[7] full-width model gradients, kernels vs dense, {len(want) - len(noise)} "
+        f"parameters and the positions: worst max|d|/max|ref| {worst:.3e} (rtol "
+        f"{MODEL_RTOL}, atol {MODEL_ATOL} x max|ref|)")
+    return launches[3]
+
+
+def _sets(*overrides):
+    return [a for o in overrides for a in ("--set", o)]
+
+
+def _epoch_numbers(trainer, data_dir, batch_size, steps, **kw):
+    """ms per optimiser step of a warm epoch, and the idle share and top
+    device rows (ms per step) of one more, profiled."""
+    import torch
+
+    from nbody_tpu_torch.utils.timing import device_time, profile_ms
+
+    def epoch():
+        return trainer.train_from_dir(data_dir, epochs=1, batch_size=batch_size,
+                                      verbose=False, **kw)
+
+    epoch()  # warm-up
+    (losses, _), sec = device_time(epoch, trainer.device)
+    busy_ms, top = profile_ms(epoch, trainer.device)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    torch.cuda.synchronize()
+    return 1e3 * sec / steps, 1.0 - busy_ms / 1e3 / sec, [(n, t / steps) for n, t in top]
+
+
+def phase8_training(tmp: str):
+    """The training path through the port's entry points; asserts the
+    kernels it must (and must not) launch."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from nbody_tpu_torch.config import ExperimentConfig
+    from nbody_tpu_torch.data.generate import ScenarioConfig, generate_dataset
+    from nbody_tpu_torch.experiments import gnn_experiment, run
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.train import Trainer
+    from nbody_tpu_torch.train.trainer import _list_dataset_files
+
+    dev = torch.device("cuda")
+    cfg_path = os.path.join(HERE, "configs", "contconv_adopted.json")
+    wrappers = (cck.contconv_collect, cck.contconv_bwd_filters, cck.contconv_bwd_feat,
+                cck.contconv_bwd_geom)
+
+    # (a) the config runner at full width: 2 epochs, then a resumed third
+    base = os.path.join(tmp, "run")
+    argv = ["--config", cfg_path, "--device", "cuda"] + _sets(f"base={base}", *RUN_SETS)
+    before = [w.launches for w in wrappers]
+    t0 = time.perf_counter()
+    first = run.main(argv + _sets("train.epochs=2"))
+    wall = time.perf_counter() - t0
+    counts = [w.launches - b for w, b in zip(wrappers, before)]
+    model = first["trainer"].model
+    log(f"[8a] run --config contconv_adopted.json: {wall:.2f} s wall, epoch losses "
+        f"{first['epoch_loss']}; launches B3 {counts[0]}, B4 {counts[1]}, B5 {counts[2]}, "
+        f"B6 {counts[3]}")
+    if not (all(c.impl is None for c in model.convs) and first["trainer"].epoch == 2
+            and len(first["epoch_loss"]) == 2
+            and all(math.isfinite(v) for v in first["epoch_loss"])):
+        raise AssertionError("run did not train the config's model for 2 finite epochs")
+    if min(counts[:3]) == 0 or counts[3] != 0:
+        raise AssertionError(f"training launches B3-B6 {counts}: B3-B5 > 0, B6 = 0 expected")
+    t0 = time.perf_counter()
+    again = run.main(argv + _sets("train.epochs=1"))
+    wall = time.perf_counter() - t0
+    if again["trainer"].epoch != 3 or not math.isfinite(again["epoch_loss"][0]):
+        raise AssertionError(f"resume: epoch {again['trainer'].epoch}, {again['epoch_loss']}")
+    ckpts = sorted(os.listdir(os.path.join(base, "contconv_weights")))
+    results = os.path.join(base, "results", "contconv")
+    loss = pd.read_csv(os.path.join(results, "epoch_loss.csv"))
+    step = pd.read_csv(os.path.join(results, "test_results_stepwise.csv"))
+    roll = pd.read_csv(os.path.join(results, "test_results_rollout.csv"))
+    if (ckpts != ["ckpt_1.pt", "ckpt_2.pt", "ckpt_3.pt"] or list(loss.columns) != ["loss"]
+            or list(step.columns) != ["filename", "scene", "loss", "step_time"]
+            or list(roll.columns) != ["filename", "scene", "step", "pos_rmse", "vel_rmse",
+                                      "acc_rmse"]
+            or not np.isfinite(roll.drop(columns=["filename"]).to_numpy(float)).all()):
+        raise AssertionError(f"resumed run: checkpoints {ckpts}, csv columns "
+                             f"{list(loss.columns)}, {list(step.columns)}, {list(roll.columns)}")
+    log(f"[8a] resumed run: epoch {again['trainer'].epoch}, loss {again['epoch_loss'][0]:.6g}, "
+        f"{wall:.2f} s wall; evaluated from {ckpts[-1]}: stepwise loss "
+        f"{step['loss'].mean():.6g}, final pos RMSE "
+        f"{roll.groupby('scene')['pos_rmse'].last().mean():.6g}")
+
+    train_dir = os.path.join(base, "data", "train")
+    cfg = ExperimentConfig.load(cfg_path).apply_overrides(RUN_SETS)
+    snaps = sum(again["trainer"]._dataset(f).n_snapshots for f in _list_dataset_files(train_dir))
+    steps = -(-snaps // cfg.train.batch_size)
+    trainer = Trainer(cfg.build_model(torch.Generator().manual_seed(0)).to(dev),
+                      learning_rate=cfg.train.learning_rate, dt=cfg.train.dt)
+    ms, idle, top = _epoch_numbers(trainer, train_dir, cfg.train.batch_size, steps,
+                                   merge_files=True, batch_mode="mixed")
+    log(f"[8a] recipe-shape train step (mixed batches of {cfg.train.batch_size} padded to "
+        f"{max(cfg.datagen.n_bodies)} bodies, {steps} steps an epoch): {ms:.4f} ms/step, "
+        f"idle share {idle:.4f}, top device rows {_rows(top)}")
+
+    # (b) the GNN experiment
+    t0 = time.perf_counter()
+    gnn = gnn_experiment.main(["--quick", "--base", os.path.join(tmp, "gnn"), "--seed", "3",
+                               "--device", "cuda", "--check"])
+    if gnn["trainer"].epoch != 3 or not all(math.isfinite(v) for v in gnn["epoch_loss"]):
+        raise AssertionError(f"gnn_experiment --quick: {gnn['epoch_loss']}")
+    log(f"[8b] gnn_experiment --quick: {time.perf_counter() - t0:.2f} s wall, losses "
+        f"{gnn['epoch_loss']}")
+
+    # (c) the 100k training step on a strided port-datagen dataset
+    def dataset(n):
+        out = os.path.join(tmp, f"large_{n}")
+        os.makedirs(out)
+        generate_dataset([ScenarioConfig(n_bodies=n, sim_type="spiral", steps=TRAIN_STEPS,
+                                         dt=DT, softening=EPS, g=G, seed=11,
+                                         force_backend="kernel", calc_energy=False)],
+                         os.path.join(out, f"spiral_{n}.csv"), write_csv_file=False,
+                         snapshot_stride=TRAIN_STRIDE, device=dev, verbose=False)
+        return out
+
+    def step_numbers(impl, data_dir):
+        cfg_n = cfg.apply_overrides(["model.kwargs.radius_method=morton",
+                                     "model.kwargs.radius_impl=kernel",
+                                     f"model.kwargs.conv_impl={impl}"])
+        trainer = Trainer(cfg_n.build_model(torch.Generator().manual_seed(1)).to(dev),
+                          learning_rate=cfg.train.learning_rate, dt=DT)
+        snaps = trainer._dataset(_list_dataset_files(data_dir)[0]).n_snapshots
+        return _epoch_numbers(trainer, data_dir, 1, snaps), snaps
+
+    large = dataset(LARGE_N)
+    before = [w.launches for w in wrappers]
+    (ms_k, idle_k, top_k), snaps = step_numbers("kernel", large)
+    counts = [w.launches - b for w, b in zip(wrappers, before)]
+    log(f"[8c] train step N={LARGE_N} kernels (Morton radius, batch 1, {snaps} snapshots): "
+        f"{ms_k:.4f} ms/step, idle share {idle_k:.4f}, top device rows {_rows(top_k)}; "
+        f"launches B3 {counts[0]}, B4 {counts[1]}, B5 {counts[2]}, B6 {counts[3]}")
+    if min(counts[:3]) == 0 or counts[3] != 0:
+        raise AssertionError(f"100k training launches B3-B6 {counts}")
+    torch.cuda.empty_cache()
+    try:
+        (ms_d, idle_d, top_d), _ = step_numbers("dense", large)
+        n_dense = LARGE_N
+    except torch.cuda.OutOfMemoryError:
+        log(f"[8c] the dense layer's training step at N={LARGE_N} does not fit in memory")
+        torch.cuda.empty_cache()
+        n_dense = BIG_N
+        (ms_d, idle_d, top_d), _ = step_numbers("dense", dataset(BIG_N))
+    log(f"[8c] train step N={n_dense} dense layer: {ms_d:.4f} ms/step, idle share "
+        f"{idle_d:.4f}, top device rows {_rows(top_d)}; kernels at N={LARGE_N}: "
+        f"{ms_k:.4f} ms/step")
+
+
+def _rows(top):
+    return "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top)
+
+
 def main() -> int:
     card = phase0_device()
     import torch
@@ -497,32 +796,54 @@ def main() -> int:
 
     big = phase1_kernels()
     slice2 = phase5_large_n_kernels()
+    slice3 = phase7_backward_kernels()
+    all_wrappers = {"b1": pw.partial_accelerations, "b2": pw.pair_potential,
+                    "b3": cck.contconv_collect, "b4": cck.contconv_bwd_filters,
+                    "b5": cck.contconv_bwd_feat, "b6": cck.contconv_bwd_geom,
+                    "b7": sp.morton_select, "b8": sp.morton_merge}
+
+    def zero_counts():
+        for w in all_wrappers.values():
+            w.launches = 0
+
+    # the position-gradient path: B6's launches are counted here
+    zero_counts()
+    launches = {"b6": phase7_model_gradients()}
 
     # the datagen and GNN-eval path: every launch counter starts at 0 here
-    for w in (pw.partial_accelerations, pw.pair_potential):
-        w.launches = 0
+    zero_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data_dir = os.path.join(tmp, "test")
         os.makedirs(data_dir)
         phase2_datagen(data_dir)
         traj = phase3_real_size()
         exact_20k_ms = phase4_surrogate(data_dir, traj)
-    launches = {"b1": pw.partial_accelerations.launches,
-                "b2": pw.pair_potential.launches}
+    launches.update(b1=pw.partial_accelerations.launches, b2=pw.pair_potential.launches)
     torch.cuda.synchronize()
 
     # the large-N surrogate path: counters at 0 again
-    wrappers = {"b1": pw.partial_accelerations, "b3": cck.contconv_collect,
-                "b7": sp.morton_select, "b8": sp.morton_merge}
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts()
     phase6_large_n_path(exact_20k_ms)
     torch.cuda.synchronize()
-    large = {name: w.launches for name, w in wrappers.items()}
+    large = {name: w.launches for name, w in all_wrappers.items()}
     log(f"[6] launches on the large-N path: {large}")
-    launches.update({k: v for k, v in large.items() if k != "b1"})
-    if min(launches.values()) == 0 or large["b1"] == 0:
-        raise AssertionError(f"a kernel of a path never launched: {launches}, {large}")
+    launches.update({k: large[k] for k in ("b3", "b7", "b8")})
+    if large["b1"] == 0:
+        raise AssertionError(f"the large-N path never launched B1: {large}")
+
+    # the training path: counters at 0 again
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        phase8_training(tmp)
+    torch.cuda.synchronize()
+    train = {name: w.launches for name, w in all_wrappers.items()}
+    log(f"[8] launches on the training path: {train}")
+    launches.update({k: train[k] for k in ("b4", "b5")})
+    if min(train[k] for k in ("b1", "b3", "b4", "b5", "b7", "b8")) == 0 or train["b6"] != 0:
+        raise AssertionError(f"training path launches {train}: B6 must stay at 0, the "
+                             f"others above it")
+    if min(launches.values()) == 0 or len(launches) != len(all_wrappers):
+        raise AssertionError(f"a kernel of a path never launched: {launches}")
     if any(m.split(".")[0] in ("jax", "flax", "nbody_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
 
@@ -533,13 +854,21 @@ def main() -> int:
 
     pair_src = "nbody_tpu_torch/csrc/pairwise.cu"
     spatial_src = "nbody_tpu_torch/csrc/spatial.cu"
+    conv_src = "nbody_tpu_torch/csrc/contconv.cu"
+    conv_py = "nbody_tpu/ops/contconv_kernel.py"
     kernels = [
         entry("B1 force (nbody_force)", pair_src, "nbody_tpu/ops/pairwise.py:50", "b1",
               big["b1"]),
         entry("B2 energy (nbody_energy)", pair_src, "nbody_tpu/ops/pairwise.py:113", "b2",
               big["b2"]),
-        entry("B3 collect (contconv_collect)", "nbody_tpu_torch/csrc/contconv.cu",
-              "nbody_tpu/ops/contconv_kernel.py:105", "b3", slice2["b3"]),
+        entry("B3 collect (contconv_collect)", conv_src, f"{conv_py}:105", "b3",
+              slice2["b3"]),
+        entry("B4 filter grad (contconv_bwd_filters)", conv_src, f"{conv_py}:129", "b4",
+              slice3["b4"]),
+        entry("B5 feature grad (contconv_bwd_feat)", conv_src, f"{conv_py}:162", "b5",
+              slice3["b5"]),
+        entry("B6 geometry grad (contconv_bwd_geom)", conv_src, f"{conv_py}:196", "b6",
+              slice3["b6"]),
         entry("B7 select (morton_select)", spatial_src, "nbody_tpu/ops/spatial.py:272",
               "b7", slice2["b7"]),
         entry("B8 merge (morton_merge)", spatial_src, "nbody_tpu/ops/spatial.py:311",

@@ -99,17 +99,10 @@ def main(argv=None):
             write_csv_file=not args.npz_only, device=device)
 
     if args.profile:
-        import os
+        from nbody_tpu_torch.utils.profiling import trace_profile
 
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        with trace_profile(args.profile):
             run()
-        os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "datagen_trace.json"))
         print(f"profiler trace written to {args.profile}")
     else:
         run()

@@ -10,12 +10,15 @@ bins and multiplies them by the whole filter bank once.
 
 ``impl`` of :class:`ContinuousConv` (``conv_impl`` of the model):
 
-- None / ``"dense"``: the collect-then-matmul layer in plain torch (the JAX
-  ``"xla"`` layer), on any device, differentiable;
+- ``"dense"``: the collect-then-matmul layer in plain torch (the JAX
+  ``"xla"`` layer), on any device, differentiable; the reference the
+  kernels are held to;
 - ``"kernel"``: the B3 collect kernel (``ops/contconv_kernel.py``) for CUDA
-  tensors, its twin for CPU tensors. Forward only on the card: a gradient
-  through it raises ``NotImplementedError`` until the training slice ports
-  the backward kernels.
+  tensors, its twin for CPU tensors. Its backward launches B4 (filters) and
+  B5 (features) on the card, and B6 only when positions need a gradient;
+- None (the default): ``"kernel"`` when the layer's tensors lie on a CUDA
+  device, ``"dense"`` otherwise. The kernels take 2 <= D <= 10, k <= 64 and
+  128 channels at most; a card model outside those limits sets ``"dense"``.
 
 The JAX ``conv_geometry(tile=...)`` padding of the receiver axis exists for
 the TPU's (8, 128) tiles; the port has no tile padding and takes no
@@ -111,7 +114,8 @@ class ContinuousConv(nn.Module):
         feat_j = gather_neighbors(feat, geom["nbr_idx"]).reshape(b * n, k, ci)
         planes = [grid[..., a].reshape(b * n, k).contiguous() for a in range(3)]
         filters = self.filters.reshape(d * d * d, ci, co)
-        collect = contconv_collect if self.impl == "kernel" else contconv_collect_torch
+        impl = self.impl or ("kernel" if feat.is_cuda else "dense")
+        collect = contconv_collect if impl == "kernel" else contconv_collect_torch
         out = collect(*planes, window.reshape(b * n, k).contiguous(),
                       feat_j.contiguous(), filters, d=d).reshape(b, n, co)
         if self.agg == "mean":  # scatter(..., reduce="mean")

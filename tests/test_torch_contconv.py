@@ -1,11 +1,16 @@
 """The port's ContConv slice against the JAX package on the same numpy inputs
 and converted weights: trilinear corners, the B3 collect twin, the
 ``ContinuousConv`` layer (dense and kernel impls), ``MaskedBatchNorm``, the
-full-width ``ContinuousConvModel`` and a short rollout.
+full-width ``ContinuousConvModel`` and a short rollout; then the backward of
+the collect (the plain twin of B4-B6 against ``jax.vjp`` of the Pallas
+kernel and against torch autograd), the kernel layer's parameter and
+position gradients, and which backward kernels a gradient asks for.
 
 Bars and their sources: the collect and the layer at rtol 2e-4, atol 1e-5,
 the JAX package's own bar for its fused kernel against its XLA layer
-(``tests/test_models.py:161``); batch norm at rtol 1e-5 (float32 reductions
+(``tests/test_models.py:161``); its gradients at rtol 2e-4 with atol 1e-5,
+or 1e-5 * max|ref| for geometry (``tests/test_models.py:387-391,429-430``);
+batch norm at rtol 1e-5 (float32 reductions
 in another order); the model at rtol 2e-4, atol 1e-5 * max|a| (two
 collect-then-matmul layers at the same bar); rollout positions rtol 1e-5 as
 in ``tests/test_torch_slice.py``.
@@ -130,6 +135,33 @@ def test_kernel_layer_never_takes_the_twin_off_cpu(d, monkeypatch):
     assert launched == [d] and out.shape == (2, 70, 5)
 
 
+@pytest.mark.parametrize("impl,cuda,want", [
+    (None, False, "dense"), (None, True, "kernel"), ("dense", True, "dense"),
+    ("kernel", False, "kernel")])
+def test_unset_impl_takes_the_kernel_for_card_tensors(impl, cuda, want, monkeypatch):
+    """``impl=None`` runs B3 when the layer's tensors lie on a CUDA device
+    and the plain layer otherwise; an impl that is set holds on any device.
+    Here the CPU tensors pose as card tensors where ``cuda`` says so."""
+    ran = []
+
+    def fake_launch(gx, gy, gz, window, feat_j, filters, d_):
+        ran.append("kernel")
+        return torch.zeros(window.shape[0], filters.shape[-1])
+
+    def fake_dense(gx, gy, gz, window, feat_j, filters, *, d):
+        ran.append("dense")
+        return torch.zeros(window.shape[0], filters.shape[-1])
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: cuda))
+    monkeypatch.setattr(cck.build, "on_cpu", lambda *ts: not cuda)
+    monkeypatch.setattr(cck._Collect, "apply", fake_launch)
+    monkeypatch.setattr("nbody_tpu_torch.models.contconv.contconv_collect_torch", fake_dense)
+    pos, feat, idx, valid, radius = _layer_inputs(3)
+    layer = ContinuousConv(3, 5, filter_resolution=4, radius=radius, impl=impl)
+    layer(*(torch.from_numpy(np.array(a)) for a in (pos, feat, idx, valid)))
+    assert ran == [want]
+
+
 def test_masked_batch_norm_train_matches_flax():
     rng = np.random.default_rng(3)
     x = rng.normal(2.0, 3.0, size=(2, 40, 8)).astype(np.float32)
@@ -215,6 +247,126 @@ def test_contconv_rollout_matches_jax():
                                  graph_refresh=2)
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-7)
+
+
+def _close_grads(got, want, geometry):
+    """The JAX package's bars for the kernel's VJP (tests/test_models.py
+    387-391, 429-430): rtol 2e-4 with atol 1e-5, or 1e-5 * max|want| for a
+    geometry cotangent."""
+    want = np.asarray(want)
+    atol = 1e-5 * float(np.abs(want).max()) if geometry else 1e-5
+    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4, atol=atol)
+
+
+@pytest.mark.parametrize("m,k,d,ci,co", [(70, 6, 3, 5, 4), (70, 6, 4, 3, 5),
+                                         (40, 8, 6, 8, 7)])
+def test_plain_backward_matches_jax_vjp(m, k, d, ci, co):
+    """All six cotangents of the plain backward against ``jax.vjp`` of the
+    Pallas kernel (interpret mode) on coordinates off the integer grid,
+    some of them clamped."""
+    args = _collect_inputs(m, k, ci, co, d, 3 * m + d)
+    dout = np.random.default_rng(d).normal(size=(m, co)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jcollect(*a, d=d, interpret=True), *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(dout))
+    got = cck.contconv_collect_bwd_torch(*map(torch.from_numpy, (*args, dout)), d=d)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close_grads(g.numpy(), w, geometry=i < 4)
+
+
+@pytest.mark.parametrize("d", [3, 4, 6])
+def test_plain_backward_matches_torch_autograd(d):
+    """The plain backward against autograd of the plain forward; both agree
+    wherever the trilinear weights are differentiable (random coordinates
+    are never on the grid)."""
+    args = [torch.from_numpy(a).requires_grad_(True)
+            for a in _collect_inputs(50, 7, 6, 5, d, 40 + d)]
+    dout = torch.from_numpy(np.random.default_rng(d).normal(size=(50, 5)).astype(np.float32))
+    cck.contconv_collect_torch(*args, d=d).backward(dout)
+    got = cck.contconv_collect_bwd_torch(*(a.detach() for a in args), dout, d=d)
+    for i, (g, a) in enumerate(zip(got, args)):
+        _close_grads(g.numpy(), a.grad.numpy(), geometry=i < 4)
+
+
+def test_plain_backward_need_returns_only_what_is_asked():
+    args = [torch.from_numpy(a) for a in _collect_inputs(30, 5, 4, 3, 4, 9)]
+    dout = torch.ones(30, 3)
+    full = cck.contconv_collect_bwd_torch(*args, dout, d=4)
+    for need in [(False,) * 5 + (True,), (False,) * 4 + (True, False),
+                 (False, False, True, False, False, False)]:
+        got = cck.contconv_collect_bwd_torch(*args, dout, d=4, need=need)
+        for i, (g, f) in enumerate(zip(got, full)):
+            if need[i]:
+                assert torch.equal(g, f)
+            elif i >= 4 or not any(need[:4]):
+                assert g is None
+
+
+def _layer_grads_jax(d, ci, co, agg, seed):
+    """Parameter (filters, feat) and position gradients of the JAX layer
+    with the Pallas kernel (interpret mode) for a fixed cotangent."""
+    pos, feat, idx, valid, radius = _layer_inputs(ci, seed)
+    cot = np.random.default_rng(seed + 1).normal(size=(*pos.shape[:2], co)).astype(np.float32)
+    kw = dict(in_channels=ci, out_channels=co, filter_resolution=d, radius=radius, agg=agg)
+    fused = JConv(**kw, impl="pallas_interpret")
+    params = JConv(**kw).init(jax.random.PRNGKey(seed), pos, feat, idx, valid)
+
+    def loss(p, q, f):
+        return jnp.sum(fused.apply(p, q, f, idx, valid) * cot)
+
+    g_p, g_q, g_f = jax.grad(loss, argnums=(0, 1, 2))(params, jnp.asarray(pos),
+                                                      jnp.asarray(feat))
+    return (pos, feat, radius, cot, np.array(params["params"]["filters"]),
+            (np.asarray(g_p["params"]["filters"]), np.asarray(g_q), np.asarray(g_f)))
+
+
+@pytest.mark.parametrize("d,ci,co,agg", [(4, 3, 5, "mean"), (6, 8, 7, "sum"),
+                                         (3, 5, 4, "sum")])
+def test_kernel_layer_grads_match_jax(d, ci, co, agg):
+    """The ``impl="kernel"`` layer's filter, feature and position gradients
+    (neighbour lists held fixed, self loops on) against the JAX layer on
+    its Pallas kernel with the same filters."""
+    pos, feat, radius, cot, filters, want = _layer_grads_jax(d, ci, co, agg, 20 + d)
+    layer = ContinuousConv(ci, co, filter_resolution=d, radius=radius, agg=agg, impl="kernel")
+    layer.load_state_dict({"filters": torch.from_numpy(filters)})
+    t_idx, t_valid = build_graph(("radius", {"radius": radius, "k_max": 6}),
+                                 torch.from_numpy(pos))
+    q = torch.from_numpy(pos).requires_grad_(True)
+    f = torch.from_numpy(feat).requires_grad_(True)
+    (layer(q, f, t_idx, t_valid) * torch.from_numpy(cot)).sum().backward()
+    assert np.isfinite(q.grad.numpy()).all()
+    _close_grads(layer.filters.grad.numpy(), want[0], geometry=False)
+    _close_grads(q.grad.numpy(), want[1], geometry=True)
+    _close_grads(f.grad.numpy(), want[2], geometry=False)
+
+
+def test_backward_launches_geometry_only_for_position_grads(monkeypatch):
+    """``_Collect.backward`` asks B4 for the filters, B5 for the features and
+    B6 only when a geometry input needs a gradient; parameter-only training
+    never reaches B6. On the CPU each wrapper runs its plain part and its
+    launch counter stays at 0."""
+    calls = []
+    wrappers = [cck.contconv_collect, cck.contconv_bwd_filters, cck.contconv_bwd_feat,
+                cck.contconv_bwd_geom]
+    before = [w.launches for w in wrappers]
+    for real in wrappers[1:]:
+        def spy(*a, _real=real, **kw):
+            calls.append(_real.__name__)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(cck, real.__name__, spy)
+    pos, feat, _, _, radius = _layer_inputs(3)
+    layer = ContinuousConv(3, 5, filter_resolution=4, radius=radius, impl="kernel")
+    t_idx, t_valid = build_graph(("radius", {"radius": radius, "k_max": 6}),
+                                 torch.from_numpy(pos))
+    f = torch.from_numpy(feat).requires_grad_(True)
+    layer(torch.from_numpy(pos), f, t_idx, t_valid).sum().backward()
+    assert sorted(calls) == ["contconv_bwd_feat", "contconv_bwd_filters"]
+    calls.clear()
+    layer.filters.requires_grad_(False)
+    q = torch.from_numpy(pos).requires_grad_(True)
+    layer(q, torch.from_numpy(feat), t_idx, t_valid).sum().backward()
+    assert calls == ["contconv_bwd_geom"]
+    assert [w.launches for w in wrappers] == before
 
 
 def test_unported_contconv_options_raise():

@@ -89,7 +89,7 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert "done" in capsys.readouterr().out
     datagen.main(["--n-bodies", "5", "--steps", "3", "--output", out, "--device",
                   "cpu", "--profile", str(tmp_path / "trace")])
-    assert os.path.exists(tmp_path / "trace" / "datagen_trace.json")
+    assert os.path.exists(tmp_path / "trace" / "trace.json")
 
 
 def test_snapshot_stride_and_npz_only(tmp_path):

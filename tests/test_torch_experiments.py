@@ -1,0 +1,124 @@
+"""The port's experiment entry points end to end on the CPU, at a few bodies,
+steps and epochs: ``gnn_experiment --quick``, ``contconv_experiment --quick``
+and ``run --config configs/contconv_adopted.json``. Each writes the JAX
+experiments' three CSVs with their columns and index names
+(``nbody_tpu/experiments/gnn_experiment.py:84-133``: ``epoch_loss.csv``
+with one ``loss`` column, the stepwise frame indexed by (filename, scene),
+the rollout frame by (filename, scene, step)); a second ``run`` resumes
+from the latest checkpoint and continues the epoch numbering. The config
+maps the JAX implementation names to the port's, so one file drives both
+packages."""
+
+import os
+
+import numpy as np
+import pandas as pd
+import pytest
+
+from nbody_tpu.config import ExperimentConfig as JExperimentConfig
+from nbody_tpu_torch.config import ExperimentConfig
+from nbody_tpu_torch.experiments import contconv_experiment, gnn_experiment, run
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPWISE = ["filename", "scene", "loss", "step_time"]
+ROLLOUT = ["filename", "scene", "step", "pos_rmse", "vel_rmse", "acc_rmse"]
+
+
+def _check_results(results_dir, epochs, scenes, steps):
+    loss = pd.read_csv(os.path.join(results_dir, "epoch_loss.csv"))
+    assert list(loss.columns) == ["loss"] and len(loss) == epochs
+    assert np.isfinite(loss["loss"]).all()
+    step = pd.read_csv(os.path.join(results_dir, "test_results_stepwise.csv"))
+    assert list(step.columns) == STEPWISE and len(step) == scenes
+    roll = pd.read_csv(os.path.join(results_dir, "test_results_rollout.csv"))
+    assert list(roll.columns) == ROLLOUT and len(roll) == scenes * steps
+    for df in (step, roll):
+        assert np.isfinite(df.drop(columns=["filename"]).to_numpy(float)).all()
+
+
+@pytest.mark.parametrize("experiment,name,extra", [
+    (gnn_experiment, "gnn", ["--check", "--batch-mode", "reference"]),
+    (contconv_experiment, "contconv", ["--batch-mode", "mixed"]),
+])
+def test_quick_experiments_write_the_reference_csvs(tmp_path, experiment, name, extra):
+    out = experiment.main(["--quick", "--base", str(tmp_path), "--sim-steps", "12",
+                           "--epochs", "2", "--seed", "3", "--device", "cpu",
+                           "--profile", str(tmp_path / "prof"), *extra])
+    assert out["trainer"].epoch == 2 and len(out["epoch_loss"]) == 2
+    assert sorted(os.listdir(tmp_path / f"{name}_weights")) == ["ckpt_1.pt", "ckpt_2.pt"]
+    _check_results(tmp_path / "results" / name, epochs=2, scenes=2, steps=12)
+    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+
+
+@pytest.mark.parametrize("ok", [True, False])
+def test_nonfinite_guards_match_jax(ok):
+    """``--check``'s guards raise on the same inputs as the JAX package's."""
+    import jax.numpy as jnp
+    import torch
+
+    from nbody_tpu.utils.debug import assert_finite_state as j_assert_finite_state
+    from nbody_tpu.utils.debug import throw_if_nonfinite as j_throw_if_nonfinite
+    from nbody_tpu_torch.utils.debug import assert_finite_state, throw_if_nonfinite
+
+    bad = np.array([1.0, 2.0, np.nan if not ok else 3.0], np.float32)
+    tree = {"a": np.ones(3, np.float32), "b": {"c": bad}}
+    module = torch.nn.Linear(3, 1)
+    with torch.no_grad():
+        module.weight[0] = torch.from_numpy(bad)
+    calls = [(j_throw_if_nonfinite, (tree,), Exception),  # checkify's JaxRuntimeError
+             (j_assert_finite_state, (jnp.asarray(bad), bad), FloatingPointError),
+             (throw_if_nonfinite, ({"a": torch.ones(3), "b": [torch.from_numpy(bad)]},),
+              FloatingPointError),
+             (throw_if_nonfinite, (module,), FloatingPointError),
+             (assert_finite_state, (torch.from_numpy(bad), torch.zeros(3)), FloatingPointError)]
+    for fn, args, error in calls:
+        if ok:
+            fn(*args)
+        else:
+            with pytest.raises(error):
+                fn(*args)
+
+
+def test_run_adopted_config_trains_resumes_and_evaluates(tmp_path):
+    overrides = [f"base={tmp_path}", "datagen.n_bodies=[3,20]", "datagen.steps=12",
+                 "datagen.train_files=1", "train.epochs=1", "train.save_every=1",
+                 "train.sim_steps=8", "model.kwargs.conv_impl=pallas"]
+    argv = ["--config", os.path.join(ROOT, "configs", "contconv_adopted.json"),
+            "--device", "cpu"] + [a for o in overrides for a in ("--set", o)]
+    first = run.main(argv)
+    model = first["trainer"].model
+    assert model.conv_impl == "kernel" and all(c.impl == "kernel" for c in model.convs)
+    again = run.main(argv)  # resumes from the epoch-1 checkpoint
+    assert again["trainer"].epoch == 2
+    assert sorted(os.listdir(tmp_path / "contconv_weights")) == ["ckpt_1.pt", "ckpt_2.pt"]
+    _check_results(tmp_path / "results" / "contconv", epochs=1, scenes=2, steps=8)
+    saved = ExperimentConfig.load(tmp_path / "results" / "contconv" / "config.json")
+    assert saved.model.kwargs["conv_impl"] == "pallas"  # the file keeps the JAX name
+
+
+@pytest.mark.parametrize("kind,kwargs,attr,want", [
+    ("contconv", {"conv_impl": "pallas", "radius_impl": "xla", "radius_method": "morton"},
+     "conv_impl", "kernel"),
+    ("contconv", {"conv_impl": "xla"}, "conv_impl", "dense"),
+    ("gnn", {"knn_method": "morton", "knn_impl": "pallas", "neighbors": 4}, "knn_impl",
+     "kernel"),
+])
+def test_config_maps_jax_impl_names(kind, kwargs, attr, want):
+    d = {"model": {"type": kind, "kwargs": kwargs}}
+    model = ExperimentConfig.from_dict(d).build_model()
+    assert getattr(model, attr) == want
+    jmodel = JExperimentConfig.from_dict(d).build_model()  # the same file in JAX
+    assert jmodel.graph_spec[0] == model.graph_spec[0]
+
+
+def test_config_overrides_and_scenarios_match_jax():
+    over = ["train.epochs=7", "datagen.n_bodies=[5,9]", "datagen.force_backend=pallas",
+            "model.kwargs.gnn_dim=32", "name=x"]
+    jcfg = JExperimentConfig().apply_overrides(over)
+    cfg = ExperimentConfig().apply_overrides(over)
+    assert cfg.to_dict() == jcfg.to_dict()
+    js, ts = jcfg.scenarios(seed=4), cfg.scenarios(seed=4)
+    assert [s.n_bodies for s in ts] == [s.n_bodies for s in js] == [5, 9]
+    assert {s.force_backend for s in ts} == {"kernel"} and ts[0].seed == 4
+    with pytest.raises(ValueError):
+        cfg.apply_overrides(["train.epochs"])

@@ -1,14 +1,15 @@
 """The port's hand-written CUDA kernels (B1 force, B2 energy, B3 ContConv
-collect, B7 Morton select, B8 Morton merge) against their plain-torch twins
-on the card. A CUDA kernel has no CPU mode, so without a
+collect, B4-B6 its backward, B7 Morton select, B8 Morton merge) against
+their plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
 CUDA device every test here skips. On the card (which has no JAX, hence no
 conftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 Bars as on the CPU side: forces atol 2e-5 on max-scaled accelerations,
-potential energy relative 1e-5, the collect 2e-4 of max |out|
-(tests/test_models.py:161); B7 and B8 equal their twins exactly."""
+potential energy relative 1e-5, the collect and each cotangent of its
+backward 2e-4 of its max (tests/test_models.py:161); B7 and B8 equal their
+twins exactly."""
 
 import numpy as np
 import pytest
@@ -178,7 +179,7 @@ def test_b3_collect_matches_twin(cuda, m, k, ci, co, d):
     assert torch.equal(got, again)  # fixed summation order: the same bits
 
 
-def test_b3_rejects_and_refuses_gradients(cuda):
+def test_b3_rejects(cuda):
     gx, gy, gz, window, feat, filters = _collect_inputs(40, 8, 16, 16, 4, 1, cuda)
     with pytest.raises(TypeError):
         cck.contconv_collect(gx.double(), gy, gz, window, feat, filters, d=4)
@@ -188,10 +189,90 @@ def test_b3_rejects_and_refuses_gradients(cuda):
         cck.contconv_collect(gx, gy, gz, window.cpu(), feat, filters, d=4)
     with pytest.raises(RuntimeError):  # d = 1: refused by the launch, no twin
         cck.contconv_collect(gx, gy, gz, window, feat, filters[:1].contiguous(), d=1)
-    filters.requires_grad_(True)
-    out = cck.contconv_collect(gx, gy, gz, window, feat, filters, d=4)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+
+
+_BWD = (cck.contconv_bwd_geom, cck.contconv_bwd_feat, cck.contconv_bwd_filters)
+
+
+def _counts():
+    return [w.launches for w in _BWD]
+
+
+def _close(got, want):
+    err = float((got - want).abs().max())
+    assert err <= 2e-4 * float(want.abs().max()) + 1e-30, err
+
+
+def test_b3_backward_launches_b4_b5_and_b6_only_for_geometry(cuda):
+    args = _collect_inputs(70, 8, 16, 12, 4, 2, cuda)
+    dout = torch.randn(70, 12, generator=torch.Generator().manual_seed(3)).to(cuda)
+    want = cck.contconv_collect_bwd_torch(*args, dout, d=4)
+    gx, gy, gz, window, feat, filters = args
+    leaves = [feat.clone().requires_grad_(True), filters.clone().requires_grad_(True)]
+    before = _counts()
+    cck.contconv_collect(gx, gy, gz, window, *leaves, d=4).backward(dout)
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 1, 1]  # no B6
+    _close(leaves[0].grad, want[4])
+    _close(leaves[1].grad, want[5])
+    geo = [t.clone().requires_grad_(True) for t in (gx, gy, gz, window)]
+    before = _counts()
+    cck.contconv_collect(*geo, feat, filters, d=4).backward(dout)
+    assert [a - b for a, b in zip(_counts(), before)] == [1, 0, 0]
+    for t, w in zip(geo, want[:4]):
+        _close(t.grad, w)
+
+
+@pytest.mark.parametrize("m,k,ci,co,d", [(97, 32, 3, 5, 4), (130, 32, 128, 128, 6),
+                                         (45, 6, 128, 128, 4), (70, 40, 16, 16, 3),
+                                         (20_000, 32, 128, 128, 6)])
+def test_b4_b5_b6_match_plain_backward(cuda, m, k, ci, co, d):
+    args = _collect_inputs(m, k, ci, co, d, m + k, cuda)
+    dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
+    want = cck.contconv_collect_bwd_torch(*args, dout, d=d)
+    before = _counts()
+    geo = cck.contconv_bwd_geom(*args, dout, d=d)
+    dfeat = cck.contconv_bwd_feat(*args, dout, d=d)
+    d_f = cck.contconv_bwd_filters(*args, dout, d=d)
+    assert [a - b for a, b in zip(_counts(), before)] == [1, 1, 1]
+    for got, w in zip((*geo, dfeat, d_f), want):
+        _close(got, w)
+    # fixed summation orders: the same bits on a second run
+    assert torch.equal(d_f, cck.contconv_bwd_filters(*args, dout, d=d))
+    assert torch.equal(dfeat, cck.contconv_bwd_feat(*args, dout, d=d))
+    assert all(torch.equal(a, b) for a, b in zip(geo, cck.contconv_bwd_geom(*args, dout, d=d)))
+
+
+def test_b4_b5_b6_reject(cuda):
+    args = _collect_inputs(40, 8, 16, 16, 4, 1, cuda)
+    dout = torch.randn(40, 16, device=cuda)
+    for bwd in _BWD:
+        with pytest.raises(TypeError):
+            bwd(*args, dout.double(), d=4)
+        with pytest.raises(ValueError):
+            bwd(*args, dout[:30].contiguous(), d=4)
+        with pytest.raises(ValueError):
+            bwd(*args, dout.cpu(), d=4)
+        with pytest.raises(RuntimeError):  # d = 1: refused by the launch, no twin
+            bwd(*args[:5], args[5][:1].contiguous(), dout, d=1)
+    wide = _collect_inputs(40, 8, 160, 16, 3, 2, cuda)  # ci > 128: B5/B6 refuse
+    for bwd in _BWD[:2]:
+        with pytest.raises(RuntimeError):
+            bwd(*wide, dout, d=3)
+
+
+def test_b6_takes_a_misaligned_feature_view(cuda):
+    """B6 reads feature rows as 16-byte vectors only from a 16-byte aligned
+    base; a contiguous view at a 4-byte offset gives the same cotangents."""
+    args = _collect_inputs(40, 8, 16, 16, 4, 5, cuda)
+    dout = torch.randn(40, 16, generator=torch.Generator().manual_seed(6)).to(cuda)
+    buf = torch.empty(args[4].numel() + 1, device=cuda)
+    feat = buf[1:].view_as(args[4])
+    feat.copy_(args[4])
+    assert feat.is_contiguous() and feat.data_ptr() % 16 == 4
+    want = cck.contconv_collect_bwd_torch(*args, dout, d=4)
+    got = cck.contconv_bwd_geom(*args[:4], feat, args[5], dout, d=4)
+    for g, w in zip(got, want[:4]):
+        _close(g, w)
 
 
 def test_morton_wrappers_reject(cuda):
@@ -210,7 +291,7 @@ def test_contconv_layer_kernel_matches_dense_on_card(cuda):
     pos, _, _ = _spiral(3000, 11, cuda)
     feat = torch.randn(1, 3000, 128, generator=torch.Generator().manual_seed(0)).to(cuda)
     idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
-    layer = ContinuousConv(128, 128, filter_resolution=6, radius=1.0,
+    layer = ContinuousConv(128, 128, filter_resolution=6, radius=1.0, impl="dense",
                            generator=torch.Generator().manual_seed(1)).to(cuda)
     with torch.no_grad():
         want = layer(pos[None], feat, idx[None], valid[None])

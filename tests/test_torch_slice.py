@@ -1,11 +1,13 @@
 """The port's whole slice against the JAX package: JAX initial conditions ->
 both ``simulate`` -> both ``autoregressive_rollout`` with converted weights,
-and both ``Trainer.test_from_dir`` on one dataset. Also proves that the port
+and both ``Trainer.test_from_dir`` on one dataset (and the port's from a
+checkpoint). Also proves that the port
 imports and runs its CPU path with JAX blocked.
 
 Bars: positions and velocities rtol 1e-5, accelerations atol 1e-4 on
 max-scaled values, identical step-0 graph."""
 
+import copy
 import os
 import re
 import subprocess
@@ -30,7 +32,7 @@ from nbody_tpu.train.trainer import TrainState
 from nbody_tpu_torch.core import SimulationConfig, simulate
 from nbody_tpu_torch.models import GraphModel, graph_model_state_dict
 from nbody_tpu_torch.ops.knn import batched_knn_neighbors as tknn
-from nbody_tpu_torch.train import Trainer, autoregressive_rollout
+from nbody_tpu_torch.train import CheckpointManager, Trainer, autoregressive_rollout
 
 REPO = Path(__file__).resolve().parents[1]
 G, EPS, DT = 4.5e-6, 0.05, 1e-4
@@ -109,8 +111,17 @@ def test_test_from_dir_matches_jax(tmp_path):
         t_c, j_c = t_roll[col].to_numpy(), j_roll[col].to_numpy()
         np.testing.assert_allclose(t_c, j_c, rtol=1e-4, atol=1e-6 * np.abs(j_c).max())
     assert (t_step["step_time"] > 0).all() and (t_roll["step_time"] > 0).all()
-    with pytest.raises(NotImplementedError):
-        Trainer(model).test_from_dir(str(data), model_path=str(tmp_path))
+    # model_path: the latest checkpoint's weights replace the model's own
+    saver = Trainer(model, dt=DT)
+    saver._ensure_state()
+    CheckpointManager(str(tmp_path / "ckpt")).save(1, saver._ckpt_tree())
+    other = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in other.parameters():
+            p.add_(1.0)
+    c_step, _ = Trainer(other, dt=DT).test_from_dir(str(data), model_path=str(tmp_path / "ckpt"),
+                                                   sim_steps=6, rollout=False)
+    np.testing.assert_array_equal(c_step["loss"].to_numpy(), t_step["loss"].to_numpy())
 
 
 _JAX_FREE = r"""
