@@ -42,17 +42,29 @@ the port's main path once:
    recipe-shape training step timed and profiled; ``gnn_experiment
    --quick``; and the 100,000-body training step (Morton radius search,
    B3 + B4 + B5, batch 1) on a strided port-datagen dataset, beside the
-   dense layer's step at the largest N that fits.
+   dense layer's step at the largest N that fits;
+9. the treecodes: (a) B9 (far field), B10 (grouped multipoles) and B1's
+   near-list form against their plain versions, each twice for the same
+   bits, on the shapes of the 100,000-body bh recipe (M=32, B=256) and of
+   the 1,000,000-body bh3 recipe (B=128, C=16, rc=48, Bs=32, K=48); (b) each
+   engine's kernel path against its dense path on one partition at 100,000
+   bodies; (c) ``nbody_tpu_torch.experiments.bh_rollout`` through its
+   ``main``: bh at 100,000 bodies for 200 steps with the exact energy audit
+   (B2), and bh3 at 1,000,000 bodies for 16 steps in chunks of 8 with the
+   sampled force audit; (d) ``treeforce_bench`` at 100,000 bodies for each
+   engine.
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
 JSON object with one entry per kernel (launches counted over the path that
 runs it, its counters set to 0 just before the path and read just after:
 phases 2-4 for B1 and B2, phase 6 for B3, B7 and B8, phase 8 for B4 and B5,
-the phase-7 position gradient for B6; errors and times from phases 1, 5 and
-7), the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
-"device": {...}}``. Without CUDA, or without the package beside this
-script, it exits non-zero.
+the phase-7 position gradient for B6, phase 9c for B9, B10 and B1's near
+list; errors and times from phases 1, 5, 7 and 9a; ``bound_ms``, the least
+time of the same work on the card, from the operations and bytes of those
+inputs, see :func:`bound`), the card's ``nvidia-smi`` name and power limit,
+and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+package beside this script, it exits non-zero.
 """
 
 from __future__ import annotations
@@ -73,7 +85,7 @@ B2_TOL = 1e-5      # relative PE error (tests/test_forces.py:114-130)
 DRIFT_500 = 1e-4   # 500-body leapfrog energy drift over 1000 steps
 DRIFT_20K = 1e-3   # 20k-body drift over 200 steps (treecode tests' bar)
 RECIPE_N = [3, 25, 50, 100, 250, 500]
-SOURCES = ("pairwise", "spatial", "contconv")
+SOURCES = ("pairwise", "spatial", "contconv", "treeforce")
 RECIPE_STEPS = 1000
 BIG_N, BIG_STEPS, SURR_STEPS = 20_000, 200, 50
 LARGE_N, LARGE_STEPS = 100_000, 20
@@ -91,6 +103,19 @@ FULL_CONTCONV = dict(in_channels=4, out_channels=3, filter_resolution=(6, 4), ra
 # the config's own model: its layers take the kernels for card tensors
 RUN_SETS = ["datagen.train_files=2", "datagen.steps=200", "train.save_every=1"]
 TRAIN_STEPS, TRAIN_STRIDE = 50, 10  # the 100k dataset: 5 snapshots
+# the treecodes: the JAX package's recipes (results/large_scale/bh_rollout*.json)
+TREE_N, TREE_1M = 100_000, 1_000_000
+BH_100K = dict(n_near=32, block=256)
+BH3_1M = dict(n_near=32, block=128, coarse=16, rc=48, sub_block=32, n_sub=48)
+MULT_TOL = 1e-5    # B9/B10 against their plain versions, max |d| / max |plain|
+NEAR_ATOL = {"bh": 5e-9, "bh2": 5e-9, "bh3": 2e-8}  # kernel vs dense path, rtol 2e-3
+# (tests/test_treeforce.py:136-137,241-242,401-402), met at 100k by all but
+SEAM_SHARE = 1e-4  # this share of elements (see phase9_engines)
+BH_DRIFT = 1e-3    # 100k bh rollout energy drift (tests/test_treeforce.py:120-121)
+BH3_MEDIAN = 5e-2  # 1M bh3 sampled median relative force error
+# published peaks of one H100 SXM (NVIDIA's data sheet): FP32
+# outside the tensor cores and HBM bandwidth
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -102,6 +127,40 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time of work that does ``flops``
+    FP32 operations and moves ``nbytes`` (each input read once, each output
+    written once), the larger of the two at the card's published peaks."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def collect_bound(gx, gy, gz, win, ci: int, co: int, d: int, other_bytes: float):
+    """(bound_ms, bound_by) of B3-B6 on one geometry: per touched (receiver,
+    cell) pair a ci x co product (2 ci co flops), per edge corner a ci-wide
+    weighted feature sum (2 ci). The pairs are counted from these inputs:
+    corners of nonzero weight on edges of nonzero window. Bytes: the four
+    (M, k) geometry inputs, the (M, k, ci) features (or, for B5, their
+    cotangent), the (D^3, ci, co) filters (or, for B4, their cotangent) and
+    ``other_bytes`` of the kernel's other operands and outputs."""
+    import torch
+
+    from nbody_tpu_torch.ops.interpolate import trilinear_corners
+
+    m, k = win.shape
+    touched, rows = 0, max(1, (1 << 22) // k)
+    for r0 in range(0, m, rows):
+        sl = slice(r0, r0 + rows)
+        cidx, cw = trilinear_corners(torch.stack([gx[sl], gy[sl], gz[sl]], -1).reshape(-1, 3), d)
+        live = (cw != 0) & (win[sl].reshape(-1, 1) != 0)
+        recv = torch.arange(r0, r0 + win[sl].shape[0], device=win.device).repeat_interleave(k)
+        keys = recv[:, None].expand_as(cidx)[live] * d ** 3 + cidx[live].long()
+        touched += torch.unique(keys).numel()
+    flops = 2.0 * touched * ci * co + 2.0 * 8 * m * k * ci
+    nbytes = 4.0 * (4 * m * k + m * k * ci + d ** 3 * ci * co) + other_bytes
+    return bound(flops, nbytes)
 
 
 def rel_drift(u, k) -> float:
@@ -174,7 +233,9 @@ def phase1_kernels():
             f"rel {rel_u:.3e} (bar {B2_TOL}) kernel {ms_uk:.4f} ms  twin {ms_ut:.4f} ms")
         if not rel_u <= B2_TOL:
             raise AssertionError(f"B2 (masked) disagrees with its twin at N={n}: {rel_u}")
-        results[n] = dict(b1=(d_acc, ms_k, ms_t), b2=(d_u, ms_uk, ms_ut))
+        # B1: ~20 flops a pair (csrc/pairwise.cu); B2: ~13 a pair of the upper triangle
+        results[n] = dict(b1=(d_acc, ms_k, ms_t, bound(20.0 * n * n, 40.0 * n)),
+                          b2=(d_u, ms_uk, ms_ut, bound(13.0 * n * (n - 1) / 2, 32.0 * n + 4)))
 
     pos, _, mass = generate_spiral(torch.Generator().manual_seed(8), 8_000, device=dev)
     a, ma, b, mb = pos[:3_000], mass[:3_000], pos[3_000:], mass[3_000:]
@@ -401,8 +462,14 @@ def phase5_large_n_kernels():
                     raise AssertionError(f"Morton kNN at N={n}, k={k}: same {same}, "
                                          f"recall {rec}")
             if n == LARGE_N and k == 32:
-                out["b7"] = (err7, ms7, ms7t)
-                out["b8"] = (err8, ms8, ms8t)
+                # B7: per (query, candidate) ~8 flops of distance and a compare;
+                # B8: per row, k passes of a min and a mask over W candidates
+                c_, L = cand.shape[0], cand.shape[1]
+                nq = ids.shape[1]
+                out["b7"] = (err7, ms7, ms7t, bound(9.0 * c_ * nq * 3 * 256,
+                                                    16.0 * c_ * L + 8.0 * ids.numel()))
+                out["b8"] = (err8, ms8, ms8t, bound(2.0 * mc.shape[0] * k * mc.shape[1],
+                                                    8.0 * mc.numel() + 8.0 * m_ids.numel()))
 
         # B3 on the geometry of this N's Morton radius graph
         idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
@@ -428,7 +495,8 @@ def phase5_large_n_kernels():
             if not rel <= B3_TOL:
                 raise AssertionError(f"B3 disagrees with its twin at N={n}, D={d}: {rel}")
             if n == LARGE_N and d == 6:
-                out["b3"] = (err, ms, ms_t)
+                out["b3"] = (err, ms, ms_t, collect_bound(gx, gy, gz, win, 128, 128, d,
+                                                          4.0 * n * 128))
         del fj, geom
 
     # the full-width model: kernels on the card, twins on the CPU, same weights
@@ -571,7 +639,11 @@ def phase7_backward_kernels():
         res = _bwd_against_plain(args, dout, d, f"N={LARGE_N} k=32 ci=co=128 D={d}",
                                  time_it=True)
         if d == 6:
-            out = res
+            # other operands: dout (M, co); B6 also writes four (M, k) cotangents
+            other = {"b4": 4.0 * LARGE_N * 128, "b5": 4.0 * LARGE_N * 128,
+                     "b6": 4.0 * LARGE_N * 128 + 16.0 * LARGE_N * 32}
+            out = {key: (*nums, collect_bound(*args[:4], 128, 128, d, other[key]))
+                   for key, nums in res.items()}
     del fj, geom
     torch.cuda.empty_cache()
     return out
@@ -786,6 +858,228 @@ def _rows(top):
     return "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top)
 
 
+def _against_plain(label, kernel, plain, tol, bound_):
+    """A kernel call against its plain version on the same inputs, twice for
+    the same bits; returns (max abs err, kernel ms, plain ms, bound)."""
+    import torch
+
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    got, again = kernel(), kernel()
+    same = torch.equal(got, again)
+    want = plain()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    ms = cuda_time_ms(kernel, reps=10, warmup=1)
+    plain_ms = cuda_time_ms(plain, reps=2, warmup=1)
+    log(f"[9a] {label}: max|d|/max|plain| {rel:.3e} (bar {tol}), same bits twice {same}; "
+        f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_[0]:.4f} ms "
+        f"({bound_[1]})")
+    if not (rel <= tol and same and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{label}: the kernel disagrees with its plain version "
+                             f"({rel}, same bits {same})")
+    return err, ms, plain_ms, bound_
+
+
+def _tree_shapes(n, seed, build, knobs):
+    """A spiral of n bodies on the card and its partition, with the build's
+    time logged."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+
+    pos, _, mass = generate_spiral(torch.Generator().manual_seed(seed), n,
+                                   device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part = build(pos, mass, **knobs)
+    torch.cuda.synchronize()
+    log(f"[9a] N={n} {build.__name__}({knobs}): {time.perf_counter() - t0:.4f} s "
+        f"(first call), near {tuple(part.near.shape)}")
+    return pos, mass, part
+
+
+def _table(tf, spos, sm, rows):
+    nb = spos.shape[0] // rows
+    bp, _, msum, com, quad = tf._block_moments(spos, sm, nb, rows)
+    return bp.contiguous(), tf._blk_rows(com, msum, quad)
+
+
+def phase9_kernels():
+    """B9, B10 and B1's near-list form against their plain versions on the
+    shapes of the 100k bh and 1M bh3 recipes; returns the kernels line's
+    numbers (the 1M bh3 shapes)."""
+    import torch
+
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import treeforce as tf
+
+    eps2 = EPS ** 2
+    pos, mass, part = _tree_shapes(TREE_N, TREE_N + 9, tf.build_bh_partition, BH_100K)
+    spos, sm = tf._gather_sorted(pos, mass, part)
+    b = BH_100K["block"]
+    q_blocks, table = _table(tf, spos, sm, b)
+    (nb, m), p, k = part.near.shape, spos.shape[0], table.shape[0]
+    _against_plain(f"B9 far field N={TREE_N}: {p} receivers x {k} blocks",
+                   lambda: tf.multipole_acc(spos, table, G, eps2),
+                   lambda: tf.multipole_acc_torch(spos, table, G, eps2), MULT_TOL,
+                   bound(45.0 * p * k, 24.0 * p + 40.0 * k))
+    _against_plain(f"B10 near subtraction N={TREE_N}: {nb} groups x {b} x {m} blocks",
+                   lambda: tf.grouped_multipole_acc(q_blocks, table, part.near, G, eps2),
+                   lambda: tf.grouped_multipole_acc_torch(q_blocks, table, part.near, G, eps2),
+                   MULT_TOL, bound(45.0 * p * m, 24.0 * p + 40.0 * k + 4.0 * nb * m))
+    _against_plain(f"B1 near list N={TREE_N}: {nb} groups x {b} x {m} blocks of {b}",
+                   lambda: pw.near_accelerations(q_blocks, spos, sm, part.near, b, G, EPS),
+                   lambda: pw.near_accelerations_torch(q_blocks, spos, sm, part.near, b, G,
+                                                       EPS),
+                   B1_TOL, bound(20.0 * p * m * b, 24.0 * p + 16.0 * p + 4.0 * nb * m))
+    del pos, mass, part, spos, sm, q_blocks, table
+
+    pos, mass, part = _tree_shapes(TREE_1M, TREE_1M + 9, tf.build_bh3_partition, BH3_1M)
+    spos, sm = tf._gather_sorted(pos, mass, part)
+    b, c, bs = BH3_1M["block"], BH3_1M["coarse"], BH3_1M["sub_block"]
+    q_blocks, table_f = _table(tf, spos, sm, b)
+    _, table_c = _table(tf, spos, sm, b * c)
+    _, table_s = _table(tf, spos, sm, bs)
+    p, nbc, rc = spos.shape[0], *part.refined.shape
+    nb, kk = part.sub_near.shape
+    u = part.sub_far.shape[1]
+    fine_ids = (part.refined[:, :, None] * c + torch.arange(
+        c, dtype=torch.int32, device=spos.device)).reshape(nbc, rc * c).contiguous()
+    qg = spos.reshape(nbc, c * b, 3)
+    out = {}
+    out["b9"] = _against_plain(
+        f"B9 far field N={TREE_1M}: {p} receivers x {nbc} superblocks",
+        lambda: tf.multipole_acc(spos, table_c, G, eps2),
+        lambda: tf.multipole_acc_torch(spos, table_c, G, eps2), MULT_TOL,
+        bound(45.0 * p * nbc, 24.0 * p + 40.0 * nbc))
+    out["b10"] = _against_plain(
+        f"B10 refinement N={TREE_1M}: {nbc} groups x {c * b} x {rc * c} fine blocks",
+        lambda: tf.grouped_multipole_acc(qg, table_f, fine_ids, G, eps2),
+        lambda: tf.grouped_multipole_acc_torch(qg, table_f, fine_ids, G, eps2), MULT_TOL,
+        bound(45.0 * p * rc * c, 24.0 * p + 40.0 * nb + 4.0 * fine_ids.numel()))
+    _against_plain(
+        f"B10 coarse subtraction N={TREE_1M}: {nbc} groups x {c * b} x {rc} superblocks",
+        lambda: tf.grouped_multipole_acc(qg, table_c, part.refined, G, eps2),
+        lambda: tf.grouped_multipole_acc_torch(qg, table_c, part.refined, G, eps2), MULT_TOL,
+        bound(45.0 * p * rc, 24.0 * p + 40.0 * nbc + 4.0 * part.refined.numel()))
+    _against_plain(
+        f"B10 sub-block multipoles N={TREE_1M}: {nb} groups x {b} x {u} sub-blocks",
+        lambda: tf.grouped_multipole_acc(q_blocks, table_s, part.sub_far, G, eps2),
+        lambda: tf.grouped_multipole_acc_torch(q_blocks, table_s, part.sub_far, G, eps2),
+        MULT_TOL, bound(45.0 * p * u, 24.0 * p + 40.0 * table_s.shape[0] + 4.0 * nb * u))
+    out["b1n"] = _against_plain(
+        f"B1 near list N={TREE_1M}: {nb} groups x {b} x {kk} sub-blocks of {bs}",
+        lambda: pw.near_accelerations(q_blocks, spos, sm, part.sub_near, bs, G, EPS),
+        lambda: pw.near_accelerations_torch(q_blocks, spos, sm, part.sub_near, bs, G, EPS),
+        B1_TOL, bound(20.0 * p * kk * bs, 24.0 * p + 16.0 * p + 4.0 * nb * kk))
+    del pos, mass, part, spos, sm, q_blocks, qg, fine_ids
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase9_engines():
+    """Each engine's kernel path against its dense path on one partition at
+    100k bodies, elementwise at the JAX tests' bar between their two near
+    paths. At 100k a few elements in 10^5 miss that bar through float32
+    cancellation at the near/far seam, shared by the two paths: the float32
+    dense path misses it as often against its own float64 run, which is
+    printed beside. So the check is: at most ``SEAM_SHARE`` of the elements
+    over the bar, and the kernel path's median force error against the
+    exact sum (B1) no larger than the dense path's."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import treeforce as tf
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    pos, _, mass = generate_spiral(torch.Generator().manual_seed(TREE_N + 11), TREE_N,
+                                   device=torch.device("cuda"))
+    exact = pw.accelerations(pos, mass, G, EPS)
+    two = dict(n_near=32, block=128, coarse=16, rc=32)
+    runs = {"bh": (tf.build_bh_partition, tf.bh_accelerations, BH_100K),
+            "bh2": (tf.build_bh2_partition, tf.bh2_accelerations, two),
+            "bh3": (tf.build_bh3_partition, tf.bh3_accelerations,
+                    dict(two, sub_block=32, n_sub=48))}
+    for name, (build, engine, knobs) in runs.items():
+        part = build(pos, mass, **knobs)
+
+        def run(impl, p_=pos, m_=mass):
+            return engine(p_, m_, G, EPS, partition=part, near_impl=impl)
+
+        got, dense = run("kernel"), run("dense")
+        f64 = run("dense", pos.double(), mass.double())
+
+        def over(a, b):
+            e = (a.double() - b.double()).abs() - (NEAR_ATOL[name] + 2e-3 * b.double().abs())
+            return int((e > 0).sum()), float(e.max())
+
+        def median_err(a):
+            return float(((a - exact).norm(dim=-1) / (exact.norm(dim=-1) + 1e-30)).median())
+
+        n_over, worst = over(got, dense)
+        meds = [median_err(got), median_err(dense)]
+        ms = cuda_time_ms(lambda: run("kernel"), reps=5, warmup=1)
+        ms_d = cuda_time_ms(lambda: run("dense"), reps=2, warmup=1)
+        log(f"[9b] {name} {knobs} N={TREE_N}: elements over rtol 2e-3 + atol "
+            f"{NEAR_ATOL[name]}: kernel vs dense {n_over} of {got.numel()} (worst excess "
+            f"{worst:.3e}), float32 dense vs float64 dense {over(dense, f64)[0]}, kernel vs "
+            f"float64 dense {over(got, f64)[0]}; median rel error vs exact: kernel "
+            f"{meds[0]:.4e}, dense {meds[1]:.4e}; force evaluation (reused partition) "
+            f"kernel {ms:.4f} ms, dense {ms_d:.4f} ms")
+        if not (n_over <= SEAM_SHARE * got.numel() and meds[0] <= meds[1]):
+            raise AssertionError(f"{name}: the kernel path disagrees with the dense path")
+    torch.cuda.synchronize()
+
+
+def phase9_rollouts():
+    """The treecode path through ``bh_rollout.main``: bh at 100k with the
+    exact energy audit, bh3 at 1M with the sampled force audit."""
+    from nbody_tpu_torch.experiments import bh_rollout
+
+    bh = bh_rollout.main(["--engine", "bh", "--n-bodies", str(TREE_N), "--steps", "200",
+                          "--bh-refresh", "8", "--device", "cuda", "--profile"])
+    log(f"[9c] bh_rollout bh N={TREE_N} x 200 steps (refresh 8): "
+        f"{bh['ms_per_step']:.4f} ms/step, {bh['wall_s']:.4f} s wall, energy drift "
+        f"{bh['rel_energy_drift']:.3e} (bar {BH_DRIFT})")
+    if not bh["rel_energy_drift"] < BH_DRIFT:
+        raise AssertionError(f"100k bh energy drift {bh['rel_energy_drift']}")
+    log(f"[9c] bh N={TREE_N}: {_profile_line(bh)}")
+    bh3 = bh_rollout.main(["--engine", "bh3", "--n-bodies", str(TREE_1M), "--block", "128",
+                           "--rc", "48", "--n-sub", "48", "--steps", "16", "--chunk-steps",
+                           "8", "--no-energy-audit", "--device", "cuda", "--profile"])
+    log(f"[9c] bh_rollout bh3 N={TREE_1M} x 16 steps (chunks of 8, refresh 8): "
+        f"{bh3['ms_per_step']:.4f} ms/step, {bh3['wall_s']:.4f} s wall; sampled force error "
+        f"over {bh3['error_sample']} receivers: median {bh3['end_rel_err_median']:.4e} "
+        f"(bar {BH3_MEDIAN}), p99 {bh3['end_rel_err_p99']:.4e}")
+    if not bh3["end_rel_err_median"] < BH3_MEDIAN:
+        raise AssertionError(f"1M bh3 median force error {bh3['end_rel_err_median']}")
+    log(f"[9c] bh3 N={TREE_1M}: {_profile_line(bh3)}")
+
+
+def _profile_line(row) -> str:
+    steps = row["profile_steps"]
+    return (f"one more {steps}-step segment {1e3 * row['profile_wall_s'] / steps:.4f} ms/step "
+            f"wall, {1e3 * row['busy_seconds'] / steps:.4f} ms/step device, idle share "
+            f"{row['idle_share']:.4f}, top device rows (ms/step) "
+            f"{_rows([(n, t / steps) for n, t in row['top_ms']])}")
+
+
+def phase9_bench():
+    from nbody_tpu_torch.experiments import treeforce_bench
+
+    for engine, extra in (("bh", []), ("bh2", ["--block", "128"]), ("bh3", ["--block", "128"])):
+        (row,) = treeforce_bench.main(["--n-bodies", str(TREE_N), "--engine", engine,
+                                       "--reps", "5", "--device", "cuda", *extra])
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"treeforce_bench {engine}: {row}")
+        log(f"[9d] treeforce_bench {engine} N={TREE_N}: exact {row['exact_ms']:.4f} ms, "
+            f"fresh {row['bh_fresh_ms']:.4f}, reused {row['bh_reused_ms']:.4f}, partition "
+            f"{row['partition_ms']:.4f}; rel err median {row['rel_err_median']:.4e}, p99 "
+            f"{row['rel_err_p99']:.4e}")
+
+
 def main() -> int:
     card = phase0_device()
     import torch
@@ -793,14 +1087,19 @@ def main() -> int:
     from nbody_tpu_torch.ops import contconv_kernel as cck
     from nbody_tpu_torch.ops import pairwise as pw
     from nbody_tpu_torch.ops import spatial as sp
+    from nbody_tpu_torch.ops import treeforce as tf
 
     big = phase1_kernels()
     slice2 = phase5_large_n_kernels()
     slice3 = phase7_backward_kernels()
+    slice4 = phase9_kernels()
+    phase9_engines()
     all_wrappers = {"b1": pw.partial_accelerations, "b2": pw.pair_potential,
                     "b3": cck.contconv_collect, "b4": cck.contconv_bwd_filters,
                     "b5": cck.contconv_bwd_feat, "b6": cck.contconv_bwd_geom,
-                    "b7": sp.morton_select, "b8": sp.morton_merge}
+                    "b7": sp.morton_select, "b8": sp.morton_merge,
+                    "b9": tf.multipole_acc, "b10": tf.grouped_multipole_acc,
+                    "b1n": pw.near_accelerations}
 
     def zero_counts():
         for w in all_wrappers.values():
@@ -842,20 +1141,34 @@ def main() -> int:
     if min(train[k] for k in ("b1", "b3", "b4", "b5", "b7", "b8")) == 0 or train["b6"] != 0:
         raise AssertionError(f"training path launches {train}: B6 must stay at 0, the "
                              f"others above it")
+
+    # the treecode path: counters at 0 again
+    zero_counts()
+    phase9_rollouts()
+    torch.cuda.synchronize()
+    tree = {name: w.launches for name, w in all_wrappers.items()}
+    log(f"[9c] launches on the treecode path: {tree}")
+    launches.update({k: tree[k] for k in ("b9", "b10", "b1n")})
+    if min(tree[k] for k in ("b1", "b2", "b9", "b10", "b1n")) == 0:
+        raise AssertionError(f"the treecode path never launched a kernel of its own: {tree}")
+    phase9_bench()
     if min(launches.values()) == 0 or len(launches) != len(all_wrappers):
         raise AssertionError(f"a kernel of a path never launched: {launches}")
     if any(m.split(".")[0] in ("jax", "flax", "nbody_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
 
     def entry(name, source, replaces, key, numbers):
+        # no one PyTorch call computes any of these functions: library_ms null
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[key], "max_abs_err": numbers[0], "ms": numbers[1],
-                "plain_ms": numbers[2]}
+                "plain_ms": numbers[2], "bound_ms": numbers[3][0],
+                "bound_by": numbers[3][1], "library_ms": None}
 
     pair_src = "nbody_tpu_torch/csrc/pairwise.cu"
     spatial_src = "nbody_tpu_torch/csrc/spatial.cu"
     conv_src = "nbody_tpu_torch/csrc/contconv.cu"
     conv_py = "nbody_tpu/ops/contconv_kernel.py"
+    tree_src = "nbody_tpu_torch/csrc/treeforce.cu"
     kernels = [
         entry("B1 force (nbody_force)", pair_src, "nbody_tpu/ops/pairwise.py:50", "b1",
               big["b1"]),
@@ -873,9 +1186,15 @@ def main() -> int:
               "b7", slice2["b7"]),
         entry("B8 merge (morton_merge)", spatial_src, "nbody_tpu/ops/spatial.py:311",
               "b8", slice2["b8"]),
+        entry("B9 far field (multipole_acc)", tree_src, "nbody_tpu/ops/treeforce.py:259",
+              "b9", slice4["b9"]),
+        entry("B10 grouped multipoles (grouped_multipole_acc)", tree_src,
+              "nbody_tpu/ops/treeforce.py:566", "b10", slice4["b10"]),
+        entry("B1 near list (nbody_near_force)", pair_src, "nbody_tpu/ops/pairwise.py:50",
+              "b1n", slice4["b1n"]),
     ]
     assert all(math.isfinite(k[f]) for k in kernels
-               for f in ("max_abs_err", "ms", "plain_ms"))
+               for f in ("max_abs_err", "ms", "plain_ms", "bound_ms"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

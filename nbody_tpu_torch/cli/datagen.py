@@ -5,9 +5,11 @@ the same flags (list-valued flags fan out via cartesian product).
         --n-bodies 3 25 50 100 250 500 --output out.csv \
         --steps 1000 --sim-type spiral --n-arms 2 --seed 42
 
-``--device`` picks where the rollouts run: by default the CUDA device when
-there is one, else the CPU. ``--force-backend auto`` runs the hand-written
-kernels on a CUDA device and the dense torch path on the CPU.
+``--device`` picks where the rollouts run: by default the CUDA device, and
+without one the CLI raises unless ``--device cpu`` asks for the CPU.
+``--force-backend auto`` runs the hand-written kernels on a CUDA device and
+the dense torch path on the CPU; ``bh`` is the one-level treecode (B9, B10
+and B1's near-list form on the card), as the JAX CLI offers it.
 """
 
 from __future__ import annotations
@@ -15,10 +17,8 @@ from __future__ import annotations
 import argparse
 import math
 
-import torch
-
-from nbody_tpu_torch.core.simulate import FORCE_BACKENDS
 from nbody_tpu_torch.data.generate import generate_dataset, scenario_product
+from nbody_tpu_torch.experiments.common import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,10 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arm-strength", type=float, default=0.3)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", type=str, default=None,
-                   help="torch device of the rollouts (default: cuda if "
-                        "available, else cpu)")
+                   help="torch device of the rollouts (default: cuda; the CPU "
+                        "only as --device cpu)")
     p.add_argument("--force-backend", type=str, default="auto",
-                   choices=list(FORCE_BACKENDS))
+                   choices=["auto", "dense", "kernel", "bh"])
     p.add_argument("--no-npz", action="store_true",
                    help="skip the fast-reload .npz twin")
     p.add_argument("--npz-only", action="store_true",
@@ -69,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
     scenarios = scenario_product(
         n_bodies=args.n_bodies,
         integrator=args.integrator,

@@ -32,9 +32,9 @@ def port_impl(name):
 @dataclasses.dataclass
 class DatagenConfig:
     """Fan-out datagen parameters; list-valued fields take the cartesian
-    product. ``bh_near`` and ``bh_refresh`` belong to the treecode
-    backends, which the port does not have yet: a scene with a ``bh*``
-    force backend raises when it runs."""
+    product. ``bh_near`` and ``bh_refresh`` are the treecode backends'
+    (``force_backend`` "bh", "bh2", "bh3") near-set size and partition
+    refresh interval."""
 
     n_bodies: Any = dataclasses.field(default_factory=lambda: [3, 25, 50, 100, 250, 500])
     integrator: str = "leapfrog"
@@ -53,7 +53,7 @@ class DatagenConfig:
     train_files: int = 10
     test_files: int = 1
     seed: Optional[int] = None
-    force_backend: str = "auto"  # "auto" | "dense" | "kernel" (JAX "pallas")
+    force_backend: str = "auto"  # "auto" | "dense" | "kernel" (JAX "pallas") | "bh*"
     bh_near: int = 32
     bh_refresh: int = 1
 
@@ -153,7 +153,7 @@ class ExperimentConfig:
         from nbody_tpu_torch.data.generate import scenario_product
 
         d = dataclasses.asdict(self.datagen)
-        for k in ("train_files", "test_files", "bh_near", "bh_refresh"):
+        for k in ("train_files", "test_files"):
             d.pop(k)
         d["force_backend"] = port_impl(d["force_backend"])
         if seed is not None:

@@ -16,8 +16,8 @@ import torch
 from nbody_tpu_torch.core import forces
 from nbody_tpu_torch.core.integrators import INTEGRATORS
 
-FORCE_BACKENDS = ("dense", "kernel", "auto")
-_TREECODE_BACKENDS = ("bh", "bh2", "bh3")
+TREECODE_BACKENDS = ("bh", "bh2", "bh3")
+FORCE_BACKENDS = ("dense", "kernel", "auto") + TREECODE_BACKENDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,10 +25,12 @@ class SimulationConfig:
     """Static simulation parameters.
 
     ``force_backend``: "dense" (O(N^2) torch ops, ``core.forces``), "kernel"
-    (the B1/B2 kernels of ``ops.pairwise``; their torch twins on the CPU) or
-    "auto", which is "kernel" for CUDA tensors and "dense" otherwise. The
-    JAX package's size threshold for its auto choice was tuned on a TPU and
-    is not carried over.
+    (the B1/B2 kernels of ``ops.pairwise``; their torch twins on the CPU),
+    "auto", which is "kernel" for CUDA tensors and "dense" otherwise, or a
+    treecode of ``ops.treeforce``: "bh", "bh2", "bh3" (B9, B10 and B1's
+    near-list form for CUDA tensors, the dense near pass otherwise; energies
+    stay exact). The JAX package's size threshold for its auto choice was
+    tuned on a TPU and is not carried over.
     """
 
     g_const: float = 1.0
@@ -37,14 +39,27 @@ class SimulationConfig:
     integrator: str = "leapfrog"  # "leapfrog" | "euler"
     calc_energy: bool = True
     force_backend: str = "auto"
+    # "bh" knobs (ops/treeforce.py): exact near-set size, Morton block rows,
+    # and how often the partition (sort + near sets) is rebuilt — forces are
+    # always computed from fresh positions, a stale partition only degrades
+    # which blocks are treated exactly.
+    bh_near: int = 32
+    bh_block: int = 256
+    bh_refresh: int = 1
+    # "bh2" adds a coarse far level: superblocks of bh_coarse fine blocks;
+    # bh_rc refined superblocks per receiver group. Drops the O(N * nb) far
+    # term by ~bh_coarse at 1M+.
+    bh_coarse: int = 16
+    bh_rc: int = 32
+    # "bh3" sub-refines the near pass: each near block's rows split into
+    # sub-blocks of bh_sub_block rows; bh_n_sub of them are evaluated
+    # exactly per receiver block, the rest through their own quadrupoles.
+    bh_sub_block: int = 32
+    bh_n_sub: int = 24
 
     def __post_init__(self):
         if self.integrator not in INTEGRATORS:
             raise ValueError(f"unknown integrator {self.integrator!r}")
-        if self.force_backend in _TREECODE_BACKENDS:
-            raise NotImplementedError(
-                f"force_backend={self.force_backend!r}: the Barnes-Hut "
-                "treecodes are not ported yet (ROADMAP.md, queue A item 10)")
         if self.force_backend not in FORCE_BACKENDS:
             raise ValueError(f"unknown force backend {self.force_backend!r}")
 
@@ -65,10 +80,34 @@ def resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     return "kernel" if torch.device(device).type == "cuda" else "dense"
 
 
+def treecode_fns(mass, config: SimulationConfig, mask=None, i_chunk: int = 8):
+    """``(build, acc)`` of the configured treecode: ``build(pos)`` makes a
+    partition, ``acc(pos, partition)`` the accelerations under it (the near
+    pass ``auto``: the kernels for CUDA tensors; ``i_chunk`` bounds the dense
+    near pass). A treecode takes no mask."""
+    from nbody_tpu_torch.ops import treeforce as tf
+
+    c, name = config, config.force_backend
+    if mask is not None:
+        raise ValueError(f"force_backend={name!r} does not support masks")
+    kw = dict(n_near=c.bh_near, block=c.bh_block)
+    if name != "bh":
+        kw.update(coarse=c.bh_coarse, rc=c.bh_rc)
+    if name == "bh3":
+        kw.update(sub_block=c.bh_sub_block, n_sub=c.bh_n_sub)
+    # looked up per call, so that a test may wrap the module's functions
+    return (lambda p: getattr(tf, f"build_{name}_partition")(p, mass, **kw),
+            lambda p, part: getattr(tf, f"{name}_accelerations")(
+                p, mass, c.g_const, c.softening, partition=part, i_chunk=i_chunk))
+
+
 def make_acc_fn(mass, config: SimulationConfig, mask=None) -> Callable:
     """Bind masses and constants into a ``pos -> acc`` closure on the
-    configured backend."""
+    configured backend. A treecode builds a fresh partition per call."""
     g, eps = config.g_const, config.softening
+    if config.force_backend in TREECODE_BACKENDS:
+        build, acc = treecode_fns(mass, config, mask)
+        return lambda pos: acc(pos, build(pos))
     if resolve_backend(config, mass.device) == "kernel":
         from nbody_tpu_torch.ops.pairwise import accelerations
 
@@ -78,9 +117,13 @@ def make_acc_fn(mass, config: SimulationConfig, mask=None) -> Callable:
 
 def make_energy_fn(mass, config: SimulationConfig, mask=None) -> Callable:
     """``(pos, vel) -> (U, K)`` as 0-d tensors, on the same backend decision
-    as the forces."""
+    as the forces. Energies are always exact: a treecode maps to B2 on a
+    CUDA device and to the dense path otherwise."""
     g, eps = config.g_const, config.softening
-    if resolve_backend(config, mass.device) == "kernel":
+    backend = resolve_backend(config, mass.device)
+    if backend in TREECODE_BACKENDS:
+        backend = "kernel" if mass.device.type == "cuda" else "dense"
+    if backend == "kernel":
         from nbody_tpu_torch.ops.pairwise import potential_energy
 
         return lambda pos, vel: (
@@ -98,7 +141,10 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
     The initial force evaluation seeds the loop (reference
     ``simulation.py:69``); each step then applies the integrator and, with
     ``calc_energy``, the O(N^2) energy diagnostics. Runs on the device of
-    ``pos``.
+    ``pos``. A treecode with ``bh_refresh > 1`` carries its partition and
+    rebuilds it before step i's force evaluation when ``i % bh_refresh ==
+    0 and i > 0``, as the JAX scan does; the initial partition seeds the
+    first acceleration.
 
     :param pos: (N, 3) initial positions.
     :param vel: (N, 3) initial velocities.
@@ -112,8 +158,14 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
 
-    acc_fn = make_acc_fn(mass, config, mask=mask)
     energy_fn = make_energy_fn(mass, config, mask=mask)
+    carry = config.force_backend in TREECODE_BACKENDS and config.bh_refresh > 1
+    if carry:
+        build, bh_acc = treecode_fns(mass, config, mask)
+        part = build(pos)
+        acc_fn = lambda q: bh_acc(q, part)  # noqa: E731 (reads `part` when called)
+    else:
+        acc_fn = make_acc_fn(mass, config, mask=mask)
     step_fn = INTEGRATORS[config.integrator]
 
     n = pos.shape[0]
@@ -127,6 +179,8 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
 
     p, v, a = pos, vel, acc_fn(pos)
     for s in range(steps):
+        if carry and s > 0 and s % config.bh_refresh == 0:
+            part = build(p)
         p, v, a = step_fn(p, v, a, acc_fn, config.dt)
         ps[s], vs[s], accs[s] = p, v, a
         if config.calc_energy:

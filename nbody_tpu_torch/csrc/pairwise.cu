@@ -1,5 +1,6 @@
-// All-pairs softened gravity (B1) and pairwise potential energy (B2) for
-// Hopper (sm_90a), with a plain C interface bound from Python by ctypes
+// All-pairs softened gravity (B1), its near-list form for the treecodes' near
+// pass, and pairwise potential energy (B2) for Hopper (sm_90a), with a plain
+// C interface bound from Python by ctypes
 // (nbody_tpu_torch/ops/build.py, nbody_tpu_torch/ops/pairwise.py).
 //
 // Every entry point launches on the caller's stream, does not synchronise and
@@ -10,6 +11,7 @@
 // Sources arrive packed as float4 [x, y, z, m] (the wrapper builds that copy
 // from the (N, 3) positions and (N,) masses); targets stay (N, 3) row-major.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,6 +52,48 @@ constexpr float D2_FLOOR = 1e-18f;
 
 static_assert(32 % FORCE_SPLIT == 0, "a target's lanes must share a warp");
 
+// The one pair of both forms of B1: the source s = [x, y, z, m] pulls the
+// target (xi, yi, zi); adds m (r_s - r_i) / (|r_s - r_i|^2 + eps^2)^{3/2},
+// without the factor G.
+__device__ __forceinline__ void pair_pull(const float4 s, float xi, float yi,
+                                          float zi, float eps2, float& ax,
+                                          float& ay, float& az) {
+  const float dx = s.x - xi;
+  const float dy = s.y - yi;
+  const float dz = s.z - zi;
+  const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
+  const float inv = rsqrtf(fmaxf(d2, D2_FLOOR));
+  const float w = s.w * inv * inv * inv;
+  ax = fmaf(w, dx, ax);
+  ay = fmaf(w, dy, ay);
+  az = fmaf(w, dz, az);
+}
+
+// The staged tile on this thread's target: lane s takes every
+// FORCE_SPLIT-th source.
+__device__ __forceinline__ void pull_tile(const float4* tile, int lane, float xi,
+                                          float yi, float zi, float eps2,
+                                          float& ax, float& ay, float& az) {
+#pragma unroll 8
+  for (int t = lane; t < FORCE_TILE; t += FORCE_SPLIT)
+    pair_pull(tile[t], xi, yi, zi, eps2, ax, ay, az);
+}
+
+// The lanes' partial sums in a fixed butterfly; lane 0 writes G * a.
+__device__ __forceinline__ void finish(float ax, float ay, float az, int lane,
+                                       bool live, float g, float* out) {
+  for (int off = FORCE_SPLIT / 2; off > 0; off >>= 1) {
+    ax += __shfl_xor_sync(0xffffffffu, ax, off);
+    ay += __shfl_xor_sync(0xffffffffu, ay, off);
+    az += __shfl_xor_sync(0xffffffffu, az, off);
+  }
+  if (lane == 0 && live) {
+    out[0] = g * ax;
+    out[1] = g * ay;
+    out[2] = g * az;
+  }
+}
+
 __global__ void __launch_bounds__(FORCE_THREADS)
 force_kernel(const float* __restrict__ pos_i, const float4* __restrict__ src,
              int ni, int nj, float g, float eps2, float* __restrict__ acc) {
@@ -67,31 +111,58 @@ force_kernel(const float* __restrict__ pos_i, const float4* __restrict__ src,
     const int j = base + threadIdx.x;
     tile[threadIdx.x] = j < nj ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
-#pragma unroll 8
-    for (int t = lane; t < FORCE_TILE; t += FORCE_SPLIT) {
-      const float4 s = tile[t];
-      const float dx = s.x - xi;
-      const float dy = s.y - yi;
-      const float dz = s.z - zi;
-      const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
-      const float inv = rsqrtf(fmaxf(d2, D2_FLOOR));
-      const float w = s.w * inv * inv * inv;
-      ax = fmaf(w, dx, ax);
-      ay = fmaf(w, dy, ay);
-      az = fmaf(w, dz, az);
-    }
+    pull_tile(tile, lane, xi, yi, zi, eps2, ax, ay, az);
     __syncthreads();
   }
-  for (int off = FORCE_SPLIT / 2; off > 0; off >>= 1) {
-    ax += __shfl_xor_sync(0xffffffffu, ax, off);
-    ay += __shfl_xor_sync(0xffffffffu, ay, off);
-    az += __shfl_xor_sync(0xffffffffu, az, off);
+  finish(ax, ay, az, lane, row < ni, g, acc + 3 * (size_t)row);
+}
+
+// ------------------------------------------------ B1, near-list form
+//
+// Replaces the near pass of nbody_tpu/ops/treeforce.py (bh, bh2: :484-489;
+// bh3: :1081-1085), where jax.vmap(pallas_partial_accelerations) runs B1 once
+// per receiver block over its gathered candidates. Here one launch covers all
+// receiver blocks: group g's `rows` targets (rows g * rows .. of q) see the
+// `list` source blocks near[g, :], each `src_block` consecutive rows of the
+// packed sources, read by id (no gathered (groups, list * src_block) copy).
+// Candidate c of a group is row c % src_block of block near[g, c / src_block],
+// and a target's sum runs over c in order, as B1's runs over its sources: the
+// same pair function, tile, lane split and butterfly, so the result is what
+// the vmapped B1 computes on the gathered candidates. An id outside
+// [0, n_src_blocks) reads as a zero-mass source. Bound: FP32 throughput,
+// ~20 flops and one MUFU rsqrt per pair, as B1.
+__global__ void __launch_bounds__(FORCE_THREADS)
+near_force_kernel(const float* __restrict__ q, const float4* __restrict__ src,
+                  const int* __restrict__ near, int rows, int list, int src_block,
+                  int n_src_blocks, int tiles, float g, float eps2,
+                  float* __restrict__ acc) {
+  __shared__ float4 tile[FORCE_TILE];
+  const int grp = blockIdx.x / tiles;
+  const int lane = threadIdx.x % FORCE_SPLIT;
+  const int row = (blockIdx.x % tiles) * FORCE_ROWS + threadIdx.x / FORCE_SPLIT;
+  const size_t qrow = (size_t)grp * rows + row;
+  float xi = 0.f, yi = 0.f, zi = 0.f;
+  if (row < rows) {
+    xi = q[3 * qrow];
+    yi = q[3 * qrow + 1];
+    zi = q[3 * qrow + 2];
   }
-  if (lane == 0 && row < ni) {
-    acc[3 * row] = g * ax;
-    acc[3 * row + 1] = g * ay;
-    acc[3 * row + 2] = g * az;
+  const int* ids = near + (size_t)grp * list;
+  const int ncand = list * src_block;
+  float ax = 0.f, ay = 0.f, az = 0.f;
+  for (int base = 0; base < ncand; base += FORCE_TILE) {
+    const int c = base + threadIdx.x;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < ncand) {
+      const int j = ids[c / src_block];
+      if (j >= 0 && j < n_src_blocks) s = src[(size_t)j * src_block + c % src_block];
+    }
+    tile[threadIdx.x] = s;
+    __syncthreads();
+    pull_tile(tile, lane, xi, yi, zi, eps2, ax, ay, az);
+    __syncthreads();
   }
+  finish(ax, ay, az, lane, row < rows, g, acc + 3 * qrow);
 }
 
 // --------------------------------------------------------------- B2: energy
@@ -200,6 +271,23 @@ int nbody_force(const float* pos_i, const void* src, int ni, int nj, float g,
   const dim3 grid((ni + FORCE_ROWS - 1) / FORCE_ROWS);
   force_kernel<<<grid, FORCE_THREADS, 0, (cudaStream_t)stream>>>(
       pos_i, (const float4*)src, ni, nj, g, eps * eps, acc);
+  return (int)cudaGetLastError();
+}
+
+// acc (groups, rows, 3) = forces on q (groups, rows, 3) from the source
+// blocks near[g, :] (groups, list) of the packed sources src
+// (n_src_blocks * src_block float4), for every group g.
+int nbody_near_force(const float* q, const void* src, const int* near, int groups,
+                     int rows, int list, int src_block, int n_src_blocks, float g,
+                     float eps, float* acc, void* stream) {
+  if (groups <= 0 || rows <= 0 || list < 0 || src_block <= 0 || n_src_blocks < 0 ||
+      (long long)list * src_block > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (rows + FORCE_ROWS - 1) / FORCE_ROWS;
+  if ((long long)groups * tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  near_force_kernel<<<groups * tiles, FORCE_THREADS, 0, (cudaStream_t)stream>>>(
+      q, (const float4*)src, near, rows, list, src_block, n_src_blocks, tiles, g,
+      eps * eps, acc);
   return (int)cudaGetLastError();
 }
 

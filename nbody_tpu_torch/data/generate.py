@@ -21,8 +21,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from nbody_tpu_torch.core.simulate import (SimulationConfig, Trajectory,
-                                           resolve_backend, simulate)
+from nbody_tpu_torch.core.simulate import (TREECODE_BACKENDS, SimulationConfig,
+                                           Trajectory, resolve_backend, simulate)
 from nbody_tpu_torch.data.schema import CSV_FIELDS
 from nbody_tpu_torch.ics import GENERATORS
 from nbody_tpu_torch.utils.timing import device_time
@@ -48,7 +48,11 @@ class ScenarioConfig:
     pitch_angle: float = -math.pi / 6
     arm_strength: float = 0.3
     seed: Optional[int] = None
-    force_backend: str = "auto"  # "auto" | "dense" | "kernel"
+    force_backend: str = "auto"  # "auto" | "dense" | "kernel" | "bh" | "bh2" | "bh3"
+    # treecode ground-truth knobs (core.simulate.SimulationConfig): exact
+    # near-set size and partition refresh interval
+    bh_near: int = 32
+    bh_refresh: int = 1
     # exact O(N^2) pairwise PE per recorded step; large-N training sets,
     # which never read the u/k columns, switch it off
     calc_energy: bool = True
@@ -101,7 +105,8 @@ def simulation_config(cfg: ScenarioConfig) -> SimulationConfig:
     return SimulationConfig(
         g_const=cfg.g, softening=cfg.softening, dt=cfg.dt,
         integrator=cfg.integrator, calc_energy=cfg.calc_energy,
-        force_backend=cfg.force_backend)
+        force_backend=cfg.force_backend, bh_near=cfg.bh_near,
+        bh_refresh=cfg.bh_refresh)
 
 
 def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
@@ -113,10 +118,14 @@ def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
     device = torch.device("cpu" if device is None else device)
     pos, vel, mass = make_initial_conditions(cfg, generator, device=device)
     sim_cfg = simulation_config(cfg)
-    if resolve_backend(sim_cfg, device) == "kernel" and device.type == "cuda":
-        from nbody_tpu_torch.ops.pairwise import load_kernels
-
-        load_kernels()  # a first-use build must not count as step time
+    backend = resolve_backend(sim_cfg, device)
+    if device.type == "cuda" and backend != "dense":
+        # a first-use build must not count as step time
+        if backend in TREECODE_BACKENDS:
+            from nbody_tpu_torch.ops.treeforce import load_kernels
+        else:
+            from nbody_tpu_torch.ops.pairwise import load_kernels
+        load_kernels()
 
     bounds = np.linspace(0, cfg.steps, max(time_chunks, 1) + 1).astype(int)
     parts, times = [], np.zeros(cfg.steps)

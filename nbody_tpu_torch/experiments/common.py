@@ -18,8 +18,17 @@ REFERENCE_N_BODIES = [3, 25, 50, 100, 250, 500]
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA device. Without one this raises: a run on the CPU is asked
+    for (``--device cpu``), never fallen back to."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(name=None) -> torch.device:
+    """The device of a ``--device`` flag: ``name`` when given, else
+    :func:`default_device`."""
+    return torch.device(name) if name else default_device()
 
 
 def generate_data(

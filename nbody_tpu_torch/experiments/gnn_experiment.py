@@ -20,7 +20,7 @@ import contextlib
 import numpy as np
 import torch
 
-from nbody_tpu_torch.experiments.common import (default_device, generate_data, loss_writer,
+from nbody_tpu_torch.experiments.common import (generate_data, loss_writer, resolve_device,
                                                 setup_dirs, write_results)
 from nbody_tpu_torch.models import GraphModel
 from nbody_tpu_torch.train import PlateauScheduler, Trainer
@@ -49,7 +49,7 @@ def parser(name: str, batch_size: int) -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler trace of the evaluation into DIR")
     p.add_argument("--device", default=None,
-                   help="torch device; default cuda when available, else cpu")
+                   help="torch device; default cuda (the CPU only as --device cpu)")
     return p
 
 
@@ -62,7 +62,7 @@ def run_experiment(name: str, args, model, **plateau) -> dict:
         args.sim_steps = min(args.sim_steps, 50)
         args.train_files = min(args.train_files, 2)
         args.save_every = 1
-    dev = torch.device(args.device) if args.device else default_device()
+    dev = resolve_device(args.device)
     paths = setup_dirs(name, args.base)
     n_bodies = [3, 25] if args.quick else None
     generate_data(paths["train"], num_files=args.train_files, n_bodies=n_bodies,

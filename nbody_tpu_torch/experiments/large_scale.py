@@ -38,6 +38,7 @@ import os
 import torch
 
 from nbody_tpu_torch.core.simulate import SimulationConfig, simulate
+from nbody_tpu_torch.experiments.common import resolve_device
 from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.models import ContinuousConvModel, GraphModel
 from nbody_tpu_torch.train.rollout import autoregressive_rollout
@@ -92,7 +93,7 @@ def main(argv=None):
                    help="rebuild the surrogate's neighbour graph every this "
                         "many steps (1 = every step, reference parity)")
     p.add_argument("--device", default=None,
-                   help="torch device; default cuda when available, else cpu")
+                   help="torch device; default cuda (the CPU only as --device cpu)")
     p.add_argument("--out", default=None, help="JSON artifact path")
     p.add_argument("--profile", action="store_true",
                    help="profile one more run of each mode with torch.profiler "
@@ -100,7 +101,7 @@ def main(argv=None):
                         "to the mode's line")
     args = p.parse_args(argv)
 
-    dev = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    dev = resolve_device(args.device)
     n, steps = args.n_bodies, args.steps
     default_impl = "kernel" if dev.type == "cuda" else "dense"
     args.knn_impl = args.knn_impl or default_impl

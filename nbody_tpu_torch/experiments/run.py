@@ -23,7 +23,7 @@ import torch
 
 from nbody_tpu_torch.config import ExperimentConfig
 from nbody_tpu_torch.data.generate import generate_dataset
-from nbody_tpu_torch.experiments.common import (default_device, loss_writer, setup_dirs,
+from nbody_tpu_torch.experiments.common import (loss_writer, resolve_device, setup_dirs,
                                                 write_results)
 from nbody_tpu_torch.train import PlateauScheduler, Trainer
 
@@ -31,7 +31,7 @@ from nbody_tpu_torch.train import PlateauScheduler, Trainer
 def run(cfg: ExperimentConfig, device=None) -> dict:
     """Run the flow; returns the trainer, this call's epoch losses and the
     two evaluation frames."""
-    dev = torch.device(device) if device is not None else default_device()
+    dev = resolve_device(device)
     paths = setup_dirs(cfg.name, cfg.base)
     cfg.save(os.path.join(paths["results"], "config.json"))
 
@@ -75,7 +75,7 @@ def main(argv=None):
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="PATH=VALUE", help="dotted-path override")
     p.add_argument("--device", default=None,
-                   help="torch device; default cuda when available, else cpu")
+                   help="torch device; default cuda (the CPU only as --device cpu)")
     args = p.parse_args(argv)
     cfg = ExperimentConfig.load(args.config) if args.config else ExperimentConfig()
     cfg = cfg.apply_overrides(args.overrides)

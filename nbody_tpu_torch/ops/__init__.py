@@ -2,9 +2,21 @@ from nbody_tpu_torch.ops.pairwise import (
     accelerations,
     chunked_potential_energy,
     cross_potential,
+    near_accelerations,
     pair_potential,
     partial_accelerations,
     potential_energy,
+)
+from nbody_tpu_torch.ops.treeforce import (
+    BHPartition,
+    BH2Partition,
+    BH3Partition,
+    bh_accelerations,
+    bh2_accelerations,
+    bh3_accelerations,
+    build_bh_partition,
+    build_bh2_partition,
+    build_bh3_partition,
 )
 from nbody_tpu_torch.ops.knn import knn_neighbors, batched_knn_neighbors
 from nbody_tpu_torch.ops.segment import masked_aggregate, masked_mean, masked_sum
@@ -17,9 +29,19 @@ __all__ = [
     "accelerations",
     "chunked_potential_energy",
     "cross_potential",
+    "near_accelerations",
     "pair_potential",
     "partial_accelerations",
     "potential_energy",
+    "BHPartition",
+    "BH2Partition",
+    "BH3Partition",
+    "bh_accelerations",
+    "bh2_accelerations",
+    "bh3_accelerations",
+    "build_bh_partition",
+    "build_bh2_partition",
+    "build_bh3_partition",
     "knn_neighbors",
     "batched_knn_neighbors",
     "masked_aggregate",

@@ -5,7 +5,9 @@ Two kernels, both hand-written CUDA C++ for Hopper in
 ``nbody_tpu_torch/csrc/pairwise.cu``:
 
 - B1, :func:`partial_accelerations`: the rectangular force of sources J on
-  targets I (replaces the Pallas ``_force_kernel``);
+  targets I (replaces the Pallas ``_force_kernel``), and its near-list form
+  :func:`near_accelerations`, the treecodes' exact near pass: each receiver
+  block against the source blocks of its list, read by id;
 - B2, :func:`pair_potential`: the pairwise potential of one set (strict upper
   triangle) or of two disjoint sets (replaces the Pallas ``_energy_kernel``).
 
@@ -38,6 +40,8 @@ _D2_FLOOR = 1e-18
 _DIST_FLOOR = 1e-30
 # target rows per block of the twins: O(rows * nj) memory, never (ni, nj, 3).
 _TWIN_ROWS = 2048
+# (target, source) pairs per step of the near-list twin
+_TWIN_PAIRS = 1 << 22
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -50,6 +54,9 @@ def _lib() -> ctypes.CDLL:
         i64 = ctypes.c_longlong
         lib.nbody_force.argtypes = [ptr, ptr, i32, i32, f32, f32, ptr, ptr]
         lib.nbody_force.restype = i32
+        lib.nbody_near_force.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, ptr, ptr]
+        lib.nbody_near_force.restype = i32
         lib.nbody_energy_num_partials.argtypes = [i32, i32]
         lib.nbody_energy_num_partials.restype = i64
         lib.nbody_energy.argtypes = [
@@ -119,6 +126,57 @@ def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
 
 
 partial_accelerations.launches = 0
+
+
+def near_accelerations_torch(q, pos, mass, near, src_block, g_const, softening):
+    """Plain-torch twin of B1's near-list form: per group, B1's twin
+    arithmetic over the gathered candidates, in list order."""
+    groups, rows, _ = q.shape
+    eps2 = float(softening) ** 2
+    bpos, bmass = pos.reshape(-1, src_block, 3), mass.reshape(-1, src_block)
+    step = max(1, _TWIN_PAIRS // max(rows * near.shape[1] * src_block, 1))
+    outs = []
+    for g0 in range(0, groups, step):
+        ids = near[g0:g0 + step].long()
+        d = bpos[ids].flatten(1, 2)[:, None, :, :] - q[g0:g0 + step, :, None, :]
+        d2 = (d * d).sum(-1) + eps2
+        inv = torch.rsqrt(torch.clamp(d2, min=_D2_FLOOR))
+        w = inv * inv * inv * bmass[ids].flatten(1, 2)[:, None, :]
+        outs.append(g_const * (w[..., None] * d).sum(2))
+    return torch.cat(outs) if outs else torch.zeros_like(q)
+
+
+def near_accelerations(q, pos, mass, near, src_block: int, g_const, softening):
+    """B1's near-list form: accelerations (G, R, 3) of the receiver groups
+    ``q`` (G, R, 3), group g pulled by the source blocks ``near[g, :]`` (G, L)
+    int32 of ``(pos (n_blocks * src_block, 3), mass (n_blocks * src_block,))``
+    (block j is rows j * src_block .. j * src_block + src_block - 1). What
+    ``jax.vmap(pallas_partial_accelerations)`` computes on the gathered
+    candidates, with B1's exact differences and 1e-18 floor; one launch for
+    all groups, reading candidates by id."""
+    if build.on_cpu(q, pos, mass, near):
+        return near_accelerations_torch(q, pos, mass, near, src_block, g_const, softening)
+    groups, rows = q.shape[0], q.shape[1]
+    n_blocks = pos.shape[0] // max(src_block, 1)
+    build.check("q", q, (groups, rows, 3))
+    build.check("pos", pos, (n_blocks * src_block, 3))
+    build.check("mass", mass, (n_blocks * src_block,))
+    build.check("near", near, (groups, near.shape[1]), torch.int32)
+    acc = torch.empty_like(q)
+    if groups * rows == 0:
+        return acc
+    src = _pack_sources(pos, mass)
+    with torch.cuda.device(q.device):
+        rc = _lib().nbody_near_force(
+            q.data_ptr(), src.data_ptr(), near.data_ptr(), groups, rows,
+            near.shape[1], int(src_block), n_blocks, float(g_const),
+            float(softening), acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    build.raise_on(rc, "nbody_near_force launch")
+    near_accelerations.launches += 1
+    return acc
+
+
+near_accelerations.launches = 0
 
 
 def accelerations(pos, mass, g_const, softening, mask=None):

@@ -1,6 +1,7 @@
-"""The port's hand-written CUDA kernels (B1 force, B2 energy, B3 ContConv
-collect, B4-B6 its backward, B7 Morton select, B8 Morton merge) against
-their plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
+"""The port's hand-written CUDA kernels (B1 force and its near-list form,
+B2 energy, B3 ContConv collect, B4-B6 its backward, B7 Morton select, B8
+Morton merge, B9 and B10 the treecodes' multipole pulls) against their
+plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
 CUDA device every test here skips. On the card (which has no JAX, hence no
 conftest):
 
@@ -9,7 +10,9 @@ conftest):
 Bars as on the CPU side: forces atol 2e-5 on max-scaled accelerations,
 potential energy relative 1e-5, the collect and each cotangent of its
 backward 2e-4 of its max (tests/test_models.py:161); B7 and B8 equal their
-twins exactly."""
+twins exactly; B9 and B10 1e-5 of max |plain|, B1's near-list form B1's
+2e-5; the treecode engines' kernel path against their dense path at the
+JAX tests' bar between its two near paths (rtol 2e-3, atol 5e-9 or 2e-8)."""
 
 import numpy as np
 import pytest
@@ -302,3 +305,116 @@ def test_contconv_layer_kernel_matches_dense_on_card(cuda):
                             generator=torch.Generator().manual_seed(2)).to(cuda)
     with pytest.raises(RuntimeError), torch.no_grad():  # D = 1: no kernel, no twin
         coarse(pos[None], feat, idx[None], valid[None])
+
+
+# ------------------------------------- B9, B10, B1's near-list form, treecodes
+
+from nbody_tpu_torch.ops import treeforce as tf  # noqa: E402
+
+
+def _table(k, n_pad, seed, dev):
+    """A (K, 10) block table of random moments, the last n_pad rows zero."""
+    gen = torch.Generator().manual_seed(seed)
+    com = torch.randn(k, 3, generator=gen)
+    msum = torch.rand(k, generator=gen) * 1e-3
+    d = torch.randn(k, 8, 3, generator=gen) * 0.1
+    outer = torch.einsum("kb,kba,kbc->kac", torch.rand(k, 8, generator=gen) * 1e-4, d, d)
+    quad = 3 * outer - outer.diagonal(dim1=1, dim2=2).sum(-1)[:, None, None] * torch.eye(3)
+    table = tf._blk_rows(com, msum, quad)
+    table[k - n_pad:] = 0.0
+    return table.to(dev)
+
+
+def _close_rel(got, want, bar):
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= bar * float(want.abs().max())
+
+
+@pytest.mark.parametrize("p,k,eps", [(1, 1, EPS), (100, 7, 0.0), (1000, 391, EPS),
+                                     (4097, 300, EPS)])
+def test_b9_matches_plain(cuda, p, k, eps):
+    table = _table(k, min(2, k - 1), p + k, cuda)
+    q = torch.randn(p, 3, generator=torch.Generator().manual_seed(p)).to(cuda)
+    q[0] = table[0, :3]  # on a COM: finite through the floor
+    before = tf.multipole_acc.launches
+    got = tf.multipole_acc(q, table, G, eps * eps)
+    assert tf.multipole_acc.launches == before + 1
+    _close_rel(got, tf.multipole_acc_torch(q, table, G, eps * eps), 1e-5)
+    assert torch.equal(got, tf.multipole_acc(q, table, G, eps * eps))
+
+
+@pytest.mark.parametrize("groups,p,s,k", [(1, 5, 3, 4), (13, 130, 40, 77), (7, 2048, 768, 900),
+                                          (31, 128, 80, 400)])
+def test_b10_matches_plain(cuda, groups, p, s, k):
+    table = _table(k, 3, groups + k, cuda)
+    gen = torch.Generator().manual_seed(groups)
+    q = torch.randn(groups, p, 3, generator=gen).to(cuda)
+    ids = torch.randint(0, k, (groups, s), generator=gen, dtype=torch.int32).to(cuda)
+    before = tf.grouped_multipole_acc.launches
+    got = tf.grouped_multipole_acc(q, table, ids, G, EPS ** 2)
+    assert tf.grouped_multipole_acc.launches == before + 1
+    _close_rel(got, tf.grouped_multipole_acc_torch(q, table, ids, G, EPS ** 2), 1e-5)
+    assert torch.equal(got, tf.grouped_multipole_acc(q, table, ids, G, EPS ** 2))
+
+
+@pytest.mark.parametrize("groups,rows,lst,bs", [(7, 256, 32, 256), (13, 128, 48, 32),
+                                                (5, 37, 3, 17), (1, 1, 1, 1)])
+def test_b1_near_list_matches_plain(cuda, groups, rows, lst, bs):
+    gen = torch.Generator().manual_seed(rows + bs)
+    n_blocks = lst + 5
+    pos, _, mass = _spiral(n_blocks * bs, bs, cuda)
+    q = pos[torch.randint(0, n_blocks * bs, (groups * rows,), generator=gen).to(cuda)]
+    q = q.reshape(groups, rows, 3).contiguous()  # receivers on sources: self pairs
+    near = torch.stack([torch.randperm(n_blocks, generator=gen)[:lst] for _ in range(groups)])
+    near = near.to(torch.int32).to(cuda)
+    before = pw.near_accelerations.launches
+    got = pw.near_accelerations(q, pos, mass, near, bs, G, EPS)
+    assert pw.near_accelerations.launches == before + 1
+    _close_rel(got, pw.near_accelerations_torch(q, pos, mass, near, bs, G, EPS), 2e-5)
+    assert torch.equal(got, pw.near_accelerations(q, pos, mass, near, bs, G, EPS))
+
+
+def test_treecode_wrappers_reject(cuda):
+    table = _table(10, 1, 0, cuda)
+    q = torch.randn(4, 3, device=cuda)
+    ids = torch.zeros(2, 5, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        tf.multipole_acc(q.double(), table.double(), G, 0.0)
+    with pytest.raises(ValueError):
+        tf.multipole_acc(q, table[:, :9].contiguous(), G, 0.0)
+    with pytest.raises(ValueError):
+        tf.multipole_acc(q, table.cpu(), G, 0.0)
+    with pytest.raises(TypeError):
+        tf.grouped_multipole_acc(q.reshape(2, 2, 3), table, ids.long(), G, 0.0)
+    with pytest.raises(ValueError):
+        tf.grouped_multipole_acc(q.reshape(1, 4, 3), table, ids, G, 0.0)
+    with pytest.raises(ValueError):  # 10 source rows are no whole blocks of 3
+        pw.near_accelerations(q.reshape(2, 2, 3), torch.zeros(10, 3, device=cuda),
+                              torch.zeros(10, device=cuda), ids, 3, G, EPS)
+    # list * src_block past int32: refused by the launch, never run as the twin
+    wide = torch.zeros(1, 1 << 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError):
+        pw.near_accelerations(q.reshape(1, 4, 3), torch.zeros(0, 3, device=cuda),
+                              torch.zeros(0, device=cuda), wide, 1 << 16, G, EPS)
+
+
+@pytest.mark.parametrize("engine", ["bh", "bh2", "bh3"])
+def test_treecode_kernel_path_matches_dense_on_card(cuda, engine):
+    pos, _, mass = _spiral(6000, 40, cuda)
+    knobs = {"bh": dict(n_near=16, block=128),
+             "bh2": dict(n_near=16, block=128, coarse=4, rc=6),
+             "bh3": dict(n_near=16, block=128, coarse=4, rc=6, sub_block=32, n_sub=24)}[engine]
+    build = {"bh": tf.build_bh_partition, "bh2": tf.build_bh2_partition,
+             "bh3": tf.build_bh3_partition}[engine]
+    fn = {"bh": tf.bh_accelerations, "bh2": tf.bh2_accelerations,
+          "bh3": tf.bh3_accelerations}[engine]
+    part = build(pos, mass, **knobs)
+    wrappers = (tf.multipole_acc, tf.grouped_multipole_acc, pw.near_accelerations)
+    before = [w.launches for w in wrappers]
+    got = fn(pos, mass, G, EPS, partition=part)  # "auto": the kernels on the card
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    assert launched == {"bh": [1, 1, 1], "bh2": [1, 3, 1], "bh3": [1, 4, 1]}[engine]
+    want = fn(pos, mass, G, EPS, partition=part, near_impl="dense")
+    atol = 2e-8 if engine == "bh3" else 5e-9
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=atol)
+    assert torch.equal(got, fn(pos, mass, G, EPS, partition=part))

@@ -119,8 +119,11 @@ def test_backend_dispatch():
     acc = make_acc_fn(mass, SimulationConfig(force_backend="kernel", g_const=1.0))(
         torch.eye(3))
     assert acc.shape == (3, 3)
-    with pytest.raises(NotImplementedError):
-        SimulationConfig(force_backend="bh")
+    bh = SimulationConfig(force_backend="bh")  # the treecodes, JAX's defaults
+    assert (bh.bh_near, bh.bh_block, bh.bh_refresh, bh.bh_coarse, bh.bh_rc,
+            bh.bh_sub_block, bh.bh_n_sub) == (32, 256, 1, 16, 32, 32, 24)
+    with pytest.raises(ValueError):  # a treecode takes no mask
+        make_acc_fn(mass, bh, mask=torch.ones(3, dtype=torch.bool))
     with pytest.raises(ValueError):
         SimulationConfig(force_backend="pallas")
     with pytest.raises(ValueError):
