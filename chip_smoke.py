@@ -52,7 +52,26 @@ the port's main path once:
    ``main``: bh at 100,000 bodies for 200 steps with the exact energy audit
    (B2), and bh3 at 1,000,000 bodies for 16 steps in chunks of 8 with the
    sampled force audit; (d) ``treeforce_bench`` at 100,000 bodies for each
-   engine.
+   engine;
+10. the large-N entry points: (a) B11, the windowed EdgeConv message sum,
+    against its plain version at a small odd shape and at 1,000,192 rows
+    (k = 8, d = 64, tile 256, half 384), float32 and bfloat16 gather, each
+    twice for the same bits; (b) the crossover path's own data at 1M: spiral
+    bodies in Morton order, their Morton graph (B7, B8) with the select and
+    the merge behind it against their plain versions at that size, its
+    recall against the exact search and B1 against its plain version on
+    4096 receivers over all 1M sources; ``u'`` and ``v`` of
+    the first EdgeConv of the 1M model with the committed trained weights,
+    ``edge_message_sum`` (B11 + fallback list) against the fused layer's
+    masked tanh sum, with the in-window share, the overflow (0) and the
+    times of the torch gather, of B11 alone and of B11 + fallback; (c) the
+    fused against the unfused ``GraphModel`` forward at 100,000 bodies, with
+    each one's peak memory; (d) ``nbody_tpu_torch.experiments.crossover``
+    through its ``main``: every mode at 100k, direct, bh3 and the surrogate
+    at 1M with the trained weights; (e) ``train_large`` through its ``main``:
+    the GNN at 1M with ``--remat`` (2 epochs, a resumed third, an eval-only
+    rerun from the saved weights) and the full-width ContConv at 100k with 4
+    node chunks beside the unchunked layer; (f) ``knn_recall`` at 100k.
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
@@ -60,7 +79,12 @@ JSON object with one entry per kernel (launches counted over the path that
 runs it, its counters set to 0 just before the path and read just after:
 phases 2-4 for B1 and B2, phase 6 for B3, B7 and B8, phase 8 for B4 and B5,
 the phase-7 position gradient for B6, phase 9c for B9, B10 and B1's near
-list; errors and times from phases 1, 5, 7 and 9a; ``bound_ms``, the least
+list, phase 10b for B11, which stands beside the model as in the JAX
+package, so that the entry points of 10d and 10e leave it at 0: each of
+their ``main`` calls starts with the counters at 0 and is held, right after
+it returns and before any profiling helper runs, to the kernels it must
+launch, B1, B3-B5, B7-B10 and the near list between them; errors and times
+from phases 1, 5, 7, 9a and 10a; ``bound_ms``, the least
 time of the same work on the card, from the operations and bytes of those
 inputs, see :func:`bound`), the card's ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -85,7 +109,7 @@ B2_TOL = 1e-5      # relative PE error (tests/test_forces.py:114-130)
 DRIFT_500 = 1e-4   # 500-body leapfrog energy drift over 1000 steps
 DRIFT_20K = 1e-3   # 20k-body drift over 200 steps (treecode tests' bar)
 RECIPE_N = [3, 25, 50, 100, 250, 500]
-SOURCES = ("pairwise", "spatial", "contconv", "treeforce")
+SOURCES = ("pairwise", "spatial", "contconv", "treeforce", "edgeconv")
 RECIPE_STEPS = 1000
 BIG_N, BIG_STEPS, SURR_STEPS = 20_000, 200, 50
 LARGE_N, LARGE_STEPS = 100_000, 20
@@ -113,6 +137,16 @@ NEAR_ATOL = {"bh": 5e-9, "bh2": 5e-9, "bh3": 2e-8}  # kernel vs dense path, rtol
 SEAM_SHARE = 1e-4  # this share of elements (see phase9_engines)
 BH_DRIFT = 1e-3    # 100k bh rollout energy drift (tests/test_treeforce.py:120-121)
 BH3_MEDIAN = 5e-2  # 1M bh3 sampled median relative force error
+B11_TOL = 2e-6     # rtol = atol of B11 against its plain version
+# (attic/test_edgeconv_kernel.py:44)
+TANH_FLOPS = 20.0  # taken for one float32 tanhf (an exp, a division, a few fmas)
+WINDOW = dict(tile=256, half=384)  # the JAX module's defaults
+PARAMS_1M = os.path.join(HERE, "results", "large_scale", "train_1m_params.pt")
+# the crossover / train_1m GNN (results/large_scale/train_1m.json)
+GNN_1M = dict(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean", neighbors=8,
+              scale_factor=1e6, knn_method="morton", knn_impl="kernel")
+CHUNKS = 4         # node chunks of the 100k ContConv training run
+SAMPLE_1M = 4096   # receivers of the 1M path's exact-search and direct-sum checks
 # published peaks of one H100 SXM (NVIDIA's data sheet): FP32
 # outside the tensor cores and HBM bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -168,6 +202,45 @@ def rel_drift(u, k) -> float:
 
     e = np.asarray(u, np.float64) + np.asarray(k, np.float64)
     return float(np.abs(e - e[0]).max() / abs(e[0]))
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by its short name; each counts its
+    launches in ``.launches``."""
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.ops import edgeconv_kernel as ek
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import spatial as sp
+    from nbody_tpu_torch.ops import treeforce as tf
+
+    return {"b1": pw.partial_accelerations, "b2": pw.pair_potential,
+            "b3": cck.contconv_collect, "b4": cck.contconv_bwd_filters,
+            "b5": cck.contconv_bwd_feat, "b6": cck.contconv_bwd_geom,
+            "b7": sp.morton_select, "b8": sp.morton_merge,
+            "b9": tf.multipole_acc, "b10": tf.grouped_multipole_acc,
+            "b1n": pw.near_accelerations, "b11": ek.windowed_tanh_sum}
+
+
+def zero_counts() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def entry_point_counts(label: str, need) -> dict:
+    """The launch counts of one entry point's ``main``, read right after it
+    (they were set to 0 just before): every kernel of ``need`` must have
+    launched there, and B6 and B11, which no entry point of 10d and 10e
+    reaches, must not."""
+    ran = read_counts()
+    log(f"[10] launches in {label}: {ran}")
+    if min(ran[k] for k in need) == 0 or ran["b6"] or ran["b11"]:
+        raise AssertionError(f"{label}: launches {ran}; {need} must be above 0, B6 and B11 "
+                             f"at 0 (B11 stands beside the model)")
+    return ran
 
 
 def phase0_device():
@@ -393,24 +466,13 @@ def phase4_surrogate(data_dir: str, traj):
     return 1e3 * sec / SURR_STEPS
 
 
-def _recall(got, want) -> float:
-    import torch
-
-    (gi, gv), (wi, wv) = got, want
-    n = gi.shape[0]
-    big = n + 1  # never an id: marks invalid slots
-    a = torch.where(gv, gi.long(), big)
-    b = torch.where(wv, wi.long(), -1)
-    hits = (a[:, :, None] == b[:, None, :]).any(1).sum()
-    return float(hits) / max(float(wv.sum()), 1.0)
-
-
 def phase5_large_n_kernels():
     """B7, B8 and B3 against their twins on the card; the full-width
     ContConv model on the card against the CPU. Returns the numbers of the
     kernels line: B7/B8 at 100k bodies, k = 32, B3 at 100k, D = 6."""
     import torch
 
+    from nbody_tpu_torch.experiments.knn_recall import recall_of
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.models import ContinuousConvModel
     from nbody_tpu_torch.models.contconv import conv_geometry
@@ -455,7 +517,7 @@ def phase5_large_n_kernels():
                 got = sp.knn_morton(pos, k, include_self=inc, impl="kernel")
                 cpu = sp.knn_morton(pos.cpu(), k, include_self=inc, impl="kernel")
                 same = all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
-                rec = _recall(got, knn_neighbors(pos, k, include_self=inc))
+                rec = recall_of(*got, *knn_neighbors(pos, k, include_self=inc))
                 log(f"[5] knn_morton(kernel) N={n} k={k}: card == CPU twins {same}, "
                     f"recall vs exact {rec:.5f} (bar {RECALL})")
                 if not (same and rec >= RECALL):
@@ -1079,31 +1141,470 @@ def phase9_bench():
             f"{row['partition_ms']:.4f}; rel err median {row['rel_err_median']:.4e}, p99 "
             f"{row['rel_err_p99']:.4e}")
 
+def _b11_case(label, u, vpad, idx, mask, dtype, tile, half, time_it):
+    """B11 against its plain version on one input, twice for the same bits;
+    returns (max abs err, ms, plain ms, bound)."""
+    import torch
+
+    from nbody_tpu_torch.ops import edgeconv_kernel as ek
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    kw = dict(tile=tile, half=half, gather_dtype=dtype)
+    got, again = (ek.windowed_tanh_sum(u, vpad, idx, mask, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    want = ek.windowed_tanh_sum_torch(u, vpad, idx, mask, **kw)
+    same = torch.equal(got, again)
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= B11_TOL + B11_TOL * want.abs()).all())
+    n, d = u.shape
+    edges = float((mask & ek._window_rows(idx, tile, half)).sum())
+    # per executed edge and channel an add and a tanhf; u, vpad, idx, mask
+    # read once, out written once
+    bnd = bound((1.0 + TANH_FLOPS) * edges * d,
+                4.0 * (2 * n * d + vpad.numel() + idx.numel()) + mask.numel())
+    ms = plain_ms = float("nan")
+    if time_it:
+        ms = cuda_time_ms(lambda: ek.windowed_tanh_sum(u, vpad, idx, mask, **kw), reps=10,
+                          warmup=1)
+        plain_ms = cuda_time_ms(lambda: ek.windowed_tanh_sum_torch(u, vpad, idx, mask, **kw),
+                                reps=3, warmup=1)
+    log(f"[10a] B11 windowed_tanh_sum {label}: max|d| {err:.3e}, within rtol = atol = "
+        f"{B11_TOL} {ok}, same bits twice {same}; {edges:.0f} edges in the window; kernel "
+        f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+    if not (ok and same and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"B11 disagrees with its plain version ({label})")
+    return err, ms, plain_ms, bnd
+
+
+def phase10_kernel():
+    """B11 against its plain version; returns the kernels line's numbers
+    (1M rows, k = 8, d = 64, float32 gather)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(23)
+
+    def case(n, k, d, spread, tile, half):
+        u = torch.randn(n, d, generator=gen).to(dev)
+        vpad = torch.nn.functional.pad(torch.randn(n, d, generator=gen), (0, 0, half, half))
+        off = torch.randint(-spread, spread + 1, (n, k), generator=gen)
+        idx = (torch.arange(n)[:, None] + off).clamp(0, n - 1).to(torch.int32)
+        mask = torch.rand(n, k, generator=gen) < 0.9
+        return u, vpad.to(dev), idx.to(dev), mask.to(dev)
+
+    small = case(3 * 37, 3, 12, 30, 37, 5)  # odd tile, half and width; edges past the window
+    out = None
+    for dtype in (torch.float32, torch.bfloat16):
+        _b11_case(f"N=111 k=3 d=12 tile=37 half=5 {dtype}", *small, dtype, 37, 5, False)
+    n = -(-TREE_1M // WINDOW["tile"]) * WINDOW["tile"]  # 1M rows padded to whole tiles
+    big = case(n, 8, 64, 500, **WINDOW)
+    for dtype in (torch.float32, torch.bfloat16):
+        nums = _b11_case(f"N={n} k=8 d=64 tile=256 half=384 {dtype}", *big, dtype,
+                         WINDOW["tile"], WINDOW["half"], True)
+        out = out or nums
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hold_1m_kernels(pos, mass, idx, valid):
+    """B7, B8 and B1 against their plain versions at the shapes the 1M entry
+    points give them: the select and the merge behind the k = 8 graph of
+    ``pos`` (which must be the graph ``idx``, ``valid`` that the path built),
+    its recall against the exact search on ``SAMPLE_1M`` receivers, and the
+    direct sum of those receivers over all sources."""
+    import torch
+
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import spatial as sp
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    n, k = idx.shape
+    block = 256  # build_graph's default
+    order = sp._curve_order(pos, None, 4)
+    cand, qg = sp._candidates(pos, order, block)
+    ids, d2 = sp.morton_select(cand, k, block, False)
+    ids_t, d2_t = sp.morton_select_torch(cand, k, block, False)
+    ok7 = torch.equal(ids, ids_t) and torch.allclose(d2, d2_t, rtol=1e-6, atol=0)
+    ms7 = cuda_time_ms(lambda: sp.morton_select(cand, k, block, False), reps=5, warmup=1)
+    ms7t = cuda_time_ms(lambda: sp.morton_select_torch(cand, k, block, False), reps=1,
+                        warmup=0)
+    mc, md = sp._to_rows(qg, ids, d2, n)
+    m_ids, m_d2 = sp.morton_merge(mc, md, k)
+    t_ids, t_d2 = sp.morton_merge_torch(mc, md, k)
+    ok8 = torch.equal(m_ids, t_ids) and torch.allclose(m_d2, t_d2, rtol=1e-6, atol=0)
+    ms8 = cuda_time_ms(lambda: sp.morton_merge(mc, md, k), reps=5, warmup=1)
+    ms8t = cuda_time_ms(lambda: sp.morton_merge_torch(mc, md, k), reps=1, warmup=0)
+    # the path's graph is what these two launches give
+    found = m_d2 < sp._BAD_D2
+    same = torch.equal(valid, found) and torch.equal(
+        idx, torch.where(found, m_ids, 0).clamp(0, n - 1).to(torch.int32))
+    log(f"[10b] B7 select N={n} k={k}: ids identical {ok7}, max|dd2| "
+        f"{float((d2 - d2_t).abs().max()):.3e}; kernel {ms7:.4f} ms  plain {ms7t:.4f} ms")
+    log(f"[10b] B8 merge  N={n} k={k}: ids identical {ok8}, max|dd2| "
+        f"{float((m_d2 - t_d2).abs().max()):.3e}; kernel {ms8:.4f} ms  plain {ms8t:.4f} ms; "
+        f"the path's graph equals these launches' {same}")
+    del cand, ids, d2, ids_t, d2_t, mc, md, t_ids, t_d2
+
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(42))[:SAMPLE_1M]
+    rows = rows.to(pos.device)
+    hits = 0
+    for r in rows.split(128):  # exact differences, (128, N) at a time
+        qr = pos[r]
+        dd = sum((pos[None, :, a] - qr[:, a, None]) ** 2 for a in range(3))
+        dd[torch.arange(r.shape[0], device=r.device), r] = float("inf")
+        exact = torch.topk(dd, k, dim=1, largest=False).indices
+        got = torch.where(valid[r], idx[r].long(), -1)
+        hits += int((got[:, :, None] == exact[:, None, :]).any(1).sum())
+    recall = hits / (rows.shape[0] * k)
+
+    q = pos[rows].contiguous()
+
+    def plain(dtype):  # the plain version, 128 receivers at a time
+        p, m = pos.to(dtype), mass.to(dtype)
+        return torch.cat([pw.partial_accelerations_torch(p[r], p, m, G, EPS)
+                          for r in rows.split(128)])
+
+    # B1_TOL is the bar at BIG_N sources; a lane's float32 sum runs over its
+    # sources in order, so its rounding grows as the root of their number
+    bar1 = B1_TOL * math.sqrt(n / BIG_N)
+    acc = pw.partial_accelerations(q, pos, mass, G, EPS)
+    acc_t, acc_d = plain(torch.float32), plain(torch.float64)
+    top = float(acc_d.abs().max())
+    rel1, rel1_d, relt_d = (float((a - b).abs().max()) / top for a, b in
+                            ((acc, acc_t), (acc, acc_d), (acc_t, acc_d)))
+    ms1 = cuda_time_ms(lambda: pw.partial_accelerations(q, pos, mass, G, EPS), reps=5,
+                       warmup=1)
+    log(f"[10b] knn_morton(kernel) N={n} k={k}: recall vs exact on {rows.shape[0]} receivers "
+        f"{recall:.5f} (bar {RECALL})")
+    log(f"[10b] B1 force {q.shape[0]} x {n}: max|da|/max|a| against the plain version "
+        f"{rel1:.3e}, against its float64 run {rel1_d:.3e} (bar {bar1:.3e} each; the plain "
+        f"version against float64 {relt_d:.3e}); kernel {ms1:.4f} ms")
+    if not (ok7 and ok8 and same and recall >= RECALL and max(rel1, rel1_d) <= bar1):
+        raise AssertionError(f"a kernel of the 1M path disagrees with its plain version at "
+                             f"N={n}: B7 {ok7}, B8 {ok8}, graph {same}, recall {recall}, "
+                             f"B1 {rel1}")
+
+
+def phase10_path_data() -> int:
+    """``edge_message_sum`` on the crossover path's own data at 1M bodies;
+    returns B11's launches."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.models import GraphModel
+    from nbody_tpu_torch.models.common import select_input_features
+    from nbody_tpu_torch.ops import edgeconv_kernel as ek
+    from nbody_tpu_torch.ops.spatial import morton_keys
+    from nbody_tpu_torch.train.graphs import build_graph
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    n = TREE_1M
+    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), n, device=dev)
+    order = torch.sort(morton_keys(pos), stable=True).indices
+    pos, vel, mass = pos[order], vel[order], mass[order]
+    model = GraphModel(**GNN_1M, fused_edgeconv=True)
+    model.load_state_dict(torch.load(PARAMS_1M, map_location="cpu", weights_only=True))
+    model.to(dev).eval()
+    with torch.no_grad():
+        idx, valid = build_graph(model.graph_spec, pos[None])
+        h = select_input_features(torch.cat([pos, vel, mass[:, None]], -1)[None], 4)
+        u, v = (t[0].contiguous() for t in model.convs[0].split_terms(h))
+    idx, valid = idx[0].contiguous(), valid[0].contiguous()
+    _hold_1m_kernels(pos, mass, idx, valid)
+
+    def gather_sum():  # the fused layer's own k-sized step
+        t = torch.tanh(u[:, None, :] + v[idx.long()])
+        return torch.where(valid[:, :, None], t, 0.0).sum(dim=1)
+
+    want = gather_sum()
+    plan = ek.plan_windowed_gather(idx, valid, **WINDOW)
+    torch.cuda.synchronize()
+    share = float(plan.in_mask.sum()) / float(valid.sum())
+    overflow, fallback = int(plan.overflow), int(plan.fb_valid.sum())
+    ek.windowed_tanh_sum.launches = 0
+    got = ek.edge_message_sum(u, v, idx, plan, **WINDOW)
+    again = ek.edge_message_sum(u, v, idx, plan, **WINDOW)
+    torch.cuda.synchronize()
+    launches = ek.windowed_tanh_sum.launches
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    same = torch.equal(got, again)
+    # B11 alone: the rows padded to the plan's whole tiles, as edge_message_sum pads them
+    half, extra = WINDOW["half"], plan.in_mask.shape[0] - n
+    up, idxp = (torch.nn.functional.pad(t, (0, 0, 0, extra)) for t in (u, idx))
+    vpad = torch.nn.functional.pad(v, (0, 0, half, half + extra))
+    ms_plan = cuda_time_ms(lambda: ek.plan_windowed_gather(idx, valid, **WINDOW), reps=3,
+                           warmup=1)
+    ms_gather = cuda_time_ms(gather_sum, reps=5, warmup=1)
+    ms_b11 = cuda_time_ms(lambda: ek.windowed_tanh_sum(up, vpad, idxp, plan.in_mask, **WINDOW),
+                          reps=10, warmup=1)
+    ms_all = cuda_time_ms(lambda: ek.edge_message_sum(u, v, idx, plan, **WINDOW), reps=5,
+                          warmup=1)
+    log(f"[10b] EdgeConv_0 of the 1M model on Morton-sorted spiral bodies, N={n} k=8 d=64: "
+        f"in-window share {share:.4f} of {int(valid.sum())} valid edges, fallback list "
+        f"{fallback} of {plan.fb_valid.numel()} slots, overflow {overflow}; "
+        f"edge_message_sum vs the layer's masked tanh sum max|d|/max {rel:.3e} (bar 1e-5), "
+        f"same bits twice {same}; B11 launches {launches}")
+    log(f"[10b] ms per message sum: torch gather + tanh + sum {ms_gather:.4f}, B11 alone "
+        f"{ms_b11:.4f}, B11 + fallback {ms_all:.4f}; the plan (once per graph build) "
+        f"{ms_plan:.4f}")
+    if not (overflow == 0 and fallback > 0 and rel <= 1e-5 and same and launches == 2):
+        raise AssertionError("edge_message_sum disagrees with the fused layer's sum, "
+                             "dropped edges, or never launched B11")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase10_fused_forward():
+    """Fused against unfused ``GraphModel`` forward at 100k, same graph."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.models import GraphModel
+    from nbody_tpu_torch.train.graphs import build_graph
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), LARGE_N, device=dev)
+    x = torch.cat([pos, vel, mass[:, None]], -1)[None]
+    outs, peaks, times = [], [], []
+    idx = valid = None
+    for fused in (False, True):
+        model = GraphModel(**GNN_1M, fused_edgeconv=fused)
+        model.load_state_dict(torch.load(PARAMS_1M, map_location="cpu", weights_only=True))
+        model.to(dev).eval()
+        with torch.no_grad():
+            if idx is None:
+                idx, valid = build_graph(model.graph_spec, pos[None])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs.append(model(x, idx, valid))
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+            times.append(cuda_time_ms(lambda: model(x, idx, valid), reps=10, warmup=1))
+    ref = outs[0]
+    scale = float(ref.abs().max())
+    d_max = float((outs[1] - ref).abs().max())
+    log(f"[10c] GraphModel forward N={LARGE_N} k=8, fused vs unfused on one graph: max|da| "
+        f"{d_max:.3e}, max|a| {scale:.3e}; unfused {times[0]:.4f} ms, peak {peaks[0]:.1f} MiB "
+        f"above the inputs; fused {times[1]:.4f} ms, peak {peaks[1]:.1f} MiB")
+    if not torch.allclose(outs[1], ref, rtol=MODEL_RTOL, atol=MODEL_ATOL * scale):
+        raise AssertionError("the fused EdgeConv forward disagrees with the unfused one")
+
+
+def phase10_crossover(tmp: str) -> dict:
+    """``crossover`` through its ``main``; returns the launches of those two
+    calls alone (the profiled rollout after them builds its own model)."""
+    from nbody_tpu_torch.experiments import crossover
+
+    common = ["--neighbors", "8", "--graph-refresh", "1", "8", "--steps", "10",
+              "--load-params", PARAMS_1M, "--device", "cuda"]
+    out = os.path.join(tmp, "crossover.json")
+    zero_counts()
+    rows = crossover.main(["--n-bodies", str(LARGE_N), "--bh", "--bh2", "--bh3", "--out", out,
+                           *common])
+    rows += crossover.main(["--n-bodies", str(TREE_1M), "--only", "direct", "bh3", "surrogate",
+                            "--n-sub", str(BH3_1M["n_sub"]), "--out", out, *common])
+    ran = entry_point_counts("crossover at 100k and 1M", ("b1", "b7", "b8", "b9", "b10", "b1n"))
+    with open(out) as f:
+        art = json.load(f)
+    if (len(rows) != 6 + 4 or len(art["rows"]) != len(rows) or art["device"] != "gpu"
+            or art["steps"] != 10):
+        raise AssertionError(f"crossover: {len(rows)} rows, artifact {art}")
+    for r in rows:
+        if not (set(r) >= {"n", "mode", "ms_per_step", "psteps_per_s"}
+                and math.isfinite(r["ms_per_step"]) and r["psteps_per_s"] > 0
+                and (("params" in r) == r["mode"].startswith("surrogate"))):
+            raise AssertionError(f"crossover row {r}")
+        log(f"[10d] crossover N={r['n']} {r['mode']}: {r['ms_per_step']:.4f} ms/step")
+    _profile_1m_rollout()
+    return ran
+
+
+def _profile_1m_rollout(steps: int = 10, refresh: int = 8):
+    """Wall and device time of one more 1M surrogate rollout as crossover
+    runs it (trained weights, fused EdgeConv, Morton kernels)."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.models import GraphModel
+    from nbody_tpu_torch.train import autoregressive_rollout
+    from nbody_tpu_torch.utils.timing import device_time, profile_ms
+
+    dev = torch.device("cuda")
+    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), TREE_1M, device=dev)
+    model = GraphModel(**GNN_1M, fused_edgeconv=True)
+    model.load_state_dict(torch.load(PARAMS_1M, map_location="cpu", weights_only=True))
+    model.to(dev).eval()
+
+    def run():
+        autoregressive_rollout(model, pos, vel, mass, steps + 1, DT, graph_refresh=refresh)
+
+    run()
+    _, wall = device_time(run, dev)
+    busy_ms, top = profile_ms(run, dev)
+    log(f"[10d] 1M surrogate rollout (refresh {refresh}), one more {steps}-step run: "
+        f"{1e3 * wall / steps:.4f} ms/step wall, {busy_ms / steps:.4f} ms/step device, idle "
+        f"share {1.0 - busy_ms / 1e3 / wall:.4f}, top device rows (ms/step) "
+        f"{_rows([(n, t / steps) for n, t in top])}")
+
+
+def _train_large(argv, label, steps_per_epoch, need):
+    """One ``train_large.main`` call with the launch counts at 0 before it;
+    logs ms per optimiser step of its last epoch and the call's peak memory,
+    returns the result and the call's launches (``need`` above 0)."""
+    import torch
+
+    from nbody_tpu_torch.experiments import train_large
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train_large.main([*argv, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    ran = entry_point_counts(f"train_large {label}", need)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"stepwise_scaled_rmse", "predict_zero_baseline_scaled_rmse", "rollout_horizon",
+            "rollout_seconds", "rollout_pos_rmse", "final_acc_median_rel_err_vs_exact",
+            "final_acc_rmse_vs_exact", "final_acc_rel_rmse_vs_exact"}
+    ev = res["eval"]
+    if not (set(res) >= {"n_bodies", "model", "device", "dataset", "training", "eval"}
+            and set(ev) >= want and res["device"] == "gpu" and ev["rollout_pos_rmse"]
+            and all(math.isfinite(ev[k]) for k in want - {"rollout_pos_rmse"})
+            and all(math.isfinite(r["pos_rmse"]) for r in ev["rollout_pos_rmse"])):
+        raise AssertionError(f"train_large {label}: result {res}")
+    per_epoch = res["training"]["seconds_per_epoch"]
+    step_ms = 1e3 * per_epoch[-1] / steps_per_epoch if per_epoch else float("nan")
+    log(f"[10e] train_large {label}: {wall:.2f} s wall, datagen "
+        f"{res['dataset']['datagen_seconds']} s, last epoch {step_ms:.4f} ms per optimiser "
+        f"step, losses first {res['training']['first_scaled_rmse']} final "
+        f"{res['training']['final_scaled_rmse']}; stepwise {ev['stepwise_scaled_rmse']:.6g} "
+        f"(zero baseline {ev['predict_zero_baseline_scaled_rmse']:.6g}), final acc rel RMSE "
+        f"vs exact {ev['final_acc_rel_rmse_vs_exact']:.4g}; peak memory {peak:.3f} GiB")
+    return res, ran
+
+
+def _large_step_numbers(argv, data_dir, label, steps):
+    """A warm and a profiled epoch of ``train_large``'s own model and trainer on
+    its dataset: ms per optimiser step, idle share, top rows and
+    the peak memory of those epochs."""
+    import torch
+
+    from nbody_tpu_torch.experiments import train_large
+    from nbody_tpu_torch.train import PlateauScheduler, Trainer
+
+    dev = torch.device("cuda")
+    args = train_large.build_parser().parse_args(argv)
+    trainer = Trainer(train_large.build_model(args, dev).to(dev), learning_rate=args.lr, dt=DT,
+                      scheduler=PlateauScheduler(lr=args.lr, factor=0.25, patience=5))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms, idle, top = _epoch_numbers(trainer, data_dir, args.batch_size, steps,
+                                   batch_mode="bucketed")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[10e] train step {label}: {ms:.4f} ms per optimiser step, idle share {idle:.4f}, "
+        f"peak memory {peak:.3f} GiB, top device rows {_rows(top)}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase10_train_large(tmp: str) -> dict:
+    """``train_large`` through its ``main``: the 1M GNN with remat, resume
+    and an eval-only rerun; the 100k ContConv chunked and unchunked. Returns
+    the launches of those ``main`` calls alone (the step profiles between
+    them build their own trainer)."""
+    import pandas as pd
+
+    graph = ("b1", "b7", "b8")  # the exact-force check and every Morton graph build
+    datagen = ("b9", "b1n")     # the bh ground truth
+    total = dict.fromkeys(kernel_wrappers(), 0)
+
+    def run(argv, label, need):
+        res, ran = _train_large(argv, label, snaps, need)
+        for name, c in ran.items():
+            total[name] += c
+        return res, ran
+
+    data = os.path.join(tmp, "data")
+    out = os.path.join(tmp, "train_1m.json")
+    snaps = 2  # steps 0 and 4 of an 8-step scene
+    gnn = ["--n-bodies", str(TREE_1M), "--neighbors", "8", "--remat", "--batch-size", "1",
+           "--graph-refresh", "8", "--train-scenes", "1", "--steps", "8", "--stride", "4",
+           "--save-every", "1", "--data-dir", data, "--out", out]
+    first, _ = run([*gnn, "--epochs", "2"], "GNN N=1M k=8 remat, 2 epochs", graph + datagen)
+    again, _ = run([*gnn, "--epochs", "1", "--skip-datagen"], "GNN N=1M resumed, 1 more epoch",
+                   graph)
+    loss = pd.read_csv(out[:-5] + "_epoch_loss.csv")
+    ckpts = sorted(os.listdir(out[:-5] + "_ckpt"))
+    if (list(loss["epoch"]) != [1, 2, 3] or ckpts != ["ckpt_1.pt", "ckpt_2.pt", "ckpt_3.pt"]
+            or not all(math.isfinite(v) for v in loss["loss"])
+            or len(first["training"]["seconds_per_epoch"]) != 2
+            or len(again["training"]["seconds_per_epoch"]) != 1):
+        raise AssertionError(f"1M resume: epochs {list(loss['epoch'])}, checkpoints {ckpts}")
+    ev, _ = run([*gnn, "--skip-datagen", "--load-params", out[:-5] + "_params.pt"],
+                "GNN N=1M eval only from the saved weights", graph)
+    if (ev["eval"].get("params_loaded_from") != out[:-5] + "_params.pt"
+            or ev["training"] != again["training"]
+            or not math.isclose(ev["eval"]["stepwise_scaled_rmse"],
+                                again["eval"]["stepwise_scaled_rmse"], rel_tol=1e-6)):
+        raise AssertionError("the eval-only rerun does not repeat the resumed run's eval")
+    _large_step_numbers(gnn, os.path.join(data + "1000k", "train"),
+                        "GNN N=1M k=8 fused, remat, batch 1", snaps)
+
+    conv = ["--model", "contconv", "--n-bodies", str(LARGE_N), "--batch-size", "1",
+            "--train-scenes", "1", "--steps", "8", "--stride", "4", "--epochs", "2",
+            "--data-dir", data]
+    layers, epochs = 2, 2
+    for chunks, extra, need in ((CHUNKS, [], datagen), (1, ["--skip-datagen"], ())):
+        res, ran = run([*conv, *extra, "--conv-node-chunks", str(chunks), "--out",
+                        os.path.join(tmp, f"train_100k_c{chunks}.json")],
+                       f"ContConv N=100k, {chunks} node chunk(s)",
+                       graph + ("b3", "b4", "b5") + need)
+        counts = [ran[name] for name in ("b3", "b4", "b5", "b6")]
+        train = chunks * layers * snaps * epochs
+        # each chunk's forward runs again in the backward when it is
+        # checkpointed; the eval's forwards: 2 stepwise, horizon + 1 rollout
+        fwd = (2 if chunks > 1 else 1) * train + \
+            (snaps + res["eval"]["rollout_horizon"] + 1) * layers * chunks
+        log(f"[10e] ContConv N=100k, {chunks} chunk(s): launches B3 {counts[0]} (expected "
+            f"{fwd}), B4 {counts[1]}, B5 {counts[2]} (expected {train} each), B6 {counts[3]}")
+        if counts != [fwd, train, train, 0]:
+            raise AssertionError(f"ContConv launches {counts} with {chunks} chunk(s)")
+        _large_step_numbers([*conv, "--conv-node-chunks", str(chunks)],
+                            os.path.join(data + "100k", "train"),
+                            f"ContConv N=100k, batch 1, {chunks} node chunk(s)", snaps)
+    return total
+
+
+def phase10_knn_recall():
+    from nbody_tpu_torch.experiments import knn_recall
+
+    rows = knn_recall.main(["--n-bodies", str(LARGE_N), "--windows", "64", "--kernel-blocks",
+                            "256", "--device", "cuda"])
+    for r in rows:
+        log(f"[10f] knn_recall {r['profile']} N={r['n']} k={r['k']} {r['method']}: "
+            f"{1e3 * r['seconds']:.4f} ms, recall {r['recall']:.5f}")
+    kernel = [r for r in rows if r["method"].startswith("morton-kernel")]
+    if len(rows) != 6 or len(kernel) != 2 or min(r["recall"] for r in kernel) < RECALL:
+        raise AssertionError(f"knn_recall: {rows}")
+
 
 def main() -> int:
     card = phase0_device()
     import torch
 
-    from nbody_tpu_torch.ops import contconv_kernel as cck
     from nbody_tpu_torch.ops import pairwise as pw
-    from nbody_tpu_torch.ops import spatial as sp
-    from nbody_tpu_torch.ops import treeforce as tf
 
     big = phase1_kernels()
     slice2 = phase5_large_n_kernels()
     slice3 = phase7_backward_kernels()
     slice4 = phase9_kernels()
     phase9_engines()
-    all_wrappers = {"b1": pw.partial_accelerations, "b2": pw.pair_potential,
-                    "b3": cck.contconv_collect, "b4": cck.contconv_bwd_filters,
-                    "b5": cck.contconv_bwd_feat, "b6": cck.contconv_bwd_geom,
-                    "b7": sp.morton_select, "b8": sp.morton_merge,
-                    "b9": tf.multipole_acc, "b10": tf.grouped_multipole_acc,
-                    "b1n": pw.near_accelerations}
-
-    def zero_counts():
-        for w in all_wrappers.values():
-            w.launches = 0
+    slice5 = phase10_kernel()
 
     # the position-gradient path: B6's launches are counted here
     zero_counts()
@@ -1124,7 +1625,7 @@ def main() -> int:
     zero_counts()
     phase6_large_n_path(exact_20k_ms)
     torch.cuda.synchronize()
-    large = {name: w.launches for name, w in all_wrappers.items()}
+    large = read_counts()
     log(f"[6] launches on the large-N path: {large}")
     launches.update({k: large[k] for k in ("b3", "b7", "b8")})
     if large["b1"] == 0:
@@ -1135,7 +1636,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         phase8_training(tmp)
     torch.cuda.synchronize()
-    train = {name: w.launches for name, w in all_wrappers.items()}
+    train = read_counts()
     log(f"[8] launches on the training path: {train}")
     launches.update({k: train[k] for k in ("b4", "b5")})
     if min(train[k] for k in ("b1", "b3", "b4", "b5", "b7", "b8")) == 0 or train["b6"] != 0:
@@ -1146,13 +1647,28 @@ def main() -> int:
     zero_counts()
     phase9_rollouts()
     torch.cuda.synchronize()
-    tree = {name: w.launches for name, w in all_wrappers.items()}
+    tree = read_counts()
     log(f"[9c] launches on the treecode path: {tree}")
     launches.update({k: tree[k] for k in ("b9", "b10", "b1n")})
     if min(tree[k] for k in ("b1", "b2", "b9", "b10", "b1n")) == 0:
         raise AssertionError(f"the treecode path never launched a kernel of its own: {tree}")
     phase9_bench()
-    if min(launches.values()) == 0 or len(launches) != len(all_wrappers):
+
+    # B11 on the crossover path's own data: its launches are counted here
+    zero_counts()
+    launches["b11"] = phase10_path_data()
+    phase10_fused_forward()
+
+    # the large-N entry points' path: each main starts with the counters at
+    # 0 and is read, and held to its kernels, right after it returns
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_large_") as tmp:
+        large_n = phase10_crossover(tmp)
+        for name, c in phase10_train_large(tmp).items():
+            large_n[name] += c
+    torch.cuda.synchronize()
+    log(f"[10] launches of the large-N entry points' mains together: {large_n}")
+    phase10_knn_recall()
+    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()):
         raise AssertionError(f"a kernel of a path never launched: {launches}")
     if any(m.split(".")[0] in ("jax", "flax", "nbody_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1192,6 +1708,9 @@ def main() -> int:
               "nbody_tpu/ops/treeforce.py:566", "b10", slice4["b10"]),
         entry("B1 near list (nbody_near_force)", pair_src, "nbody_tpu/ops/pairwise.py:50",
               "b1n", slice4["b1n"]),
+        entry("B11 windowed EdgeConv sum (edgeconv_windowed_tanh_sum)",
+              "nbody_tpu_torch/csrc/edgeconv.cu", "attic/edgeconv_kernel.py:88", "b11",
+              slice5),
     ]
     assert all(math.isfinite(k[f]) for k in kernels
                for f in ("max_abs_err", "ms", "plain_ms", "bound_ms"))

@@ -22,8 +22,13 @@ bins and multiplies them by the whole filter bank once.
 
 The JAX ``conv_geometry(tile=...)`` padding of the receiver axis exists for
 the TPU's (8, 128) tiles; the port has no tile padding and takes no
-``tile`` argument. ``node_chunks > 1`` (the 1M-body memory switch) is not
-ported yet and raises.
+``tile`` argument. ``node_chunks > 1`` (the 1M-body memory switch) runs the
+kernel path one receiver chunk at a time, each chunk under
+``torch.utils.checkpoint``: the backward gathers the chunk's neighbour
+features again, so no (B N, k, ci) tensor outlives its chunk. Chunks are a
+ceil-division of the receiver axis, the last one shorter when it does not
+divide. It belongs to the kernel path: with ``impl="dense"`` it raises, and
+with ``impl=None`` the layer takes the kernel path on any device.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nbody_tpu_torch.models.common import gather_neighbors, select_input_features
 from nbody_tpu_torch.models.mlp import MLP, OutputHead, reset_dense
@@ -81,9 +87,10 @@ class ContinuousConv(nn.Module):
         super().__init__()
         if impl not in CONV_IMPLS:
             raise ValueError(f"unknown ContinuousConv impl {impl!r}: one of {CONV_IMPLS}")
-        if node_chunks > 1:
-            raise NotImplementedError(
-                "node_chunks > 1 is not ported yet (ROADMAP.md, queue A item 11)")
+        if node_chunks > 1 and impl == "dense":
+            raise ValueError(
+                f"node_chunks={node_chunks} chunks the kernel path (impl='kernel' or "
+                "None); the dense layer builds its bins for all receivers at once")
         if agg not in ("mean", "sum"):
             raise ValueError(f"unknown agg {agg!r}")
         self.in_channels = in_channels
@@ -92,6 +99,7 @@ class ContinuousConv(nn.Module):
         self.radius = radius
         self.agg = agg
         self.impl = impl
+        self.node_chunks = node_chunks
         self.filters = nn.Parameter(torch.empty(d, d, d, in_channels, out_channels))
         with torch.no_grad():
             self.filters.normal_(generator=generator)
@@ -111,13 +119,29 @@ class ContinuousConv(nn.Module):
         b, n, k = geom["nbr_idx"].shape
         ci, co = self.in_channels, self.out_channels
         grid = (mapped + 1.0) * ((d - 1) / 2.0)  # reference contconv.py:90
-        feat_j = gather_neighbors(feat, geom["nbr_idx"]).reshape(b * n, k, ci)
-        planes = [grid[..., a].reshape(b * n, k).contiguous() for a in range(3)]
         filters = self.filters.reshape(d * d * d, ci, co)
-        impl = self.impl or ("kernel" if feat.is_cuda else "dense")
+        chunked = self.node_chunks > 1
+        impl = self.impl or ("kernel" if feat.is_cuda or chunked else "dense")
         collect = contconv_collect if impl == "kernel" else contconv_collect_torch
-        out = collect(*planes, window.reshape(b * n, k).contiguous(),
-                      feat_j.contiguous(), filters, d=d).reshape(b, n, co)
+
+        def rows(feat, filters, grid, window, idx):
+            """The collect of the receivers (B, r, ...) of one slice."""
+            r = idx.shape[1]
+            feat_j = gather_neighbors(feat, idx).reshape(b * r, k, ci)
+            planes = [grid[..., a].reshape(b * r, k).contiguous() for a in range(3)]
+            return collect(*planes, window.reshape(b * r, k).contiguous(),
+                           feat_j.contiguous(), filters, d=d).reshape(b, r, co)
+
+        if chunked:
+            step = -(-n // self.node_chunks)
+            parts = []
+            for lo in range(0, n, step):
+                sl = slice(lo, lo + step)
+                parts.append(checkpoint(rows, feat, filters, grid[:, sl], window[:, sl],
+                                        geom["nbr_idx"][:, sl], use_reentrant=False))
+            out = torch.cat(parts, dim=1)
+        else:
+            out = rows(feat, filters, grid, window, geom["nbr_idx"])
         if self.agg == "mean":  # scatter(..., reduce="mean")
             cnt = in_radius.to(out.dtype).sum(-1, keepdim=True)
             out = out / torch.clamp(cnt, min=1.0)

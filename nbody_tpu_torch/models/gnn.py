@@ -8,11 +8,14 @@ LayerNorm, linear-or-MLP decoder, output divided by ``output_scale``.
 ``input_dim == 4`` selects [pos | mass] from the 7 node features.
 
 Messages live in dense (B, N, k, .) tensors: gather the neighbours, run the
-edge MLP, masked-reduce over k. Not ported yet, and raising
-``NotImplementedError``: the fused EdgeConv forward, ``remat``, and the
-approximate (TPU-only) neighbour search. ``knn_method="morton"`` builds
-graphs with ``ops/spatial.py``; ``knn_impl`` takes the port's names, "dense"
-and "kernel".
+edge MLP, masked-reduce over k. ``fused_edgeconv=True`` computes the same
+function with one k-sized tensor per layer (see :class:`EdgeConv`), and
+``remat=True`` recomputes each EdgeConv in the backward pass instead of
+keeping its k-sized tensors; both leave the parameter names as they are.
+The approximate (TPU-only) neighbour search raises
+``NotImplementedError``. ``knn_method="morton"`` builds graphs with
+``ops/spatial.py``; ``knn_impl`` takes the port's names, "dense" and
+"kernel".
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nbody_tpu_torch.models.common import gather_neighbors, select_input_features
 from nbody_tpu_torch.models.mlp import MLP, Dense, OutputHead, reset_dense
@@ -32,19 +36,52 @@ NODE_FEATURES = 7
 
 class EdgeConv(nn.Module):
     """PyG ``EdgeConv`` on dense neighbour lists: for every node i,
-    aggr_j MLP([h_i || h_j - h_i]) over its k (masked) neighbours."""
+    aggr_j MLP([h_i || h_j - h_i]) over its k (masked) neighbours.
 
-    def __init__(self, in_dim: int, dim: int, aggr: str = "sum"):
+    ``fused=True`` computes the same function from the same two ``Dense``
+    layers with one (B, N, k, dim) tensor instead of the (B, N, k, 2d)
+    message input and its two products (reference ``gnn.py:36-97``):
+
+        W1^T [h_i || h_j - h_i] + b1  =  u_i + v_j - b1
+            with u = dense0([h || -h]),  v = dense0([0 || h])
+
+    are node-sized products, and ``dense1`` commutes past the neighbour
+    reduction: mean_j(t_j W2 + b2) = (mean_j t_j) W2 + b2, the sum adds
+    (count - 1) b2, and a node without valid neighbours stays 0 as in the
+    unfused layer. Only the gather of ``v`` is k-sized."""
+
+    def __init__(self, in_dim: int, dim: int, aggr: str = "sum", fused: bool = False):
         super().__init__()
         self.dense0 = Dense(2 * in_dim, dim)
         self.dense1 = Dense(dim, dim)
         self.aggr = aggr
+        self.fused = fused
+
+    def split_terms(self, h):
+        """The fused layer's node-sized terms (u', v): the edge's
+        pre-activation is ``u'_i + v_j`` with the bias folded into
+        ``u' = u - b1``; both (B, N, dim)."""
+        d = h.shape[-1]
+        w = self.dense0.weight  # (dim, 2d): [W1a | W1b] on [h_i | h_j - h_i]
+        u = torch.nn.functional.linear(h, w[:, :d] - w[:, d:])  # u - b1
+        v = torch.nn.functional.linear(h, w[:, d:], self.dense0.bias)
+        return u, v
 
     def forward(self, h, nbr_idx, nbr_valid):
-        h_j = gather_neighbors(h, nbr_idx)  # (B, N, k, d)
-        h_i = h[:, :, None, :].expand_as(h_j)
-        e = self.dense1(torch.tanh(self.dense0(torch.cat([h_i, h_j - h_i], dim=-1))))
-        return masked_aggregate(e, nbr_valid, self.aggr, axis=2)
+        if not self.fused:
+            h_j = gather_neighbors(h, nbr_idx)  # (B, N, k, d)
+            h_i = h[:, :, None, :].expand_as(h_j)
+            e = self.dense1(torch.tanh(self.dense0(torch.cat([h_i, h_j - h_i], dim=-1))))
+            return masked_aggregate(e, nbr_valid, self.aggr, axis=2)
+        u, v = self.split_terms(h)
+        t = torch.tanh(u[:, :, None, :] + gather_neighbors(v, nbr_idx))  # (B, N, k, dim)
+        out = self.dense1(masked_aggregate(t, nbr_valid, self.aggr, axis=2))
+        cnt = nbr_valid.to(h.dtype).sum(dim=2, keepdim=True)
+        if self.aggr == "sum":
+            return out + (cnt - 1.0) * self.dense1.bias
+        # a node without valid neighbours aggregates to 0 in the unfused
+        # layer (the masked mean's 0 / 1), not to b2
+        return torch.where(cnt > 0, out, 0.0)
 
 
 class GraphModel(nn.Module):
@@ -76,12 +113,6 @@ class GraphModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if fused_edgeconv:
-            raise NotImplementedError(
-                "fused_edgeconv=True is not ported yet (ROADMAP.md, queue A item 5)")
-        if remat:
-            raise NotImplementedError(
-                "remat=True is not ported yet (ROADMAP.md, queue A item 5)")
         if knn_method == "approx":
             raise NotImplementedError(
                 "knn_method='approx' selects with lax.approx_max_k, a TPU-only "
@@ -105,6 +136,8 @@ class GraphModel(nn.Module):
         self.knn_impl = knn_impl
         self.knn_copies = knn_copies
         self.knn_block = knn_block
+        self.fused_edgeconv = fused_edgeconv
+        self.remat = remat
 
         width = 4 if input_dim == 4 else NODE_FEATURES
         self.encoder = None
@@ -115,7 +148,7 @@ class GraphModel(nn.Module):
         enc_width = width
         self.convs = nn.ModuleList()
         for _ in range(message_passing_steps):
-            self.convs.append(EdgeConv(width, gnn_dim, aggr))
+            self.convs.append(EdgeConv(width, gnn_dim, aggr, fused=fused_edgeconv))
             width = gnn_dim
         self.norm = nn.LayerNorm(enc_width + width, eps=1e-5)
         self.head = OutputHead(enc_width + width, output_hiddens, output_dim,
@@ -149,7 +182,12 @@ class GraphModel(nn.Module):
             x = self.encoder(x)
         encoder_output = x
         for conv in self.convs:
-            x = conv(x, nbr_idx, nbr_valid)
+            if self.remat:
+                # keep the layer's (B, N, .) input only and run the layer
+                # again in the backward pass: no k-sized tensor is saved
+                x = checkpoint(conv, x, nbr_idx, nbr_valid, use_reentrant=False)
+            else:
+                x = conv(x, nbr_idx, nbr_valid)
         out = self.head(self.norm(torch.cat([encoder_output, x], dim=-1)))
         if self.output_scale != 1.0:
             out = out / self.output_scale

@@ -105,6 +105,12 @@ class Trainer:
             self._ds_cache[path] = SnapshotDataset.from_file(path)
         return self._ds_cache[path]
 
+    def free_caches(self) -> None:
+        """Drop the cached datasets and their device copies (a large-N run
+        frees the training snapshots before its evaluation)."""
+        self._dev_cache.clear()
+        self._ds_cache.clear()
+
     # ----------------------------------------------------------- state mgmt
     def _ensure_state(self) -> None:
         """The optimiser over the model's parameters and the dropout stream,

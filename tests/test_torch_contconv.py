@@ -369,8 +369,109 @@ def test_backward_launches_geometry_only_for_position_grads(monkeypatch):
     assert [w.launches for w in wrappers] == before
 
 
+def _chunk_grads(layer, pos, feat, cot, t_idx, t_valid):
+    layer.zero_grad(set_to_none=True)
+    q = torch.from_numpy(pos).requires_grad_(True)
+    f = torch.from_numpy(feat).requires_grad_(True)
+    out = layer(q, f, t_idx, t_valid)
+    (out * torch.from_numpy(cot)).sum().backward()
+    return out.detach().numpy(), layer.filters.grad.numpy(), q.grad.numpy(), f.grad.numpy()
+
+
+@pytest.mark.parametrize("chunks", [2, 3, 4, 100])
+def test_node_chunked_layer_equals_unchunked(chunks, monkeypatch):
+    """``node_chunks`` changes where the collect is cut and nothing else:
+    output and the filter, feature and position gradients equal the
+    unchunked kernel layer's (the same per-receiver sums; the filter
+    gradient adds its chunks in another order). 70 receivers in 3 or 4
+    chunks split unevenly (24 + 24 + 22, 18 + 18 + 18 + 16); 100 chunks
+    leave one receiver each. Every chunk goes through the collect once in
+    the forward and, rematerialised, once more in the backward."""
+    pos, feat, _, _, radius = _layer_inputs(5, seed=31)
+    cot = np.random.default_rng(32).normal(size=(2, 70, 4)).astype(np.float32)
+    t_idx, t_valid = build_graph(("radius", {"radius": radius, "k_max": 6}),
+                                 torch.from_numpy(pos))
+    kw = dict(filter_resolution=4, radius=radius, agg="mean", impl="kernel")
+    plain = ContinuousConv(5, 4, **kw, generator=torch.Generator().manual_seed(3))
+    chunked = ContinuousConv(5, 4, **kw, node_chunks=chunks)
+    chunked.load_state_dict(plain.state_dict())
+    want = _chunk_grads(plain, pos, feat, cot, t_idx, t_valid)
+    sizes = []
+    real = cck._Collect.apply
+    monkeypatch.setattr(cck._Collect, "apply",
+                        lambda *a: (sizes.append(a[3].shape[0]), real(*a))[1])
+    got = _chunk_grads(chunked, pos, feat, cot, t_idx, t_valid)
+    step = -(-70 // chunks)
+    per_pass = [2 * min(step, 70 - lo) for lo in range(0, 70, step)]
+    assert sizes[:len(per_pass)] == per_pass and sorted(sizes) == sorted(per_pass * 2)
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6 * np.abs(w).max())
+    with torch.no_grad():  # inference: nothing to rematerialise
+        out = chunked(torch.from_numpy(pos), torch.from_numpy(feat), t_idx, t_valid)
+    np.testing.assert_array_equal(out.numpy(), want[0])
+
+
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+def test_node_chunked_layer_matches_jax(agg):
+    """Forward and the filter, feature and position gradients against the
+    JAX layer with ``node_chunks=2`` on its Pallas kernel in interpret mode
+    (``tests/test_models.py:164-190``: rtol 2e-4)."""
+    d, ci, co = 4, 3, 5
+    pos, feat, idx, valid, radius = _layer_inputs(ci, seed=41)
+    cot = np.random.default_rng(42).normal(size=(2, 70, co)).astype(np.float32)
+    kw = dict(in_channels=ci, out_channels=co, filter_resolution=d, radius=radius, agg=agg)
+    jl = JConv(**kw, impl="pallas_interpret", node_chunks=2)
+    params = JConv(**kw).init(jax.random.PRNGKey(5), pos, feat, idx, valid)
+    want_out = np.asarray(jl.apply(params, pos, feat, idx, valid))
+    g_p, g_q, g_f = jax.grad(
+        lambda p, q, f: jnp.sum(jl.apply(p, q, f, idx, valid) * cot), argnums=(0, 1, 2))(
+            params, jnp.asarray(pos), jnp.asarray(feat))
+    layer = ContinuousConv(ci, co, filter_resolution=d, radius=radius, agg=agg,
+                           impl="kernel", node_chunks=2)
+    layer.load_state_dict({"filters": torch.from_numpy(np.array(params["params"]["filters"]))})
+    t_idx, t_valid = build_graph(("radius", {"radius": radius, "k_max": 6}),
+                                 torch.from_numpy(pos))
+    out, g_filters, g_pos, g_feat = _chunk_grads(layer, pos, feat, cot, t_idx, t_valid)
+    np.testing.assert_allclose(out, want_out, rtol=2e-4, atol=1e-5)
+    _close_grads(g_filters, np.asarray(g_p["params"]["filters"]), geometry=False)
+    _close_grads(g_pos, np.asarray(g_q), geometry=True)
+    _close_grads(g_feat, np.asarray(g_f), geometry=False)
+
+
+def test_node_chunked_model_trains_like_unchunked():
+    """``conv_node_chunks`` reaches every layer of the model, leaves the
+    ``state_dict`` keys alone, and with ``conv_impl`` unset takes the kernel
+    path on the CPU too (its plain twin): same loss and gradients."""
+    kw = dict(in_channels=4, filter_resolution=(3, 2), radius=1.2, continuous_conv_layers=2,
+              continuous_conv_dim=8, encoder_hiddens=(6,), decoder_hiddens=(6,))
+    plain = ContinuousConvModel(**kw, conv_impl="kernel",
+                                generator=torch.Generator().manual_seed(8))
+    chunked = ContinuousConvModel(**kw, conv_node_chunks=3)
+    assert [c.node_chunks for c in chunked.convs] == [3, 3]
+    assert list(chunked.state_dict()) == list(plain.state_dict())
+    chunked.load_state_dict(plain.state_dict())
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 40, 7)).astype(np.float32))
+    idx, valid = build_graph(plain.graph_spec, x[..., :3])
+    grads = []
+    for m in (plain, chunked):
+        m.train()
+        m(x, idx, valid).square().sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    for name, ref in grads[0].items():
+        if name == "encoder.layers.0.bias":
+            continue  # feeds a batch norm in train mode: zero up to rounding noise
+        torch.testing.assert_close(grads[1][name], ref, rtol=1e-4,
+                                   atol=1e-5 * float(ref.abs().max()) + 1e-12)
+
+
 def test_unported_contconv_options_raise():
-    with pytest.raises(NotImplementedError):
-        ContinuousConvModel(conv_node_chunks=2)
+    """``node_chunks`` belongs to the kernel path: the dense layer refuses
+    it by name instead of ignoring it; unknown impls raise."""
+    with pytest.raises(ValueError, match="kernel"):
+        ContinuousConvModel(conv_node_chunks=2, conv_impl="dense")
+    with pytest.raises(ValueError, match="kernel"):
+        ContinuousConv(4, 4, impl="dense", node_chunks=2)
     with pytest.raises(ValueError):
         ContinuousConv(4, 4, impl="pallas")

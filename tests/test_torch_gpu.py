@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels (B1 force and its near-list form,
 B2 energy, B3 ContConv collect, B4-B6 its backward, B7 Morton select, B8
-Morton merge, B9 and B10 the treecodes' multipole pulls) against their
-plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
+Morton merge, B9 and B10 the treecodes' multipole pulls, B11 the windowed
+EdgeConv message sum) against their plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
 CUDA device every test here skips. On the card (which has no JAX, hence no
 conftest):
 
@@ -12,7 +12,8 @@ potential energy relative 1e-5, the collect and each cotangent of its
 backward 2e-4 of its max (tests/test_models.py:161); B7 and B8 equal their
 twins exactly; B9 and B10 1e-5 of max |plain|, B1's near-list form B1's
 2e-5; the treecode engines' kernel path against their dense path at the
-JAX tests' bar between its two near paths (rtol 2e-3, atol 5e-9 or 2e-8)."""
+JAX tests' bar between its two near paths (rtol 2e-3, atol 5e-9 or 2e-8);
+B11 rtol = atol = 2e-6 (attic/test_edgeconv_kernel.py:44)."""
 
 import numpy as np
 import pytest
@@ -418,3 +419,89 @@ def test_treecode_kernel_path_matches_dense_on_card(cuda, engine):
     atol = 2e-8 if engine == "bh3" else 5e-9
     torch.testing.assert_close(got, want, rtol=2e-3, atol=atol)
     assert torch.equal(got, fn(pos, mass, G, EPS, partition=part))
+
+
+def _b11_inputs(n, k, d, half, spread, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.randn(n, d, generator=gen)
+    vpad = torch.nn.functional.pad(torch.randn(n, d, generator=gen), (0, 0, half, half))
+    idx = (torch.arange(n)[:, None] + torch.randint(-spread, spread + 1, (n, k), generator=gen)
+           ).clamp(0, n - 1).to(torch.int32)
+    mask = torch.rand(n, k, generator=gen) < 0.9
+    return [t.to(dev) for t in (u, vpad, idx, mask)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d,tile,half,spread", [
+    (111, 3, 12, 37, 5, 30), (2048, 8, 64, 256, 384, 700), (512, 1, 4, 512, 0, 600)])
+def test_b11_kernel_matches_plain_version(cuda, n, k, d, tile, half, spread, dtype):
+    from nbody_tpu_torch.ops import edgeconv_kernel as ek
+
+    args = _b11_inputs(n, k, d, half, spread, n + k, cuda)
+    kw = dict(tile=tile, half=half, gather_dtype=dtype)
+    before = ek.windowed_tanh_sum.launches
+    got, again = ek.windowed_tanh_sum(*args, **kw), ek.windowed_tanh_sum(*args, **kw)
+    assert ek.windowed_tanh_sum.launches == before + 2
+    want = ek.windowed_tanh_sum_torch(*args, **kw)
+    assert torch.equal(got, again)  # one writer per element, fixed k order
+    assert bool(((got - want).abs() <= 2e-6 + 2e-6 * want.abs()).all())
+
+
+def test_b11_edge_message_sum_on_the_card(cuda):
+    """Kernel + fallback list against the full gather, the same bits twice,
+    and N not a multiple of the tile."""
+    from nbody_tpu_torch.ops import edgeconv_kernel as ek
+
+    n, k, d = 3000, 8, 64
+    u, vpad, idx, valid = _b11_inputs(n, k, d, 0, 500, 7, cuda)
+    plan = ek.plan_windowed_gather(idx, valid)
+    assert int(plan.overflow) == 0 and int(plan.fb_valid.sum()) > 0
+    got, again = (ek.edge_message_sum(u, vpad, idx, plan) for _ in range(2))
+    want = torch.where(valid[:, :, None], torch.tanh(u[:, None] + vpad[idx.long()]), 0.0).sum(1)
+    assert got.shape == (n, d) and torch.equal(got, again)
+    assert bool(((got - want).abs() <= 2e-6 + 2e-6 * want.abs()).all())
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ek.edge_message_sum(u.clone().requires_grad_(True), vpad, idx, plan)
+
+
+def test_fused_remat_and_chunked_layers_on_the_card(cuda):
+    """The fused EdgeConv against the unfused one, ``remat`` against plain
+    autograd, and the node-chunked ContConv (B3-B5 per chunk) against the
+    unchunked layer, forward and parameter gradients."""
+    from nbody_tpu_torch.models import ContinuousConvModel
+    from nbody_tpu_torch.train.graphs import build_graph
+
+    pos, vel, mass = _spiral(3000, 5, cuda)
+    x = torch.cat([pos, vel, mass[:, None]], -1)[None]
+    kw = dict(input_dim=4, gnn_dim=32, message_passing_steps=2, aggr="mean", neighbors=8,
+              knn_method="morton", knn_impl="kernel")
+    models = [GraphModel(**kw, **extra) for extra in
+              ({}, dict(fused_edgeconv=True), dict(fused_edgeconv=True, remat=True))]
+    models[0].to(cuda)
+    idx, valid = build_graph(models[0].graph_spec, pos[None])
+    grads = []
+    for m in models:
+        m.load_state_dict(models[0].state_dict())
+        m.to(cuda).train()
+        m(x, idx, valid).square().sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    for other in grads[1:]:
+        for name, ref in grads[0].items():
+            torch.testing.assert_close(other[name], ref, rtol=2e-4,
+                                       atol=2e-5 * float(ref.abs().max()))
+
+    ckw = dict(in_channels=4, filter_resolution=(4, 3), radius=1.0, continuous_conv_layers=2,
+               continuous_conv_dim=32, radius_method="morton", radius_impl="kernel")
+    plain = ContinuousConvModel(**ckw, generator=torch.Generator().manual_seed(1)).to(cuda)
+    chunked = ContinuousConvModel(**ckw, conv_node_chunks=3).to(cuda)
+    chunked.load_state_dict(plain.state_dict())
+    idx, valid = build_graph(plain.graph_spec, pos[None])
+    outs = []
+    for m in (plain, chunked):
+        out = m(x, idx, valid)
+        out.square().sum().backward()
+        outs.append(out.detach())
+    assert torch.equal(outs[0], outs[1])
+    for (name, p), q in zip(plain.named_parameters(), chunked.parameters()):
+        torch.testing.assert_close(q.grad, p.grad, rtol=2e-4,
+                                   atol=2e-5 * float(p.grad.abs().max()), msg=name)

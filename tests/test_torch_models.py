@@ -174,8 +174,90 @@ def test_seeded_init_and_config():
     assert a.get_config() == JGraphModel(**kw).get_config()
 
 
-@pytest.mark.parametrize("bad", [dict(fused_edgeconv=True), dict(remat=True),
-                                 dict(knn_method="approx")])
+@pytest.mark.parametrize("bad", [dict(knn_method="approx")])
 def test_unported_options_raise(bad):
     with pytest.raises(NotImplementedError):
         GraphModel(**bad)
+
+
+def _fused_case(aggr, **extra):
+    """A flax GraphModel's variables, a graph with one node that has no
+    valid neighbour, and the inputs as numpy."""
+    x = _inputs(seed=7)
+    idx, valid = jknn.batched_knn_neighbors(jnp.asarray(x[..., :3]), 5)
+    valid = valid.at[0, 0, :].set(False)
+    kwargs = dict(input_dim=4, gnn_dim=32, message_passing_steps=2, aggr=aggr, neighbors=5,
+                  scale_factor=1e6, **extra)
+    variables = JGraphModel(**kwargs).init(jax.random.PRNGKey(0), jnp.asarray(x), idx, valid)
+    return x, idx, valid, kwargs, variables
+
+
+@pytest.mark.parametrize("aggr", ["mean", "sum"])
+@pytest.mark.parametrize("against", ["unfused", "flax_fused", "flax_unfused"])
+def test_fused_edgeconv_matches_unfused_and_flax(aggr, against):
+    """``fused_edgeconv=True`` is the same function of the same parameters
+    (``tests/test_models.py:269-290``: rtol 2e-4, atol 2e-5), the node
+    without valid neighbours included: against the port's unfused layer and
+    against the flax model, fused and not, on converted weights."""
+    x, idx, valid, kwargs, variables = _fused_case(aggr)
+    sd = graph_model_state_dict(jax.tree_util.tree_map(np.asarray, variables))
+    fused = GraphModel(**kwargs, fused_edgeconv=True).eval()
+    assert list(fused.state_dict()) == list(GraphModel(**kwargs).state_dict())
+    fused.load_state_dict(sd)
+    t_idx, t_valid = torch.from_numpy(np.array(idx)), torch.from_numpy(np.array(valid))
+    with torch.no_grad():
+        got = fused(torch.from_numpy(x), t_idx, t_valid).numpy()
+        if against == "unfused":
+            ref = GraphModel(**kwargs).eval()
+            ref.load_state_dict(sd)
+            want = ref(torch.from_numpy(x), t_idx, t_valid).numpy()
+        else:
+            jm = JGraphModel(**kwargs, fused_edgeconv=against == "flax_fused")
+            want = np.asarray(jm.apply(variables, jnp.asarray(x), idx, valid))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_remat_same_params_loss_and_grads(fused):
+    """``remat=True`` changes only what the backward pass keeps: the same
+    ``state_dict`` keys, the same loss and gradients bit for bit
+    (``tests/test_models.py:293-318``), and the flax model's gradients on
+    converted weights at rtol 2e-4."""
+    x, idx, valid, kwargs, variables = _fused_case("mean", fused_edgeconv=fused,
+                                                   output_scale=1e6)
+    sd = graph_model_state_dict(jax.tree_util.tree_map(np.asarray, variables))
+    t_idx, t_valid = torch.from_numpy(np.array(idx)), torch.from_numpy(np.array(valid))
+    results = []
+    for remat in (False, True):
+        m = GraphModel(**kwargs, remat=remat).train()
+        assert list(m.state_dict()) == list(sd)
+        m.load_state_dict(sd)
+        loss = (m(torch.from_numpy(x), t_idx, t_valid) ** 2).sum() * 1e12
+        loss.backward()
+        results.append((float(loss.detach()), {n: p.grad.clone() for n, p in m.named_parameters()}))
+    (l0, g0), (l1, g1) = results
+    assert l0 == l1
+    assert all(torch.equal(g0[n], g1[n]) for n in g0)
+    jm = JGraphModel(**kwargs, remat=True)
+    jl, jg = jax.value_and_grad(
+        lambda p: jnp.sum(jm.apply(p, jnp.asarray(x), idx, valid) ** 2) * 1e12)(variables)
+    np.testing.assert_allclose(l1, float(jl), rtol=2e-4)
+    want = graph_model_state_dict(jax.tree_util.tree_map(np.asarray, jg))
+    for name, ref in want.items():
+        np.testing.assert_allclose(g1[name].numpy(), ref.numpy(), rtol=2e-4,
+                                   atol=2e-5 * float(ref.abs().max()), err_msg=name)
+
+
+def test_remat_leaves_inference_unchanged():
+    """Under ``torch.no_grad`` (the rollout) a remat model gives the same
+    output as one without the flag."""
+    x, idx, valid, kwargs, variables = _fused_case("sum", fused_edgeconv=True)
+    sd = graph_model_state_dict(jax.tree_util.tree_map(np.asarray, variables))
+    t_idx, t_valid = torch.from_numpy(np.array(idx)), torch.from_numpy(np.array(valid))
+    outs = []
+    for remat in (False, True):
+        m = GraphModel(**kwargs, remat=remat).eval()
+        m.load_state_dict(sd)
+        with torch.no_grad():
+            outs.append(m(torch.from_numpy(x), t_idx, t_valid))
+    assert torch.equal(outs[0], outs[1])

@@ -16,8 +16,9 @@ import torch
 
 from nbody_tpu.data.schema import CSV_FIELDS as J_CSV_FIELDS
 from nbody_tpu_torch.cli import datagen
-from nbody_tpu_torch.experiments import (bh_rollout, contconv_experiment, gnn_experiment,
-                                         large_scale, run, treeforce_bench)
+from nbody_tpu_torch.experiments import (bh_rollout, contconv_experiment, crossover,
+                                         gnn_experiment, knn_recall, large_scale, run,
+                                         train_large, treeforce_bench)
 
 N = 2000
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "gnn_reference.json")
@@ -108,6 +109,9 @@ def test_treeforce_bench_sampled_error(capsys):
     (gnn_experiment.main, ["--quick", "--base", "never"]),
     (contconv_experiment.main, ["--quick", "--base", "never"]),
     (run.main, ["--config", CONFIG, "--set", "base=never"]),
+    (crossover.main, ["--n-bodies", "600", "--steps", "2", "--out", "never.json"]),
+    (train_large.main, ["--n-bodies", "600", "--steps", "2", "--epochs", "1"]),
+    (knn_recall.main, ["--n-bodies", "600", "--out", "never.json"]),
 ])
 def test_entry_points_need_cuda_or_device_cpu(entry, argv, monkeypatch, tmp_path):
     """Without ``--device`` an entry point runs on cuda; with no CUDA device
