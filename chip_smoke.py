@@ -16,13 +16,15 @@ the port's main path once:
    the kernels' launch counters checked and the 500-body energy drift bounded;
 3. one 20,000-body spiral scene of 200 steps with energies;
 4. the EdgeConv surrogate at the reference width (seeded random weights):
-   stepwise and 1000-step rollout evaluation over the phase-2 dataset, then
+   stepwise and 500-step rollout evaluation over the phase-2 dataset, then
    a 50-step rollout at 20,000 bodies;
 5. the large-N kernels against their twins on spiral initial conditions:
    the Morton select (B7) and merge (B8) at 20,000 and 100,000 bodies for
    kNN(10) and the radius search's k = 32 with self edges, recall against
    exact kNN, the ContConv collect (B3) on the geometry of a Morton radius
-   graph at D = 6 and 4, and the full-width ContinuousConvModel on the card
+   graph at D = 6 and 4, twice for the same bits, with the (receiver, cell)
+   pair plan that B3 and B4 share against its plain version (ids, order and
+   offsets equal), and the full-width ContinuousConvModel on the card
    against the CPU;
 6. the large-N surrogate path through
    ``nbody_tpu_torch.experiments.large_scale`` at 100,000 bodies, 20 steps,
@@ -38,7 +40,8 @@ the port's main path once:
    ``configs/contconv_adopted.json`` as it stands, at full width, whose
    layers take the kernels on the card with no override (datagen cut to 2
    files of 200 steps, 2 epochs, a checkpoint each), a
-   resumed third epoch and the evaluation from the checkpoints; the
+   resumed third epoch and the evaluation from the checkpoints (100-step
+   rollouts); the
    recipe-shape training step timed and profiled; ``gnn_experiment
    --quick``; and the 100,000-body training step (Morton radius search,
    B3 + B4 + B5, batch 1) on a strided port-datagen dataset, beside the
@@ -75,7 +78,8 @@ the port's main path once:
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
-JSON object with one entry per kernel (launches counted over the path that
+JSON object with one entry per kernel, B3 and B4 once for each of the
+model's two filter resolutions (launches counted over the path that
 runs it, its counters set to 0 just before the path and read just after:
 phases 2-4 for B1 and B2, phase 6 for B3, B7 and B8, phase 8 for B4 and B5,
 the phase-7 position gradient for B6, phase 9c for B9, B10 and B1's near
@@ -111,6 +115,7 @@ DRIFT_20K = 1e-3   # 20k-body drift over 200 steps (treecode tests' bar)
 RECIPE_N = [3, 25, 50, 100, 250, 500]
 SOURCES = ("pairwise", "spatial", "contconv", "treeforce", "edgeconv")
 RECIPE_STEPS = 1000
+EVAL_STEPS = 500   # rollout evaluation depth (each shape runs once more, untimed, first)
 BIG_N, BIG_STEPS, SURR_STEPS = 20_000, 200, 50
 LARGE_N, LARGE_STEPS = 100_000, 20
 RECALL = 0.99      # Morton kNN recall (tests/test_spatial.py:69-76,132-141)
@@ -125,7 +130,8 @@ FULL_CONTCONV = dict(in_channels=4, out_channels=3, filter_resolution=(6, 4), ra
                      decoder_hiddens=(64, 32), scale_factor=1e6, radius_method="morton",
                      radius_impl="kernel", conv_impl="kernel")
 # the config's own model: its layers take the kernels for card tensors
-RUN_SETS = ["datagen.train_files=2", "datagen.steps=200", "train.save_every=1"]
+RUN_SETS = ["datagen.train_files=2", "datagen.steps=200", "train.save_every=1",
+            "train.sim_steps=100"]  # rollout evaluation: each shape once untimed, once timed
 TRAIN_STEPS, TRAIN_STRIDE = 50, 10  # the 100k dataset: 5 snapshots
 # the treecodes: the JAX package's recipes (results/large_scale/bh_rollout*.json)
 TREE_N, TREE_1M = 100_000, 1_000_000
@@ -224,6 +230,15 @@ def kernel_wrappers() -> dict:
 def zero_counts() -> None:
     for w in kernel_wrappers().values():
         w.launches = 0
+        if hasattr(w, "launches_by_d"):  # B3, B4: also by filter resolution
+            w.launches_by_d.clear()
+
+
+def by_resolution(key: str) -> dict:
+    """B3's or B4's launches since :func:`zero_counts` at D = 6 and D = 4,
+    the two layers of the full-width model, as kernels-line keys."""
+    by_d = kernel_wrappers()[key].launches_by_d
+    return {f"{key}_d{d}": by_d[d] for d in (6, 4)}
 
 
 def read_counts() -> dict:
@@ -429,7 +444,7 @@ def phase4_surrogate(data_dir: str, traj):
 
     t0 = time.perf_counter()
     df_step, df_roll = Trainer(model, dt=DT).test_from_dir(
-        data_dir, sim_steps=RECIPE_STEPS, stepwise=True, rollout=True)
+        data_dir, sim_steps=EVAL_STEPS, stepwise=True, rollout=True)
     wall = time.perf_counter() - t0
     if (list(df_step.columns) != ["loss", "step_time"]
             or list(df_step.index.names) != ["filename", "scene"]
@@ -437,7 +452,7 @@ def phase4_surrogate(data_dir: str, traj):
         raise AssertionError(f"bad stepwise frame:\n{df_step}")
     if (list(df_roll.columns) != ["pos_rmse", "vel_rmse", "acc_rmse", "step_time"]
             or list(df_roll.index.names) != ["filename", "scene", "step"]
-            or len(df_roll) != len(RECIPE_N) * RECIPE_STEPS):
+            or len(df_roll) != len(RECIPE_N) * EVAL_STEPS):
         raise AssertionError(f"bad rollout frame:\n{df_roll}")
     for df in (df_step, df_roll):
         if not np.isfinite(df.to_numpy(np.float64)).all():
@@ -447,7 +462,7 @@ def phase4_surrogate(data_dir: str, traj):
     per_scene = df_roll.groupby(level="scene").agg(
         pos_rmse_last=("pos_rmse", "last"), acc_rmse_mean=("acc_rmse", "mean"),
         step_time=("step_time", "first"))
-    log("[4] rollout (1000 steps per scene):\n" + per_scene.to_string())
+    log(f"[4] rollout ({EVAL_STEPS} steps per scene):\n" + per_scene.to_string())
     for s, n in enumerate(RECIPE_N):
         log(f"[4] N={n}: stepwise {1e3 * df_step['step_time'].iloc[s]:.4f} ms/snapshot, "
             f"rollout {1e3 * per_scene['step_time'].iloc[s]:.4f} ms/step")
@@ -469,7 +484,7 @@ def phase4_surrogate(data_dir: str, traj):
 def phase5_large_n_kernels():
     """B7, B8 and B3 against their twins on the card; the full-width
     ContConv model on the card against the CPU. Returns the numbers of the
-    kernels line: B7/B8 at 100k bodies, k = 32, B3 at 100k, D = 6."""
+    kernels line: B7/B8 at 100k bodies, k = 32, B3 at 100k, D = 6 and 4."""
     import torch
 
     from nbody_tpu_torch.experiments.knn_recall import recall_of
@@ -545,20 +560,32 @@ def phase5_large_n_kernels():
             filters = torch.randn(d ** 3, 128, 128,
                                   generator=torch.Generator().manual_seed(d)).to(dev)
             args = (gx, gy, gz, win, fj, filters)
+            # the pair plan that B3 and B4 share: ids, order and offsets
+            plan = cck.pair_plan(gx, gy, gz, win, d=d)
+            same_plan = all(torch.equal(a, b) for a, b in
+                            zip(plan, cck.pair_plan_torch(gx, gy, gz, win, d=d)))
+            ms_plan = cuda_time_ms(lambda: cck.pair_plan(gx, gy, gz, win, d=d), reps=5,
+                                   warmup=1)
+            log(f"[5] pair plan N={n} k=32 D={d}: {plan.cell_r.numel()} pairs, equal to its "
+                f"plain version {same_plan}; {ms_plan:.4f} ms")
+            del plan
             got = cck.contconv_collect(*args, d=d)
+            same = torch.equal(got, cck.contconv_collect(*args, d=d))
             want = cck.contconv_collect_torch(*args, d=d)
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
             ms = cuda_time_ms(lambda: cck.contconv_collect(*args, d=d), reps=5, warmup=1)
             ms_t = cuda_time_ms(lambda: cck.contconv_collect_torch(*args, d=d),
                                 reps=3, warmup=1)
+            bnd = collect_bound(gx, gy, gz, win, 128, 128, d, 4.0 * n * 128)
             log(f"[5] B3 collect N={n} k=32 D={d} ci=co=128: max|d|/max|out| {rel:.3e} "
-                f"(bar {B3_TOL}); kernel {ms:.4f} ms  twin {ms_t:.4f} ms")
-            if not rel <= B3_TOL:
-                raise AssertionError(f"B3 disagrees with its twin at N={n}, D={d}: {rel}")
-            if n == LARGE_N and d == 6:
-                out["b3"] = (err, ms, ms_t, collect_bound(gx, gy, gz, win, 128, 128, d,
-                                                          4.0 * n * 128))
+                f"(bar {B3_TOL}), same bits twice {same}; kernel {ms:.4f} ms  twin "
+                f"{ms_t:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+            if not (rel <= B3_TOL and same and same_plan):
+                raise AssertionError(f"B3 at N={n}, D={d}: against its twin {rel}, same bits "
+                                     f"{same}, plan equal to its plain version {same_plan}")
+            if n == LARGE_N:
+                out[f"b3_d{d}"] = (err, ms, ms_t, bnd)
         del fj, geom
 
     # the full-width model: kernels on the card, twins on the CPU, same weights
@@ -669,7 +696,7 @@ def _bwd_against_plain(args, dout, d: int, label: str, time_it: bool) -> dict:
 
 def phase7_backward_kernels():
     """B4-B6 against the plain backward; returns the kernels line's numbers
-    (100k, D = 6)."""
+    (100k; B4 at D = 6 and 4, B5 and B6 at D = 6)."""
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
@@ -700,12 +727,16 @@ def phase7_backward_kernels():
                 torch.randn(d ** 3, 128, 128, generator=gen).to(dev))
         res = _bwd_against_plain(args, dout, d, f"N={LARGE_N} k=32 ci=co=128 D={d}",
                                  time_it=True)
-        if d == 6:
-            # other operands: dout (M, co); B6 also writes four (M, k) cotangents
-            other = {"b4": 4.0 * LARGE_N * 128, "b5": 4.0 * LARGE_N * 128,
-                     "b6": 4.0 * LARGE_N * 128 + 16.0 * LARGE_N * 32}
-            out = {key: (*nums, collect_bound(*args[:4], 128, 128, d, other[key]))
-                   for key, nums in res.items()}
+        # other operands: dout (M, co); B6 also writes four (M, k) cotangents
+        other = {"b4": 4.0 * LARGE_N * 128, "b5": 4.0 * LARGE_N * 128,
+                 "b6": 4.0 * LARGE_N * 128 + 16.0 * LARGE_N * 32}
+        for key, nums in res.items():
+            bnd = collect_bound(*args[:4], 128, 128, d, other[key])
+            log(f"[7] {key.upper()} D={d}: bound {bnd[0]:.4f} ms ({bnd[1]})")
+            if key == "b4":
+                out[f"b4_d{d}"] = (*nums, bnd)
+            elif d == 6:
+                out[key] = (*nums, bnd)
     del fj, geom
     torch.cuda.empty_cache()
     return out
@@ -786,7 +817,7 @@ def _epoch_numbers(trainer, data_dir, batch_size, steps, **kw):
 
     epoch()  # warm-up
     (losses, _), sec = device_time(epoch, trainer.device)
-    busy_ms, top = profile_ms(epoch, trainer.device)
+    busy_ms, top = profile_ms(epoch, trainer.device, top=16)  # B3's and B4's kernels too
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss {losses}")
     torch.cuda.synchronize()
@@ -1627,7 +1658,7 @@ def main() -> int:
     torch.cuda.synchronize()
     large = read_counts()
     log(f"[6] launches on the large-N path: {large}")
-    launches.update({k: large[k] for k in ("b3", "b7", "b8")})
+    launches.update({k: large[k] for k in ("b7", "b8")}, **by_resolution("b3"))
     if large["b1"] == 0:
         raise AssertionError(f"the large-N path never launched B1: {large}")
 
@@ -1638,7 +1669,7 @@ def main() -> int:
     torch.cuda.synchronize()
     train = read_counts()
     log(f"[8] launches on the training path: {train}")
-    launches.update({k: train[k] for k in ("b4", "b5")})
+    launches.update(b5=train["b5"], **by_resolution("b4"))
     if min(train[k] for k in ("b1", "b3", "b4", "b5", "b7", "b8")) == 0 or train["b6"] != 0:
         raise AssertionError(f"training path launches {train}: B6 must stay at 0, the "
                              f"others above it")
@@ -1668,7 +1699,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[10] launches of the large-N entry points' mains together: {large_n}")
     phase10_knn_recall()
-    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()):
+    # B3 and B4 stand in the line once for each layer's filter resolution
+    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()) + 2:
         raise AssertionError(f"a kernel of a path never launched: {launches}")
     if any(m.split(".")[0] in ("jax", "flax", "nbody_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1690,10 +1722,10 @@ def main() -> int:
               big["b1"]),
         entry("B2 energy (nbody_energy)", pair_src, "nbody_tpu/ops/pairwise.py:113", "b2",
               big["b2"]),
-        entry("B3 collect (contconv_collect)", conv_src, f"{conv_py}:105", "b3",
-              slice2["b3"]),
-        entry("B4 filter grad (contconv_bwd_filters)", conv_src, f"{conv_py}:129", "b4",
-              slice3["b4"]),
+        *(entry(f"B3 collect (contconv_collect), D={d}", conv_src, f"{conv_py}:105",
+                f"b3_d{d}", slice2[f"b3_d{d}"]) for d in (6, 4)),
+        *(entry(f"B4 filter grad (contconv_bwd_filters), D={d}", conv_src,
+                f"{conv_py}:129", f"b4_d{d}", slice3[f"b4_d{d}"]) for d in (6, 4)),
         entry("B5 feature grad (contconv_bwd_feat)", conv_src, f"{conv_py}:162", "b5",
               slice3["b5"]),
         entry("B6 geometry grad (contconv_bwd_geom)", conv_src, f"{conv_py}:196", "b6",

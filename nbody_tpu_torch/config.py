@@ -22,6 +22,8 @@ from nbody_tpu_torch.data.generate import ScenarioConfig
 # JAX implementation name -> the port's
 IMPL_NAMES = {"xla": "dense", "pallas": "kernel", "pallas_interpret": "kernel"}
 _IMPL_KWARGS = ("conv_impl", "knn_impl", "radius_impl")
+# a Morton neighbour search whose impl is unset follows the device
+_MORTON_IMPLS = {"knn_method": "knn_impl", "radius_method": "radius_impl"}
 
 
 def port_impl(name):
@@ -130,24 +132,34 @@ class ExperimentConfig:
             node[parts[-1]] = value
         return ExperimentConfig.from_dict(d)
 
-    def model_kwargs(self) -> dict:
+    def model_kwargs(self, device=None) -> dict:
         """``model.kwargs`` with sequences as tuples and the JAX
-        implementation names mapped to the port's."""
+        implementation names mapped to the port's. With ``device`` (the
+        resolved ``torch.device`` the model will run on), a Morton
+        ``knn_method`` / ``radius_method`` whose impl is unset gets it here,
+        once: ``"kernel"`` on cuda, ``"dense"`` elsewhere
+        (``train.graphs.build_graph`` itself defaults to ``"dense"``)."""
         kw = {k: tuple(v) if isinstance(v, list) else v for k, v in self.model.kwargs.items()}
         for k in _IMPL_KWARGS:
             if k in kw:
                 kw[k] = port_impl(kw[k])
+        if device is not None:
+            for method, impl in _MORTON_IMPLS.items():
+                if kw.get(method) == "morton" and not kw.get(impl):
+                    kw[impl] = "kernel" if device.type == "cuda" else "dense"
         return kw
 
-    def build_model(self, generator=None):
+    def build_model(self, generator=None, device=None):
         """The port's surrogate of ``model.type`` from ``model.kwargs``;
-        ``generator`` draws its initial weights."""
+        ``generator`` draws its initial weights, ``device`` resolves an
+        unset Morton search impl (:meth:`model_kwargs`). The model is built
+        on the CPU: the caller moves it."""
         from nbody_tpu_torch.models import ContinuousConvModel, GraphModel
 
         models = {"gnn": GraphModel, "contconv": ContinuousConvModel}
         if self.model.type not in models:
             raise ValueError(f"unknown model type {self.model.type!r}")
-        return models[self.model.type](**self.model_kwargs(), generator=generator)
+        return models[self.model.type](**self.model_kwargs(device), generator=generator)
 
     def scenarios(self, seed: Optional[int] = None) -> List[ScenarioConfig]:
         from nbody_tpu_torch.data.generate import scenario_product

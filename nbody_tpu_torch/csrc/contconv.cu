@@ -10,66 +10,97 @@
 // where T is the trilinear interpolation of the (D^3, ci, co) filter bank F at
 // the edge's grid coordinates, clamped to [0, D-1] (the lower corner is
 // min(floor(c), D-2), as in ops/interpolate.py). Sum over the k edges; the
-// caller divides by the edge count for a mean. Because interpolation and the
-// sum are linear, the kernel first collects every receiver's window- and
-// corner-weighted features into bins g[m, cell, :] and then multiplies g by F,
-// which is what the plain-torch twin (ops/contconv_kernel.py) computes with a
-// one-hot einsum and one matrix product. It does not copy the TPU kernel's
-// tent-factorised blocking.
+// caller divides by the edge count for a mean. Interpolation and the sum are
+// linear, so the work is: bins g[m, cell, :] of window- and corner-weighted
+// features, then g @ F. B4 replaces _bwd_filters_kernel: dF[cell] =
+// g[:, cell, :]^T dout.
 //
-// What bounds it: the product, N * D^3 * ci * co FP32 FMAs a layer (3.5e11 at
-// N = 100k, D = 6, ci = co = 128; 1.0e11 at D = 4), computed in registers with
-// both operands in shared memory. Each block reads the rows of F for the
-// cells its edges touch (at most the whole 14.2 MB D = 6 bank, which the 50 MB
-// L2 holds), so L2 traffic is at most (N / T) * |F|; the gathered features
-// are read once for each of an edge's 8 corner cells. Tensor cores are not
-// used: the contract is full FP32, and TF32 keeps about three decimal digits.
+// What bounds B3 and B4 on this card. The TPU kernels multiply dense (tile,
+// cell) blocks: a 128 x 128 matrix unit and tens of MB of VMEM make the zero
+// bins cheap there. Here the product runs as FP32 FMAs on 132 SMs (tensor
+// cores are not used: the contract is full FP32, and TF32 keeps about three
+// decimal digits), and a receiver's live edges touch a small part of the
+// D^3 cells (27 of 216 on average on the 100k-body radius graph), so a dense
+// product does several times the needed operations. The needed ones are
+// 2 ci co per touched (receiver, cell) pair, which is what bounds the
+// kernels (operations); their bytes are the features read once and the
+// compacted bins written and read once.
 //
-// Design: one block of 256 threads per tile of T = 64 receivers; the filter
-// bank is walked one cell (ci consecutive rows of F) at a time.
+// Design: one pair plan shared by B3 and B4, then a memory-bound bin pass and
+// a grouped product over cells.
+//   plan   plan_masks_kernel: a warp a receiver decodes each edge once and
+//          ORs the cells of its live corners into a D^3-bit mask (integer
+//          atomicOr in shared memory; the result does not depend on order)
+//          and counts them. An edge is live when its window is non-zero, a
+//          corner when each of its three axis weights is non-zero. The
+//          wrapper prefix-sums the counts (the receivers' first rows) and
+//          sizes the scratch. Above a few thousand receivers it reads the
+//          total P on the host (one synchronising read a launch; B4 in a
+//          backward takes the rows from its forward): the worst case
+//          min(8k, D^3) M is 8 times P at 100k bodies and would cost the
+//          memory as much. Below, the worst case is small, the launches are
+//          short, and a wait would leave the card idle while the host
+//          catches up: the lists get worst-case rows and the spare ones stay
+//          unused. plan_cell_counts_kernel then counts each cell's pairs
+//          (mask words read once, a shared-memory histogram a block, integer
+//          atomics only), and plan_cells_kernel, a block a cell, walks the
+//          receivers in ascending order and gives every pair of its cell the
+//          next row of the cell: the cell-major order, receivers ascending
+//          inside a cell, with the cells' offsets and first work items. No
+//          sort and no torch index arithmetic: the plan is four launches,
+//          which is what the small, host-bound shapes pay for.
+//   bins   bins_kernel: a warp a receiver, a lane 4 channels. The receiver's
+//          rows live in shared memory; each live edge's feature row is read
+//          once from device memory (512 B, coalesced; several edges' loads
+//          in flight) and added, times window * wx * wy * wz, to the rows of
+//          its live corners, edges in edge order, one writer per element.
+//          Rows then go to their cell-major place in g (P, round4(ci)), the
+//          places read ahead in one coalesced load. A
+//          receiver with more pairs than the warp's rows takes more passes.
+//          The geometry is decoded here a second time (once per edge, from
+//          16 B) rather than stored by the plan (20 B an edge).
+//   items  The cells' row counts are far from even (every self edge touches
+//          the 8 centre cells: 29% of the pairs at 100k bodies, D = 6), so
+//          the products run over work items: a cell's rows cut into pieces of
+//          at most R rows, R chosen by the wrapper so that the card gets
+//          about 16 waves of blocks. A block finds its cell by a binary
+//          search over the cells' first items.
+//   B3     pair_product_kernel: a block a work item. It keeps F_cell (up to
+//          128 x 128, 64 KB) in shared memory and streams 128-row tiles of
+//          the item's contiguous bin rows through a double-buffered cp.async
+//          ring; 8 x 8 FP32 register tile a thread; writes y (P,
+//          round4(co)). row_sum_kernel then adds each receiver's rows of y
+//          in cell order into out[m]: one writer, fixed order. ci above 128
+//          runs in K chunks of 128 with F reloaded per chunk.
+//   B4     bwd_filters_kernel: grid (work item, 128-row slab of ci). The
+//          transposed grouped product dF[cell] = G_cell^T dout[receivers of
+//          the cell's pairs]: 64 pair rows a step, bins copied as they lie,
+//          dout rows gathered by the pair's receiver id (L2-resident), both
+//          by cp.async into a two-stage ring; 8 x 8 register tile of dF a
+//          thread. Each item writes a partial bank and sum_banks_kernel adds
+//          a cell's banks in item order: no float atomics, the same bits on
+//          every run.
+// Scratch (masks, plan, g, y, partial banks) is allocated by the wrapper.
+//
+// B5 and B6 (the Pallas _bwd_feat_kernel and _bwd_geom_kernel) keep the
+// earlier design: one block of 256 threads per tile of T = 64 receivers
+// walks the cells any edge of the tile touches, F^T rows of one cell at a
+// time in shared memory (double-buffered cp.async).
 //   0. Once per tile: each edge's descriptor (lower corner, fractions,
-//      window) and the list, in cell order, of the cells any edge of the tile
-//      touches (an edge touches its 8 corner cells). Edges with window == 0
-//      (padding, outside the radius) add nothing and are dropped here.
-//   1. Per touched cell, the cell's F rows are copied into shared memory with
-//      cp.async, double-buffered: the next cell's copy runs during this
-//      cell's work.
+//      window) and the list, in cell order, of the touched cells.
+//   1. Per touched cell, the cell's F^T rows are copied into shared memory
+//      with cp.async; the next cell's copy runs during this cell's work.
 //   2. Each warp marks, by ballot, which edges of its receivers touch the
-//      cell; thread (t, c) then sums w * wx * wy * wz * feat_j[t, e, c] over
-//      receiver t's touching edges in edge order and stores the bin g[t, c].
-//      Every bin has one writer: no atomics, the same sums on every run. The
-//      feature loads (L2 or device memory: a tile's rows, 1 MB, are read
-//      again for each corner cell) go out 8 edges at a time, so that
-//      their latencies overlap.
-//   3. Every thread accumulates an 8-receiver x 4-column register tile of
-//      out over the cell's ci rows: bins as 16-byte broadcasts, F as one
+//      cell.
+//   3. Every thread accumulates an 8-receiver x 4-column register tile over
+//      the cell's rows: the left operand as 16-byte broadcasts, F^T as one
 //      16-byte read of 4 consecutive columns a lane.
-// T = 64 is what fits: the two F buffers (128 KB at ci = co = 128), the bins
-// (32 KB) and the edge descriptors (40 KB at k = 32) take ~201 KB of the
-// 227 KB a block may use. The 8 x 4 tile makes each shared-memory read feed
-// 8 FMAs, so the product is bound by FMA throughput, not by shared memory.
-//
-// The backward (the Pallas _bwd_filters_kernel, _bwd_feat_kernel and
-// _bwd_geom_kernel, the custom VJP of contconv_collect) reuses steps 0-3. It
-// saves nothing from the forward: each kernel rebuilds the edge descriptors
-// and weights of its tile from the inputs, as the JAX VJP does.
-//
-// B4, dF[cell] = sum_m g[m, cell, :]^T dout[m, :]: one block per (cell, chunk
-//   of receiver tiles, 128-row slab of ci). For each tile of its chunk the
-//   block rebuilds the descriptors (step 0), marks and fills the bins of its
-//   one cell (step 2, skipping tiles that do not touch it), stages the
-//   tile's dout rows and adds g^T dout to a (128 x 128) tile of dF held in
-//   registers, 8 x 8 a thread. Chunks write partial banks and a second
-//   kernel sums them in chunk order: deterministic, no float atomics. Bound:
-//   the same FMAs as B3, plus a re-read of the tile's geometry and dout for
-//   every cell (D^3 times); partial banks (at most ~1056 blocks' worth,
-//   71 MB at D = 6 or 4) are sized by the wrapper.
-// B5, dfeat[m, e] = window * sum_corners w * (F_cell @ dout[m]): B3's walk
-//   over touched cells with the roles of the operands swapped. The block
+// They save nothing from the forward: each kernel rebuilds the edge
+// descriptors and weights of its tile from the inputs, as the JAX VJP does.
+// B5, dfeat[m, e] = window * sum_corners w * (F_cell @ dout[m]): the block
 //   stages its tile's dout rows once, streams F^T (co rows of ci columns a
-//   cell, transposed by the wrapper) with the same double-buffered cp.async,
-//   and step 3 leaves dG[t, cell, :] = F_cell @ dout[t] in registers (8
-//   receivers x 4 columns a thread). Each thread then adds w * dG to the
+//   cell, transposed by the wrapper), and step 3 leaves dG[t, cell, :] =
+//   F_cell @ dout[t] in registers. Each thread then adds w * dG to the
 //   dfeat rows of its receivers' touching edges: every dfeat element has
 //   one writer, and the cells are walked in a fixed order.
 // B6, the geometry cotangents: B5's walk over cells (zero-window edges kept:
@@ -85,25 +116,34 @@
 
 namespace {
 
-constexpr int CT = 64;        // receivers per block
+constexpr int CT = 64;        // B5/B6: receivers per block
 constexpr int THREADS = 256;  // 8 warps
-constexpr int T_PER = 8;      // receivers per thread in the product
-constexpr int MAX_K = 64;     // two 32-bit touch words per receiver
+constexpr int T_PER = 8;      // B5/B6: receivers per thread in the product
+constexpr int MAX_K = 64;     // one 64-bit word of live edges per receiver
 constexpr int MAX_CO = 128;   // one float4 of columns a lane
-constexpr int MAX_D = 10;     // cell flags and list in shared memory
-constexpr int BATCH = 8;      // feature loads in flight per thread
+constexpr int MAX_D = 10;     // cell masks of at most 32 words
+constexpr int MAX_WORDS = (MAX_D * MAX_D * MAX_D + 31) / 32;
+constexpr int BATCH = 8;      // bins: feature rows in flight per lane
+constexpr int BIN_WARPS = 16; // bins: most warps of a block
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 constexpr int SLAB = 128;     // B4: rows (of ci) and columns (co) of a dF tile
+constexpr int PW = 8;         // plan, row sum: warps (receivers) per block
+constexpr int PT = 128;       // B3: pair rows of a product tile
+constexpr int KC = 128;       // B3: rows of F_cell in shared memory at a time
+constexpr int AS = KC + 4;    // B3: bin-tile row stride (rows 4 apart, other banks)
+constexpr int KT = 64;        // B4: pair rows of one step
+constexpr int COUNT_WORDS = 8;      // plan: mask words a thread of the count kernel
+constexpr int CELL_THREADS = 1024;  // plan: receivers a round of a cell's block
 
 static_assert(CT == T_PER * (THREADS / 32), "one receiver group per warp");
-static_assert(THREADS == (SLAB / 8) * (SLAB / 8), "B4: an 8 x 8 dF tile a thread");
+static_assert(THREADS == (SLAB / 8) * (SLAB / 8), "an 8 x 8 register tile a thread");
+static_assert(MAX_WORDS <= 32, "a lane a mask word");
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
-// Byte offsets of the dynamic shared memory of B3, B5 and B6: the left
-// operand of step 3 is (T, round4(rows)) (B3: the bins, rows = ci; B5/B6: the
-// tile's dout rows, rows = co) and F is streamed as `rows` rows of `cols`
-// columns a cell (B3: F, cols = co; B5/B6: F^T, cols = ci).
+// Byte offsets of the dynamic shared memory of B5 and B6: the left operand
+// of step 3 is (T, round4(rows)) (the tile's dout rows, rows = co) and F^T
+// is streamed as `rows` rows of `cols` columns a cell (cols = ci).
 struct Layout {
   size_t fs, g, dfw, dxyz, touch, cells, flags, total;
   __host__ __device__ Layout(int d, int rows, int cols, int k) {
@@ -120,17 +160,18 @@ struct Layout {
   }
 };
 
-// B4's shared memory: bins and dout rows of one tile, its edge descriptors.
-struct LayoutF {
-  size_t g, dout, dfw, dxyz, touch, total;
-  __host__ __device__ LayoutF(int k) {
-    const int kw = (k + 31) / 32;
-    g = 0;                                            // (T, SLAB) bins
-    dout = g + (size_t)CT * SLAB * sizeof(float);     // (T, SLAB) dout rows
-    dfw = dout + (size_t)CT * SLAB * sizeof(float);
-    dxyz = dfw + (size_t)CT * k * sizeof(float4);
-    touch = dxyz + (size_t)CT * k * sizeof(int);
-    total = touch + (size_t)CT * kw * sizeof(uint32_t);
+// One warp's share of the bins kernel's shared memory: `rows` bin rows of gs
+// floats, per edge its 8 corner weights and 8 row numbers, the rows'
+// cell-major places, and the receiver's cell -> row table.
+struct BinLayout {
+  size_t rows, ww, jj, slot, lut, per_warp;
+  __host__ __device__ BinLayout(int d, int k, int gs, int nrows) {
+    rows = 0;
+    ww = rows + (size_t)nrows * gs * sizeof(float);
+    jj = ww + (size_t)k * 8 * sizeof(float);
+    slot = jj + (size_t)k * 8 * sizeof(uint16_t);
+    lut = slot + (size_t)nrows * sizeof(int);
+    per_warp = (lut + (size_t)d * d * d * sizeof(uint16_t) + 15) & ~(size_t)15;
   }
 };
 
@@ -139,13 +180,17 @@ __device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 // the `rows` rows (of cp floats) of one cell of a row-blocked bank
 __device__ __forceinline__ void load_cell_async(float* dst, const float* F,
                                                 int cell, int rows, int cp) {
   const float* src = F + (size_t)cell * rows * cp;
   for (int q = threadIdx.x; q < rows * cp / 4; q += THREADS)
     copy16_async(dst + 4 * q, src + 4 * q);
-  asm volatile("cp.async.commit_group;\n" ::);
+  commit_copies();
 }
 
 __device__ __forceinline__ float lerp_w(int at, int lo, float f) {
@@ -158,14 +203,37 @@ __device__ __forceinline__ float lerp_dw(int at, int lo, float f) {
   return at == lo ? -1.f : 1.f;
 }
 
+// An edge's lower corner and fractions: coordinates clamped to [0, d-1], the
+// lower corner min(floor(c), d-2).
+struct Corner {
+  int x, y, z;
+  float fx, fy, fz;
+};
+
+__device__ __forceinline__ Corner decode_edge(float gx, float gy, float gz, int d) {
+  const float hi = (float)(d - 1), top = (float)(d - 2);
+  const float cx = fminf(fmaxf(gx, 0.f), hi);
+  const float cy = fminf(fmaxf(gy, 0.f), hi);
+  const float cz = fminf(fmaxf(gz, 0.f), hi);
+  const float x0 = fminf(floorf(cx), top);
+  const float y0 = fminf(floorf(cy), top);
+  const float z0 = fminf(floorf(cz), top);
+  return {(int)x0, (int)y0, (int)z0, cx - x0, cy - y0, cz - z0};
+}
+
+// whether the lower (o = 0) or upper (o = 1) corner along one axis has a
+// non-zero weight (1 - f or f)
+__device__ __forceinline__ bool axis_live(int o, float f) {
+  return o ? f != 0.f : f != 1.f;
+}
+
 // 0. Edge descriptors of the tile at m0: lower corner x | y << 8 | z << 16
-// (-1: adds nothing) and (fx, fy, fz, window); flags the 8 corner cells when
-// `flags` is given. Zero-window edges are dropped unless keep_zero.
+// (-1: adds nothing) and (fx, fy, fz, window); flags the 8 corner cells.
+// Zero-window edges are dropped unless keep_zero.
 __device__ void build_edges(const float* __restrict__ gx, const float* __restrict__ gy,
                             const float* __restrict__ gz, const float* __restrict__ win,
                             int M, int k, int d, int m0, int* dxyz, float4* dfw,
                             unsigned char* flags, bool keep_zero) {
-  const float hi = (float)(d - 1);
   for (int e = threadIdx.x; e < CT * k; e += THREADS) {
     int xyz = -1;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -173,18 +241,11 @@ __device__ void build_edges(const float* __restrict__ gx, const float* __restric
       const size_t at = (size_t)m0 * k + e;
       const float w = win[at];
       if (w != 0.f || keep_zero) {
-        const float cx = fminf(fmaxf(gx[at], 0.f), hi);
-        const float cy = fminf(fmaxf(gy[at], 0.f), hi);
-        const float cz = fminf(fmaxf(gz[at], 0.f), hi);
-        const float x0 = fminf(floorf(cx), (float)(d - 2));
-        const float y0 = fminf(floorf(cy), (float)(d - 2));
-        const float z0 = fminf(floorf(cz), (float)(d - 2));
-        const int ix = (int)x0, iy = (int)y0, iz = (int)z0;
-        xyz = ix | (iy << 8) | (iz << 16);
-        v = make_float4(cx - x0, cy - y0, cz - z0, w);
-        if (flags)
-          for (int o = 0; o < 8; ++o)  // the same value from every writer
-            flags[((ix + (o >> 2)) * d + iy + ((o >> 1) & 1)) * d + iz + (o & 1)] = 1;
+        const Corner c = decode_edge(gx[at], gy[at], gz[at], d);
+        xyz = c.x | (c.y << 8) | (c.z << 16);
+        v = make_float4(c.fx, c.fy, c.fz, w);
+        for (int o = 0; o < 8; ++o)  // the same value from every writer
+          flags[((c.x + (o >> 2)) * d + c.y + ((o >> 1) & 1)) * d + c.z + (o & 1)] = 1;
       }
     }
     dxyz[e] = xyz;
@@ -202,12 +263,10 @@ __device__ void list_cells(const unsigned char* flags, int* cells, int nc) {
   }
 }
 
-// 2a. which edges of each receiver touch cell (x, y, z), one bit an edge;
-// returns whether any edge of this warp's receivers does
-__device__ bool mark_touch(int x, int y, int z, const int* dxyz, uint32_t* touch,
+// 2. which edges of each receiver touch cell (x, y, z), one bit an edge
+__device__ void mark_touch(int x, int y, int z, const int* dxyz, uint32_t* touch,
                            int k, int kw) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bool any = false;
   for (int t = warp; t < CT; t += THREADS / 32) {
     for (int w = 0; w < kw; ++w) {
       const int e = w * 32 + lane;
@@ -222,53 +281,14 @@ __device__ bool mark_touch(int x, int y, int z, const int* dxyz, uint32_t* touch
       }
       const uint32_t bits = __ballot_sync(0xffffffffu, hit);
       if (lane == 0) touch[t * kw + w] = bits;
-      any = any || bits != 0u;
     }
   }
-  return any;
 }
 
 // the trilinear weight (times the window) of cell (x, y, z) for an edge
 __device__ __forceinline__ float edge_weight(int x, int y, int z, int xyz, float4 v) {
   return v.w * lerp_w(x, xyz & 255, v.x) * lerp_w(y, (xyz >> 8) & 255, v.y) *
          lerp_w(z, xyz >> 16, v.z);
-}
-
-// 2b. bins g[t, c] (row stride gs) of cell (x, y, z) for feature columns
-// c0 .. c0 + nc, one writer each, summed in edge order
-__device__ void fill_bins(int x, int y, int z, const float* __restrict__ feat, int m0,
-                          int k, int ci, int c0, int nc, int gs, const int* dxyz,
-                          const float4* dfw, const uint32_t* touch, int kw, float* g) {
-  for (int p = threadIdx.x; p < CT * nc; p += THREADS) {
-    const int t = p / nc;
-    const int c = p - t * nc;
-    const float* ft = feat + (size_t)(m0 + t) * k * ci + c0 + c;
-    float s = 0.f;
-    for (int w = 0; w < kw; ++w) {
-      uint32_t bits = touch[t * kw + w];
-      while (bits) {
-        // up to BATCH edges at a time: their feature loads are independent
-        // and in flight together
-        int es[BATCH];
-        float fv[BATCH];
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          es[u] = bits ? w * 32 + __ffs(bits) - 1 : -1;
-          bits &= bits - 1u;
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u)
-          fv[u] = es[u] >= 0 ? ft[(size_t)es[u] * ci] : 0.f;
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          if (es[u] < 0) break;
-          const float wt = edge_weight(x, y, z, dxyz[t * k + es[u]], dfw[t * k + es[u]]);
-          s = fmaf(wt, fv[u], s);  // in edge order
-        }
-      }
-    }
-    g[t * gs + c] = s;
-  }
 }
 
 // 3. acc[i][:] += left[i, :] @ fb[:, 4 lane .. 4 lane + 3] over the gs rows
@@ -304,6 +324,7 @@ __device__ __forceinline__ void zero_acc(float (&acc)[T_PER][4]) {
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 }
 
+// all copies but, with `more`, the newest group have landed
 __device__ __forceinline__ void wait_cell(bool more) {
   if (more)
     asm volatile("cp.async.wait_group 1;\n" ::);
@@ -341,105 +362,367 @@ __device__ int setup_dout_walk(const float* gx, const float* gy, const float* gz
   return cells[0];
 }
 
+// ---- the pair plan ----------------------------------------------------------
+
+// A warp a receiver: the D^3-bit mask of the cells its live corners touch,
+// masks (M, nw) with nw = ceil(D^3 / 32), and their number, counts[1 + m];
+// counts[0] = 0, so that the inclusive prefix sum of counts (M + 1) gives
+// the receivers' first rows. Also zeroes cell_counts (D^3).
+__global__ void __launch_bounds__(PW * 32)
+plan_masks_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
+                  const float* __restrict__ gz, const float* __restrict__ win,
+                  int M, int k, int d, uint32_t* __restrict__ masks,
+                  int* __restrict__ counts, int* __restrict__ cell_counts) {
+  __shared__ uint32_t words[PW][MAX_WORDS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (d * d * d + 31) / 32;
+  const int m = blockIdx.x * PW + warp;
+  if (blockIdx.x == 0)  // for plan_cell_counts_kernel, the next launch
+    for (int i = threadIdx.x; i < d * d * d; i += blockDim.x) cell_counts[i] = 0;
+  if (m >= M) return;  // the whole warp; no block-wide barrier below
+  uint32_t* mine = words[warp];
+  mine[lane] = 0u;
+  __syncwarp();
+  for (int e = lane; e < k; e += 32) {
+    const size_t at = (size_t)m * k + e;
+    if (win[at] == 0.f) continue;
+    const Corner c = decode_edge(gx[at], gy[at], gz[at], d);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const int ox = o >> 2, oy = (o >> 1) & 1, oz = o & 1;
+      if (axis_live(ox, c.fx) && axis_live(oy, c.fy) && axis_live(oz, c.fz)) {
+        const int cell = ((c.x + ox) * d + c.y + oy) * d + c.z + oz;
+        atomicOr(&mine[cell >> 5], 1u << (cell & 31));
+      }
+    }
+  }
+  __syncwarp();
+  int n = 0;
+  if (lane < nw) {
+    const uint32_t b = mine[lane];
+    masks[(size_t)m * nw + lane] = b;
+    n = __popc(b);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(0xffffffffu, n, off);
+  if (lane == 0) {
+    counts[1 + m] = n;
+    if (m == 0) counts[0] = 0;
+  }
+}
+
+// cell_counts[c] += the receivers whose mask has bit c, over the M * nw mask
+// words: a histogram a block in shared memory, then one integer add a cell.
 __global__ void __launch_bounds__(THREADS)
-collect_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
-               const float* __restrict__ gz, const float* __restrict__ win,
-               const float* __restrict__ feat, const float* __restrict__ F,
-               int M, int k, int ci, int co, int d, float* __restrict__ out) {
+plan_cell_counts_kernel(const uint32_t* __restrict__ masks, long long nwords, int nw,
+                        int z, int* __restrict__ cell_counts) {
+  __shared__ int hist[MAX_D * MAX_D * MAX_D];
+  for (int i = threadIdx.x; i < z; i += THREADS) hist[i] = 0;
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * (THREADS * COUNT_WORDS);
+  for (int u = 0; u < COUNT_WORDS; ++u) {
+    const long long i = base + (long long)u * THREADS + threadIdx.x;
+    if (i >= nwords) break;
+    uint32_t b = masks[i];
+    const int first = (int)(i % nw) * 32;
+    while (b) {
+      atomicAdd(&hist[first + __ffs(b) - 1], 1);
+      b &= b - 1u;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < z; i += THREADS)
+    if (hist[i]) atomicAdd(&cell_counts[i], hist[i]);
+}
+
+// A block a cell c: coff[c] and istart[c] (the rows and the work items of at
+// most `rows` rows of the cells before c; block z - 1 also writes the totals
+// coff[z], istart[z]), then the cell's pairs in receiver order: the pair of
+// receiver m lies at the receiver-major row r = rstart[m] + (cells of m below
+// c) and gets the cell-major row `at`, the next of the cell: cell_r[r] = c,
+// slot_of[r] = at, recv_of[at] = m.
+__global__ void __launch_bounds__(CELL_THREADS)
+plan_cells_kernel(const uint32_t* __restrict__ masks, const int* __restrict__ rstart,
+                  const int* __restrict__ cell_counts, int M, int nw, int z, int rows,
+                  int16_t* __restrict__ cell_r, int* __restrict__ slot_of,
+                  int* __restrict__ recv_of, int* __restrict__ coff,
+                  int* __restrict__ istart) {
+  __shared__ int part[2][32];
+  __shared__ int head[2];
+  const int c = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int rows_before = 0, items_before = 0;
+  for (int i = tid; i < c; i += CELL_THREADS) {
+    const int n = cell_counts[i];
+    rows_before += n;
+    items_before += (n + rows - 1) / rows;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    rows_before += __shfl_xor_sync(0xffffffffu, rows_before, off);
+    items_before += __shfl_xor_sync(0xffffffffu, items_before, off);
+  }
+  if (lane == 0) {
+    part[0][warp] = rows_before;
+    part[1][warp] = items_before;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int a = part[0][lane], b = part[1][lane];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+      b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+    if (lane == 0) {
+      head[0] = a;
+      head[1] = b;
+    }
+  }
+  __syncthreads();
+  const int first = head[0], mine = cell_counts[c];
+  if (tid == 0) {
+    coff[c] = first;
+    istart[c] = head[1];
+    if (c == z - 1) {
+      coff[z] = first + mine;
+      istart[z] = head[1] + (mine + rows - 1) / rows;
+    }
+  }
+  if (mine == 0) return;  // the whole block
+
+  const int word = c >> 5;
+  const uint32_t bit = 1u << (c & 31);
+  int done = 0;
+  for (int m0 = 0; m0 < M && done < mine; m0 += CELL_THREADS) {
+    const int m = m0 + tid;
+    uint32_t wv = 0u;
+    if (m < M) wv = masks[(size_t)m * nw + word];
+    const bool hit = (wv & bit) != 0u;
+    const uint32_t votes = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) part[0][warp] = __popc(votes);
+    __syncthreads();
+    // the hits of the warps before this one, and of the round
+    const int v = part[0][lane];
+    int upto = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, upto, off);
+      if (lane >= off) upto += t;
+    }
+    const int total = __shfl_sync(0xffffffffu, upto, 31);
+    const int before = __shfl_sync(0xffffffffu, upto - v, warp);
+    if (hit) {
+      const int at = first + done + before + __popc(votes & ((1u << lane) - 1u));
+      int r = rstart[m] + __popc(wv & (bit - 1u));
+      for (int w = 0; w < word; ++w) r += __popc(masks[(size_t)m * nw + w]);
+      cell_r[r] = (int16_t)c;
+      slot_of[r] = at;
+      recv_of[at] = m;
+    }
+    done += total;
+    __syncthreads();  // part is written again in the next round
+  }
+}
+
+// ---- the bins ---------------------------------------------------------------
+
+// 4 channels of a feature row from column c on; columns from ci on read as 0
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int c, int ci,
+                                        bool vec) {
+  if (vec) return *(const float4*)(row + c);  // c + 3 < ci: ci is a multiple of 4
+  return make_float4(c < ci ? row[c] : 0.f, c + 1 < ci ? row[c + 1] : 0.f,
+                     c + 2 < ci ? row[c + 2] : 0.f, c + 3 < ci ? row[c + 3] : 0.f);
+}
+
+// g (P, gs): the bins of every (receiver, cell) pair at its cell-major row.
+// A warp a receiver (grid-stride), a lane 4 channels of each 128; `nrows`
+// rows of shared memory a warp, BinLayout.
+__global__ void __launch_bounds__(BIN_WARPS * 32)
+bins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
+            const float* __restrict__ gz, const float* __restrict__ win,
+            const float* __restrict__ feat, const int* __restrict__ rstart,
+            const int16_t* __restrict__ cell_r, const int* __restrict__ slot_of,
+            int M, int k, int ci, int d, int nrows, float* __restrict__ g) {
   extern __shared__ float4 smem4[];
-  unsigned char* base = (unsigned char*)smem4;
-  const Layout L(d, ci, co, k);
-  const int GS = round4(ci), CP = round4(co), KW = (k + 31) / 32;
-  const int NC = d * d * d;
-  float* fs = (float*)(base + L.fs);
-  float* g = (float*)(base + L.g);
-  float4* dfw = (float4*)(base + L.dfw);
-  int* dxyz = (int*)(base + L.dxyz);
-  uint32_t* touch = (uint32_t*)(base + L.touch);
-  int* cells = (int*)(base + L.cells);
-  unsigned char* flags = base + L.flags;
+  const int gs = round4(ci);
+  const BinLayout L(d, k, gs, nrows);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+  unsigned char* base = (unsigned char*)smem4 + (size_t)warp * L.per_warp;
+  float* rows = (float*)(base + L.rows);
+  float* ww = (float*)(base + L.ww);
+  uint16_t* jj = (uint16_t*)(base + L.jj);
+  int* slot = (int*)(base + L.slot);
+  uint16_t* lut = (uint16_t*)(base + L.lut);
+  // 16-byte feature reads need ci % 4 == 0 and a 16-byte aligned base
+  const bool vec = (ci & 3) == 0 && ((uintptr_t)feat & 15u) == 0;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.x * CT;
+  for (int m = blockIdx.x * nwarp + warp; m < M; m += gridDim.x * nwarp) {
+    const int r0 = rstart[m], n = rstart[m + 1] - r0;
+    if (n == 0) continue;
+    for (int j = lane; j < n; j += 32) lut[cell_r[r0 + j]] = (uint16_t)j;
+    __syncwarp();
 
-  // zero the cell flags, the bins' pad columns and the F buffers' pad rows
-  for (int i = tid; i < NC; i += THREADS) flags[i] = 0;
-  for (int i = tid; i < CT * (GS - ci); i += THREADS)
-    g[(i / (GS - ci)) * GS + ci + i % (GS - ci)] = 0.f;
-  for (int i = tid; i < 2 * (GS - ci) * CP; i += THREADS) {
-    const int b = i / ((GS - ci) * CP), r = i % ((GS - ci) * CP);
-    fs[(size_t)b * GS * CP + (size_t)ci * CP + r] = 0.f;
-  }
-  __syncthreads();
-
-  build_edges(gx, gy, gz, win, M, k, d, m0, dxyz, dfw, flags, false);
-  __syncthreads();
-  list_cells(flags, cells, NC);
-  __syncthreads();
-  const int ncell = cells[0];
-
-  float acc[T_PER][4];
-  zero_acc(acc);
-
-  if (ncell > 0) load_cell_async(fs, F, cells[1], ci, CP);
-  for (int n = 0; n < ncell; ++n) {
-    const int cell = cells[1 + n];
-    const float* fb = fs + (size_t)(n & 1) * GS * CP;
-    if (n + 1 < ncell)  // the other buffer was last read before the barrier
-      load_cell_async(fs + (size_t)((n + 1) & 1) * GS * CP, F, cells[2 + n], ci, CP);
-    const int x = cell / (d * d), y = (cell / d) % d, z = cell % d;
-
-    mark_touch(x, y, z, dxyz, touch, k, KW);
-    __syncthreads();
-    fill_bins(x, y, z, feat, m0, k, ci, 0, ci, GS, dxyz, dfw, touch, KW, g);
-    wait_cell(n + 1 < ncell);
-    __syncthreads();
-    product(acc, g + warp * T_PER * GS, fb, GS, CP);  // out += g @ F_cell
-    __syncthreads();
-  }
-
+    // per edge: the rows and weights of its 8 corners (0xffff: adds nothing)
+    unsigned long long live = 0ull;
+    for (int e0 = 0; e0 < k; e0 += 32) {
+      const int e = e0 + lane;
+      bool on = false;
+      if (e < k) {
+        const size_t at = (size_t)m * k + e;
+        const float w = win[at];
+        if (w != 0.f) {
+          const Corner c = decode_edge(gx[at], gy[at], gz[at], d);
 #pragma unroll
-  for (int i = 0; i < T_PER; ++i) {
-    const int m = m0 + warp * T_PER + i;
-    if (m >= M) continue;
+          for (int o = 0; o < 8; ++o) {
+            const int ox = o >> 2, oy = (o >> 1) & 1, oz = o & 1;
+            const bool lv = axis_live(ox, c.fx) && axis_live(oy, c.fy) &&
+                            axis_live(oz, c.fz);
+            const int cell = ((c.x + ox) * d + c.y + oy) * d + c.z + oz;
+            jj[e * 8 + o] = lv ? lut[cell] : (uint16_t)0xffffu;
+            ww[e * 8 + o] = w * lerp_w(ox, 0, c.fx) * lerp_w(oy, 0, c.fy) *
+                            lerp_w(oz, 0, c.fz);
+            on = on || lv;
+          }
+        }
+      }
+      live |= (unsigned long long)__ballot_sync(0xffffffffu, on) << e0;
+    }
+    __syncwarp();
+
+    for (int b0 = 0; b0 < n; b0 += nrows) {  // one pass unless n > nrows
+      const int nr = min(nrows, n - b0);
+      // the rows' places, one coalesced read: the stores at the end do not
+      // wait on a read each
+      for (int j = lane; j < nr; j += 32) slot[j] = slot_of[r0 + b0 + j];
+      for (int i = lane; i < nr * gs / 4; i += 32)
+        ((float4*)rows)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      __syncwarp();
+      for (int c0 = 4 * lane; c0 < gs; c0 += 128) {
+        unsigned long long bits = live;
+        while (bits) {
+          // up to BATCH edges at a time: their feature loads are independent
+          // and in flight together
+          int es[BATCH];
+          float4 fv[BATCH];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = 4 * lane + j;
-      if (col < co) out[(size_t)m * co + col] = acc[i][j];
+          for (int u = 0; u < BATCH; ++u) {
+            es[u] = bits ? __ffsll((long long)bits) - 1 : -1;
+            bits &= bits - 1ull;
+          }
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u)
+            fv[u] = es[u] >= 0 ? load4(feat + ((size_t)m * k + es[u]) * ci, c0, ci, vec)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u) {
+            if (es[u] < 0) break;
+            const uint4 j8 = *(const uint4*)(jj + es[u] * 8);
+            const float4 wa = *(const float4*)(ww + es[u] * 8);
+            const float4 wb = *(const float4*)(ww + es[u] * 8 + 4);
+            const unsigned js[8] = {j8.x & 0xffffu, j8.x >> 16, j8.y & 0xffffu, j8.y >> 16,
+                                    j8.z & 0xffffu, j8.z >> 16, j8.w & 0xffffu, j8.w >> 16};
+            const float ws[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+            const float4 f = fv[u];
+            // an edge's 8 corners are 8 different rows: their reads go out
+            // together, ahead of the writes; edges stay in edge order
+            float4 a[8];
+#pragma unroll
+            for (int o = 0; o < 8; ++o) {
+              const unsigned r = js[o] - (unsigned)b0;
+              if (r < (unsigned)nr) a[o] = *(const float4*)(rows + (size_t)r * gs + c0);
+            }
+#pragma unroll
+            for (int o = 0; o < 8; ++o) {
+              const unsigned r = js[o] - (unsigned)b0;
+              if (r < (unsigned)nr) {
+                a[o].x = fmaf(ws[o], f.x, a[o].x);
+                a[o].y = fmaf(ws[o], f.y, a[o].y);
+                a[o].z = fmaf(ws[o], f.z, a[o].z);
+                a[o].w = fmaf(ws[o], f.w, a[o].w);
+                *(float4*)(rows + (size_t)r * gs + c0) = a[o];
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+      for (int j = 0; j < nr; ++j) {
+        float4* dst = (float4*)(g + (size_t)slot[j] * gs);
+        for (int i = lane; i < gs / 4; i += 32) dst[i] = ((const float4*)(rows + (size_t)j * gs))[i];
+      }
+      __syncwarp();
     }
   }
 }
 
-// B4: one (cell, chunk, ci slab) a block; dF tile rows {4 ty + i, 64 + 4 ty +
-// i} and columns {4 tx + j, 64 + 4 tx + j} a thread
+// ---- B3: the grouped product and the row sum --------------------------------
+
+// The grouped products run over work items: cell c's pair rows are cut into
+// istart[c + 1] - istart[c] items of at most `rows` rows, so that a cell with
+// many pairs (the centre cells, which every self edge touches) takes many
+// blocks and the blocks' work is even. The cell of an item: istart[cell] <=
+// item < istart[cell + 1] (cells without pairs have no item).
+__device__ __forceinline__ int cell_of_item(const int* __restrict__ istart, int ncell,
+                                            int item) {
+  int lo = 0, hi = ncell;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (istart[mid] <= item) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// rows {4 ty + i, 64 + 4 ty + i} and columns {4 tx + j, 64 + 4 tx + j} of a
+// 128 x 128 tile a thread
+__device__ __forceinline__ int tile_at(int t, int i) {
+  return i < 4 ? 4 * t + i : 64 + 4 * t + i - 4;
+}
+
+// y (P, round4(co)) = g (P, round4(ci)) times F_cell, pair rows cell-major
+// with the cells' offsets coff; F (d^3 * ci, round4(co)). A block a work
+// item, in tiles of PT rows.
 __global__ void __launch_bounds__(THREADS)
-bwd_filters_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
-                   const float* __restrict__ gz, const float* __restrict__ win,
-                   const float* __restrict__ feat, const float* __restrict__ dout,
-                   int M, int k, int ci, int co, int d, int nchunk,
-                   float* __restrict__ dst) {
+pair_product_kernel(const float* __restrict__ g, const float* __restrict__ F,
+                    const int* __restrict__ coff, const int* __restrict__ istart,
+                    int ci, int co, int ncell, int rows, float* __restrict__ y) {
   extern __shared__ float4 smem4[];
-  unsigned char* base = (unsigned char*)smem4;
-  const LayoutF L(k);
-  const int KW = (k + 31) / 32, NC = d * d * d;
-  float* g = (float*)(base + L.g);
-  float* ds = (float*)(base + L.dout);
-  float4* dfw = (float4*)(base + L.dfw);
-  int* dxyz = (int*)(base + L.dxyz);
-  uint32_t* touch = (uint32_t*)(base + L.touch);
-
+  float* fs = (float*)smem4;             // (KC, 128) rows of F_cell
+  float* as = fs + (size_t)KC * SLAB;    // 2 x (PT, AS) bin tiles
+  const int gs = round4(ci), cp = round4(co);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int cell = blockIdx.x, chunk = blockIdx.y;
-  const int c0 = blockIdx.z * SLAB, nc = min(SLAB, ci - c0);
-  const int x = cell / (d * d), y = (cell / d) % d, z = cell % d;
-  const int ntiles = (M + CT - 1) / CT;
-  const int t0 = (int)((long long)chunk * ntiles / nchunk);
-  const int t1 = (int)((long long)(chunk + 1) * ntiles / nchunk);
+  const int item = blockIdx.x;
+  if (item >= istart[ncell]) return;
+  const int cell = cell_of_item(istart, ncell, item);
+  const int c0 = coff[cell] + (item - istart[cell]) * rows;
+  const int c1 = min(coff[cell + 1], c0 + rows);
+  const int nkc = (gs + KC - 1) / KC;
+  const int nsteps = (c1 - c0 + PT - 1) / PT * nkc;
 
-  for (int i = tid; i < CT * (SLAB - nc); i += THREADS)  // bins' pad columns
-    g[(i / (SLAB - nc)) * SLAB + nc + i % (SLAB - nc)] = 0.f;
+  // the bin tile of a step: rows of tile step / nkc, columns of K chunk
+  // step % nkc
+  auto load_a = [&](int step) {
+    const int row0 = c0 + step / nkc * PT, k0 = (step % nkc) * KC;
+    const int nr = min(PT, c1 - row0), kq = min(KC, gs - k0) / 4;
+    float* dst = as + (size_t)(step & 1) * PT * AS;
+    for (int q = tid; q < nr * kq; q += THREADS) {
+      const int r = q / kq, c = q - r * kq;
+      copy16_async(dst + r * AS + 4 * c, g + (size_t)(row0 + r) * gs + k0 + 4 * c);
+    }
+    commit_copies();
+  };
+  // K chunk kc of F_cell, rows from ci on zero
+  auto load_f = [&](int kc) {
+    const int k0 = kc * KC, kl = min(KC, gs - k0), cq = cp / 4;
+    for (int q = tid; q < kl * cq; q += THREADS) {
+      const int r = q / cq, c = q - r * cq;
+      if (k0 + r < ci)
+        copy16_async(fs + r * SLAB + 4 * c, F + ((size_t)cell * ci + k0 + r) * cp + 4 * c);
+      else
+        *(float4*)(fs + r * SLAB + 4 * c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    commit_copies();
+  };
 
   float acc[8][8];
 #pragma unroll
@@ -447,53 +730,195 @@ bwd_filters_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int tile = t0; tile < t1; ++tile) {
-    const int m0 = tile * CT;
-    build_edges(gx, gy, gz, win, M, k, d, m0, dxyz, dfw, nullptr, false);
+  if (nkc == 1) load_f(0);  // resident for every tile of the block
+  load_a(0);
+  for (int step = 0; step < nsteps; ++step) {
+    const int kc = step % nkc;
+    if (step + 1 < nsteps) load_a(step + 1);  // its buffer was read before the barrier
+    wait_cell(step + 1 < nsteps);
     __syncthreads();
-    if (!__syncthreads_or(mark_touch(x, y, z, dxyz, touch, k, KW))) continue;
-    fill_bins(x, y, z, feat, m0, k, ci, c0, nc, SLAB, dxyz, dfw, touch, KW, g);
-    for (int i = tid; i < CT * SLAB; i += THREADS) {
-      const int t = i / SLAB, c = i - t * SLAB;
-      ds[i] = (m0 + t < M && c < co) ? dout[(size_t)(m0 + t) * co + c] : 0.f;
+    if (nkc > 1) {
+      load_f(kc);
+      wait_cell(false);
+      __syncthreads();
+    }
+    const float* ab = as + (size_t)(step & 1) * PT * AS;
+    const int kl = min(KC, gs - kc * KC);
+    for (int kk = 0; kk < kl; kk += 4) {
+      float4 av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) av[i] = *(const float4*)(ab + tile_at(ty, i) * AS + kk);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 ba = *(const float4*)(fs + (kk + r) * SLAB + 4 * tx);
+        const float4 bb = *(const float4*)(fs + (kk + r) * SLAB + 64 + 4 * tx);
+        const float bc[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float a = r == 0 ? av[i].x : r == 1 ? av[i].y : r == 2 ? av[i].z : av[i].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, bc[j], acc[i][j]);
+        }
+      }
+    }
+    if (kc == nkc - 1) {  // the tile's rows of y
+      const int row0 = c0 + step / nkc * PT;
+      const int nr = min(PT, c1 - row0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = tile_at(ty, i);
+        if (r < nr) {
+          float* yr = y + (size_t)(row0 + r) * cp;
+          if (4 * tx < cp)
+            *(float4*)(yr + 4 * tx) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          if (64 + 4 * tx < cp)
+            *(float4*)(yr + 64 + 4 * tx) =
+                make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      }
     }
     __syncthreads();
-    for (int t = 0; t < CT; ++t) {  // acc += g[t, rows]^T dout[t, cols]
-      const float4 ga = *(const float4*)(g + t * SLAB + 4 * ty);
-      const float4 gb = *(const float4*)(g + t * SLAB + 64 + 4 * ty);
-      const float4 da = *(const float4*)(ds + t * SLAB + 4 * tx);
-      const float4 db = *(const float4*)(ds + t * SLAB + 64 + 4 * tx);
-      const float gr[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-      const float dc[8] = {da.x, da.y, da.z, da.w, db.x, db.y, db.z, db.w};
+  }
+}
+
+// out[m, :] = the receiver's rows of y, added in cell order; a warp a receiver
+__global__ void __launch_bounds__(PW * 32)
+row_sum_kernel(const float* __restrict__ y, const int* __restrict__ rstart,
+               const int* __restrict__ slot_of, int M, int co, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = blockIdx.x * PW + warp;
+  if (m >= M) return;
+  const int cp = round4(co), c = 4 * lane;
+  if (c >= cp) return;
+  const int r0 = rstart[m], r1 = rstart[m + 1];
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = r0; r < r1; r += 4) {  // 4 rows' loads in flight, added in order
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = r + u < r1 ? *(const float4*)(y + (size_t)slot_of[r + u] * cp + c)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      s.x += v[u].x;
+      s.y += v[u].y;
+      s.z += v[u].z;
+      s.w += v[u].w;
+    }
+  }
+  float* o = out + (size_t)m * co + c;
+  if ((co & 3) == 0 && ((uintptr_t)out & 15u) == 0) {
+    *(float4*)o = s;
+  } else {
+    const float sv[4] = {s.x, s.y, s.z, s.w};
+    for (int j = 0; j < 4; ++j)
+      if (c + j < co) o[j] = sv[j];
+  }
+}
+
+// ---- B4 ---------------------------------------------------------------------
+
+// One (work item, ci slab) a block: acc (128 x 128, 8 x 8 a thread) +=
+// g[s, slab]^T dout[recv_of[s], :] over the item's pair rows s, written as
+// the item's partial bank part[item] (ci, co).
+__global__ void __launch_bounds__(THREADS)
+bwd_filters_kernel(const float* __restrict__ g, const float* __restrict__ dout,
+                   const int* __restrict__ coff, const int* __restrict__ recv_of,
+                   const int* __restrict__ istart, int ci, int co, int ncell, int rows,
+                   float* __restrict__ part) {
+  extern __shared__ float4 smem4[];
+  float* gsm = (float*)smem4;                 // 2 x (KT, SLAB) bin rows
+  float* dsm = gsm + (size_t)2 * KT * SLAB;   // 2 x (KT, SLAB) dout rows
+  const int gs = round4(ci);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int item = blockIdx.x;
+  if (item >= istart[ncell]) return;
+  const int cell = cell_of_item(istart, ncell, item);
+  const int s0 = blockIdx.y * SLAB, gq = min(SLAB, gs - s0) / 4;
+  const int a0 = coff[cell] + (item - istart[cell]) * rows;
+  const int a1 = min(coff[cell + 1], a0 + rows);
+  const int nsteps = (a1 - a0 + KT - 1) / KT;
+  // 16-byte dout reads need co % 4 == 0 and a 16-byte aligned base
+  const bool dvec = (co & 3) == 0 && ((uintptr_t)dout & 15u) == 0;
+
+  auto load = [&](int step) {
+    const int row0 = a0 + step * KT, nr = min(KT, a1 - row0);
+    float* gb = gsm + (size_t)(step & 1) * KT * SLAB;
+    float* db = dsm + (size_t)(step & 1) * KT * SLAB;
+    for (int q = tid; q < nr * gq; q += THREADS) {
+      const int r = q / gq, c = q - r * gq;
+      copy16_async(gb + r * SLAB + 4 * c, g + (size_t)(row0 + r) * gs + s0 + 4 * c);
+    }
+    if (dvec) {
+      const int dq = co / 4;
+      for (int q = tid; q < nr * dq; q += THREADS) {
+        const int r = q / dq, c = q - r * dq;
+        copy16_async(db + r * SLAB + 4 * c, dout + (size_t)recv_of[row0 + r] * co + 4 * c);
+      }
+    } else {
+      for (int q = tid; q < nr * co; q += THREADS) {
+        const int r = q / co, c = q - r * co;
+        db[r * SLAB + c] = dout[(size_t)recv_of[row0 + r] * co + c];
+      }
+    }
+    commit_copies();
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  if (nsteps > 0) load(0);
+  for (int step = 0; step < nsteps; ++step) {
+    if (step + 1 < nsteps) load(step + 1);  // its buffers were read before the barrier
+    wait_cell(step + 1 < nsteps);
+    __syncthreads();
+    const float* gb = gsm + (size_t)(step & 1) * KT * SLAB;
+    const float* db = dsm + (size_t)(step & 1) * KT * SLAB;
+    const int nr = min(KT, a1 - a0 - step * KT);
+    for (int t = 0; t < nr; ++t) {  // acc += g[t, rows]^T dout[t, cols]
+      const float4 ga = *(const float4*)(gb + t * SLAB + 4 * ty);
+      const float4 gc = *(const float4*)(gb + t * SLAB + 64 + 4 * ty);
+      const float4 da = *(const float4*)(db + t * SLAB + 4 * tx);
+      const float4 dc = *(const float4*)(db + t * SLAB + 64 + 4 * tx);
+      const float gr[8] = {ga.x, ga.y, ga.z, ga.w, gc.x, gc.y, gc.z, gc.w};
+      const float dv[8] = {da.x, da.y, da.z, da.w, dc.x, dc.y, dc.z, dc.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(gr[i], dc[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(gr[i], dv[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  // dst: the chunk's partial bank (nchunk > 1) or dF itself, (NC, ci, co)
-  float* bank = dst + (size_t)chunk * NC * ci * co;
+  float* bank = part + (size_t)item * ci * co;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = c0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    const int r = s0 + tile_at(ty, i);
     if (r >= ci) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int col = j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4;
-      if (col < co) bank[((size_t)cell * ci + r) * co + col] = acc[i][j];
+      const int col = tile_at(tx, j);
+      if (col < co) bank[(size_t)r * co + col] = acc[i][j];
     }
   }
 }
 
-// dF = the partial banks summed in chunk order
-__global__ void sum_banks_kernel(const float* __restrict__ part, int nchunk, size_t n,
+// dF[cell] = the partial banks of the cell's items, added in item order
+// (zero for a cell without pairs); n = ci * co elements a bank
+__global__ void sum_banks_kernel(const float* __restrict__ part,
+                                 const int* __restrict__ istart, int ncell, int n,
                                  float* __restrict__ out) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+  const size_t total = (size_t)ncell * n;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
+    const int cell = (int)(i / n), e = (int)(i - (size_t)cell * n);
     float s = 0.f;
-    for (int j = 0; j < nchunk; ++j) s += part[(size_t)j * n + i];
+    for (int j = istart[cell]; j < istart[cell + 1]; ++j) s += part[(size_t)j * n + e];
     out[i] = s;
   }
 }
@@ -685,46 +1110,130 @@ int set_smem(K kernel, size_t smem) {
 
 extern "C" {
 
-// out (M, co) = the collect of gx, gy, gz, win (M, k), feat (M, k, ci) and the
-// filter bank F (d^3 * ci, round4(co)) with zero pad columns, all float32 and
-// contiguous; F 16-byte aligned. Returns cudaErrorInvalidValue, and launches
-// nothing, for a shape outside the limits or above MAX_SMEM shared bytes.
-int contconv_collect(const float* gx, const float* gy, const float* gz,
-                     const float* win, const float* feat, const float* F,
-                     int M, int k, int ci, int co, int d, float* out,
-                     void* stream) {
-  if (bad_shape(M, k, ci, co, d) || ((uintptr_t)F & 15u) != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = Layout(d, ci, co, k).total;
-  const int err = set_smem(collect_kernel, smem);
-  if (err) return err;
-  collect_kernel<<<(M + CT - 1) / CT, THREADS, smem, (cudaStream_t)stream>>>(
-      gx, gy, gz, win, feat, F, M, k, ci, co, d, out);
+// The plan's first half: masks (M, ceil(d^3 / 32)) and counts (M + 1: a
+// leading 0, then each receiver's) of the cells each receiver's live corners
+// touch, from gx, gy, gz, win (M, k); zeroes cell_counts (d^3) for the second
+// half.
+int contconv_plan_masks(const float* gx, const float* gy, const float* gz,
+                        const float* win, int M, int k, int d, uint32_t* masks,
+                        int* counts, int* cell_counts, void* stream) {
+  if (bad_shape(M, k, 1, 1, d)) return (int)cudaErrorInvalidValue;
+  plan_masks_kernel<<<(M + PW - 1) / PW, PW * 32, 0, (cudaStream_t)stream>>>(
+      gx, gy, gz, win, M, k, d, masks, counts, cell_counts);
   return (int)cudaGetLastError();
 }
 
-// B4: dF (d^3, ci, co) from gx, gy, gz, win (M, k), feat (M, k, ci) and dout
-// (M, co). nchunk >= 1 chunks of receiver tiles; for nchunk > 1, `partial`
-// holds (nchunk, d^3, ci, co) floats of scratch.
-int contconv_bwd_filters(const float* gx, const float* gy, const float* gz,
-                         const float* win, const float* feat, const float* dout,
-                         int M, int k, int ci, int co, int d, int nchunk,
-                         float* partial, float* dF, void* stream) {
-  if (bad_shape(M, k, ci, co, d) || nchunk < 1 || nchunk > (M + CT - 1) / CT ||
-      (nchunk > 1 && partial == nullptr))
+// The plan's second half, from the masks, rstart (M + 1; the counts' prefix
+// sum) and the zeroed cell_counts (d^3): the receiver-major cell_r and
+// slot_of, the cell-major recv_of (each with room for every pair), the
+// cells' offsets coff (d^3 + 1) and their first work items istart (d^3 + 1)
+// for items of at most `rows` rows.
+int contconv_plan_cells(const uint32_t* masks, const int* rstart, int M, int d, int rows,
+                        int* cell_counts, int16_t* cell_r, int* slot_of, int* recv_of,
+                        int* coff, int* istart, void* stream) {
+  if (bad_shape(M, 1, 1, 1, d) || rows < 1) return (int)cudaErrorInvalidValue;
+  const int z = d * d * d, nw = (z + 31) / 32;
+  const long long nwords = (long long)M * nw, per_block = THREADS * COUNT_WORDS;
+  plan_cell_counts_kernel<<<(unsigned)((nwords + per_block - 1) / per_block), THREADS, 0,
+                            (cudaStream_t)stream>>>(masks, nwords, nw, z, cell_counts);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  plan_cells_kernel<<<z, CELL_THREADS, 0, (cudaStream_t)stream>>>(
+      masks, rstart, cell_counts, M, nw, z, rows, cell_r, slot_of, recv_of, coff, istart);
+  return (int)cudaGetLastError();
+}
+
+// g (P, round4(ci)), 16-byte aligned: the bins of every pair of the plan
+// (rstart (M + 1), cell_r (P), slot_of (P)) at its cell-major row, pad
+// columns zero; feat (M, k, ci) at any 4-byte offset.
+int contconv_pair_bins(const float* gx, const float* gy, const float* gz,
+                       const float* win, const float* feat, const int* rstart,
+                       const int16_t* cell_r, const int* slot_of, int M, int k, int ci,
+                       int d, float* g, void* stream) {
+  if (bad_shape(M, k, ci, 1, d) || ((uintptr_t)g & 15u) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = LayoutF(k).total;
+  // rows a warp: all a receiver can have, or what fits with 8 warps a block;
+  // small shapes take more warps a block
+  const int gs = round4(ci), most = 8 * k < d * d * d ? 8 * k : d * d * d;
+  const size_t fixed = BinLayout(d, k, gs, 0).per_warp;
+  int nwarp = 8;
+  if ((size_t)MAX_SMEM / nwarp < fixed + 16 + (size_t)gs * sizeof(float) + sizeof(int))
+    return (int)cudaErrorInvalidValue;
+  const size_t fit = ((size_t)MAX_SMEM / nwarp - fixed - 16) /
+                     ((size_t)gs * sizeof(float) + sizeof(int));
+  const int nrows = fit < (size_t)most ? (int)fit : most;
+  const size_t per_warp = BinLayout(d, k, gs, nrows).per_warp;
+  while (nwarp < BIN_WARPS && 2 * nwarp * per_warp <= (size_t)MAX_SMEM / 2) nwarp *= 2;
+  const size_t smem = nwarp * per_warp;
+  int err = set_smem(bins_kernel, smem);
+  if (err) return err;
+  int dev = 0, sms = 0, resident = 0;
+  if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+    return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, bins_kernel,
+                                                           nwarp * 32, smem);
+  if (err) return err;
+  if (resident < 1) return (int)cudaErrorInvalidValue;
+  const long long need = ((long long)M + nwarp - 1) / nwarp;
+  const long long most_blocks = (long long)sms * resident;
+  const int blocks = (int)(need < most_blocks ? need : most_blocks);
+  bins_kernel<<<blocks, nwarp * 32, smem, (cudaStream_t)stream>>>(
+      gx, gy, gz, win, feat, rstart, cell_r, slot_of, M, k, ci, d, nrows, g);
+  return (int)cudaGetLastError();
+}
+
+// B3's product: y (P, round4(co)) = g (P, round4(ci)) times the pair's cell
+// of F (d^3 * ci, round4(co)) with zero pad columns; coff (d^3 + 1) the
+// cells' row offsets; g, F and y 16-byte aligned. istart (d^3 + 1) cuts the
+// cells into work items of at most `rows` rows, at most `nitems` in all.
+int contconv_pair_product(const float* g, const float* F, const int* coff,
+                          const int* istart, int ci, int co, int d, int rows, int nitems,
+                          float* y, void* stream) {
+  if (bad_shape(1, 1, ci, co, d) || rows < 1 || nitems < 1 ||
+      (((uintptr_t)g | (uintptr_t)F | (uintptr_t)y) & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)KC * SLAB + (size_t)2 * PT * AS) * sizeof(float);
+  const int err = set_smem(pair_product_kernel, smem);
+  if (err) return err;
+  pair_product_kernel<<<nitems, THREADS, smem, (cudaStream_t)stream>>>(
+      g, F, coff, istart, ci, co, d * d * d, rows, y);
+  return (int)cudaGetLastError();
+}
+
+// B3's last pass: out (M, co) = each receiver's rows of y (P, round4(co)),
+// at slot_of[rstart[m] ..], added in that order.
+int contconv_row_sum(const float* y, const int* rstart, const int* slot_of, int M,
+                     int co, float* out, void* stream) {
+  if (M <= 0 || co <= 0 || co > MAX_CO || ((uintptr_t)y & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  row_sum_kernel<<<(M + PW - 1) / PW, PW * 32, 0, (cudaStream_t)stream>>>(
+      y, rstart, slot_of, M, co, out);
+  return (int)cudaGetLastError();
+}
+
+// B4: dF (d^3, ci, co) from the bins g (P, round4(ci)), dout (M, co) and the
+// plan's coff (d^3 + 1) and recv_of (P). istart (d^3 + 1) cuts the cells into
+// work items of at most `rows` rows, at most `nitems` in all; `partial` holds
+// (nitems, ci, co) floats of scratch.
+int contconv_bwd_filters(const float* g, const float* dout, const int* coff,
+                         const int* recv_of, const int* istart, int ci, int co, int d,
+                         int rows, int nitems, float* partial, float* dF, void* stream) {
+  if (bad_shape(1, 1, ci, co, d) || rows < 1 || nitems < 1 || partial == nullptr ||
+      (ci + SLAB - 1) / SLAB > 65535 || ((uintptr_t)g & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)4 * KT * SLAB * sizeof(float);
   const int err = set_smem(bwd_filters_kernel, smem);
   if (err) return err;
   const int nc = d * d * d;
-  const dim3 grid(nc, nchunk, (ci + SLAB - 1) / SLAB);
+  const dim3 grid(nitems, (ci + SLAB - 1) / SLAB);
   bwd_filters_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      gx, gy, gz, win, feat, dout, M, k, ci, co, d, nchunk, nchunk > 1 ? partial : dF);
+      g, dout, coff, recv_of, istart, ci, co, nc, rows, partial);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || nchunk == 1) return (int)e;
+  if (e != cudaSuccess) return (int)e;
   const size_t n = (size_t)nc * ci * co;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  sum_banks_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(partial, nchunk, n, dF);
+  sum_banks_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(partial, istart, nc, ci * co, dF);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,132 @@
+"""Times B3 (ContConv collect) and B4 (its filter gradient) step by step on
+the geometry of a Morton radius graph of spiral bodies:
+
+    python -m nbody_tpu_torch.experiments.contconv_bench --n-bodies 100000 --d 6 4
+
+Per filter resolution D it prints one JSON row: the pair count of the plan
+and its spread over the receivers and the cells, whether the plan equals its plain
+version, B3 and B4 against their plain versions (max |d| / max |plain|),
+and milliseconds (CUDA events) of the plan, the bins and of the whole B3
+and B4 calls, with the rows of one profiled call of each, beside the least
+time an H100 could take for the call (``bound_ms``). On the CPU (``--device cpu``) every step is its
+plain version and the times are host times of those.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from nbody_tpu_torch.experiments.common import resolve_device
+from nbody_tpu_torch.ics import generate_spiral
+from nbody_tpu_torch.models.contconv import conv_geometry
+from nbody_tpu_torch.ops import contconv_kernel as cck
+from nbody_tpu_torch.ops.radius import radius_neighbors
+from nbody_tpu_torch.utils.timing import cuda_time_ms, profile_ms
+
+
+def _ms(fn, dev, reps):
+    if dev.type == "cuda":
+        return cuda_time_ms(fn, reps=reps, warmup=1)
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+# published peaks of one H100 SXM: FP32 outside the tensor cores, HBM bandwidth
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+def bound_ms(pairs: int, m: int, k: int, ci: int, co: int, d: int):
+    """(ms, "operations" or "bytes"): the larger of the call's FP32
+    operations (2 ci co a (receiver, cell) pair, 2 ci an edge corner) and its
+    bytes (geometry, features, bank and an (M, co) operand, each once) at the
+    card's peaks; the same for B3 and B4."""
+    t_ops = 1e3 * (2.0 * pairs * ci * co + 16.0 * m * k * ci) / PEAK_FLOPS
+    t_bytes = 1e3 * 4.0 * (4 * m * k + m * k * ci + d ** 3 * ci * co + m * co) / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def bench(n: int, d: int, k: int, width: int, dev: torch.device, reps: int = 5) -> dict:
+    """One row for ``n`` spiral bodies at filter resolution ``d``."""
+    gen = torch.Generator().manual_seed(n + d)
+    pos, _, _ = generate_spiral(torch.Generator().manual_seed(n + 5), n, device=dev)
+    impl = "kernel" if dev.type == "cuda" else "dense"
+    idx, valid = radius_neighbors(pos, 1.0, k, method="morton", impl=impl)
+    geom = conv_geometry(pos[None], idx[None], valid[None], 1.0)
+    grid = (geom["mapped"][0] + 1.0) * ((d - 1) / 2.0)
+    gxyz = tuple(grid[..., a].contiguous() for a in range(3))
+    win = geom["window"][0].contiguous()
+    fj = torch.randn(n, width, generator=gen).to(dev)[idx.long()].contiguous()
+    filters = torch.randn(d ** 3, width, width, generator=gen).to(dev)
+    dout = torch.randn(n, width, generator=gen).to(dev)
+    args = (*gxyz, win, fj, filters)
+    cuda = dev.type == "cuda"
+
+    plan = cck.pair_plan(*gxyz, win, d=d)
+    want_plan = cck.pair_plan_torch(*gxyz, win, d=d)
+    counts = (plan.rstart[1:] - plan.rstart[:-1]).float()
+    q = torch.quantile(counts, torch.tensor([0.5, 0.9, 0.99], device=dev)).tolist()
+    row = {"n_bodies": n, "d": d, "k": k, "width": width, "device": str(dev),
+           "pairs": plan.cell_r.numel(), "pairs_per_receiver_mean": float(counts.mean()),
+           "pairs_per_receiver_p50_p90_p99_max": [*q, float(counts.max())],
+           "live_edges": int((win != 0).sum()),
+           "pairs_per_cell_mean_max": [plan.cell_r.numel() / d ** 3,
+                                       int((plan.coff[1:] - plan.coff[:-1]).max())],
+           "plan_equals_plain": all(torch.equal(a, b) for a, b in zip(plan, want_plan))}
+    row["bound_ms"], row["bound_by"] = bound_ms(row["pairs"], n, k, width, width, d)
+
+    bins = cck._bins_cuda if cuda else (
+        lambda p, *a: cck.pair_bins_torch(p, *a[:5], d=a[5]))
+    g = bins(plan, *gxyz, win, fj, d)
+    row["bins_vs_plain"] = _rel(g[:, :width], cck.pair_bins_torch(plan, *gxyz, win, fj, d=d))
+    out = cck.contconv_collect(*args, d=d)
+    d_f = cck.contconv_bwd_filters(*args, dout, d=d)
+    row["b3_vs_plain"] = _rel(out, cck.contconv_collect_torch(*args, d=d))
+    row["b4_vs_plain"] = _rel(d_f, cck.contconv_collect_bwd_torch(
+        *args, dout, d=d, need=(False,) * 5 + (True,))[5])
+    row["same_bits_twice"] = (torch.equal(out, cck.contconv_collect(*args, d=d)) and
+                              torch.equal(d_f, cck.contconv_bwd_filters(*args, dout, d=d)))
+
+    row["plan_ms"] = _ms(lambda: cck.pair_plan(*gxyz, win, d=d), dev, reps)
+    row["bins_ms"] = _ms(lambda: bins(plan, *gxyz, win, fj, d), dev, reps)
+    row["b3_ms"] = _ms(lambda: cck.contconv_collect(*args, d=d), dev, reps)
+    row["b4_ms"] = _ms(lambda: cck.contconv_bwd_filters(*args, dout, d=d), dev, reps)
+    if cuda:
+        for key, fn in (("b3", lambda: cck.contconv_collect(*args, d=d)),
+                        ("b4", lambda: cck.contconv_bwd_filters(*args, dout, d=d))):
+            busy, top = profile_ms(fn, dev, top=8)
+            row[f"{key}_busy_ms"] = busy
+            row[f"{key}_rows_ms"] = {name[:48]: ms for name, ms in top}
+        items = cck._item_rows(plan.cell_r.numel(), d ** 3)[1]  # B4: a partial bank an item
+        row["scratch_bytes"] = {"plan": sum(t.numel() * t.element_size() for t in plan),
+                                "bins": g.numel() * 4, "products": g.shape[0] * width * 4,
+                                "partial_banks": items * width * width * 4}
+    return row
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--n-bodies", type=int, default=100_000)
+    p.add_argument("--d", type=int, nargs="+", default=[6, 4])
+    p.add_argument("--neighbors", type=int, default=32)
+    p.add_argument("--width", type=int, default=128)
+    p.add_argument("--device", default=None,
+                   help="torch device; default cuda (the CPU only as --device cpu)")
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    rows = [bench(args.n_bodies, d, args.neighbors, args.width, dev) for d in args.d]
+    for row in rows:
+        print(json.dumps(row))
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,9 @@ stepwise and rollout evaluation from the latest checkpoint, and the result
 CSVs in the reference schemas under ``<base>/results/<name>/``. The JAX
 config files drive it unchanged: their implementation names are mapped to
 the port's (``config.IMPL_NAMES``). Everything runs on ``--device``, the
-card when there is one.
+card when there is one; a Morton neighbour search whose impl the config
+leaves unset takes the kernels there and the plain search on the CPU, and
+the resolved graph spec is printed.
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ def run(cfg: ExperimentConfig, device=None) -> dict:
             generate_dataset(cfg.scenarios(seed=rng.randint(0, 1000)),
                              os.path.join(out_dir, f"output_file_{i}.csv"), device=dev)
 
-    model = cfg.build_model(generator=torch.Generator().manual_seed(cfg.train.seed)).to(dev)
+    model = cfg.build_model(generator=torch.Generator().manual_seed(cfg.train.seed),
+                            device=dev).to(dev)
+    print(f"model {cfg.model.type} on {dev}: graph spec {model.graph_spec}")
     scheduler = PlateauScheduler(lr=cfg.train.learning_rate,
                                  factor=cfg.train.scheduler_factor,
                                  patience=cfg.train.scheduler_patience)

@@ -13,9 +13,22 @@ in ``nbody_tpu_torch/csrc/contconv.cu`` that replaces the Pallas
 :func:`contconv_collect_torch`, which is also the ``impl="dense"`` layer of
 ``models/contconv.py``.
 
+On the card B3 and B4 share one (receiver, cell) pair plan
+(:func:`pair_plan`): the distinct cells each receiver's live corners touch,
+listed cell-major with receivers ascending inside a cell (four launches: the
+receivers' cell masks, their prefix sum, the cells' counts, every pair's
+place). A bin kernel then reads every live edge's feature row once and
+writes the compacted bins ``g[pair]``; B3 multiplies each cell's contiguous rows by that cell of the
+bank and adds a receiver's products in cell order, B4 multiplies their
+transpose by the gathered ``dout`` rows. The plan's plain version
+(:func:`pair_plan_torch`) and the plain bins, product and filter gradient
+over a plan (:func:`pair_bins_torch`, :func:`pair_collect_torch`,
+:func:`pair_filter_grad_torch`) hold that rule without a card.
+
 The gradient is a ``torch.autograd.Function`` that saves its inputs only,
-as the JAX custom VJP does, and whose backward launches, on the card, the
-kernels of the Pallas ``_collect_bwd_rule``:
+as the JAX custom VJP does (the backward rebuilds plan and bins), and whose
+backward launches, on the card, the kernels of the Pallas
+``_collect_bwd_rule``:
 
 - B4 :func:`contconv_bwd_filters` (``_bwd_filters_kernel``) when the
   filters need a gradient,
@@ -25,17 +38,28 @@ kernels of the Pallas ``_collect_bwd_rule``:
   it, as XLA drops the unused JAX call.
 
 On the CPU each of them runs its part of :func:`contconv_collect_bwd_torch`,
-the plain backward. Every wrapper counts its launches in ``<wrapper>.launches``.
+the plain backward. Every wrapper counts its launches in
+``<wrapper>.launches``: one per call, however many kernels the call runs;
+B3 and B4 also by filter resolution, in ``<wrapper>.launches_by_d``.
 
 The caller gathers ``feat_j`` (M, k, ci) itself, as the JAX layer does (1.6
-GB at 100k bodies, k = 32, ci = 128, which the card holds); the kernels read
-each edge's row once for each of its 8 corner cells.
+GB at 100k bodies, k = 32, ci = 128, which the card holds). B3 and B4 read
+each live edge's row once; their scratch is the plan (10 bytes a pair), the
+bins and, for B3, the products (``round4(ci)`` and ``round4(co)`` floats a
+pair), and B4's partial banks, one (ci, co) bank a work item. The scratch
+is sized without asking the device where the most pairs the shape can have,
+M min(8k, D^3), keep bins and products under ``_NO_READ_BYTES`` (a few
+thousand receivers: launches so short that a wait would leave the card idle
+while the host catches up); above that from the pair count read on the host,
+the call's one wait (B4 in a backward takes the row count from its
+forward). B5 and B6 read a row once for each of its 8 corner cells.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,15 +68,20 @@ from nbody_tpu_torch.ops.interpolate import trilinear_corners
 
 # elements of one (rows, D^3, ci) bin slab in the twins
 _TWIN_ELEMS = 1 << 25
-# B4's target grid, ~4 waves of its 2 resident blocks on 132 SMs: the
-# receiver tiles are cut into as many chunks (partial banks) as that needs
-_B4_BLOCKS = 1056
-_B4_SLAB = 128  # ci rows of B4's dF tile (csrc/contconv.cu SLAB)
+# B3's and B4's products run over work items of a cell's pair rows: about
+# this many items (16 waves of one resident block on 132 SMs), of at least
+# _ITEM_ROWS rows each, a multiple of the kernels' row tiles (128 and 64)
+_PRODUCT_ITEMS = 2112
+_ITEM_ROWS = 512
+# bins plus products of the most pairs a shape can have, in bytes, up to
+# which the plan is sized by that bound and the host never waits for the
+# pair count
+_NO_READ_BYTES = 2 << 30
 
 _LIB: Optional[ctypes.CDLL] = None
 
 _LIMITS = ("the kernels take 2 <= d <= 10, k <= 64, co <= 128 (and ci <= 128 "
-           "for B5/B6) within 227 KB of shared memory")
+           "for B5/B6, within 227 KB of shared memory)")
 
 
 def _lib() -> ctypes.CDLL:
@@ -60,11 +89,17 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load_library("contconv")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.contconv_collect.argtypes = [ptr] * 6 + [i32] * 5 + [ptr, ptr]
-        lib.contconv_bwd_filters.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] * 3
+        lib.contconv_plan_masks.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 4
+        lib.contconv_plan_cells.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 7
+        lib.contconv_pair_bins.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 2
+        lib.contconv_pair_product.argtypes = [ptr] * 4 + [i32] * 5 + [ptr] * 2
+        lib.contconv_row_sum.argtypes = [ptr] * 3 + [i32] * 2 + [ptr] * 2
+        lib.contconv_bwd_filters.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 3
         lib.contconv_bwd_feat.argtypes = [ptr] * 6 + [i32] * 5 + [ptr] * 2
         lib.contconv_bwd_geom.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 5
-        for fn in (lib.contconv_collect, lib.contconv_bwd_filters,
+        for fn in (lib.contconv_plan_masks, lib.contconv_plan_cells,
+                   lib.contconv_pair_bins, lib.contconv_pair_product,
+                   lib.contconv_row_sum, lib.contconv_bwd_filters,
                    lib.contconv_bwd_feat, lib.contconv_bwd_geom):
             fn.restype = i32
         _LIB = lib
@@ -98,8 +133,9 @@ def contconv_collect_torch(gx, gy, gz, window, feat_j, filters, *, d: int):
 
 
 def _edge_corners(gx, gy, gz, d):
-    """Per edge its 8 corner cells (x, y, z order), their trilinear weights
-    and the weights' derivatives along x, y and z, each (rows, k, 8). The
+    """Per edge its 8 corner cells (x, y, z order), their trilinear weights,
+    the weights' derivatives along x, y and z, and which corners are live
+    (each of the three axis weights non-zero), each (rows, k, 8). The
     derivative of an axis weight is JAX's ``_dtent``: -1 / +1 for the lower
     / upper corner where the fraction lies in (0, 1), else 0 (integer and
     clamped coordinates)."""
@@ -110,7 +146,8 @@ def _edge_corners(gx, gy, gz, d):
     inside = ((f > 0) & (f < 1)).to(f.dtype)
     w_ax = (1.0 - f, f)
     dw_ax = (-inside, inside)
-    cells, ws, dws = [], [], ([], [], [])
+    live_ax = (f != 1, f != 0)
+    cells, ws, dws, lives = [], [], ([], [], []), []
     for ox in (0, 1):
         for oy in (0, 1):
             for oz in (0, 1):
@@ -118,11 +155,12 @@ def _edge_corners(gx, gy, gz, d):
                 cells.append(((lo[..., 0] + ox) * d + lo[..., 1] + oy) * d + lo[..., 2] + oz)
                 w = [w_ax[o[a]][..., a] for a in range(3)]
                 ws.append(w[0] * w[1] * w[2])
+                lives.append(live_ax[ox][..., 0] & live_ax[oy][..., 1] & live_ax[oz][..., 2])
                 for a in range(3):
                     terms = [dw_ax[o[b]][..., b] if b == a else w[b] for b in range(3)]
                     dws[a].append(terms[0] * terms[1] * terms[2])
     return (torch.stack(cells, -1), torch.stack(ws, -1),
-            tuple(torch.stack(x, -1) for x in dws))
+            tuple(torch.stack(x, -1) for x in dws), torch.stack(lives, -1))
 
 
 def contconv_collect_bwd_torch(gx, gy, gz, window, feat_j, filters, dout, *, d: int,
@@ -150,7 +188,7 @@ def contconv_collect_bwd_torch(gx, gy, gz, window, feat_j, filters, dout, *, d: 
         sl = slice(r0, r0 + rows)
         mc = window[sl].shape[0]
         win, fj, dsl = window[sl], feat_j[sl], dout[sl]
-        cell, w, (dwx, dwy, dwz) = _edge_corners(gx[sl], gy[sl], gz[sl], d)
+        cell, w, (dwx, dwy, dwz), _ = _edge_corners(gx[sl], gy[sl], gz[sl], d)
         oh = torch.zeros((mc, k, z), dtype=dt, device=dev).scatter_add(2, cell, w)
         if want_f:
             g = torch.bmm(oh.transpose(1, 2), fj * win[..., None])  # (mc, D^3, ci)
@@ -173,6 +211,99 @@ def contconv_collect_bwd_torch(gx, gy, gz, window, feat_j, filters, dout, *, d: 
     geo = (tuple(cat(p, (m, k)) for p in dgeo) if geom else (None,) * 4)
     return (*geo, cat(dfeat, (m, k, ci)) if want_feat else None,
             d_f.reshape(z, ci, co) if want_f else None)
+
+
+class PairPlan(NamedTuple):
+    """The distinct (receiver, cell) pairs of one geometry, P of them: the
+    cells that a receiver's live corners touch. An edge is live when its
+    window is non-zero, a corner when each of its three axis weights is.
+    Receiver-major, a receiver's pairs are rows ``rstart[m] : rstart[m + 1]``,
+    cells ascending; cell-major, a cell's pairs are rows ``coff[c] :
+    coff[c + 1]``, receivers ascending. The bins and B3's products are
+    stored cell-major."""
+
+    rstart: torch.Tensor   # (M + 1,) int32
+    cell_r: torch.Tensor   # (P,) int16, the cell of each receiver-major row
+    slot_of: torch.Tensor  # (P,) int32, receiver-major row -> cell-major row
+    recv_of: torch.Tensor  # (P,) int32, the receiver of each cell-major row
+    coff: torch.Tensor     # (D^3 + 1,) int32
+
+    # A plan sized by a bound (on the card) has more rows than pairs: the P
+    # pairs come first in either order (``rstart[-1] == coff[-1] == P``),
+    # the spare rows belong to no receiver and no cell and are never read.
+
+
+def _live_corners(gx, gy, gz, window, d):
+    """Per edge corner its cell, weight and whether it adds anything, each
+    (M, k, 8)."""
+    if d < 2:
+        raise ValueError(f"the pair plan needs d >= 2, got {d}")
+    cell, w, _, live = _edge_corners(gx, gy, gz, d)
+    return cell, w, live & (window != 0)[..., None]
+
+
+def pair_plan_torch(gx, gy, gz, window, *, d: int) -> PairPlan:
+    """Plain version of the plan kernels: the pairs are the distinct
+    (receiver, cell) keys of the live corners, in key order. Index
+    preparation by torch calls, as the Morton sort in ``ops/spatial.py``."""
+    m = window.shape[0]
+    z = d ** 3
+    cell, _, live = _live_corners(gx, gy, gz, window, d)
+    recv = torch.arange(m, device=window.device)[:, None, None].expand_as(cell)
+    keys = torch.unique(recv[live] * z + cell[live])  # sorted
+    recv_r = torch.div(keys, z, rounding_mode="floor").int()
+    rstart = torch.zeros(m + 1, dtype=torch.int32, device=window.device)
+    rstart[1:] = torch.cumsum(torch.bincount(recv_r, minlength=m), 0)
+    # cell-major: a stable sort by cell keeps the receivers ascending
+    cells, perm = torch.sort((keys % z).to(torch.int16), stable=True)
+    slot_of = torch.empty(keys.numel(), dtype=torch.int32, device=window.device)
+    slot_of[perm] = torch.arange(keys.numel(), dtype=torch.int32, device=window.device)
+    coff = torch.searchsorted(cells, torch.arange(z + 1, dtype=cells.dtype,
+                                                  device=window.device), out_int32=True)
+    return PairPlan(rstart, (keys % z).to(torch.int16), slot_of, recv_r[perm], coff)
+
+
+def pair_bins_torch(plan: PairPlan, gx, gy, gz, window, feat_j, *, d: int):
+    """Plain version of the bin kernel: g (P, ci), row ``s`` the sum of
+    window * corner weight * feature over the live corners of pair ``s``
+    (cell-major)."""
+    m, k, ci = feat_j.shape
+    z = d ** 3
+    cell, w, live = _live_corners(gx, gy, gz, window, d)
+    counts = (plan.rstart[1:] - plan.rstart[:-1]).long()
+    recv_r = torch.repeat_interleave(torch.arange(m, device=window.device), counts)
+    recv, edge, corner = live.nonzero(as_tuple=True)
+    row = torch.searchsorted(recv_r * z + plan.cell_r.long(), recv * z + cell[live])
+    wf = (window[recv, edge] * w[recv, edge, corner])[:, None] * feat_j[recv, edge]
+    g = torch.zeros((plan.cell_r.numel(), ci), dtype=feat_j.dtype, device=feat_j.device)
+    return g.index_add_(0, plan.slot_of[row].long(), wf)
+
+
+def _cell_rows(plan: PairPlan):
+    """(cell, first row, end row) of every cell that has pairs."""
+    coff = plan.coff.tolist()
+    return [(c, a, b) for c, (a, b) in enumerate(zip(coff[:-1], coff[1:])) if b > a]
+
+
+def pair_collect_torch(plan: PairPlan, g, filters, m: int):
+    """Plain version of B3's product and row sum over a plan: each cell's
+    bin rows times that cell of the bank, then every receiver's products
+    added up; (M, co)."""
+    y = torch.empty((g.shape[0], filters.shape[2]), dtype=g.dtype, device=g.device)
+    for c, a, b in _cell_rows(plan):
+        y[a:b] = g[a:b] @ filters[c]
+    out = torch.zeros((m, filters.shape[2]), dtype=g.dtype, device=g.device)
+    return out.index_add_(0, plan.recv_of.long(), y)
+
+
+def pair_filter_grad_torch(plan: PairPlan, g, dout, z: int):
+    """Plain version of B4's product over a plan: dF[cell] = the cell's bin
+    rows transposed times the ``dout`` rows of their receivers; (D^3, ci,
+    co)."""
+    d_f = torch.zeros((z, g.shape[1], dout.shape[1]), dtype=g.dtype, device=g.device)
+    for c, a, b in _cell_rows(plan):
+        d_f[c] = g[a:b].T @ dout[plan.recv_of[a:b].long()]
+    return d_f
 
 
 def _check_all(gx, gy, gz, window, feat_j, filters, d, dout=None):
@@ -200,31 +331,146 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _count(wrapper, d: int) -> None:
+    """One launch of B3 or B4, also under its filter resolution (a model's
+    layers differ in it)."""
+    wrapper.launches += 1
+    wrapper.launches_by_d[d] += 1
+
+
+def _item_rows(p: int, z: int):
+    """The rows of a work item of the grouped products for a plan of ``p``
+    rows, and an upper bound of the item count (the grid: the true count
+    stays on the device)."""
+    rows = max(_ITEM_ROWS, -(-p // (_PRODUCT_ITEMS * _ITEM_ROWS)) * _ITEM_ROWS)
+    return rows, p // rows + z
+
+
+def _work_items(plan: PairPlan, z: int):
+    """The grouped products' work items: every cell's pair rows cut into
+    pieces of at most ``rows`` rows, so that the blocks' work is even however
+    uneven the cells are. Returns the cells' first items ``istart`` (z + 1,
+    int32), ``rows`` and the bound of the item count. Plain version of what
+    plan_cells_kernel writes on the card."""
+    rows, bound = _item_rows(plan.cell_r.numel(), z)
+    n_c = plan.coff[1:] - plan.coff[:-1]
+    istart = torch.zeros(z + 1, dtype=torch.int32, device=plan.coff.device)
+    istart[1:] = torch.cumsum((n_c + (rows - 1)) // rows, 0)
+    return istart, rows, bound
+
+
+def _plan_rows(m: int, k: int, d: int, ci: int, co: int) -> Optional[int]:
+    """The rows to give a plan without asking the device for its pair count:
+    the most pairs the shape can have, where bins and products of that many
+    rows stay under ``_NO_READ_BYTES``; else None (the count is read)."""
+    most = m * min(8 * k, d ** 3)
+    width = -(-ci // 4) * 4 + -(-co // 4) * 4
+    return most if 4 * most * width <= _NO_READ_BYTES else None
+
+
+def _plan_cuda(gx, gy, gz, window, d: int, rows: Optional[int] = None):
+    """The plan on the card and its work items, ``(PairPlan, (istart, item
+    rows, item bound))``: masks and counts (plan_masks_kernel), their prefix
+    sum, then the cells' counts and every pair's place
+    (plan_cell_counts_kernel, plan_cells_kernel). The lists have ``rows``
+    rows, which must hold every pair (:func:`_plan_rows`, or the rows of an
+    earlier plan of the same geometry); with None the pair count is read on
+    the host here, the call's one wait for the device."""
+    m, k = window.shape
+    dev = window.device
+    z = d ** 3
+    lib = _lib()
+
+    def ints(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    masks, counts, cell_counts = ints(m, -(-z // 32)), ints(m + 1), ints(z)
+    what = f"contconv plan launch (d={d}, k={k}; {_LIMITS})"
+    with torch.cuda.device(dev):
+        rc = lib.contconv_plan_masks(gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
+                                     window.data_ptr(), m, k, d, masks.data_ptr(),
+                                     counts.data_ptr(), cell_counts.data_ptr(), _stream())
+    build.raise_on(rc, what)
+    rstart = torch.cumsum(counts, 0, dtype=torch.int32)
+    p = int(rstart[-1]) if rows is None else rows
+    plan = PairPlan(rstart, ints(p, dtype=torch.int16), ints(p), ints(p), ints(z + 1))
+    istart = ints(z + 1)
+    item_rows, bound = _item_rows(p, z)
+    with torch.cuda.device(dev):
+        rc = lib.contconv_plan_cells(masks.data_ptr(), rstart.data_ptr(), m, d, item_rows,
+                                     cell_counts.data_ptr(), plan.cell_r.data_ptr(),
+                                     plan.slot_of.data_ptr(), plan.recv_of.data_ptr(),
+                                     plan.coff.data_ptr(), istart.data_ptr(), _stream())
+    build.raise_on(rc, what)
+    return plan, (istart, item_rows, bound)
+
+
+def pair_plan(gx, gy, gz, window, *, d: int) -> PairPlan:
+    """The (receiver, cell) pair plan of B3 and B4 for (M, k) float32
+    geometry: the plan kernels for CUDA tensors, :func:`pair_plan_torch` on
+    the CPU."""
+    if build.on_cpu(gx, gy, gz, window):
+        return pair_plan_torch(gx, gy, gz, window, d=d)
+    for name, t in zip(("gx", "gy", "gz", "window"), (gx, gy, gz, window)):
+        build.check(name, t, tuple(window.shape))
+    return _plan_cuda(gx, gy, gz, window, d)[0]
+
+
+def _bins_cuda(plan: PairPlan, gx, gy, gz, window, feat_j, d: int):
+    """g (P, round4(ci)) from the bin kernel, pad columns zero."""
+    m, k, ci = feat_j.shape
+    g = torch.empty((plan.cell_r.numel(), -(-ci // 4) * 4), dtype=torch.float32,
+                    device=window.device)
+    with torch.cuda.device(window.device):
+        rc = _lib().contconv_pair_bins(
+            gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), window.data_ptr(),
+            feat_j.data_ptr(), plan.rstart.data_ptr(), plan.cell_r.data_ptr(),
+            plan.slot_of.data_ptr(), m, k, ci, d, g.data_ptr(), _stream())
+    build.raise_on(rc, f"contconv bins launch (d={d}, k={k}, ci={ci}; {_LIMITS})")
+    return g
+
+
 def _launch(gx, gy, gz, window, feat_j, filters, d):
+    """B3 on the card: plan, bins, the grouped product y = g @ F_cell and
+    the receivers' row sums. Returns the output and the plan's rows."""
     m, k = window.shape
     z, ci, co = filters.shape
     out = torch.empty((m, co), dtype=torch.float32, device=window.device)
     if m == 0:
-        return out
-    lib = _lib()
+        return out, 0
+    plan, (istart, rows, nitems) = _plan_cuda(gx, gy, gz, window, d,
+                                              _plan_rows(m, k, d, ci, co))
+    _count(contconv_collect, d)
+    rows_p = plan.cell_r.numel()
+    if rows_p == 0:
+        return out.zero_(), 0
+    g = _bins_cuda(plan, gx, gy, gz, window, feat_j, d)
     # the kernel reads F rows as 16-byte vectors: pad co to a multiple of 4
     f_rows = filters.reshape(z * ci, co)
     if co % 4:
         f_rows = torch.nn.functional.pad(f_rows, (0, 4 - co % 4))
+    y = torch.empty((g.shape[0], f_rows.shape[1]), dtype=torch.float32, device=g.device)
+    what = f"contconv_collect launch (d={d}, k={k}, ci={ci}, co={co}; {_LIMITS})"
+    lib = _lib()
     with torch.cuda.device(window.device):
-        rc = lib.contconv_collect(
-            gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), window.data_ptr(),
-            feat_j.data_ptr(), f_rows.data_ptr(), m, k, ci, co, d,
-            out.data_ptr(), _stream())
-    build.raise_on(rc, f"contconv_collect launch (d={d}, k={k}, ci={ci}, co={co}; {_LIMITS})")
-    contconv_collect.launches += 1
-    return out
+        rc = lib.contconv_pair_product(g.data_ptr(), f_rows.data_ptr(), plan.coff.data_ptr(),
+                                       istart.data_ptr(), ci, co, d, rows, nitems,
+                                       y.data_ptr(), _stream())
+        build.raise_on(rc, what)
+        rc = lib.contconv_row_sum(y.data_ptr(), plan.rstart.data_ptr(),
+                                  plan.slot_of.data_ptr(), m, co, out.data_ptr(), _stream())
+    build.raise_on(rc, what)
+    return out, rows_p
 
 
-def contconv_bwd_filters(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
+def contconv_bwd_filters(gx, gy, gz, window, feat_j, filters, dout, *, d: int,
+                         plan_rows: Optional[int] = None):
     """B4: the filters' cotangent (D^3, ci, co) of :func:`contconv_collect`
-    for ``dout`` (M, co); ``filters`` gives the shape only. Deterministic:
-    per-chunk partial banks summed in chunk order."""
+    for ``dout`` (M, co); ``filters`` gives the shape only. On the card:
+    plan and bins as in B3, then dF[cell] = G_cell^T dout[receivers] over
+    work items whose partial banks are summed in item order (deterministic).
+    ``plan_rows``, the rows of this geometry's plan where the caller has them
+    (the forward's), spares the plan its wait for the device."""
     if build.on_cpu(gx, gy, gz, window, feat_j, filters, dout):
         return contconv_collect_bwd_torch(gx, gy, gz, window, feat_j, filters, dout, d=d,
                                           need=(False,) * 5 + (True,))[5]
@@ -235,19 +481,21 @@ def contconv_bwd_filters(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
     d_f = torch.empty((z, ci, co), dtype=torch.float32, device=dev)
     if m == 0:
         return d_f.zero_()
-    ntiles = -(-m // 64)
-    slabs = -(-ci // _B4_SLAB)
-    nchunk = max(1, min(ntiles, -(-_B4_BLOCKS // (z * slabs))))
-    partial = (torch.empty((nchunk, z, ci, co), dtype=torch.float32, device=dev)
-               if nchunk > 1 else None)
+    plan, (istart, rows, nitems) = _plan_cuda(
+        gx, gy, gz, window, d,
+        _plan_rows(m, k, d, ci, co) if plan_rows is None else plan_rows)
+    _count(contconv_bwd_filters, d)
+    if plan.cell_r.numel() == 0:
+        return d_f.zero_()
+    g = _bins_cuda(plan, gx, gy, gz, window, feat_j, d)
+    partial = torch.empty((nitems, ci, co), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().contconv_bwd_filters(
-            gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), window.data_ptr(),
-            feat_j.data_ptr(), dout.data_ptr(), m, k, ci, co, d, nchunk,
-            None if partial is None else partial.data_ptr(), d_f.data_ptr(), _stream())
+            g.data_ptr(), dout.data_ptr(), plan.coff.data_ptr(), plan.recv_of.data_ptr(),
+            istart.data_ptr(), ci, co, d, rows, nitems, partial.data_ptr(),
+            d_f.data_ptr(), _stream())
     build.raise_on(rc, f"contconv_bwd_filters launch (d={d}, k={k}, ci={ci}, co={co}; "
                        f"{_LIMITS})")
-    contconv_bwd_filters.launches += 1
     return d_f
 
 
@@ -303,14 +551,18 @@ def contconv_bwd_geom(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
 
 class _Collect(torch.autograd.Function):
     """B3 (the twin on the CPU) with B4-B6 as its backward, each launched
-    only for the inputs that need a gradient. Saves the inputs only."""
+    only for the inputs that need a gradient. Saves the inputs only, and the
+    rows of the forward's plan (an integer): the backward rebuilds plan and
+    bins, without waiting for the device to learn their size."""
 
     @staticmethod
     def forward(ctx, gx, gy, gz, window, feat_j, filters, d):
         ctx.d = d
+        ctx.plan_rows = None
         ctx.save_for_backward(gx, gy, gz, window, feat_j, filters)
         if window.is_cuda:
-            return _launch(gx, gy, gz, window, feat_j, filters, d)
+            out, ctx.plan_rows = _launch(gx, gy, gz, window, feat_j, filters, d)
+            return out
         return contconv_collect_torch(gx, gy, gz, window, feat_j, filters, d=d)
 
     @staticmethod
@@ -319,7 +571,7 @@ class _Collect(torch.autograd.Function):
         need = ctx.needs_input_grad
         geo = (contconv_bwd_geom(*args, d=ctx.d) if any(need[:4]) else (None,) * 4)
         dfeat = contconv_bwd_feat(*args, d=ctx.d) if need[4] else None
-        d_f = contconv_bwd_filters(*args, d=ctx.d) if need[5] else None
+        d_f = contconv_bwd_filters(*args, d=ctx.d, plan_rows=ctx.plan_rows) if need[5] else None
         return (*(g if n else None for g, n in zip(geo, need[:4])), dfeat, d_f, None)
 
 
@@ -344,6 +596,8 @@ def contconv_collect(gx, gy, gz, window, feat_j, filters, *, d: int):
 
 
 contconv_collect.launches = 0
+contconv_collect.launches_by_d = collections.Counter()
 contconv_bwd_filters.launches = 0
+contconv_bwd_filters.launches_by_d = collections.Counter()
 contconv_bwd_feat.launches = 0
 contconv_bwd_geom.launches = 0

@@ -475,3 +475,139 @@ def test_unported_contconv_options_raise():
         ContinuousConv(4, 4, impl="dense", node_chunks=2)
     with pytest.raises(ValueError):
         ContinuousConv(4, 4, impl="pallas")
+
+
+# ---- the (receiver, cell) pair plan of B3 and B4 -----------------------------
+
+def _plan_inputs(m, k, ci, co, d, seed):
+    """Collect inputs with every odd case of the plan's rule: coordinates
+    clamped on both sides, on the integer grid (interior, 0 and d - 1),
+    zero windows, a receiver with no live edge."""
+    args = _collect_inputs(m, k, ci, co, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    for g in args[:3]:
+        g[rng.uniform(size=g.shape) < 0.15] = float(rng.integers(0, d))
+        g[rng.uniform(size=g.shape) < 0.05] = d - 1.0
+        g[rng.uniform(size=g.shape) < 0.05] = 0.0
+    args[3][m // 2] = 0.0
+    return args
+
+
+def _pairs_by_hand(gx, gy, gz, window, d):
+    """The (receiver, cell) pairs straight from the rule, edge by edge."""
+    pairs = set()
+    for m, e in zip(*np.nonzero(window)):
+        c = np.clip(np.array([gx[m, e], gy[m, e], gz[m, e]], np.float32), 0, d - 1)
+        lo = np.minimum(np.floor(c), d - 2)
+        f = c - lo
+        for o in range(8):
+            off = np.array([o >> 2, (o >> 1) & 1, o & 1])
+            if np.all(np.where(off == 1, f, np.float32(1) - f) != 0):
+                x, y, z = (lo + off).astype(int)
+                pairs.add((int(m), (x * d + y) * d + z))
+    return pairs
+
+
+@pytest.mark.parametrize("m,k,d", [(37, 5, 2), (41, 7, 3), (33, 6, 4), (1, 3, 3),
+                                   (20, 32, 6)])
+def test_pair_plan_lists_every_pair_once_cell_major(m, k, d):
+    gx, gy, gz, window = _plan_inputs(m, k, 2, 2, d, 7 * m + d)[:4]
+    plan = cck.pair_plan(*map(torch.from_numpy, (gx, gy, gz, window)), d=d)  # CPU: plain
+    want = _pairs_by_hand(gx, gy, gz, window, d)
+    rstart, cell_r, slot_of, recv_of, coff = (t.numpy().astype(np.int64) for t in plan)
+    p = len(want)
+    assert cell_r.shape == slot_of.shape == recv_of.shape == (p,)
+    # receiver-major: a receiver's rows, cells ascending
+    recv_r = np.repeat(np.arange(m), np.diff(rstart))
+    assert rstart[0] == 0 and rstart[-1] == p and len(rstart) == m + 1
+    assert set(zip(recv_r.tolist(), cell_r.tolist())) == want  # p distinct pairs
+    assert np.all(np.diff(recv_r * d ** 3 + cell_r) > 0)
+    # cell-major: a cell's rows contiguous, receivers ascending inside
+    cell_c = np.repeat(np.arange(d ** 3), np.diff(coff))
+    assert coff[0] == 0 and coff[-1] == p and len(coff) == d ** 3 + 1
+    assert np.all(np.diff(cell_c * m + recv_of) > 0)
+    # slot_of carries each receiver-major row to its cell-major row
+    assert sorted(slot_of.tolist()) == list(range(p))
+    np.testing.assert_array_equal(recv_of[slot_of], recv_r)
+    np.testing.assert_array_equal(cell_c[slot_of], cell_r)
+
+
+def test_pair_plan_of_dead_geometry_is_empty():
+    gx, gy, gz, window, feat, filters = map(torch.from_numpy, _plan_inputs(9, 4, 3, 5, 3, 1))
+    window = torch.zeros_like(window)
+    plan = cck.pair_plan(gx, gy, gz, window, d=3)
+    assert plan.cell_r.numel() == 0 and int(plan.rstart[-1]) == 0 and int(plan.coff[-1]) == 0
+    g = cck.pair_bins_torch(plan, gx, gy, gz, window, feat, d=3)
+    assert g.shape == (0, 3)
+    assert not cck.pair_collect_torch(plan, g, filters, 9).any()
+    assert not cck.pair_filter_grad_torch(plan, g, torch.ones(9, 5), 27).any()
+    with pytest.raises(ValueError):
+        cck.pair_plan(gx, gy, gz, window, d=1)
+
+
+@pytest.mark.parametrize("m,k,d,ci,co", [(37, 5, 2, 3, 5), (41, 7, 3, 6, 4), (33, 6, 4, 3, 5),
+                                         (20, 32, 6, 128, 128)])
+def test_bins_then_product_over_the_plan_match_collect(m, k, d, ci, co):
+    """B3's route on the card (plan, bins, a product a cell, the receivers'
+    sums) in its plain version, against the plain collect and against the
+    Pallas kernel in interpret mode at the bar of
+    ``test_collect_twin_matches_jax_kernel``."""
+    args = _plan_inputs(m, k, ci, co, d, m + d + ci)
+    t = [torch.from_numpy(a) for a in args]
+    plan = cck.pair_plan(*t[:4], d=d)
+    g = cck.pair_bins_torch(plan, *t[:5], d=d)
+    got = cck.pair_collect_torch(plan, g, t[5], m).numpy()
+    np.testing.assert_allclose(got, cck.contconv_collect_torch(*t, d=d).numpy(),
+                               rtol=2e-4, atol=1e-5)
+    want = np.asarray(jcollect(*map(jnp.asarray, args), d=d, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,d,ci,co", [(70, 6, 3, 5, 4), (37, 5, 2, 3, 5), (40, 8, 6, 8, 7)])
+def test_filter_grad_over_the_plan_matches_jax_vjp(m, k, d, ci, co):
+    """B4's route on the card (plan, bins, the transposed product a cell) in
+    its plain version against ``jax.vjp`` of the Pallas kernel (interpret
+    mode) and the plain backward, at the bar of
+    ``test_plain_backward_matches_jax_vjp``."""
+    args = _plan_inputs(m, k, ci, co, d, 3 * m + d)
+    dout = np.random.default_rng(d).normal(size=(m, co)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (*args, dout)]
+    plan = cck.pair_plan(*t[:4], d=d)
+    got = cck.pair_filter_grad_torch(plan, cck.pair_bins_torch(plan, *t[:5], d=d), t[6],
+                                     d ** 3)
+    _, vjp = jax.vjp(lambda *a: jcollect(*a, d=d, interpret=True), *map(jnp.asarray, args))
+    _close_grads(got.numpy(), vjp(jnp.asarray(dout))[5], geometry=False)
+    _close_grads(got.numpy(), cck.contconv_bwd_filters(*t, d=d).numpy(), geometry=False)
+
+
+@pytest.mark.parametrize("m,k,d,floor", [(41, 7, 3, 4), (20, 32, 6, 16), (300, 32, 2, 64)])
+def test_work_items_cover_each_cell_once(m, k, d, floor, monkeypatch):
+    """The grouped products' work items: every cell's rows in pieces of at
+    most ``rows`` rows, in order, none for an empty cell; the grid's bound
+    holds the true count."""
+    monkeypatch.setattr(cck, "_ITEM_ROWS", floor)
+    monkeypatch.setattr(cck, "_PRODUCT_ITEMS", 8)
+    plan = cck.pair_plan(*map(torch.from_numpy, _plan_inputs(m, k, 2, 2, d, m)[:4]), d=d)
+    istart, rows, bound = cck._work_items(plan, d ** 3)
+    coff, istart = plan.coff.numpy(), istart.numpy()
+    assert rows % floor == 0 and istart[0] == 0 and istart[-1] <= bound
+    covered = []
+    for item in range(istart[-1]):
+        cell = int(np.searchsorted(istart, item, side="right")) - 1
+        lo = coff[cell] + (item - istart[cell]) * rows
+        hi = min(coff[cell + 1], lo + rows)
+        assert lo < hi
+        covered.extend(range(lo, hi))
+    assert covered == list(range(plan.cell_r.numel()))
+
+
+def test_plan_rows_follow_the_shape(monkeypatch):
+    """The plan is sized by the most pairs its shape can have while bins and
+    products of that many rows stay under the byte bound; above it the
+    device's count is read (None)."""
+    assert cck._plan_rows(500, 32, 6, 128, 128) == 500 * 216
+    assert cck._plan_rows(500, 4, 6, 128, 128) == 500 * 32
+    assert cck._plan_rows(100_000, 32, 6, 128, 128) is None
+    monkeypatch.setattr(cck, "_NO_READ_BYTES", 4 * 10 * 27 * (8 + 4))
+    assert cck._plan_rows(10, 7, 3, 5, 3) == 270
+    assert cck._plan_rows(11, 7, 3, 5, 3) is None

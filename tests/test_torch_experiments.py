@@ -122,3 +122,100 @@ def test_config_overrides_and_scenarios_match_jax():
     assert {s.force_backend for s in ts} == {"kernel"} and ts[0].seed == 4
     with pytest.raises(ValueError):
         cfg.apply_overrides(["train.epochs"])
+
+
+@pytest.mark.parametrize("kind,kwargs,device,key,want", [
+    ("contconv", {"radius_method": "morton"}, "cuda", "radius_impl", "kernel"),
+    ("contconv", {"radius_method": "morton"}, "cpu", "radius_impl", "dense"),
+    ("contconv", {"radius_method": "morton", "radius_impl": "xla"}, "cuda", "radius_impl",
+     "dense"),
+    ("contconv", {}, "cuda", "radius_impl", None),
+    ("gnn", {"knn_method": "morton", "neighbors": 4}, "cuda", "knn_impl", "kernel"),
+    ("gnn", {"knn_method": "morton", "neighbors": 4}, None, "knn_impl", None),
+    ("gnn", {"neighbors": 4}, "cuda", "knn_impl", None),
+])
+def test_config_resolves_an_unset_morton_impl_from_the_device(kind, kwargs, device, key, want):
+    """A Morton search whose impl the config leaves unset takes the kernels on
+    cuda and the plain search elsewhere, decided once in the config layer;
+    an impl that is set, another method, or no device leave it alone (and
+    ``build_graph`` then defaults to "dense")."""
+    import torch
+
+    cfg = ExperimentConfig.from_dict({"model": {"type": kind, "kwargs": kwargs}})
+    dev = None if device is None else torch.device(device)  # naming a device needs no card
+    assert cfg.model_kwargs(dev).get(key) == want
+    model = cfg.build_model(device=dev)
+    assert model.graph_spec[1].get("impl") == want
+    assert all(p.device.type == "cpu" for p in model.parameters())  # the caller moves it
+
+
+@pytest.mark.parametrize("device,want", [("cuda", "kernel"), ("cpu", "dense")])
+def test_run_passes_the_resolved_device_to_the_model(tmp_path, monkeypatch, capsys, device,
+                                                     want):
+    """``run`` resolves the Morton impl from the device it runs on and prints
+    the resolved graph spec. The device poses as cuda here: the datasets are
+    there already, and the run stops where the trainer would start."""
+    import torch
+
+    class Stop(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        raise Stop
+
+    for split in ("train", "test"):
+        (tmp_path / "data" / split).mkdir(parents=True)
+        (tmp_path / "data" / split / "kept.npz").write_bytes(b"")
+    monkeypatch.setattr(run, "resolve_device", lambda name: torch.device(device))
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: self)
+    monkeypatch.setattr(run, "Trainer", stop)
+    cfg = ExperimentConfig.load(os.path.join(ROOT, "configs", "contconv_adopted.json"))
+    cfg = cfg.apply_overrides([f"base={tmp_path}", "model.kwargs.radius_method=morton"])
+    with pytest.raises(Stop):
+        run.run(cfg)
+    line = [ln for ln in capsys.readouterr().out.splitlines() if "graph spec" in ln]
+    assert len(line) == 1 and f"'impl': '{want}'" in line[0] and f"on {device}" in line[0]
+
+
+def test_contconv_bench_row_on_the_cpu():
+    """``contconv_bench`` at a few hundred bodies: on the CPU every step is
+    its plain version, so the plan equals it and B3 and B4 are exact."""
+    from nbody_tpu_torch.experiments import contconv_bench
+
+    (row,) = contconv_bench.main(["--device", "cpu", "--n-bodies", "600", "--d", "3",
+                                  "--neighbors", "8", "--width", "8"])
+    assert row["plan_equals_plain"] and row["same_bits_twice"]
+    assert 0 < row["live_edges"] <= 600 * 8 and row["live_edges"] <= row["pairs"] <= 600 * 27
+    assert row["b3_vs_plain"] == row["b4_vs_plain"] == 0.0 and row["bins_vs_plain"] <= 1e-6
+    assert all(row[key] > 0 for key in ("plan_ms", "bins_ms", "b3_ms", "b4_ms", "bound_ms"))
+    assert row["bound_by"] in ("operations", "bytes")
+
+
+def test_determinism_check_repeats_the_loss_on_one_path_only(tmp_path):
+    """One epoch from the same seed repeats its loss, within a call and
+    between calls that train on the same file paths; the same files under
+    another directory are batched in another order (the batch order is
+    seeded from the paths, the JAX trainer's formula)."""
+    import shutil
+    import zlib
+
+    from nbody_tpu_torch.experiments import determinism_check
+
+    argv = ["--config", os.path.join(ROOT, "configs", "contconv_adopted.json"), "--device",
+            "cpu", "--set", "datagen.train_files=1", "--set", "datagen.steps=12", "--set",
+            "datagen.n_bodies=[3,25]", "--set", "model.kwargs.continuous_conv_dim=8",
+            "--set", "train.batch_size=4"]
+    first = determinism_check.main(argv + ["--runs", "2", "--data-dir", str(tmp_path / "a")])
+    again = determinism_check.main(argv + ["--runs", "1", "--data-dir", str(tmp_path / "a")])
+    assert [r["deterministic_algorithms"] for r in first] == [False, True]
+    assert all(r["all_equal"] and not r["ops_without_a_deterministic_implementation"]
+               for r in first)
+    assert {v for r in first + again for v in r["epoch_loss"]} == {first[0]["epoch_loss"][0]}
+
+    def order_seed(name):  # of epoch 0, as the trainer's ``_group_rng`` takes it
+        return zlib.crc32(str(tmp_path / name / "output_file_1.npz").encode()) % 1000
+
+    other = next(n for n in ("b", "c", "d", "e") if order_seed(n) != order_seed("a"))
+    shutil.copytree(tmp_path / "a", tmp_path / other)
+    moved = determinism_check.main(argv + ["--runs", "1", "--data-dir", str(tmp_path / other)])
+    assert moved[0]["epoch_loss"][0] != first[0]["epoch_loss"][0]

@@ -170,8 +170,106 @@ def _collect_inputs(m, k, ci, co, d, seed, dev):
     return [t.to(dev).contiguous() for t in (gx, gy, gz, window, feat, filters)]
 
 
+def _grid_inputs(m, k, ci, co, d, seed, dev):
+    """:func:`_collect_inputs` with part of the coordinates on the integer
+    grid (corners of zero weight) and one receiver without a live edge."""
+    args = _collect_inputs(m, k, ci, co, d, seed, dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    for t in args[:3]:
+        on_grid = (torch.rand(m, k, generator=g) < 0.2).to(dev)
+        t[on_grid] = torch.randint(0, d, (int(on_grid.sum()),), generator=g).float().to(dev)
+    args[3][m // 2] = 0.0
+    return args
+
+
+# (33, ...): fewer receivers than one tile; (50, 40, ..., 2): every receiver
+# touches every cell; (70, 64, 128, 128, 6): receivers with more pairs than a
+# warp's rows of shared memory (several passes of the bins)
+_PLAN_SHAPES = [(97, 32, 3, 5, 4), (130, 32, 128, 128, 6), (33, 7, 5, 3, 3),
+                (50, 40, 16, 16, 2), (70, 64, 128, 128, 6), (3000, 32, 128, 128, 6)]
+
+
+@pytest.mark.parametrize("m,k,ci,co,d", _PLAN_SHAPES)
+def test_pair_plan_and_bins_kernels_match_plain(cuda, m, k, ci, co, d):
+    gx, gy, gz, window, feat, _ = _grid_inputs(m, k, ci, co, d, m + k + d, cuda)
+    plan = cck.pair_plan(gx, gy, gz, window, d=d)
+    want = cck.pair_plan_torch(gx, gy, gz, window, d=d)
+    for name, got, w in zip(plan._fields, plan, want):
+        assert got.dtype == w.dtype and torch.equal(got, w), name
+    if d == 2:
+        assert plan.cell_r.numel() == (m - 1) * 8  # every cell of every live receiver
+    g = cck._bins_cuda(plan, gx, gy, gz, window, feat, d)
+    g_want = cck.pair_bins_torch(plan, gx, gy, gz, window, feat, d=d)
+    _close(g[:, :ci], g_want)
+    assert not g[:, ci:].any()  # pad columns
+    assert torch.equal(g, cck._bins_cuda(plan, gx, gy, gz, window, feat, d))
+
+
+@pytest.mark.parametrize("m,k,ci,co,d", [(60, 8, 160, 24, 3), (33, 7, 5, 3, 3),
+                                         (50, 40, 16, 16, 2), (70, 64, 128, 128, 6)])
+def test_b3_b4_on_grid_coordinates_and_wide_features(cuda, m, k, ci, co, d):
+    """B3 and B4 on geometry with zero-weight corners and a dead receiver;
+    ci above 128 (K chunks in B3, slabs in B4), which B5 and B6 refuse."""
+    args = _grid_inputs(m, k, ci, co, d, m + d, cuda)
+    dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
+    out = cck.contconv_collect(*args, d=d)
+    d_f = cck.contconv_bwd_filters(*args, dout, d=d)
+    _close(out, cck.contconv_collect_torch(*args, d=d))
+    _close(d_f, cck.contconv_collect_bwd_torch(*args, dout, d=d,
+                                               need=(False,) * 5 + (True,))[5])
+    assert not out[m // 2].any()
+    assert torch.equal(out, cck.contconv_collect(*args, d=d))
+    assert torch.equal(d_f, cck.contconv_bwd_filters(*args, dout, d=d))
+
+
+@pytest.mark.parametrize("m,k,ci,co,d", _PLAN_SHAPES)
+def test_plan_sized_by_the_bound_and_by_the_count_agree(cuda, monkeypatch, m, k, ci, co, d):
+    """Small shapes size the plan by the most pairs they can have and never
+    wait for the device; large ones read the pair count. Both give the exact
+    plan's pairs first, the same B3 bits (a row of products does not depend
+    on the work items) and B4 within the bar (its partial banks do)."""
+    args = _grid_inputs(m, k, ci, co, d, m + k + d, cuda)
+    geom = args[:4]
+    dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
+    rows = cck._plan_rows(m, k, d, ci, co)
+    assert rows == m * min(8 * k, d ** 3)
+    want = cck.pair_plan_torch(*geom, d=d)
+    p = want.cell_r.numel()
+    got, (istart, item_rows, bound) = cck._plan_cuda(*geom, d, rows)
+    assert got.cell_r.numel() == rows >= p
+    assert torch.equal(got.rstart, want.rstart) and torch.equal(got.coff, want.coff)
+    for name in ("cell_r", "slot_of", "recv_of"):
+        assert torch.equal(getattr(got, name)[:p], getattr(want, name)), name
+    want_items = cck._work_items(got, d ** 3)  # the plain version, from the offsets
+    assert torch.equal(istart, want_items[0]) and (item_rows, bound) == want_items[1:]
+    assert int(istart[-1]) <= bound
+    by_bound = cck.contconv_collect(*args, d=d), cck.contconv_bwd_filters(*args, dout, d=d)
+    monkeypatch.setattr(cck, "_NO_READ_BYTES", 0)
+    assert cck._plan_rows(m, k, d, ci, co) is None
+    by_count = cck.contconv_collect(*args, d=d), cck.contconv_bwd_filters(*args, dout, d=d)
+    assert torch.equal(by_bound[0], by_count[0])
+    _close(by_bound[1], by_count[1])
+    _close(by_count[0], cck.contconv_collect_torch(*args, d=d))
+    _close(by_count[1], cck.contconv_collect_bwd_torch(*args, dout, d=d,
+                                                       need=(False,) * 5 + (True,))[5])
+
+
+@pytest.mark.parametrize("no_read_bytes", [0, 2 << 30])
+def test_b3_b4_without_a_live_edge(cuda, monkeypatch, no_read_bytes):
+    monkeypatch.setattr(cck, "_NO_READ_BYTES", no_read_bytes)
+    args = _collect_inputs(40, 8, 16, 16, 4, 1, cuda)
+    args[3].zero_()
+    before = cck.contconv_collect.launches, cck.contconv_bwd_filters.launches
+    assert not cck.contconv_collect(*args, d=4).any()
+    assert not cck.contconv_bwd_filters(*args, torch.ones(40, 16, device=cuda), d=4).any()
+    assert (cck.contconv_collect.launches, cck.contconv_bwd_filters.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
 @pytest.mark.parametrize("m,k,ci,co,d", [(97, 32, 3, 5, 4), (130, 32, 128, 128, 6),
-                                         (45, 6, 128, 128, 4), (70, 40, 16, 16, 3)])
+                                         (45, 6, 128, 128, 4), (70, 40, 16, 16, 3),
+                                         (33, 7, 5, 3, 3), (50, 40, 16, 16, 2),
+                                         (70, 64, 128, 128, 6)])
 def test_b3_collect_matches_twin(cuda, m, k, ci, co, d):
     args = _collect_inputs(m, k, ci, co, d, m + d, cuda)
     before = cck.contconv_collect.launches
@@ -193,6 +291,14 @@ def test_b3_rejects(cuda):
         cck.contconv_collect(gx, gy, gz, window.cpu(), feat, filters, d=4)
     with pytest.raises(RuntimeError):  # d = 1: refused by the launch, no twin
         cck.contconv_collect(gx, gy, gz, window, feat, filters[:1].contiguous(), d=1)
+    wide = _collect_inputs(40, 8, 16, 132, 3, 2, cuda)  # co > 128
+    with pytest.raises(RuntimeError):
+        cck.contconv_collect(*wide, d=3)
+    many = _collect_inputs(40, 65, 16, 16, 3, 2, cuda)  # k > 64
+    with pytest.raises(RuntimeError):
+        cck.contconv_collect(*many, d=3)
+    with pytest.raises(ValueError):  # the plan alone checks its inputs too
+        cck.pair_plan(gx, gy, gz, window[:30].contiguous(), d=4)
 
 
 _BWD = (cck.contconv_bwd_geom, cck.contconv_bwd_feat, cck.contconv_bwd_filters)
@@ -228,6 +334,7 @@ def test_b3_backward_launches_b4_b5_and_b6_only_for_geometry(cuda):
 
 @pytest.mark.parametrize("m,k,ci,co,d", [(97, 32, 3, 5, 4), (130, 32, 128, 128, 6),
                                          (45, 6, 128, 128, 4), (70, 40, 16, 16, 3),
+                                         (33, 7, 5, 3, 3), (50, 40, 16, 16, 2),
                                          (20_000, 32, 128, 128, 6)])
 def test_b4_b5_b6_match_plain_backward(cuda, m, k, ci, co, d):
     args = _collect_inputs(m, k, ci, co, d, m + k, cuda)

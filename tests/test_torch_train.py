@@ -3,7 +3,9 @@ LR traces, one Adam step against optax, and per-epoch losses of
 ``Trainer.train_from_dir`` from the same initial weights on one JAX-written
 dataset (GNN bucketed and reference, a narrow ContConv with batch norm in
 mixed mode); then, in the port alone, bit-exact resume with dropout, the
-early stop's checkpoint and ``test_from_dir(model_path=...)``.
+early stop's checkpoint, ``test_from_dir(model_path=...)``, the eval-mode
+forward of the rollout functions and the rollout evaluation's untimed
+warm-up.
 
 Bars: losses and batch-norm statistics rtol 2e-4, the JAX package's own bar
 for a data-parallel run against a single-device one (tests/test_trainer.py
@@ -32,6 +34,7 @@ from nbody_tpu.train.optim import make_optimizer as jmake_optimizer
 from nbody_tpu_torch.models import (ContinuousConvModel, GraphModel, MaskedBatchNorm,
                                     contconv_model_state_dict, graph_model_state_dict)
 from nbody_tpu_torch.train import CheckpointManager, PlateauScheduler, Trainer, make_optimizer
+from nbody_tpu_torch.train.graphs import build_graph
 
 DT = 1e-4
 GNN = dict(input_dim=4, gnn_dim=16, message_passing_steps=2, aggr="mean",
@@ -227,3 +230,78 @@ def test_checkpoint_manager_latest_by_step(tmp_path):
     mgr.delete(10)
     assert mgr.latest_step() == 9
     assert not [f for f in os.listdir(tmp_path / "c") if f.endswith(".tmp")]
+
+
+def _norm_state(model):
+    return {name: buf.clone() for name, buf in model.named_buffers()}
+
+
+def test_rollout_and_predict_run_in_eval_mode_and_restore_the_mode(tiny_data):
+    """``predict_accelerations`` and ``autoregressive_rollout`` apply the
+    model as the JAX functions do (``train=False``), whatever mode the module
+    was left in: after ``train_from_dir`` it is in ``train()``, and the
+    result equals the one after ``.eval()``, the batch norms' running
+    statistics stay as they were, and the module's mode comes back."""
+    from nbody_tpu_torch.train import autoregressive_rollout, predict_accelerations
+
+    train_dir, _ = tiny_data
+    trainer = Trainer(ContinuousConvModel(**CONTCONV, generator=torch.Generator().manual_seed(2)),
+                      learning_rate=0.01, dt=DT)
+    trainer.train_from_dir(train_dir, epochs=1, batch_size=8, verbose=False)
+    model = trainer.model
+    assert model.training and any(isinstance(m, MaskedBatchNorm) for m in model.modules())
+    rng = np.random.default_rng(4)
+    pos, vel = (torch.from_numpy(rng.normal(size=(20, 3)).astype(np.float32)) for _ in range(2))
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, 20).astype(np.float32))
+    before = _norm_state(model)
+    got = predict_accelerations(model, pos, vel, mass)
+    got_roll = autoregressive_rollout(model, pos, vel, mass, 4, DT, graph_refresh=2)
+    assert model.training and all(m.training for m in model.modules())
+    for name, buf in _norm_state(model).items():
+        assert torch.equal(buf, before[name]), name
+    model.eval()
+    assert torch.equal(got, predict_accelerations(model, pos, vel, mass))
+    want_roll = autoregressive_rollout(model, pos, vel, mass, 4, DT, graph_refresh=2)
+    assert all(torch.equal(g, w) for g, w in zip(got_roll, want_roll))
+    assert not model.training
+    model.train()  # a batch of 20 in train mode is another function: the test has teeth
+    x = torch.cat([pos, vel, mass[:, None]], -1)[None]
+    idx, valid = build_graph(model.graph_spec, pos[None])
+    with torch.no_grad():
+        assert not torch.allclose(model(x, idx, valid)[0], got)
+
+
+def test_evaluate_rollout_warms_each_shape_once_untimed(tiny_data, monkeypatch):
+    """The rollout evaluation runs each (N, steps, graph spec) once untimed
+    before the timed run, as the JAX trainer keeps compilation out of
+    ``step_time``; a shape that was warmed is not warmed again."""
+    from nbody_tpu_torch.train import trainer as trainer_module
+
+    _, test_dir = tiny_data
+    events = []
+    real_rollout, real_time = trainer_module.autoregressive_rollout, trainer_module.device_time
+
+    def rollout(model, pos0, *args, **kwargs):
+        events.append(("rollout", pos0.shape[0], args[2]))
+        return real_rollout(model, pos0, *args, **kwargs)
+
+    def timed(fn, dev):
+        events.append(("timed",))
+        return real_time(fn, dev)
+
+    monkeypatch.setattr(trainer_module, "autoregressive_rollout", rollout)
+    monkeypatch.setattr(trainer_module, "device_time", timed)
+    trainer = Trainer(GraphModel(**GNN), dt=DT)
+    _, first = trainer.test_from_dir(test_dir, sim_steps=10, stepwise=False)
+    assert events == [("rollout", 8, 10), ("timed",), ("rollout", 8, 10)]
+    events.clear()
+    _, again = trainer.test_from_dir(test_dir, sim_steps=10, stepwise=False)
+    assert events == [("timed",), ("rollout", 8, 10)]
+    events.clear()
+    trainer.test_from_dir(test_dir, sim_steps=6, stepwise=False)  # another shape
+    trainer.test_from_dir(test_dir, sim_steps=10, stepwise=False,
+                          rollout_graph_spec=("knn", {"k": 3}))  # another graph
+    assert [e for e in events if e[0] == "rollout"] == [
+        ("rollout", 8, 6)] * 2 + [("rollout", 8, 10)] * 2
+    np.testing.assert_array_equal(first["pos_rmse"].to_numpy(), again["pos_rmse"].to_numpy())
+    assert (first["step_time"] > 0).all()
