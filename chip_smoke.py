@@ -33,7 +33,9 @@ the port's main path once:
 7. the backward of B3 against its plain version: B4 (filters), B5
    (features) and B6 (geometry) on the 100,000-body Morton radius graph's
    geometry at D = 6 and 4 and on one small odd shape, each twice for the
-   same bits; then the full-width ContinuousConvModel's parameter and
+   same bits, with B5's two passes (dG over the pair plan, the unbin pass)
+   against their plain versions on the small shape; then the full-width
+   ContinuousConvModel's parameter and
    position gradients with the kernels against the dense layer (the
    position gradient is the path that launches B6);
 8. the training path: ``nbody_tpu_torch.experiments.run`` with
@@ -44,8 +46,9 @@ the port's main path once:
    rollouts); the
    recipe-shape training step timed and profiled; ``gnn_experiment
    --quick``; and the 100,000-body training step (Morton radius search,
-   B3 + B4 + B5, batch 1) on a strided port-datagen dataset, beside the
-   dense layer's step at the largest N that fits;
+   B3 + B4 + B5, batch 1) on a strided port-datagen dataset, with B5's
+   share of its device time and its peak memory, beside the dense layer's
+   step at the largest N that fits;
 9. the treecodes: (a) B9 (far field), B10 (grouped multipoles) and B1's
    near-list form against their plain versions, each twice for the same
    bits, on the shapes of the 100,000-body bh recipe (M=32, B=256) and of
@@ -78,7 +81,7 @@ the port's main path once:
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
-JSON object with one entry per kernel, B3 and B4 once for each of the
+JSON object with one entry per kernel, B3, B4 and B5 once for each of the
 model's two filter resolutions (launches counted over the path that
 runs it, its counters set to 0 just before the path and read just after:
 phases 2-4 for B1 and B2, phase 6 for B3, B7 and B8, phase 8 for B4 and B5,
@@ -162,6 +165,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+T0 = time.perf_counter()
+
+
+def stamp(label: str) -> None:
+    """Seconds since the script started, after the phase ``label``."""
+    log(f"[t] {label} done at {time.perf_counter() - T0:.1f} s")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -203,6 +214,16 @@ def collect_bound(gx, gy, gz, win, ci: int, co: int, d: int, other_bytes: float)
     return bound(flops, nbytes)
 
 
+def select_merge_bounds(cand, ids, mc, m_ids, k: int, block: int):
+    """(B7's, B8's) (bound_ms, bound_by) on one Morton search: B7 per
+    (query, candidate of its 3-block window) ~8 flops of distance and a
+    compare; B8 per row, k passes of a min and a mask over its candidates."""
+    c_, L = cand.shape[0], cand.shape[1]
+    b7 = bound(9.0 * c_ * ids.shape[1] * 3 * block, 16.0 * c_ * L + 8.0 * ids.numel())
+    b8 = bound(2.0 * mc.shape[0] * k * mc.shape[1], 8.0 * mc.numel() + 8.0 * m_ids.numel())
+    return b7, b8
+
+
 def rel_drift(u, k) -> float:
     import numpy as np
 
@@ -230,12 +251,12 @@ def kernel_wrappers() -> dict:
 def zero_counts() -> None:
     for w in kernel_wrappers().values():
         w.launches = 0
-        if hasattr(w, "launches_by_d"):  # B3, B4: also by filter resolution
+        if hasattr(w, "launches_by_d"):  # B3-B5: also by filter resolution
             w.launches_by_d.clear()
 
 
 def by_resolution(key: str) -> dict:
-    """B3's or B4's launches since :func:`zero_counts` at D = 6 and D = 4,
+    """B3's, B4's or B5's launches since :func:`zero_counts` at D = 6 and D = 4,
     the two layers of the full-width model, as kernels-line keys."""
     by_d = kernel_wrappers()[key].launches_by_d
     return {f"{key}_d{d}": by_d[d] for d in (6, 4)}
@@ -538,15 +559,13 @@ def phase5_large_n_kernels():
                 if not (same and rec >= RECALL):
                     raise AssertionError(f"Morton kNN at N={n}, k={k}: same {same}, "
                                          f"recall {rec}")
-            if n == LARGE_N and k == 32:
-                # B7: per (query, candidate) ~8 flops of distance and a compare;
-                # B8: per row, k passes of a min and a mask over W candidates
-                c_, L = cand.shape[0], cand.shape[1]
-                nq = ids.shape[1]
-                out["b7"] = (err7, ms7, ms7t, bound(9.0 * c_ * nq * 3 * 256,
-                                                    16.0 * c_ * L + 8.0 * ids.numel()))
-                out["b8"] = (err8, ms8, ms8t, bound(2.0 * mc.shape[0] * k * mc.shape[1],
-                                                    8.0 * mc.numel() + 8.0 * m_ids.numel()))
+            if n == LARGE_N:
+                bnd7, bnd8 = select_merge_bounds(cand, ids, mc, m_ids, k, 256)
+                log(f"[5] B7, B8 N={n} k={k}: bounds {bnd7[0]:.4f} ms ({bnd7[1]}), "
+                    f"{bnd8[0]:.4f} ms ({bnd8[1]})")
+                if k == 32:
+                    out["b7"] = (err7, ms7, ms7t, bnd7)
+                    out["b8"] = (err8, ms8, ms8t, bnd8)
 
         # B3 on the geometry of this N's Morton radius graph
         idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
@@ -694,9 +713,32 @@ def _bwd_against_plain(args, dout, d: int, label: str, time_it: bool) -> dict:
     return out
 
 
+def _b5_passes_against_plain(args, dout, d: int) -> None:
+    """B5's dG product and unbin pass, each against its plain version on
+    the same plan (max |d| / max |plain| within B3_TOL)."""
+    import torch
+
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+
+    gx, gy, gz, win, _, filters = args
+    ci, co = filters.shape[1], filters.shape[2]
+    plan, items = cck._plan_cuda(gx, gy, gz, win, d)
+    dg = cck._product_cuda(cck._padded_rows(dout), True, cck._f_transposed(filters), plan,
+                           items, co, ci, d)
+    want_dg = cck.pair_dg_torch(plan, dout, filters)
+    dfeat = cck._unbins_cuda(plan, dg, gx, gy, gz, win, d, torch.empty_like(args[4]))
+    want = cck.pair_unbins_torch(plan, dg[:, :ci], gx, gy, gz, win, d=d)
+    rels = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in ((dg[:, :ci], want_dg), (dfeat, want))]
+    log(f"[7] B5 passes on the small shape: dG {rels[0]:.3e}, unbins {rels[1]:.3e} of max "
+        f"|plain| (bar {B3_TOL}); dG pad columns zero {not dg[:, ci:].any()}")
+    if not (max(rels) <= B3_TOL and not dg[:, ci:].any()):
+        raise AssertionError(f"B5's passes disagree with their plain versions: {rels}")
+
+
 def phase7_backward_kernels():
     """B4-B6 against the plain backward; returns the kernels line's numbers
-    (100k; B4 at D = 6 and 4, B5 and B6 at D = 6)."""
+    (100k; B4 and B5 at D = 6 and 4, B6 at D = 6)."""
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
@@ -710,8 +752,9 @@ def phase7_backward_kernels():
     win = (torch.rand(m, k, generator=gen) * (torch.rand(m, k, generator=gen) > 0.2)).to(dev)
     args = (*g3, win, torch.randn(m, k, ci, generator=gen).to(dev),
             torch.randn(d ** 3, ci, co, generator=gen).to(dev))
-    _bwd_against_plain(args, torch.randn(m, co, generator=gen).to(dev), d,
-                       f"M={m} k={k} ci={ci} co={co} D={d}", time_it=False)
+    dout = torch.randn(m, co, generator=gen).to(dev)
+    _bwd_against_plain(args, dout, d, f"M={m} k={k} ci={ci} co={co} D={d}", time_it=False)
+    _b5_passes_against_plain(args, dout, d)
 
     pos, _, _ = generate_spiral(torch.Generator().manual_seed(LARGE_N + 5), LARGE_N,
                                 device=dev)
@@ -733,8 +776,8 @@ def phase7_backward_kernels():
         for key, nums in res.items():
             bnd = collect_bound(*args[:4], 128, 128, d, other[key])
             log(f"[7] {key.upper()} D={d}: bound {bnd[0]:.4f} ms ({bnd[1]})")
-            if key == "b4":
-                out[f"b4_d{d}"] = (*nums, bnd)
+            if key in ("b4", "b5"):
+                out[f"{key}_d{d}"] = (*nums, bnd)
             elif d == 6:
                 out[key] = (*nums, bnd)
     del fj, geom
@@ -817,7 +860,7 @@ def _epoch_numbers(trainer, data_dir, batch_size, steps, **kw):
 
     epoch()  # warm-up
     (losses, _), sec = device_time(epoch, trainer.device)
-    busy_ms, top = profile_ms(epoch, trainer.device, top=16)  # B3's and B4's kernels too
+    busy_ms, top = profile_ms(epoch, trainer.device, top=24)  # B3-B5 kernels too
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss {losses}")
     torch.cuda.synchronize()
@@ -926,11 +969,19 @@ def phase8_training(tmp: str):
 
     large = dataset(LARGE_N)
     before = [w.launches for w in wrappers]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     (ms_k, idle_k, top_k), snaps = step_numbers("kernel", large)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = [w.launches - b for w, b in zip(wrappers, before)]
+    # B5's own kernels: the gathered grouped product and the unbin pass
+    b5_ms = sum(t for name, t in top_k if "pair_product_kernel<true>" in name
+                or "unbins_kernel" in name)
     log(f"[8c] train step N={LARGE_N} kernels (Morton radius, batch 1, {snaps} snapshots): "
-        f"{ms_k:.4f} ms/step, idle share {idle_k:.4f}, top device rows {_rows(top_k)}; "
-        f"launches B3 {counts[0]}, B4 {counts[1]}, B5 {counts[2]}, B6 {counts[3]}")
+        f"{ms_k:.4f} ms/step, idle share {idle_k:.4f}, peak memory {peak:.3f} GiB, B5 (dG "
+        f"product + unbins) {b5_ms:.4f} ms/step = {b5_ms / ms_k:.4f} of the step; top device "
+        f"rows {_rows(top_k)}; launches B3 {counts[0]}, B4 {counts[1]}, B5 {counts[2]}, "
+        f"B6 {counts[3]}")
     if min(counts[:3]) == 0 or counts[3] != 0:
         raise AssertionError(f"100k training launches B3-B6 {counts}")
     torch.cuda.empty_cache()
@@ -1267,14 +1318,16 @@ def _hold_1m_kernels(pos, mass, idx, valid):
     ms8 = cuda_time_ms(lambda: sp.morton_merge(mc, md, k), reps=5, warmup=1)
     ms8t = cuda_time_ms(lambda: sp.morton_merge_torch(mc, md, k), reps=1, warmup=0)
     # the path's graph is what these two launches give
+    bnd7, bnd8 = select_merge_bounds(cand, ids, mc, m_ids, k, block)
     found = m_d2 < sp._BAD_D2
     same = torch.equal(valid, found) and torch.equal(
         idx, torch.where(found, m_ids, 0).clamp(0, n - 1).to(torch.int32))
     log(f"[10b] B7 select N={n} k={k}: ids identical {ok7}, max|dd2| "
-        f"{float((d2 - d2_t).abs().max()):.3e}; kernel {ms7:.4f} ms  plain {ms7t:.4f} ms")
+        f"{float((d2 - d2_t).abs().max()):.3e}; kernel {ms7:.4f} ms  plain {ms7t:.4f} ms, "
+        f"bound {bnd7[0]:.4f} ms ({bnd7[1]})")
     log(f"[10b] B8 merge  N={n} k={k}: ids identical {ok8}, max|dd2| "
         f"{float((m_d2 - t_d2).abs().max()):.3e}; kernel {ms8:.4f} ms  plain {ms8t:.4f} ms; "
-        f"the path's graph equals these launches' {same}")
+        f"bound {bnd8[0]:.4f} ms ({bnd8[1]}); the path's graph equals these launches' {same}")
     del cand, ids, d2, ids_t, d2_t, mc, md, t_ids, t_d2
 
     rows = torch.randperm(n, generator=torch.Generator().manual_seed(42))[:SAMPLE_1M]
@@ -1296,25 +1349,26 @@ def _hold_1m_kernels(pos, mass, idx, valid):
         return torch.cat([pw.partial_accelerations_torch(p[r], p, m, G, EPS)
                           for r in rows.split(128)])
 
-    # B1_TOL is the bar at BIG_N sources; a lane's float32 sum runs over its
-    # sources in order, so its rounding grows as the root of their number
-    bar1 = B1_TOL * math.sqrt(n / BIG_N)
     acc = pw.partial_accelerations(q, pos, mass, G, EPS)
+    same1 = torch.equal(acc, pw.partial_accelerations(q, pos, mass, G, EPS))
     acc_t, acc_d = plain(torch.float32), plain(torch.float64)
     top = float(acc_d.abs().max())
     rel1, rel1_d, relt_d = (float((a - b).abs().max()) / top for a, b in
                             ((acc, acc_t), (acc, acc_d), (acc_t, acc_d)))
     ms1 = cuda_time_ms(lambda: pw.partial_accelerations(q, pos, mass, G, EPS), reps=5,
                        warmup=1)
+    bnd1 = bound(20.0 * q.shape[0] * n, 12.0 * q.shape[0] + 16.0 * n + 12.0 * q.shape[0])
     log(f"[10b] knn_morton(kernel) N={n} k={k}: recall vs exact on {rows.shape[0]} receivers "
         f"{recall:.5f} (bar {RECALL})")
     log(f"[10b] B1 force {q.shape[0]} x {n}: max|da|/max|a| against the plain version "
-        f"{rel1:.3e}, against its float64 run {rel1_d:.3e} (bar {bar1:.3e} each; the plain "
-        f"version against float64 {relt_d:.3e}); kernel {ms1:.4f} ms")
-    if not (ok7 and ok8 and same and recall >= RECALL and max(rel1, rel1_d) <= bar1):
+        f"{rel1:.3e}, against its float64 run {rel1_d:.3e} (bar {B1_TOL} each; the plain "
+        f"version against float64 {relt_d:.3e}), same bits twice {same1}; kernel {ms1:.4f} "
+        f"ms, bound {bnd1[0]:.4f} ms ({bnd1[1]})")
+    if not (ok7 and ok8 and same and recall >= RECALL and max(rel1, rel1_d) <= B1_TOL
+            and same1):
         raise AssertionError(f"a kernel of the 1M path disagrees with its plain version at "
                              f"N={n}: B7 {ok7}, B8 {ok8}, graph {same}, recall {recall}, "
-                             f"B1 {rel1}")
+                             f"B1 {rel1} / {rel1_d}, same bits {same1}")
 
 
 def phase10_path_data() -> int:
@@ -1630,11 +1684,16 @@ def main() -> int:
 
     from nbody_tpu_torch.ops import pairwise as pw
 
+    stamp("0 (build)")
     big = phase1_kernels()
+    stamp("1")
     slice2 = phase5_large_n_kernels()
+    stamp("5")
     slice3 = phase7_backward_kernels()
+    stamp("7 (kernels)")
     slice4 = phase9_kernels()
     phase9_engines()
+    stamp("9a-9b")
     slice5 = phase10_kernel()
 
     # the position-gradient path: B6's launches are counted here
@@ -1648,7 +1707,9 @@ def main() -> int:
         os.makedirs(data_dir)
         phase2_datagen(data_dir)
         traj = phase3_real_size()
+        stamp("7 (model), 2, 3")
         exact_20k_ms = phase4_surrogate(data_dir, traj)
+        stamp("4")
     launches.update(b1=pw.partial_accelerations.launches, b2=pw.pair_potential.launches)
     torch.cuda.synchronize()
 
@@ -1658,6 +1719,7 @@ def main() -> int:
     torch.cuda.synchronize()
     large = read_counts()
     log(f"[6] launches on the large-N path: {large}")
+    stamp("6")
     launches.update({k: large[k] for k in ("b7", "b8")}, **by_resolution("b3"))
     if large["b1"] == 0:
         raise AssertionError(f"the large-N path never launched B1: {large}")
@@ -1669,7 +1731,8 @@ def main() -> int:
     torch.cuda.synchronize()
     train = read_counts()
     log(f"[8] launches on the training path: {train}")
-    launches.update(b5=train["b5"], **by_resolution("b4"))
+    stamp("8")
+    launches.update(**by_resolution("b4"), **by_resolution("b5"))
     if min(train[k] for k in ("b1", "b3", "b4", "b5", "b7", "b8")) == 0 or train["b6"] != 0:
         raise AssertionError(f"training path launches {train}: B6 must stay at 0, the "
                              f"others above it")
@@ -1684,11 +1747,13 @@ def main() -> int:
     if min(tree[k] for k in ("b1", "b2", "b9", "b10", "b1n")) == 0:
         raise AssertionError(f"the treecode path never launched a kernel of its own: {tree}")
     phase9_bench()
+    stamp("9c")
 
     # B11 on the crossover path's own data: its launches are counted here
     zero_counts()
     launches["b11"] = phase10_path_data()
     phase10_fused_forward()
+    stamp("10a-10c")
 
     # the large-N entry points' path: each main starts with the counters at
     # 0 and is read, and held to its kernels, right after it returns
@@ -1698,9 +1763,10 @@ def main() -> int:
             large_n[name] += c
     torch.cuda.synchronize()
     log(f"[10] launches of the large-N entry points' mains together: {large_n}")
+    stamp("10d-10e")
     phase10_knn_recall()
-    # B3 and B4 stand in the line once for each layer's filter resolution
-    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()) + 2:
+    # B3, B4 and B5 stand in the line once for each layer's filter resolution
+    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()) + 3:
         raise AssertionError(f"a kernel of a path never launched: {launches}")
     if any(m.split(".")[0] in ("jax", "flax", "nbody_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1726,8 +1792,8 @@ def main() -> int:
                 f"b3_d{d}", slice2[f"b3_d{d}"]) for d in (6, 4)),
         *(entry(f"B4 filter grad (contconv_bwd_filters), D={d}", conv_src,
                 f"{conv_py}:129", f"b4_d{d}", slice3[f"b4_d{d}"]) for d in (6, 4)),
-        entry("B5 feature grad (contconv_bwd_feat)", conv_src, f"{conv_py}:162", "b5",
-              slice3["b5"]),
+        *(entry(f"B5 feature grad (contconv_bwd_feat), D={d}", conv_src, f"{conv_py}:162",
+                f"b5_d{d}", slice3[f"b5_d{d}"]) for d in (6, 4)),
         entry("B6 geometry grad (contconv_bwd_geom)", conv_src, f"{conv_py}:196", "b6",
               slice3["b6"]),
         entry("B7 select (morton_select)", spatial_src, "nbody_tpu/ops/spatial.py:272",

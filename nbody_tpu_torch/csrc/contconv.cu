@@ -13,9 +13,11 @@
 // caller divides by the edge count for a mean. Interpolation and the sum are
 // linear, so the work is: bins g[m, cell, :] of window- and corner-weighted
 // features, then g @ F. B4 replaces _bwd_filters_kernel: dF[cell] =
-// g[:, cell, :]^T dout.
+// g[:, cell, :]^T dout. B5 replaces _bwd_feat_kernel: dfeat[m, e] = window *
+// sum over the edge's live corners of w * dG[m, cell], dG[m, cell] = F_cell
+// @ dout[m].
 //
-// What bounds B3 and B4 on this card. The TPU kernels multiply dense (tile,
+// What bounds B3-B5 on this card. The TPU kernels multiply dense (tile,
 // cell) blocks: a 128 x 128 matrix unit and tens of MB of VMEM make the zero
 // bins cheap there. Here the product runs as FP32 FMAs on 132 SMs (tensor
 // cores are not used: the contract is full FP32, and TF32 keeps about three
@@ -26,8 +28,8 @@
 // kernels (operations); their bytes are the features read once and the
 // compacted bins written and read once.
 //
-// Design: one pair plan shared by B3 and B4, then a memory-bound bin pass and
-// a grouped product over cells.
+// Design: one pair plan shared by B3, B4 and B5, then memory-bound passes a
+// warp a receiver (bins, B5's unbins) and grouped products over cells.
 //   plan   plan_masks_kernel: a warp a receiver decodes each edge once and
 //          ORs the cells of its live corners into a D^3-bit mask (integer
 //          atomicOr in shared memory; the result does not depend on order)
@@ -65,13 +67,14 @@
 //          at most R rows, R chosen by the wrapper so that the card gets
 //          about 16 waves of blocks. A block finds its cell by a binary
 //          search over the cells' first items.
-//   B3     pair_product_kernel: a block a work item. It keeps F_cell (up to
-//          128 x 128, 64 KB) in shared memory and streams 128-row tiles of
-//          the item's contiguous bin rows through a double-buffered cp.async
-//          ring; 8 x 8 FP32 register tile a thread; writes y (P,
-//          round4(co)). row_sum_kernel then adds each receiver's rows of y
-//          in cell order into out[m]: one writer, fixed order. ci above 128
-//          runs in K chunks of 128 with F reloaded per chunk.
+//   B3     pair_product_kernel<false>: a block a (work item, 128-column slab).
+//          It keeps F_cell (up to 128 x 128, 64 KB) in shared memory and
+//          streams 128-row tiles of the item's contiguous bin rows through a
+//          double-buffered cp.async ring; 8 x 8 FP32 register tile a thread;
+//          writes y (P, round4(co)). row_sum_kernel then adds each
+//          receiver's rows of y in cell order into out[m]: one writer, fixed
+//          order. ci above 128 runs in K chunks of 128 with F reloaded per
+//          chunk.
 //   B4     bwd_filters_kernel: grid (work item, 128-row slab of ci). The
 //          transposed grouped product dF[cell] = G_cell^T dout[receivers of
 //          the cell's pairs]: 64 pair rows a step, bins copied as they lie,
@@ -80,10 +83,24 @@
 //          thread. Each item writes a partial bank and sum_banks_kernel adds
 //          a cell's banks in item order: no float atomics, the same bits on
 //          every run.
-// Scratch (masks, plan, g, y, partial banks) is allocated by the wrapper.
+//   B5     pair_product_kernel<true>: the same grouped product with its rows
+//          gathered, dG[s] = dout[recv_of[s]] @ F_cell^T (the bank
+//          transposed by the wrapper, (D^3 * co, round4(ci))), 128-column
+//          slabs of ci a block, so any ci: 2 ci co operations a touched
+//          pair (dense 64-receiver tiles over every cell would do 7.3 times
+//          as many at 100k bodies, D = 6). Then unbins_kernel, the bins pass
+//          run backwards: a warp a receiver copies its pairs' dG rows into
+//          shared memory and writes each edge's dfeat row once (window * w *
+//          dG over its live corners in corner order; zeros for a dead edge),
+//          so no dfeat row is read back or written once per corner cell.
+//          Bytes: dG read once, dfeat written once. In a backward that runs
+//          B4 too, dG goes into the buffer of B4's bins once B4 has read
+//          them.
+// Scratch (masks, plan, g or dG, y, partial banks) is allocated by the
+// wrapper.
 //
-// B5 and B6 (the Pallas _bwd_feat_kernel and _bwd_geom_kernel) keep the
-// earlier design: one block of 256 threads per tile of T = 64 receivers
+// B6 (the Pallas _bwd_geom_kernel) keeps the earlier design: one block of
+// 256 threads per tile of T = 64 receivers
 // walks the cells any edge of the tile touches, F^T rows of one cell at a
 // time in shared memory (double-buffered cp.async).
 //   0. Once per tile: each edge's descriptor (lower corner, fractions,
@@ -95,15 +112,12 @@
 //   3. Every thread accumulates an 8-receiver x 4-column register tile over
 //      the cell's rows: the left operand as 16-byte broadcasts, F^T as one
 //      16-byte read of 4 consecutive columns a lane.
-// They save nothing from the forward: each kernel rebuilds the edge
-// descriptors and weights of its tile from the inputs, as the JAX VJP does.
-// B5, dfeat[m, e] = window * sum_corners w * (F_cell @ dout[m]): the block
-//   stages its tile's dout rows once, streams F^T (co rows of ci columns a
-//   cell, transposed by the wrapper), and step 3 leaves dG[t, cell, :] =
-//   F_cell @ dout[t] in registers. Each thread then adds w * dG to the
-//   dfeat rows of its receivers' touching edges: every dfeat element has
-//   one writer, and the cells are walked in a fixed order.
-// B6, the geometry cotangents: B5's walk over cells (zero-window edges kept:
+// It saves nothing from the forward: it rebuilds the edge descriptors and
+// weights of its tile from the inputs, as the JAX VJP does. The block stages
+// its tile's dout rows once, streams F^T (co rows of ci columns a cell,
+// transposed by the wrapper), and step 3 leaves dG[t, cell, :] = F_cell @
+// dout[t] in registers.
+// B6, the geometry cotangents: the walk over cells (zero-window edges kept:
 //   d(out)/d(window) does not vanish there), then per touching edge and
 //   corner s = feat_j[m, e] . dG_cell[m], a warp-wide dot reduced by a
 //   fixed shuffle butterfly, and lane 0 of the receiver's warp adds
@@ -116,21 +130,21 @@
 
 namespace {
 
-constexpr int CT = 64;        // B5/B6: receivers per block
+constexpr int CT = 64;        // B6: receivers per block
 constexpr int THREADS = 256;  // 8 warps
-constexpr int T_PER = 8;      // B5/B6: receivers per thread in the product
+constexpr int T_PER = 8;      // B6: receivers per thread in the product
 constexpr int MAX_K = 64;     // one 64-bit word of live edges per receiver
 constexpr int MAX_CO = 128;   // one float4 of columns a lane
 constexpr int MAX_D = 10;     // cell masks of at most 32 words
 constexpr int MAX_WORDS = (MAX_D * MAX_D * MAX_D + 31) / 32;
 constexpr int BATCH = 8;      // bins: feature rows in flight per lane
-constexpr int BIN_WARPS = 16; // bins: most warps of a block
+constexpr int BIN_WARPS = 16; // bins, unbins: most warps of a block
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
 constexpr int SLAB = 128;     // B4: rows (of ci) and columns (co) of a dF tile
 constexpr int PW = 8;         // plan, row sum: warps (receivers) per block
-constexpr int PT = 128;       // B3: pair rows of a product tile
-constexpr int KC = 128;       // B3: rows of F_cell in shared memory at a time
-constexpr int AS = KC + 4;    // B3: bin-tile row stride (rows 4 apart, other banks)
+constexpr int PT = 128;       // B3, B5: pair rows of a product tile
+constexpr int KC = 128;       // B3, B5: rows of F_cell in shared memory at a time
+constexpr int AS = KC + 4;    // B3, B5: A-tile row stride (rows 4 apart, other banks)
 constexpr int KT = 64;        // B4: pair rows of one step
 constexpr int COUNT_WORDS = 8;      // plan: mask words a thread of the count kernel
 constexpr int CELL_THREADS = 1024;  // plan: receivers a round of a cell's block
@@ -141,7 +155,7 @@ static_assert(MAX_WORDS <= 32, "a lane a mask word");
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
-// Byte offsets of the dynamic shared memory of B5 and B6: the left operand
+// Byte offsets of the dynamic shared memory of B6: the left operand
 // of step 3 is (T, round4(rows)) (the tile's dout rows, rows = co) and F^T
 // is streamed as `rows` rows of `cols` columns a cell (cols = ci).
 struct Layout {
@@ -285,12 +299,6 @@ __device__ void mark_touch(int x, int y, int z, const int* dxyz, uint32_t* touch
   }
 }
 
-// the trilinear weight (times the window) of cell (x, y, z) for an edge
-__device__ __forceinline__ float edge_weight(int x, int y, int z, int xyz, float4 v) {
-  return v.w * lerp_w(x, xyz & 255, v.x) * lerp_w(y, (xyz >> 8) & 255, v.y) *
-         lerp_w(z, xyz >> 16, v.z);
-}
-
 // 3. acc[i][:] += left[i, :] @ fb[:, 4 lane .. 4 lane + 3] over the gs rows
 // of fb (row stride cp) for this warp's 8 receivers (left row stride gs)
 __device__ __forceinline__ void product(float (&acc)[T_PER][4], const float* gw,
@@ -332,7 +340,7 @@ __device__ __forceinline__ void wait_cell(bool more) {
     asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Shared set-up of B5 and B6: zero the flags and F's pad rows, stage the
+// B6's set-up: zero the flags and F's pad rows, stage the
 // tile's dout rows (zero-padded), build the descriptors and the cell list.
 __device__ int setup_dout_walk(const float* gx, const float* gy, const float* gz,
                                const float* win, const float* __restrict__ dout,
@@ -534,6 +542,41 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int c, in
                      c + 2 < ci ? row[c + 2] : 0.f, c + 3 < ci ? row[c + 3] : 0.f);
 }
 
+// One warp, receiver m: per edge e its 8 corners' rows among the receiver's
+// pairs (jj[8 e + o], through the receiver's cell -> row table lut; 0xffff:
+// adds nothing) and weights window * wx * wy * wz (ww[8 e + o]); returns the
+// edges with a live corner, one bit an edge (k <= 64). Ends with __syncwarp.
+__device__ __forceinline__ unsigned long long edge_corner_rows(
+    const float* __restrict__ gx, const float* __restrict__ gy, const float* __restrict__ gz,
+    const float* __restrict__ win, int m, int k, int d, const uint16_t* lut, uint16_t* jj,
+    float* ww) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long live = 0ull;
+  for (int e0 = 0; e0 < k; e0 += 32) {
+    const int e = e0 + lane;
+    bool on = false;
+    if (e < k) {
+      const size_t at = (size_t)m * k + e;
+      const float w = win[at];
+      if (w != 0.f) {
+        const Corner c = decode_edge(gx[at], gy[at], gz[at], d);
+#pragma unroll
+        for (int o = 0; o < 8; ++o) {
+          const int ox = o >> 2, oy = (o >> 1) & 1, oz = o & 1;
+          const bool lv = axis_live(ox, c.fx) && axis_live(oy, c.fy) && axis_live(oz, c.fz);
+          const int cell = ((c.x + ox) * d + c.y + oy) * d + c.z + oz;
+          jj[e * 8 + o] = lv ? lut[cell] : (uint16_t)0xffffu;
+          ww[e * 8 + o] = w * lerp_w(ox, 0, c.fx) * lerp_w(oy, 0, c.fy) * lerp_w(oz, 0, c.fz);
+          on = on || lv;
+        }
+      }
+    }
+    live |= (unsigned long long)__ballot_sync(0xffffffffu, on) << e0;
+  }
+  __syncwarp();
+  return live;
+}
+
 // g (P, gs): the bins of every (receiver, cell) pair at its cell-major row.
 // A warp a receiver (grid-stride), a lane 4 channels of each 128; `nrows`
 // rows of shared memory a warp, BinLayout.
@@ -563,32 +606,7 @@ bins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
     for (int j = lane; j < n; j += 32) lut[cell_r[r0 + j]] = (uint16_t)j;
     __syncwarp();
 
-    // per edge: the rows and weights of its 8 corners (0xffff: adds nothing)
-    unsigned long long live = 0ull;
-    for (int e0 = 0; e0 < k; e0 += 32) {
-      const int e = e0 + lane;
-      bool on = false;
-      if (e < k) {
-        const size_t at = (size_t)m * k + e;
-        const float w = win[at];
-        if (w != 0.f) {
-          const Corner c = decode_edge(gx[at], gy[at], gz[at], d);
-#pragma unroll
-          for (int o = 0; o < 8; ++o) {
-            const int ox = o >> 2, oy = (o >> 1) & 1, oz = o & 1;
-            const bool lv = axis_live(ox, c.fx) && axis_live(oy, c.fy) &&
-                            axis_live(oz, c.fz);
-            const int cell = ((c.x + ox) * d + c.y + oy) * d + c.z + oz;
-            jj[e * 8 + o] = lv ? lut[cell] : (uint16_t)0xffffu;
-            ww[e * 8 + o] = w * lerp_w(ox, 0, c.fx) * lerp_w(oy, 0, c.fy) *
-                            lerp_w(oz, 0, c.fz);
-            on = on || lv;
-          }
-        }
-      }
-      live |= (unsigned long long)__ballot_sync(0xffffffffu, on) << e0;
-    }
-    __syncwarp();
+    const unsigned long long live = edge_corner_rows(gx, gy, gz, win, m, k, d, lut, jj, ww);
 
     for (int b0 = 0; b0 < n; b0 += nrows) {  // one pass unless n > nrows
       const int nr = min(nrows, n - b0);
@@ -656,6 +674,101 @@ bins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
   }
 }
 
+// ---- B5: the unbin pass ------------------------------------------------------
+
+// dfeat (M, k, ci) from dG (P, gs), the bins kernel run backwards: a warp a
+// receiver (grid-stride), a lane 4 channels of each 128. The receiver's dG
+// rows (its pairs' cell-major rows) are copied into the warp's shared memory
+// (cp.async, all in flight together); each edge's dfeat row is then the sum,
+// over its live corners in corner order, of window * w * dG[corner's row],
+// written once (512 B a warp, coalesced; zeros for an edge without a live
+// corner). A receiver with more pairs than the warp's `nrows` rows takes more
+// passes in order: the first writes, the later ones add their corners.
+__global__ void __launch_bounds__(BIN_WARPS * 32)
+unbins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
+              const float* __restrict__ gz, const float* __restrict__ win,
+              const float* __restrict__ dg, const int* __restrict__ rstart,
+              const int16_t* __restrict__ cell_r, const int* __restrict__ slot_of,
+              int M, int k, int ci, int d, int nrows, float* __restrict__ dfeat) {
+  extern __shared__ float4 smem4[];
+  const int gs = round4(ci);
+  const BinLayout L(d, k, gs, nrows);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+  unsigned char* base = (unsigned char*)smem4 + (size_t)warp * L.per_warp;
+  float* rows = (float*)(base + L.rows);
+  float* ww = (float*)(base + L.ww);
+  uint16_t* jj = (uint16_t*)(base + L.jj);
+  int* slot = (int*)(base + L.slot);
+  uint16_t* lut = (uint16_t*)(base + L.lut);
+  // 16-byte row writes need ci % 4 == 0 and a 16-byte aligned base
+  const bool vec = (ci & 3) == 0 && ((uintptr_t)dfeat & 15u) == 0;
+
+  for (int m = blockIdx.x * nwarp + warp; m < M; m += gridDim.x * nwarp) {
+    const int r0 = rstart[m], n = rstart[m + 1] - r0;
+    for (int j = lane; j < n; j += 32) lut[cell_r[r0 + j]] = (uint16_t)j;
+    __syncwarp();
+    const unsigned long long live = edge_corner_rows(gx, gy, gz, win, m, k, d, lut, jj, ww);
+
+    for (int b0 = 0; b0 == 0 || b0 < n; b0 += nrows) {  // one pass unless n > nrows
+      const int nr = min(nrows, n - b0), gq = gs / 4;
+      for (int j = lane; j < nr; j += 32) slot[j] = slot_of[r0 + b0 + j];
+      __syncwarp();
+      for (int q = lane; q < nr * gq; q += 32) {
+        const int j = q / gq, i = q - j * gq;
+        copy16_async(rows + (size_t)j * gs + 4 * i, dg + (size_t)slot[j] * gs + 4 * i);
+      }
+      commit_copies();
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncwarp();
+      for (int c0 = 4 * lane; c0 < gs; c0 += 128) {
+        for (int e = 0; e < k; ++e) {
+          float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+          bool any = false;
+          if ((live >> e) & 1ull) {
+            const uint4 j8 = *(const uint4*)(jj + e * 8);
+            const float4 wa = *(const float4*)(ww + e * 8);
+            const float4 wb = *(const float4*)(ww + e * 8 + 4);
+            const unsigned js[8] = {j8.x & 0xffffu, j8.x >> 16, j8.y & 0xffffu, j8.y >> 16,
+                                    j8.z & 0xffffu, j8.z >> 16, j8.w & 0xffffu, j8.w >> 16};
+            const float ws[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+            for (int o = 0; o < 8; ++o) {
+              const unsigned r = js[o] - (unsigned)b0;
+              if (r < (unsigned)nr) {
+                const float4 v = *(const float4*)(rows + (size_t)r * gs + c0);
+                s.x = fmaf(ws[o], v.x, s.x);
+                s.y = fmaf(ws[o], v.y, s.y);
+                s.z = fmaf(ws[o], v.z, s.z);
+                s.w = fmaf(ws[o], v.w, s.w);
+                any = true;
+              }
+            }
+          }
+          if (b0 > 0 && !any) continue;  // a later pass adds only its own corners
+          float* p = dfeat + ((size_t)m * k + e) * ci + c0;
+          if (vec) {
+            if (b0 > 0) {
+              const float4 q = *(const float4*)p;
+              s.x += q.x;
+              s.y += q.y;
+              s.z += q.z;
+              s.w += q.w;
+            }
+            *(float4*)p = s;
+          } else {
+            const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (c0 + j < ci) p[j] = b0 > 0 ? p[j] + sv[j] : sv[j];
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
 // ---- B3: the grouped product and the row sum --------------------------------
 
 // The grouped products run over work items: cell c's pair rows are cut into
@@ -679,45 +792,54 @@ __device__ __forceinline__ int tile_at(int t, int i) {
   return i < 4 ? 4 * t + i : 64 + 4 * t + i - 4;
 }
 
-// y (P, round4(co)) = g (P, round4(ci)) times F_cell, pair rows cell-major
-// with the cells' offsets coff; F (d^3 * ci, round4(co)). A block a work
-// item, in tiles of PT rows.
+// The grouped product over the plan's cell-major pair rows s: y[s] (round4(nd)
+// floats a row) = A[s] (round4(kd) floats, pad columns zero) times F_cell, the
+// (kd, nd) block of F (d^3 * kd, round4(nd)) of the cell of s. GATHER: A[s] is
+// row recv_of[s] of a (B5's dG: the dout row of the pair's receiver, F = the
+// bank transposed); else row s (B3: the bins). A block a (work item, 128-column
+// slab of y), in tiles of PT rows; kd above 128 runs in K chunks of 128 with
+// F reloaded per chunk.
+template <bool GATHER>
 __global__ void __launch_bounds__(THREADS)
-pair_product_kernel(const float* __restrict__ g, const float* __restrict__ F,
-                    const int* __restrict__ coff, const int* __restrict__ istart,
-                    int ci, int co, int ncell, int rows, float* __restrict__ y) {
+pair_product_kernel(const float* __restrict__ a, const int* __restrict__ recv_of,
+                    const float* __restrict__ F, const int* __restrict__ coff,
+                    const int* __restrict__ istart, int kd, int nd, int ncell, int rows,
+                    float* __restrict__ y) {
   extern __shared__ float4 smem4[];
   float* fs = (float*)smem4;             // (KC, 128) rows of F_cell
-  float* as = fs + (size_t)KC * SLAB;    // 2 x (PT, AS) bin tiles
-  const int gs = round4(ci), cp = round4(co);
+  float* as = fs + (size_t)KC * SLAB;    // 2 x (PT, AS) A tiles
+  const int ka = round4(kd), np = round4(nd);
+  const int n0 = blockIdx.y * SLAB, ns = min(SLAB, np - n0);  // this slab's columns
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int item = blockIdx.x;
   if (item >= istart[ncell]) return;
   const int cell = cell_of_item(istart, ncell, item);
   const int c0 = coff[cell] + (item - istart[cell]) * rows;
   const int c1 = min(coff[cell + 1], c0 + rows);
-  const int nkc = (gs + KC - 1) / KC;
+  const int nkc = (ka + KC - 1) / KC;
   const int nsteps = (c1 - c0 + PT - 1) / PT * nkc;
 
-  // the bin tile of a step: rows of tile step / nkc, columns of K chunk
+  // the A tile of a step: rows of tile step / nkc, columns of K chunk
   // step % nkc
   auto load_a = [&](int step) {
     const int row0 = c0 + step / nkc * PT, k0 = (step % nkc) * KC;
-    const int nr = min(PT, c1 - row0), kq = min(KC, gs - k0) / 4;
+    const int nr = min(PT, c1 - row0), kq = min(KC, ka - k0) / 4;
     float* dst = as + (size_t)(step & 1) * PT * AS;
     for (int q = tid; q < nr * kq; q += THREADS) {
       const int r = q / kq, c = q - r * kq;
-      copy16_async(dst + r * AS + 4 * c, g + (size_t)(row0 + r) * gs + k0 + 4 * c);
+      const size_t src = GATHER ? (size_t)recv_of[row0 + r] : (size_t)(row0 + r);
+      copy16_async(dst + r * AS + 4 * c, a + src * ka + k0 + 4 * c);
     }
     commit_copies();
   };
-  // K chunk kc of F_cell, rows from ci on zero
+  // K chunk kc of F_cell's slab, rows from kd on zero
   auto load_f = [&](int kc) {
-    const int k0 = kc * KC, kl = min(KC, gs - k0), cq = cp / 4;
+    const int k0 = kc * KC, kl = min(KC, ka - k0), cq = ns / 4;
     for (int q = tid; q < kl * cq; q += THREADS) {
       const int r = q / cq, c = q - r * cq;
-      if (k0 + r < ci)
-        copy16_async(fs + r * SLAB + 4 * c, F + ((size_t)cell * ci + k0 + r) * cp + 4 * c);
+      if (k0 + r < kd)
+        copy16_async(fs + r * SLAB + 4 * c,
+                     F + ((size_t)cell * kd + k0 + r) * np + n0 + 4 * c);
       else
         *(float4*)(fs + r * SLAB + 4 * c) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -743,7 +865,7 @@ pair_product_kernel(const float* __restrict__ g, const float* __restrict__ F,
       __syncthreads();
     }
     const float* ab = as + (size_t)(step & 1) * PT * AS;
-    const int kl = min(KC, gs - kc * KC);
+    const int kl = min(KC, ka - kc * KC);
     for (int kk = 0; kk < kl; kk += 4) {
       float4 av[8];
 #pragma unroll
@@ -755,9 +877,9 @@ pair_product_kernel(const float* __restrict__ g, const float* __restrict__ F,
         const float bc[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const float a = r == 0 ? av[i].x : r == 1 ? av[i].y : r == 2 ? av[i].z : av[i].w;
+          const float av_r = r == 0 ? av[i].x : r == 1 ? av[i].y : r == 2 ? av[i].z : av[i].w;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, bc[j], acc[i][j]);
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av_r, bc[j], acc[i][j]);
         }
       }
     }
@@ -768,10 +890,10 @@ pair_product_kernel(const float* __restrict__ g, const float* __restrict__ F,
       for (int i = 0; i < 8; ++i) {
         const int r = tile_at(ty, i);
         if (r < nr) {
-          float* yr = y + (size_t)(row0 + r) * cp;
-          if (4 * tx < cp)
+          float* yr = y + (size_t)(row0 + r) * np + n0;
+          if (4 * tx < ns)
             *(float4*)(yr + 4 * tx) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-          if (64 + 4 * tx < cp)
+          if (64 + 4 * tx < ns)
             *(float4*)(yr + 64 + 4 * tx) =
                 make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
         }
@@ -923,85 +1045,6 @@ __global__ void sum_banks_kernel(const float* __restrict__ part,
   }
 }
 
-// B5: dfeat (M, k, ci); FT (d^3 * co, round4(ci)) zero-padded columns
-__global__ void __launch_bounds__(THREADS)
-bwd_feat_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
-                const float* __restrict__ gz, const float* __restrict__ win,
-                const float* __restrict__ dout, const float* __restrict__ FT,
-                int M, int k, int ci, int co, int d, float* __restrict__ dfeat) {
-  extern __shared__ float4 smem4[];
-  unsigned char* base = (unsigned char*)smem4;
-  const Layout L(d, co, ci, k);
-  const int GS = round4(co), CP = round4(ci), KW = (k + 31) / 32;
-  float* fs = (float*)(base + L.fs);
-  const float* g = (const float*)(base + L.g);
-  const float4* dfw = (const float4*)(base + L.dfw);
-  const int* dxyz = (const int*)(base + L.dxyz);
-  uint32_t* touch = (uint32_t*)(base + L.touch);
-  const int* cells = (const int*)(base + L.cells);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * CT;
-  // 16-byte row updates need ci % 4 == 0 and a 16-byte aligned base
-  const bool vec = (ci & 3) == 0 && ((uintptr_t)dfeat & 15u) == 0;
-
-  // every dfeat element of this thread starts at 0 (zero-window edges stay so)
-#pragma unroll
-  for (int i = 0; i < T_PER; ++i) {
-    const int m = m0 + warp * T_PER + i;
-    if (m >= M) continue;
-    for (int e = 0; e < k; ++e)
-      for (int j = 0; j < 4; ++j)
-        if (4 * lane + j < ci) dfeat[((size_t)m * k + e) * ci + 4 * lane + j] = 0.f;
-  }
-  const int ncell = setup_dout_walk(gx, gy, gz, win, dout, M, k, ci, co, d, false,
-                                    base, L);
-
-  float acc[T_PER][4];
-  if (ncell > 0) load_cell_async(fs, FT, cells[1], co, CP);
-  for (int n = 0; n < ncell; ++n) {
-    const int cell = cells[1 + n];
-    const float* fb = fs + (size_t)(n & 1) * GS * CP;
-    if (n + 1 < ncell)
-      load_cell_async(fs + (size_t)((n + 1) & 1) * GS * CP, FT, cells[2 + n], co, CP);
-    const int x = cell / (d * d), y = (cell / d) % d, z = cell % d;
-    mark_touch(x, y, z, dxyz, touch, k, KW);
-    wait_cell(n + 1 < ncell);
-    __syncthreads();
-    zero_acc(acc);
-    product(acc, g + warp * T_PER * GS, fb, GS, CP);  // dG = dout @ F_cell^T
-
-#pragma unroll
-    for (int i = 0; i < T_PER; ++i) {
-      const int t = warp * T_PER + i, m = m0 + t;
-      if (m >= M) continue;
-      for (int w = 0; w < KW; ++w) {
-        uint32_t bits = touch[t * KW + w];
-        while (bits) {
-          const int e = w * 32 + __ffs(bits) - 1;
-          bits &= bits - 1u;
-          const float wt = edge_weight(x, y, z, dxyz[t * k + e], dfw[t * k + e]);
-          float* p = dfeat + ((size_t)m * k + e) * ci + 4 * lane;
-          if (vec) {
-            if (4 * lane < ci) {
-              float4 a = *(float4*)p;
-              a.x = fmaf(wt, acc[i][0], a.x);
-              a.y = fmaf(wt, acc[i][1], a.y);
-              a.z = fmaf(wt, acc[i][2], a.z);
-              a.w = fmaf(wt, acc[i][3], a.w);
-              *(float4*)p = a;
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (4 * lane + j < ci) p[j] = fmaf(wt, acc[i][j], p[j]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // B6: dgx, dgy, dgz, dwin (M, k)
 __global__ void __launch_bounds__(THREADS)
 bwd_geom_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
@@ -1106,6 +1149,40 @@ int set_smem(K kernel, size_t smem) {
                                    (int)smem);
 }
 
+// The launch of a warp-per-receiver pass over the plan (bins_kernel,
+// unbins_kernel): rows a warp all a receiver can have, or what fits with 8
+// warps a block; small shapes take more warps a block; as many blocks as stay
+// resident. Returns 0 or a CUDA error.
+template <typename K>
+int bin_launch(K kernel, int M, int k, int ci, int d, int* nrows, int* nwarp, int* blocks,
+               size_t* smem) {
+  const int gs = round4(ci), most = 8 * k < d * d * d ? 8 * k : d * d * d;
+  const size_t fixed = BinLayout(d, k, gs, 0).per_warp;
+  *nwarp = 8;
+  if ((size_t)MAX_SMEM / *nwarp < fixed + 16 + (size_t)gs * sizeof(float) + sizeof(int))
+    return (int)cudaErrorInvalidValue;
+  const size_t fit = ((size_t)MAX_SMEM / *nwarp - fixed - 16) /
+                     ((size_t)gs * sizeof(float) + sizeof(int));
+  *nrows = fit < (size_t)most ? (int)fit : most;
+  const size_t per_warp = BinLayout(d, k, gs, *nrows).per_warp;
+  while (*nwarp < BIN_WARPS && 2 * *nwarp * per_warp <= (size_t)MAX_SMEM / 2) *nwarp *= 2;
+  *smem = *nwarp * per_warp;
+  int err = set_smem(kernel, *smem);
+  if (err) return err;
+  int dev = 0, sms = 0, resident = 0;
+  if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+    return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, *nwarp * 32,
+                                                           *smem);
+  if (err) return err;
+  if (resident < 1) return (int)cudaErrorInvalidValue;
+  const long long need = ((long long)M + *nwarp - 1) / *nwarp;
+  const long long most_blocks = (long long)sms * resident;
+  *blocks = (int)(need < most_blocks ? need : most_blocks);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1152,52 +1229,59 @@ int contconv_pair_bins(const float* gx, const float* gy, const float* gz,
                        int d, float* g, void* stream) {
   if (bad_shape(M, k, ci, 1, d) || ((uintptr_t)g & 15u) != 0)
     return (int)cudaErrorInvalidValue;
-  // rows a warp: all a receiver can have, or what fits with 8 warps a block;
-  // small shapes take more warps a block
-  const int gs = round4(ci), most = 8 * k < d * d * d ? 8 * k : d * d * d;
-  const size_t fixed = BinLayout(d, k, gs, 0).per_warp;
-  int nwarp = 8;
-  if ((size_t)MAX_SMEM / nwarp < fixed + 16 + (size_t)gs * sizeof(float) + sizeof(int))
-    return (int)cudaErrorInvalidValue;
-  const size_t fit = ((size_t)MAX_SMEM / nwarp - fixed - 16) /
-                     ((size_t)gs * sizeof(float) + sizeof(int));
-  const int nrows = fit < (size_t)most ? (int)fit : most;
-  const size_t per_warp = BinLayout(d, k, gs, nrows).per_warp;
-  while (nwarp < BIN_WARPS && 2 * nwarp * per_warp <= (size_t)MAX_SMEM / 2) nwarp *= 2;
-  const size_t smem = nwarp * per_warp;
-  int err = set_smem(bins_kernel, smem);
+  int nrows, nwarp, blocks;
+  size_t smem;
+  const int err = bin_launch(bins_kernel, M, k, ci, d, &nrows, &nwarp, &blocks, &smem);
   if (err) return err;
-  int dev = 0, sms = 0, resident = 0;
-  if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
-  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
-    return err;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, bins_kernel,
-                                                           nwarp * 32, smem);
-  if (err) return err;
-  if (resident < 1) return (int)cudaErrorInvalidValue;
-  const long long need = ((long long)M + nwarp - 1) / nwarp;
-  const long long most_blocks = (long long)sms * resident;
-  const int blocks = (int)(need < most_blocks ? need : most_blocks);
   bins_kernel<<<blocks, nwarp * 32, smem, (cudaStream_t)stream>>>(
       gx, gy, gz, win, feat, rstart, cell_r, slot_of, M, k, ci, d, nrows, g);
   return (int)cudaGetLastError();
 }
 
-// B3's product: y (P, round4(co)) = g (P, round4(ci)) times the pair's cell
-// of F (d^3 * ci, round4(co)) with zero pad columns; coff (d^3 + 1) the
-// cells' row offsets; g, F and y 16-byte aligned. istart (d^3 + 1) cuts the
-// cells into work items of at most `rows` rows, at most `nitems` in all.
-int contconv_pair_product(const float* g, const float* F, const int* coff,
-                          const int* istart, int ci, int co, int d, int rows, int nitems,
-                          float* y, void* stream) {
-  if (bad_shape(1, 1, ci, co, d) || rows < 1 || nitems < 1 ||
-      (((uintptr_t)g | (uintptr_t)F | (uintptr_t)y) & 15u) != 0)
+// B5's last pass: dfeat (M, k, ci), 16-byte rows where ci % 4 == 0, from dG
+// (P, round4(ci)), 16-byte aligned, at the plan's cell-major rows.
+int contconv_pair_unbins(const float* gx, const float* gy, const float* gz,
+                         const float* win, const float* dg, const int* rstart,
+                         const int16_t* cell_r, const int* slot_of, int M, int k, int ci,
+                         int d, float* dfeat, void* stream) {
+  if (bad_shape(M, k, ci, 1, d) || ((uintptr_t)dg & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  int nrows, nwarp, blocks;
+  size_t smem;
+  const int err = bin_launch(unbins_kernel, M, k, ci, d, &nrows, &nwarp, &blocks, &smem);
+  if (err) return err;
+  unbins_kernel<<<blocks, nwarp * 32, smem, (cudaStream_t)stream>>>(
+      gx, gy, gz, win, dg, rstart, cell_r, slot_of, M, k, ci, d, nrows, dfeat);
+  return (int)cudaGetLastError();
+}
+
+// The grouped product of B3 and B5 over the plan's cell-major rows: y (P,
+// round4(nd)) = A times the pair's cell of F (d^3 * kd, round4(nd)), pad
+// columns zero, where A's row s is a (round4(kd) floats a row, pad columns
+// zero) at row recv_of[s] (B5's dG; recv_of (P)) or, with recv_of null, at
+// row s (B3). coff (d^3 + 1) the cells' row offsets; a, F and y 16-byte
+// aligned. istart (d^3 + 1) cuts the cells into work items of at most `rows`
+// rows, at most `nitems` in all.
+int contconv_pair_product(const float* a, const int* recv_of, const float* F,
+                          const int* coff, const int* istart, int kd, int nd, int d,
+                          int rows, int nitems, float* y, void* stream) {
+  if (kd <= 0 || nd <= 0 || d < 2 || d > MAX_D || rows < 1 || nitems < 1 ||
+      (((uintptr_t)a | (uintptr_t)F | (uintptr_t)y) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)KC * SLAB + (size_t)2 * PT * AS) * sizeof(float);
-  const int err = set_smem(pair_product_kernel, smem);
-  if (err) return err;
-  pair_product_kernel<<<nitems, THREADS, smem, (cudaStream_t)stream>>>(
-      g, F, coff, istart, ci, co, d * d * d, rows, y);
+  const dim3 grid(nitems, (round4(nd) + SLAB - 1) / SLAB);
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int err;
+  if (recv_of) {
+    if ((err = set_smem(pair_product_kernel<true>, smem)) != 0) return err;
+    pair_product_kernel<true><<<grid, THREADS, smem, s>>>(a, recv_of, F, coff, istart, kd,
+                                                          nd, d * d * d, rows, y);
+  } else {
+    if ((err = set_smem(pair_product_kernel<false>, smem)) != 0) return err;
+    pair_product_kernel<false><<<grid, THREADS, smem, s>>>(a, nullptr, F, coff, istart, kd,
+                                                           nd, d * d * d, rows, y);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1237,23 +1321,9 @@ int contconv_bwd_filters(const float* g, const float* dout, const int* coff,
   return (int)cudaGetLastError();
 }
 
-// B5: dfeat (M, k, ci) from gx, gy, gz, win (M, k), dout (M, co) and F^T
-// (d^3 * co, round4(ci)) with zero pad columns, 16-byte aligned; ci <= 128.
-int contconv_bwd_feat(const float* gx, const float* gy, const float* gz,
-                      const float* win, const float* dout, const float* FT,
-                      int M, int k, int ci, int co, int d, float* dfeat, void* stream) {
-  if (bad_shape(M, k, ci, co, d) || ci > MAX_CO || ((uintptr_t)FT & 15u) != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = Layout(d, co, ci, k).total;
-  const int err = set_smem(bwd_feat_kernel, smem);
-  if (err) return err;
-  bwd_feat_kernel<<<(M + CT - 1) / CT, THREADS, smem, (cudaStream_t)stream>>>(
-      gx, gy, gz, win, dout, FT, M, k, ci, co, d, dfeat);
-  return (int)cudaGetLastError();
-}
-
-// B6: dgx, dgy, dgz, dwin (M, k) from the inputs of B5 and feat (M, k, ci),
-// which may lie at any 4-byte offset.
+// B6: dgx, dgy, dgz, dwin (M, k) from gx, gy, gz, win (M, k), feat (M, k,
+// ci) at any 4-byte offset, dout (M, co) and F^T (d^3 * co, round4(ci)) with
+// zero pad columns, 16-byte aligned; ci <= 128.
 int contconv_bwd_geom(const float* gx, const float* gy, const float* gz,
                       const float* win, const float* feat, const float* dout,
                       const float* FT, int M, int k, int ci, int co, int d,

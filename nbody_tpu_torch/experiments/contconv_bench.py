@@ -1,14 +1,17 @@
-"""Times B3 (ContConv collect) and B4 (its filter gradient) step by step on
-the geometry of a Morton radius graph of spiral bodies:
+"""Times B3 (ContConv collect), B4 (its filter gradient) and B5 (its feature
+gradient) step by step on the geometry of a Morton radius graph of spiral
+bodies:
 
     python -m nbody_tpu_torch.experiments.contconv_bench --n-bodies 100000 --d 6 4
 
 Per filter resolution D it prints one JSON row: the pair count of the plan
 and its spread over the receivers and the cells, whether the plan equals its plain
-version, B3 and B4 against their plain versions (max |d| / max |plain|),
-and milliseconds (CUDA events) of the plan, the bins and of the whole B3
-and B4 calls, with the rows of one profiled call of each, beside the least
-time an H100 could take for the call (``bound_ms``). On the CPU (``--device cpu``) every step is its
+version, B3-B5 and the bins, B5's dG product and its unbin pass against
+their plain versions (max |d| / max |plain|), milliseconds (CUDA events) of
+the plan, the bins, the dG product, the unbin pass and of the whole B3, B4
+and B5 calls, with the rows of one profiled call of each, and the scratch
+bytes, beside the least time an H100 could take for the call
+(``bound_ms``). On the CPU (``--device cpu``) every step is its
 plain version and the times are host times of those.
 """
 
@@ -43,8 +46,8 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 def bound_ms(pairs: int, m: int, k: int, ci: int, co: int, d: int):
     """(ms, "operations" or "bytes"): the larger of the call's FP32
     operations (2 ci co a (receiver, cell) pair, 2 ci an edge corner) and its
-    bytes (geometry, features, bank and an (M, co) operand, each once) at the
-    card's peaks; the same for B3 and B4."""
+    bytes (geometry, features or their cotangent, bank and an (M, co)
+    operand, each once) at the card's peaks; the same for B3, B4 and B5."""
     t_ops = 1e3 * (2.0 * pairs * ci * co + 16.0 * m * k * ci) / PEAK_FLOPS
     t_bytes = 1e3 * 4.0 * (4 * m * k + m * k * ci + d ** 3 * ci * co + m * co) / PEAK_BYTES
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -87,28 +90,61 @@ def bench(n: int, d: int, k: int, width: int, dev: torch.device, reps: int = 5) 
         lambda p, *a: cck.pair_bins_torch(p, *a[:5], d=a[5]))
     g = bins(plan, *gxyz, win, fj, d)
     row["bins_vs_plain"] = _rel(g[:, :width], cck.pair_bins_torch(plan, *gxyz, win, fj, d=d))
+    del g
+    if cuda:
+        items = cck._plan_cuda(*gxyz, win, d)[1]  # the work items of this plan
+        ft, dpad = cck._f_transposed(filters), cck._padded_rows(dout)
+
+        def dg_step():
+            return cck._product_cuda(dpad, True, ft, plan, items, width, width, d)
+
+        def unbins_step(dg):
+            return cck._unbins_cuda(plan, dg, *gxyz, win, d, torch.empty_like(fj))
+    else:
+        def dg_step():
+            return cck.pair_dg_torch(plan, dout, filters)
+
+        def unbins_step(dg):
+            return cck.pair_unbins_torch(plan, dg, *gxyz, win, d=d)
+    dg = dg_step()
+    want_dg = cck.pair_dg_torch(plan, dout, filters)
+    row["dg_vs_plain"] = _rel(dg[:, :width], want_dg)
+    row["unbins_vs_plain"] = _rel(unbins_step(dg), cck.pair_unbins_torch(
+        plan, want_dg, *gxyz, win, d=d))
     out = cck.contconv_collect(*args, d=d)
     d_f = cck.contconv_bwd_filters(*args, dout, d=d)
+    dfeat = cck.contconv_bwd_feat(*args, dout, d=d)
     row["b3_vs_plain"] = _rel(out, cck.contconv_collect_torch(*args, d=d))
-    row["b4_vs_plain"] = _rel(d_f, cck.contconv_collect_bwd_torch(
-        *args, dout, d=d, need=(False,) * 5 + (True,))[5])
+    want = cck.contconv_collect_bwd_torch(*args, dout, d=d, need=(False,) * 4 + (True, True))
+    row["b4_vs_plain"] = _rel(d_f, want[5])
+    row["b5_vs_plain"] = _rel(dfeat, want[4])
+    del want
     row["same_bits_twice"] = (torch.equal(out, cck.contconv_collect(*args, d=d)) and
-                              torch.equal(d_f, cck.contconv_bwd_filters(*args, dout, d=d)))
+                              torch.equal(d_f, cck.contconv_bwd_filters(*args, dout, d=d)) and
+                              torch.equal(dfeat, cck.contconv_bwd_feat(*args, dout, d=d)))
+    del out, d_f, dfeat
 
     row["plan_ms"] = _ms(lambda: cck.pair_plan(*gxyz, win, d=d), dev, reps)
     row["bins_ms"] = _ms(lambda: bins(plan, *gxyz, win, fj, d), dev, reps)
     row["b3_ms"] = _ms(lambda: cck.contconv_collect(*args, d=d), dev, reps)
     row["b4_ms"] = _ms(lambda: cck.contconv_bwd_filters(*args, dout, d=d), dev, reps)
+    row["dg_ms"] = _ms(dg_step, dev, reps)
+    row["unbins_ms"] = _ms(lambda: unbins_step(dg), dev, reps)
+    row["b5_ms"] = _ms(lambda: cck.contconv_bwd_feat(*args, dout, d=d), dev, reps)
     if cuda:
         for key, fn in (("b3", lambda: cck.contconv_collect(*args, d=d)),
-                        ("b4", lambda: cck.contconv_bwd_filters(*args, dout, d=d))):
+                        ("b4", lambda: cck.contconv_bwd_filters(*args, dout, d=d)),
+                        ("b5", lambda: cck.contconv_bwd_feat(*args, dout, d=d))):
             busy, top = profile_ms(fn, dev, top=8)
             row[f"{key}_busy_ms"] = busy
             row[f"{key}_rows_ms"] = {name[:48]: ms for name, ms in top}
-        items = cck._item_rows(plan.cell_r.numel(), d ** 3)[1]  # B4: a partial bank an item
+        nitems = cck._item_rows(plan.cell_r.numel(), d ** 3)[1]  # B4: a partial bank an item
+        # B5: the dG rows (the bins' buffer in a backward that runs B4 too)
+        # and the transposed bank
         row["scratch_bytes"] = {"plan": sum(t.numel() * t.element_size() for t in plan),
-                                "bins": g.numel() * 4, "products": g.shape[0] * width * 4,
-                                "partial_banks": items * width * width * 4}
+                                "bins": dg.numel() * 4, "products": dg.numel() * 4,
+                                "partial_banks": nitems * width * width * 4,
+                                "dg": dg.numel() * 4, "bank_transposed": ft.numel() * 4}
     return row
 
 

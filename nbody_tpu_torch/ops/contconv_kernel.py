@@ -13,21 +13,26 @@ in ``nbody_tpu_torch/csrc/contconv.cu`` that replaces the Pallas
 :func:`contconv_collect_torch`, which is also the ``impl="dense"`` layer of
 ``models/contconv.py``.
 
-On the card B3 and B4 share one (receiver, cell) pair plan
+On the card B3, B4 and B5 run over one (receiver, cell) pair plan
 (:func:`pair_plan`): the distinct cells each receiver's live corners touch,
 listed cell-major with receivers ascending inside a cell (four launches: the
 receivers' cell masks, their prefix sum, the cells' counts, every pair's
 place). A bin kernel then reads every live edge's feature row once and
-writes the compacted bins ``g[pair]``; B3 multiplies each cell's contiguous rows by that cell of the
-bank and adds a receiver's products in cell order, B4 multiplies their
-transpose by the gathered ``dout`` rows. The plan's plain version
-(:func:`pair_plan_torch`) and the plain bins, product and filter gradient
+writes the compacted bins ``g[pair]``; B3 multiplies each cell's contiguous
+rows by that cell of the bank and adds a receiver's products in cell order,
+B4 multiplies their transpose by the gathered ``dout`` rows. B5 runs the
+same grouped product on the ``dout`` rows gathered by receiver and the bank
+transposed (``dG[pair]``), then the bins backwards: per edge the
+corner-weighted sum of its pairs' dG rows, each ``dfeat`` row written once.
+The plan's plain version (:func:`pair_plan_torch`) and the plain passes
 over a plan (:func:`pair_bins_torch`, :func:`pair_collect_torch`,
-:func:`pair_filter_grad_torch`) hold that rule without a card.
+:func:`pair_filter_grad_torch`, :func:`pair_dg_torch`,
+:func:`pair_unbins_torch`) hold that rule without a card.
 
 The gradient is a ``torch.autograd.Function`` that saves its inputs only,
-as the JAX custom VJP does (the backward rebuilds plan and bins), and whose
-backward launches, on the card, the kernels of the Pallas
+as the JAX custom VJP does (the backward rebuilds one plan for B4 and B5,
+and one (rows, round4(ci)) buffer holds B4's bins and then B5's dG rows),
+and whose backward launches, on the card, the kernels of the Pallas
 ``_collect_bwd_rule``:
 
 - B4 :func:`contconv_bwd_filters` (``_bwd_filters_kernel``) when the
@@ -39,20 +44,22 @@ backward launches, on the card, the kernels of the Pallas
 
 On the CPU each of them runs its part of :func:`contconv_collect_bwd_torch`,
 the plain backward. Every wrapper counts its launches in
-``<wrapper>.launches``: one per call, however many kernels the call runs;
-B3 and B4 also by filter resolution, in ``<wrapper>.launches_by_d``.
+``<wrapper>.launches``: one per call (or per backward it serves), however
+many kernels the call runs; B3, B4 and B5 also by filter resolution, in
+``<wrapper>.launches_by_d``.
 
 The caller gathers ``feat_j`` (M, k, ci) itself, as the JAX layer does (1.6
 GB at 100k bodies, k = 32, ci = 128, which the card holds). B3 and B4 read
-each live edge's row once; their scratch is the plan (10 bytes a pair), the
-bins and, for B3, the products (``round4(ci)`` and ``round4(co)`` floats a
-pair), and B4's partial banks, one (ci, co) bank a work item. The scratch
+each live edge's row once, B5 writes each once; their scratch is the plan
+(10 bytes a pair), the bins or B5's dG rows and, for B3, the products
+(``round4(ci)`` and ``round4(co)`` floats a pair), and B4's partial banks,
+one (ci, co) bank a work item. The scratch
 is sized without asking the device where the most pairs the shape can have,
 M min(8k, D^3), keep bins and products under ``_NO_READ_BYTES`` (a few
 thousand receivers: launches so short that a wait would leave the card idle
 while the host catches up); above that from the pair count read on the host,
 the call's one wait (B4 in a backward takes the row count from its
-forward). B5 and B6 read a row once for each of its 8 corner cells.
+forward). B6 reads a row once for each of its 8 corner cells.
 """
 
 from __future__ import annotations
@@ -81,7 +88,7 @@ _NO_READ_BYTES = 2 << 30
 _LIB: Optional[ctypes.CDLL] = None
 
 _LIMITS = ("the kernels take 2 <= d <= 10, k <= 64, co <= 128 (and ci <= 128 "
-           "for B5/B6, within 227 KB of shared memory)")
+           "for B6, within 227 KB of shared memory)")
 
 
 def _lib() -> ctypes.CDLL:
@@ -92,15 +99,15 @@ def _lib() -> ctypes.CDLL:
         lib.contconv_plan_masks.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 4
         lib.contconv_plan_cells.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 7
         lib.contconv_pair_bins.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 2
-        lib.contconv_pair_product.argtypes = [ptr] * 4 + [i32] * 5 + [ptr] * 2
+        lib.contconv_pair_unbins.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 2
+        lib.contconv_pair_product.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 2
         lib.contconv_row_sum.argtypes = [ptr] * 3 + [i32] * 2 + [ptr] * 2
         lib.contconv_bwd_filters.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 3
-        lib.contconv_bwd_feat.argtypes = [ptr] * 6 + [i32] * 5 + [ptr] * 2
         lib.contconv_bwd_geom.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 5
         for fn in (lib.contconv_plan_masks, lib.contconv_plan_cells,
-                   lib.contconv_pair_bins, lib.contconv_pair_product,
-                   lib.contconv_row_sum, lib.contconv_bwd_filters,
-                   lib.contconv_bwd_feat, lib.contconv_bwd_geom):
+                   lib.contconv_pair_bins, lib.contconv_pair_unbins,
+                   lib.contconv_pair_product, lib.contconv_row_sum,
+                   lib.contconv_bwd_filters, lib.contconv_bwd_geom):
             fn.restype = i32
         _LIB = lib
     return _LIB
@@ -263,20 +270,37 @@ def pair_plan_torch(gx, gy, gz, window, *, d: int) -> PairPlan:
     return PairPlan(rstart, (keys % z).to(torch.int16), slot_of, recv_r[perm], coff)
 
 
-def pair_bins_torch(plan: PairPlan, gx, gy, gz, window, feat_j, *, d: int):
-    """Plain version of the bin kernel: g (P, ci), row ``s`` the sum of
-    window * corner weight * feature over the live corners of pair ``s``
-    (cell-major)."""
-    m, k, ci = feat_j.shape
+def _corner_rows(plan: PairPlan, gx, gy, gz, window, d: int):
+    """Every live corner of the geometry as (receiver, edge, window * corner
+    weight, the cell-major row of its pair in ``plan``)."""
+    m = window.shape[0]
     z = d ** 3
     cell, w, live = _live_corners(gx, gy, gz, window, d)
     counts = (plan.rstart[1:] - plan.rstart[:-1]).long()
     recv_r = torch.repeat_interleave(torch.arange(m, device=window.device), counts)
     recv, edge, corner = live.nonzero(as_tuple=True)
     row = torch.searchsorted(recv_r * z + plan.cell_r.long(), recv * z + cell[live])
-    wf = (window[recv, edge] * w[recv, edge, corner])[:, None] * feat_j[recv, edge]
-    g = torch.zeros((plan.cell_r.numel(), ci), dtype=feat_j.dtype, device=feat_j.device)
-    return g.index_add_(0, plan.slot_of[row].long(), wf)
+    return recv, edge, window[recv, edge] * w[recv, edge, corner], plan.slot_of[row].long()
+
+
+def pair_bins_torch(plan: PairPlan, gx, gy, gz, window, feat_j, *, d: int):
+    """Plain version of the bin kernel: g (P, ci), row ``s`` the sum of
+    window * corner weight * feature over the live corners of pair ``s``
+    (cell-major)."""
+    recv, edge, wt, row = _corner_rows(plan, gx, gy, gz, window, d)
+    g = torch.zeros((plan.cell_r.numel(), feat_j.shape[2]), dtype=feat_j.dtype,
+                    device=feat_j.device)
+    return g.index_add_(0, row, wt[:, None] * feat_j[recv, edge])
+
+
+def pair_unbins_torch(plan: PairPlan, dg, gx, gy, gz, window, *, d: int):
+    """Plain version of B5's unbin pass, the bins run backwards: dfeat (M,
+    k, ci), row (m, e) the sum of window * corner weight * ``dg`` row of the
+    corner's pair over the edge's live corners (zeros for a dead edge)."""
+    m, k = window.shape
+    recv, edge, wt, row = _corner_rows(plan, gx, gy, gz, window, d)
+    out = torch.zeros((m * k, dg.shape[1]), dtype=dg.dtype, device=dg.device)
+    return out.index_add_(0, recv * k + edge, wt[:, None] * dg[row]).reshape(m, k, -1)
 
 
 def _cell_rows(plan: PairPlan):
@@ -306,6 +330,17 @@ def pair_filter_grad_torch(plan: PairPlan, g, dout, z: int):
     return d_f
 
 
+def pair_dg_torch(plan: PairPlan, dout, filters):
+    """Plain version of B5's product over a plan: dG (P, ci), row ``s`` the
+    ``dout`` row of the pair's receiver times its cell of the bank
+    transposed, dG[s] = F[cell] @ dout[recv_of[s]]."""
+    dg = torch.zeros((plan.cell_r.numel(), filters.shape[1]), dtype=dout.dtype,
+                     device=dout.device)
+    for c, a, b in _cell_rows(plan):
+        dg[a:b] = dout[plan.recv_of[a:b].long()] @ filters[c].T
+    return dg
+
+
 def _check_all(gx, gy, gz, window, feat_j, filters, d, dout=None):
     m, k = window.shape
     z, ci, co = filters.shape
@@ -332,8 +367,8 @@ def _stream() -> int:
 
 
 def _count(wrapper, d: int) -> None:
-    """One launch of B3 or B4, also under its filter resolution (a model's
-    layers differ in it)."""
+    """One launch of B3, B4 or B5, also under its filter resolution (a
+    model's layers differ in it)."""
     wrapper.launches += 1
     wrapper.launches_by_d[d] += 1
 
@@ -430,6 +465,50 @@ def _bins_cuda(plan: PairPlan, gx, gy, gz, window, feat_j, d: int):
     return g
 
 
+def _unbins_cuda(plan: PairPlan, dg, gx, gy, gz, window, d: int, out):
+    """B5's unbin pass into ``out`` (M, k, ci) from dG (rows, round4(ci))."""
+    m, k, ci = out.shape
+    with torch.cuda.device(window.device):
+        rc = _lib().contconv_pair_unbins(
+            gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), window.data_ptr(), dg.data_ptr(),
+            plan.rstart.data_ptr(), plan.cell_r.data_ptr(), plan.slot_of.data_ptr(), m, k,
+            ci, d, out.data_ptr(), _stream())
+    build.raise_on(rc, f"contconv unbin launch (d={d}, k={k}, ci={ci}; {_LIMITS})")
+    return out
+
+
+def _padded_rows(x):
+    """(rows, n) float32 as rows of round4(n) floats at a 16-byte aligned
+    base, pad columns zero: the grouped product reads 16-byte vectors. A
+    copy only where ``x`` is not so already."""
+    n = x.shape[1]
+    if n % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    out = x.new_zeros((x.shape[0], -(-n // 4) * 4))
+    out[:, :n] = x
+    return out
+
+
+def _product_cuda(a, gather, bank, plan: PairPlan, items, kd: int, nd: int, d: int,
+                  out=None):
+    """The grouped product over the plan's cell-major rows, (rows, round4(nd)):
+    row s is A[s] (``a``'s row s, or its row recv_of[s] with ``gather``)
+    times the pair's cell of ``bank`` (D^3 * kd, round4(nd)). ``out``, when
+    given, is a buffer of that shape to write into."""
+    istart, rows, nitems = items
+    if out is None:
+        out = torch.empty((plan.cell_r.numel(), -(-nd // 4) * 4), dtype=torch.float32,
+                          device=a.device)
+    with torch.cuda.device(a.device):
+        rc = _lib().contconv_pair_product(
+            a.data_ptr(), plan.recv_of.data_ptr() if gather else None, bank.data_ptr(),
+            plan.coff.data_ptr(), istart.data_ptr(), kd, nd, d, rows, nitems,
+            out.data_ptr(), _stream())
+    build.raise_on(rc, f"contconv grouped product launch (d={d}, kd={kd}, nd={nd}; "
+                       f"{_LIMITS})")
+    return out
+
+
 def _launch(gx, gy, gz, window, feat_j, filters, d):
     """B3 on the card: plan, bins, the grouped product y = g @ F_cell and
     the receivers' row sums. Returns the output and the plan's rows."""
@@ -438,29 +517,66 @@ def _launch(gx, gy, gz, window, feat_j, filters, d):
     out = torch.empty((m, co), dtype=torch.float32, device=window.device)
     if m == 0:
         return out, 0
-    plan, (istart, rows, nitems) = _plan_cuda(gx, gy, gz, window, d,
-                                              _plan_rows(m, k, d, ci, co))
+    plan, items = _plan_cuda(gx, gy, gz, window, d, _plan_rows(m, k, d, ci, co))
     _count(contconv_collect, d)
     rows_p = plan.cell_r.numel()
     if rows_p == 0:
         return out.zero_(), 0
     g = _bins_cuda(plan, gx, gy, gz, window, feat_j, d)
-    # the kernel reads F rows as 16-byte vectors: pad co to a multiple of 4
-    f_rows = filters.reshape(z * ci, co)
-    if co % 4:
-        f_rows = torch.nn.functional.pad(f_rows, (0, 4 - co % 4))
-    y = torch.empty((g.shape[0], f_rows.shape[1]), dtype=torch.float32, device=g.device)
-    what = f"contconv_collect launch (d={d}, k={k}, ci={ci}, co={co}; {_LIMITS})"
-    lib = _lib()
+    y = _product_cuda(g, False, _padded_rows(filters.reshape(z * ci, co)), plan, items,
+                      ci, co, d)
     with torch.cuda.device(window.device):
-        rc = lib.contconv_pair_product(g.data_ptr(), f_rows.data_ptr(), plan.coff.data_ptr(),
-                                       istart.data_ptr(), ci, co, d, rows, nitems,
-                                       y.data_ptr(), _stream())
-        build.raise_on(rc, what)
-        rc = lib.contconv_row_sum(y.data_ptr(), plan.rstart.data_ptr(),
-                                  plan.slot_of.data_ptr(), m, co, out.data_ptr(), _stream())
-    build.raise_on(rc, what)
+        rc = _lib().contconv_row_sum(y.data_ptr(), plan.rstart.data_ptr(),
+                                     plan.slot_of.data_ptr(), m, co, out.data_ptr(),
+                                     _stream())
+    build.raise_on(rc, f"contconv_collect launch (d={d}, k={k}, ci={ci}, co={co}; "
+                       f"{_LIMITS})")
     return out, rows_p
+
+
+def _backward_cuda(gx, gy, gz, window, feat_j, filters, dout, d: int, want_feat: bool,
+                   want_f: bool, plan_rows: Optional[int] = None):
+    """B5 and/or B4 on the card over one plan of the geometry, ``(dfeat,
+    dF)`` (None for what is not wanted). The plan has ``plan_rows`` rows
+    (the forward's), else the shape's bound or the device's count
+    (:func:`_plan_rows`). B4: the bins, then dF[cell] = G_cell^T
+    dout[receivers] over work items whose partial banks are summed in item
+    order. B5: dG = dout[receivers] @ F_cell^T over the same work items,
+    written into the bins' buffer once B4 has read it (one (rows,
+    round4(ci)) buffer for both), then the unbin pass. Each wrapper served
+    counts one launch."""
+    m, k = window.shape
+    z, ci, co = filters.shape
+    dev = window.device
+    dfeat = torch.empty((m, k, ci), dtype=torch.float32, device=dev) if want_feat else None
+    d_f = torch.empty((z, ci, co), dtype=torch.float32, device=dev) if want_f else None
+    if m == 0:
+        return dfeat, None if d_f is None else d_f.zero_()
+    plan, items = _plan_cuda(gx, gy, gz, window, d,
+                             _plan_rows(m, k, d, ci, co) if plan_rows is None else plan_rows)
+    for want, wrapper in ((want_f, contconv_bwd_filters), (want_feat, contconv_bwd_feat)):
+        if want:
+            _count(wrapper, d)
+    if plan.cell_r.numel() == 0:
+        return tuple(None if t is None else t.zero_() for t in (dfeat, d_f))
+    buf = None
+    if want_f:
+        istart, rows, nitems = items
+        buf = _bins_cuda(plan, gx, gy, gz, window, feat_j, d)
+        partial = torch.empty((nitems, ci, co), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = _lib().contconv_bwd_filters(
+                buf.data_ptr(), dout.data_ptr(), plan.coff.data_ptr(),
+                plan.recv_of.data_ptr(), istart.data_ptr(), ci, co, d, rows, nitems,
+                partial.data_ptr(), d_f.data_ptr(), _stream())
+        build.raise_on(rc, f"contconv_bwd_filters launch (d={d}, k={k}, ci={ci}, co={co}; "
+                           f"{_LIMITS})")
+        del partial
+    if want_feat:
+        buf = _product_cuda(_padded_rows(dout), True, _f_transposed(filters), plan, items,
+                            co, ci, d, out=buf)
+        _unbins_cuda(plan, buf, gx, gy, gz, window, d, dfeat)
+    return dfeat, d_f
 
 
 def contconv_bwd_filters(gx, gy, gz, window, feat_j, filters, dout, *, d: int,
@@ -475,52 +591,21 @@ def contconv_bwd_filters(gx, gy, gz, window, feat_j, filters, dout, *, d: int,
         return contconv_collect_bwd_torch(gx, gy, gz, window, feat_j, filters, dout, d=d,
                                           need=(False,) * 5 + (True,))[5]
     _check_all(gx, gy, gz, window, feat_j, filters, d, dout)
-    m, k = window.shape
-    z, ci, co = filters.shape
-    dev = window.device
-    d_f = torch.empty((z, ci, co), dtype=torch.float32, device=dev)
-    if m == 0:
-        return d_f.zero_()
-    plan, (istart, rows, nitems) = _plan_cuda(
-        gx, gy, gz, window, d,
-        _plan_rows(m, k, d, ci, co) if plan_rows is None else plan_rows)
-    _count(contconv_bwd_filters, d)
-    if plan.cell_r.numel() == 0:
-        return d_f.zero_()
-    g = _bins_cuda(plan, gx, gy, gz, window, feat_j, d)
-    partial = torch.empty((nitems, ci, co), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib().contconv_bwd_filters(
-            g.data_ptr(), dout.data_ptr(), plan.coff.data_ptr(), plan.recv_of.data_ptr(),
-            istart.data_ptr(), ci, co, d, rows, nitems, partial.data_ptr(),
-            d_f.data_ptr(), _stream())
-    build.raise_on(rc, f"contconv_bwd_filters launch (d={d}, k={k}, ci={ci}, co={co}; "
-                       f"{_LIMITS})")
-    return d_f
+    return _backward_cuda(gx, gy, gz, window, feat_j, filters, dout, d, False, True,
+                          plan_rows)[1]
 
 
 def contconv_bwd_feat(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
     """B5: the ``feat_j`` cotangent (M, k, ci) of :func:`contconv_collect`
-    for ``dout`` (M, co); each element has one writer, cells in a fixed
-    order."""
+    for ``dout`` (M, co); ``feat_j`` gives the shape only. On the card: the
+    plan, dG[pair] = F_cell @ dout[receiver] over its cell-major rows, then
+    per edge window * the corner-weighted sum of its pairs' dG rows, each
+    element written once (deterministic). Any ci."""
     if build.on_cpu(gx, gy, gz, window, feat_j, filters, dout):
         return contconv_collect_bwd_torch(gx, gy, gz, window, feat_j, filters, dout, d=d,
                                           need=(False,) * 4 + (True, False))[4]
     _check_all(gx, gy, gz, window, feat_j, filters, d, dout)
-    m, k = window.shape
-    z, ci, co = filters.shape
-    dfeat = torch.empty((m, k, ci), dtype=torch.float32, device=window.device)
-    if m == 0:
-        return dfeat
-    ft = _f_transposed(filters)
-    with torch.cuda.device(window.device):
-        rc = _lib().contconv_bwd_feat(
-            gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), window.data_ptr(),
-            dout.data_ptr(), ft.data_ptr(), m, k, ci, co, d, dfeat.data_ptr(), _stream())
-    build.raise_on(rc, f"contconv_bwd_feat launch (d={d}, k={k}, ci={ci}, co={co}; "
-                       f"{_LIMITS})")
-    contconv_bwd_feat.launches += 1
-    return dfeat
+    return _backward_cuda(gx, gy, gz, window, feat_j, filters, dout, d, True, False)[0]
 
 
 def contconv_bwd_geom(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
@@ -552,8 +637,8 @@ def contconv_bwd_geom(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
 class _Collect(torch.autograd.Function):
     """B3 (the twin on the CPU) with B4-B6 as its backward, each launched
     only for the inputs that need a gradient. Saves the inputs only, and the
-    rows of the forward's plan (an integer): the backward rebuilds plan and
-    bins, without waiting for the device to learn their size."""
+    rows of the forward's plan (an integer): the backward rebuilds one plan
+    for B4 and B5, without waiting for the device to learn its size."""
 
     @staticmethod
     def forward(ctx, gx, gy, gz, window, feat_j, filters, d):
@@ -570,8 +655,13 @@ class _Collect(torch.autograd.Function):
         args = (*ctx.saved_tensors, dout.contiguous())
         need = ctx.needs_input_grad
         geo = (contconv_bwd_geom(*args, d=ctx.d) if any(need[:4]) else (None,) * 4)
-        dfeat = contconv_bwd_feat(*args, d=ctx.d) if need[4] else None
-        d_f = contconv_bwd_filters(*args, d=ctx.d, plan_rows=ctx.plan_rows) if need[5] else None
+        if not (need[4] or need[5]):
+            dfeat = d_f = None
+        elif dout.is_cuda:  # B4 and B5 on one plan, one buffer
+            dfeat, d_f = _backward_cuda(*args, ctx.d, need[4], need[5], ctx.plan_rows)
+        else:
+            dfeat = contconv_bwd_feat(*args, d=ctx.d) if need[4] else None
+            d_f = contconv_bwd_filters(*args, d=ctx.d) if need[5] else None
         return (*(g if n else None for g, n in zip(geo, need[:4])), dfeat, d_f, None)
 
 
@@ -585,7 +675,7 @@ def contconv_collect(gx, gy, gz, window, feat_j, filters, *, d: int):
     :param feat_j: (M, k, ci) float32 gathered neighbour features.
     :param filters: (d^3, ci, co) float32 flat filter bank.
     :param d: filter grid resolution; the kernels take 2 <= d <= 10,
-        k <= 64 and co <= 128 (the backward B5/B6 also ci <= 128), within
+        k <= 64 and co <= 128 (the backward B6 also ci <= 128), within
         their shared memory, and a launch raises ``RuntimeError`` on other
         shapes.
     :return: (M, co) float32, the sum over edges.
@@ -600,4 +690,5 @@ contconv_collect.launches_by_d = collections.Counter()
 contconv_bwd_filters.launches = 0
 contconv_bwd_filters.launches_by_d = collections.Counter()
 contconv_bwd_feat.launches = 0
+contconv_bwd_feat.launches_by_d = collections.Counter()
 contconv_bwd_geom.launches = 0

@@ -42,6 +42,12 @@ _DIST_FLOOR = 1e-30
 _TWIN_ROWS = 2048
 # (target, source) pairs per step of the near-list twin
 _TWIN_PAIRS = 1 << 22
+# B1's launch shape (csrc/pairwise.cu): targets a block, sources staged a step
+_B1_ROWS, _B1_TILE = 128, 256
+# B1 cuts its sources into chunks only where the target tiles are fewer than
+# this many blocks an SM, aims at _B1_SPLIT_BLOCKS blocks an SM when it does,
+# and gives a chunk at least _B1_MIN_CHUNK sources
+_B1_FULL_BLOCKS, _B1_SPLIT_BLOCKS, _B1_MIN_CHUNK = 4, 8, 16 * _B1_TILE
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -52,7 +58,7 @@ def _lib() -> ctypes.CDLL:
         lib = build.load_library("pairwise")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         i64 = ctypes.c_longlong
-        lib.nbody_force.argtypes = [ptr, ptr, i32, i32, f32, f32, ptr, ptr]
+        lib.nbody_force.argtypes = [ptr, ptr, i32, i32, i32, f32, f32, ptr, ptr, ptr]
         lib.nbody_force.restype = i32
         lib.nbody_near_force.argtypes = [
             ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, ptr, ptr]
@@ -100,11 +106,28 @@ def partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening):
     return acc
 
 
+def force_chunk(ni: int, nj: int, sms: int) -> int:
+    """Sources a chunk of B1 for ``ni`` targets and ``nj`` sources on a card
+    of ``sms`` SMs: ``max(nj, 1)`` (one chunk, one launch) unless the target
+    tiles leave the card under ``_B1_FULL_BLOCKS`` blocks an SM; then chunks
+    of whole tiles, as many as give about ``_B1_SPLIT_BLOCKS`` blocks an SM
+    with at least ``_B1_MIN_CHUNK`` sources each. Chunk c holds sources ``c *
+    chunk .. min(nj, (c + 1) * chunk) - 1``; their sums are added in chunk
+    order."""
+    tiles = -(-ni // _B1_ROWS)
+    chunks = min(-(-_B1_SPLIT_BLOCKS * sms // max(tiles, 1)), nj // _B1_MIN_CHUNK)
+    if tiles >= _B1_FULL_BLOCKS * sms or chunks <= 1:
+        return max(nj, 1)
+    return -(-nj // (chunks * _B1_TILE)) * _B1_TILE
+
+
 def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
     """Accelerations (Ni, 3) exerted on targets ``pos_i`` (Ni, 3) by sources
     ``(pos_j (Nj, 3), mass_j (Nj,))``; the port of
     ``pallas_partial_accelerations``. Float32, contiguous, one device.
-    Ragged sizes need no padding: the kernel masks the last tile itself."""
+    Ragged sizes need no padding: the kernel masks the last tile itself.
+    Few targets over many sources split the sources over blocks
+    (:func:`force_chunk`): a second launch adds the chunks in order."""
     if build.on_cpu(pos_i, pos_j, mass_j):
         return partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening)
     ni, nj = pos_i.shape[0], pos_j.shape[0]
@@ -115,11 +138,15 @@ def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
     if ni == 0:
         return acc
     src = _pack_sources(pos_j, mass_j)
+    chunk = force_chunk(ni, nj, torch.cuda.get_device_properties(
+        pos_i.device).multi_processor_count)
+    partial = (torch.empty((-(-nj // chunk), ni, 3), dtype=torch.float32,
+                           device=pos_i.device) if nj > chunk else None)
     with torch.cuda.device(pos_i.device):
         rc = _lib().nbody_force(
-            pos_i.data_ptr(), src.data_ptr(), ni, nj, float(g_const),
-            float(softening), acc.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            pos_i.data_ptr(), src.data_ptr(), ni, nj, chunk, float(g_const),
+            float(softening), None if partial is None else partial.data_ptr(),
+            acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.raise_on(rc, "nbody_force launch")
     partial_accelerations.launches += 1
     return acc

@@ -541,6 +541,9 @@ def test_pair_plan_of_dead_geometry_is_empty():
     assert g.shape == (0, 3)
     assert not cck.pair_collect_torch(plan, g, filters, 9).any()
     assert not cck.pair_filter_grad_torch(plan, g, torch.ones(9, 5), 27).any()
+    dg = cck.pair_dg_torch(plan, torch.ones(9, 5), filters)
+    assert dg.shape == (0, 3)
+    assert not cck.pair_unbins_torch(plan, dg, gx, gy, gz, window, d=3).any()
     with pytest.raises(ValueError):
         cck.pair_plan(gx, gy, gz, window, d=1)
 
@@ -578,6 +581,26 @@ def test_filter_grad_over_the_plan_matches_jax_vjp(m, k, d, ci, co):
     _, vjp = jax.vjp(lambda *a: jcollect(*a, d=d, interpret=True), *map(jnp.asarray, args))
     _close_grads(got.numpy(), vjp(jnp.asarray(dout))[5], geometry=False)
     _close_grads(got.numpy(), cck.contconv_bwd_filters(*t, d=d).numpy(), geometry=False)
+
+
+@pytest.mark.parametrize("m,k,d,ci,co", [(37, 5, 2, 3, 5), (41, 7, 3, 6, 4), (33, 6, 4, 3, 5),
+                                         (20, 32, 6, 130, 12)])
+def test_feature_grad_over_the_plan_matches_jax_vjp(m, k, d, ci, co):
+    """B5's route on the card (plan, dG over the cell-major rows, the unbin
+    pass) in its plain version against ``jax.vjp`` of the Pallas kernel
+    (interpret mode) and the plain backward, on the plan's odd shapes (ci %
+    4 != 0, zero windows, clamped and on-grid coordinates, M < 64, ci above
+    128), at the bar of ``test_plain_backward_matches_jax_vjp``."""
+    args = _plan_inputs(m, k, ci, co, d, 3 * m + d)
+    dout = np.random.default_rng(d).normal(size=(m, co)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (*args, dout)]
+    plan = cck.pair_plan(*t[:4], d=d)
+    dg = cck.pair_dg_torch(plan, t[6], t[5])
+    got = cck.pair_unbins_torch(plan, dg, *t[:4], d=d)
+    _, vjp = jax.vjp(lambda *a: jcollect(*a, d=d, interpret=True), *map(jnp.asarray, args))
+    _close_grads(got.numpy(), vjp(jnp.asarray(dout))[4], geometry=False)
+    _close_grads(got.numpy(), cck.contconv_bwd_feat(*t, d=d).numpy(), geometry=False)
+    assert not got[m // 2].any()  # a receiver without a live edge
 
 
 @pytest.mark.parametrize("m,k,d,floor", [(41, 7, 3, 4), (20, 32, 6, 16), (300, 32, 2, 64)])

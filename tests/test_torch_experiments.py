@@ -179,15 +179,18 @@ def test_run_passes_the_resolved_device_to_the_model(tmp_path, monkeypatch, caps
 
 def test_contconv_bench_row_on_the_cpu():
     """``contconv_bench`` at a few hundred bodies: on the CPU every step is
-    its plain version, so the plan equals it and B3 and B4 are exact."""
+    its plain version, so the plan equals it and B3-B5 are exact; B5's two
+    passes over the plan give the plain backward's feature gradient."""
     from nbody_tpu_torch.experiments import contconv_bench
 
     (row,) = contconv_bench.main(["--device", "cpu", "--n-bodies", "600", "--d", "3",
                                   "--neighbors", "8", "--width", "8"])
     assert row["plan_equals_plain"] and row["same_bits_twice"]
     assert 0 < row["live_edges"] <= 600 * 8 and row["live_edges"] <= row["pairs"] <= 600 * 27
-    assert row["b3_vs_plain"] == row["b4_vs_plain"] == 0.0 and row["bins_vs_plain"] <= 1e-6
-    assert all(row[key] > 0 for key in ("plan_ms", "bins_ms", "b3_ms", "b4_ms", "bound_ms"))
+    assert row["b3_vs_plain"] == row["b4_vs_plain"] == row["b5_vs_plain"] == 0.0
+    assert row["bins_vs_plain"] <= 1e-6 and row["dg_vs_plain"] == row["unbins_vs_plain"] == 0.0
+    assert all(row[key] > 0 for key in ("plan_ms", "bins_ms", "b3_ms", "b4_ms", "dg_ms",
+                                        "unbins_ms", "b5_ms", "bound_ms"))
     assert row["bound_by"] in ("operations", "bytes")
 
 
@@ -219,3 +222,18 @@ def test_determinism_check_repeats_the_loss_on_one_path_only(tmp_path):
     shutil.copytree(tmp_path / "a", tmp_path / other)
     moved = determinism_check.main(argv + ["--runs", "1", "--data-dir", str(tmp_path / other)])
     assert moved[0]["epoch_loss"][0] != first[0]["epoch_loss"][0]
+
+
+def test_force_bench_rows_on_the_cpu():
+    """``force_bench`` on the CPU: the plain version at a square and a
+    few-targets shape, within the force bar of its float64 run, one chunk
+    (the split rule leaves shapes this small whole), the same bits twice."""
+    from nbody_tpu_torch.experiments import force_bench
+
+    rows = force_bench.main(["--device", "cpu", "--shapes", "300", "40x3000", "--reps", "1",
+                             "--check-rows", "32"])
+    assert [(r["targets"], r["sources"]) for r in rows] == [(300, 300), (40, 3000)]
+    for r in rows:
+        assert r["rel_err_vs_float64"] <= 2e-5 and r["same_bits_twice"] and r["chunks"] == 1
+        assert r["ms"] > 0 and r["bound_ms"] > 0 and r["bound_by"] == "operations"
+        assert r["check_rows"] == min(32, r["targets"])

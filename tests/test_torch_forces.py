@@ -142,6 +142,33 @@ def test_chunked_potential_energy_matches_jax():
     _assert_rel(got, tpw.potential_energy(*_t(pos, mass), G, EPS))
 
 
+@pytest.mark.parametrize("ni,nj,sms", [(3, 3, 132), (25, 25, 132), (500, 500, 132),
+                                       (500, 500, 16), (1000, 1000, 132), (20_000, 20_000, 132),
+                                       (50_000, 50_000, 132), (100_000, 100_000, 132),
+                                       (4096, 1_000_000, 132), (4096, 1 << 20, 114),
+                                       (1, 1_000_000, 132), (128, 0, 132)])
+def test_b1_split_rule_covers_the_sources_once_in_order(ni, nj, sms):
+    """B1's chunks of sources (one launch for one chunk, a second launch
+    adds several in order): whole tiles, every source in exactly one chunk in
+    ascending order, none empty; one chunk for every N <= 500 shape of the
+    recipe datagen and wherever the target tiles alone fill the card."""
+    chunk = tpw.force_chunk(ni, nj, sms)
+    chunks = max(1, -(-nj // chunk))
+    tiles = -(-ni // tpw._B1_ROWS)
+    if chunks == 1:
+        assert chunk >= nj and (nj <= 500 or tiles >= tpw._B1_FULL_BLOCKS * sms
+                                or nj < 2 * tpw._B1_MIN_CHUNK)
+        return
+    assert chunk % tpw._B1_TILE == 0 and chunk >= tpw._B1_MIN_CHUNK - tpw._B1_TILE
+    assert tiles < tpw._B1_FULL_BLOCKS * sms and chunks <= 65535
+    bounds = [(c * chunk, min(nj, (c + 1) * chunk)) for c in range(chunks)]
+    assert all(lo < hi for lo, hi in bounds)
+    assert bounds[0][0] == 0 and bounds[-1][1] == nj
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    # every SM gets several blocks, unless the chunks are at their least size
+    assert tiles * chunks >= 4 * sms or chunk <= tpw._B1_MIN_CHUNK + tpw._B1_TILE
+
+
 def test_cpu_calls_use_the_twin_and_count_no_launch():
     pos, _, mass = _random_system(20, seed=4)
     tp, tm = _t(pos, mass)

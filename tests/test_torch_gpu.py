@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (B1 force and its near-list form,
-B2 energy, B3 ContConv collect, B4-B6 its backward, B7 Morton select, B8
+B2 energy, B3 ContConv collect, B4-B6 its backward (B5 as its dG product and
+unbin pass too), B7 Morton select, B8
 Morton merge, B9 and B10 the treecodes' multipole pulls, B11 the windowed
 EdgeConv message sum) against their plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
 CUDA device every test here skips. On the card (which has no JAX, hence no
@@ -7,7 +8,8 @@ conftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-Bars as on the CPU side: forces atol 2e-5 on max-scaled accelerations,
+Bars as on the CPU side: forces atol 2e-5 on max-scaled accelerations (B1
+also against its float64 run at 2^20 sources and more),
 potential energy relative 1e-5, the collect and each cotangent of its
 backward 2e-4 of its max (tests/test_models.py:161); B7 and B8 equal their
 twins exactly; B9 and B10 1e-5 of max |plain|, B1's near-list form B1's
@@ -41,7 +43,7 @@ def _spiral(n, seed, dev):
     return generate_spiral(torch.Generator().manual_seed(seed), n, device=dev)
 
 
-@pytest.mark.parametrize("n", [1, 31, 257, 1000])
+@pytest.mark.parametrize("n", [1, 31, 257, 1000, 20_000])
 def test_b1_kernel_matches_twin(cuda, n):
     pos, _, mass = _spiral(n, n, cuda)
     before = pw.partial_accelerations.launches
@@ -64,6 +66,31 @@ def test_b1_rectangular_mask_and_zero_softening(cuda):
     assert torch.all(acc[650:] == 0)
     ref = pw.partial_accelerations_torch(pos[:650], pos[:650], mass[:650], G, EPS)
     assert float((acc[:650] - ref).abs().max()) / float(ref.abs().max()) <= 2e-5
+
+
+def _f64_rows(tgt, pos, mass, rows):
+    """The plain version in float64 on the target rows ``rows``, 128 at a
+    time."""
+    p, m, q = pos.double(), mass.double(), tgt.double()
+    return torch.cat([pw.partial_accelerations_torch(q[r], p, m, G, EPS)
+                      for r in rows.split(128)])
+
+
+@pytest.mark.parametrize("ni,nj", [(4096, 1 << 20), (300, (1 << 20) + 37), (70_000, 1 << 20)])
+def test_b1_against_float64_at_a_million_sources(cuda, ni, nj):
+    """B1 within 2e-5 of max |a| of the float64 sum at 2^20 sources and
+    more, with the sources split over blocks (few targets) and not (70,000
+    targets fill the card), the same bits twice."""
+    pos, _, mass = _spiral(nj, 3, cuda)
+    tgt = pos[torch.randperm(nj, generator=torch.Generator().manual_seed(ni))[:ni].to(cuda)]
+    chunk = pw.force_chunk(ni, nj, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (nj > chunk) == (ni < 70_000)
+    got = pw.partial_accelerations(tgt, pos, mass, G, EPS)
+    assert torch.equal(got, pw.partial_accelerations(tgt, pos, mass, G, EPS))
+    rows = torch.randperm(ni, generator=torch.Generator().manual_seed(1))[:512].to(cuda)
+    want = _f64_rows(tgt, pos, mass, rows)
+    err = float((got[rows].double() - want).abs().max())
+    assert err <= 2e-5 * float(want.abs().max()), err
 
 
 @pytest.mark.parametrize("n", [2, 255, 256, 1000])
@@ -205,21 +232,71 @@ def test_pair_plan_and_bins_kernels_match_plain(cuda, m, k, ci, co, d):
     assert torch.equal(g, cck._bins_cuda(plan, gx, gy, gz, window, feat, d))
 
 
+@pytest.mark.parametrize("m,k,ci,co,d", [*_PLAN_SHAPES, (60, 8, 160, 24, 3), (41, 7, 6, 5, 4)])
+def test_b5_product_and_unbin_kernels_match_plain(cuda, m, k, ci, co, d):
+    """B5's two passes over the plan: dG (the grouped product with dout rows
+    gathered by receiver, bank transposed, pad columns zero) and the unbin
+    pass (one writer per dfeat row, zeros for dead edges), each against its
+    plain version, the same bits twice."""
+    gx, gy, gz, window, _, filters = _grid_inputs(m, k, ci, co, d, m + k + d, cuda)
+    dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
+    plan, items = cck._plan_cuda(gx, gy, gz, window, d)
+
+    def dg_kernel():
+        return cck._product_cuda(cck._padded_rows(dout), True, cck._f_transposed(filters),
+                                 plan, items, co, ci, d)
+
+    dg = dg_kernel()
+    _close(dg[:, :ci], cck.pair_dg_torch(plan, dout, filters))
+    assert not dg[:, ci:].any() and torch.equal(dg, dg_kernel())
+    dfeat = torch.empty((m, k, ci), device=cuda)
+    cck._unbins_cuda(plan, dg, gx, gy, gz, window, d, dfeat)
+    _close(dfeat, cck.pair_unbins_torch(plan, dg[:, :ci], gx, gy, gz, window, d=d))
+    again = torch.full_like(dfeat, float("nan"))  # every element is written
+    assert torch.equal(dfeat, cck._unbins_cuda(plan, dg, gx, gy, gz, window, d, again))
+
+
+def test_one_plan_serves_b4_and_b5_in_a_backward(cuda, monkeypatch):
+    """A backward that wants the filters' and the features' gradients builds
+    one plan (the forward built its own) and counts one launch of B4 and of
+    B5, also under the filter resolution."""
+    plans = []
+    real = cck._plan_cuda
+    monkeypatch.setattr(cck, "_plan_cuda", lambda *a, **kw: plans.append(1) or real(*a, **kw))
+    gx, gy, gz, window, feat, filters = _grid_inputs(97, 32, 16, 12, 4, 5, cuda)
+    dout = torch.randn(97, 12, generator=torch.Generator().manual_seed(2)).to(cuda)
+    leaves = [feat.clone().requires_grad_(True), filters.clone().requires_grad_(True)]
+    out = cck.contconv_collect(gx, gy, gz, window, *leaves, d=4)
+    assert len(plans) == 1
+    before = [(w.launches, w.launches_by_d[4]) for w in _BWD[1:]]
+    out.backward(dout)
+    assert len(plans) == 2
+    assert [(w.launches, w.launches_by_d[4]) for w in _BWD[1:]] == \
+        [(a + 1, b + 1) for a, b in before]
+    want = cck.contconv_collect_bwd_torch(gx, gy, gz, window, feat, filters, dout, d=4)
+    _close(leaves[0].grad, want[4])
+    _close(leaves[1].grad, want[5])
+
+
 @pytest.mark.parametrize("m,k,ci,co,d", [(60, 8, 160, 24, 3), (33, 7, 5, 3, 3),
                                          (50, 40, 16, 16, 2), (70, 64, 128, 128, 6)])
 def test_b3_b4_on_grid_coordinates_and_wide_features(cuda, m, k, ci, co, d):
-    """B3 and B4 on geometry with zero-weight corners and a dead receiver;
-    ci above 128 (K chunks in B3, slabs in B4), which B5 and B6 refuse."""
+    """B3, B4 and B5 on geometry with zero-weight corners and a dead
+    receiver; ci above 128 (K chunks in B3, slabs in B4 and in B5's
+    product), which B6 refuses."""
     args = _grid_inputs(m, k, ci, co, d, m + d, cuda)
     dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
     out = cck.contconv_collect(*args, d=d)
     d_f = cck.contconv_bwd_filters(*args, dout, d=d)
+    dfeat = cck.contconv_bwd_feat(*args, dout, d=d)
+    want = cck.contconv_collect_bwd_torch(*args, dout, d=d, need=(False,) * 4 + (True, True))
     _close(out, cck.contconv_collect_torch(*args, d=d))
-    _close(d_f, cck.contconv_collect_bwd_torch(*args, dout, d=d,
-                                               need=(False,) * 5 + (True,))[5])
-    assert not out[m // 2].any()
+    _close(d_f, want[5])
+    _close(dfeat, want[4])
+    assert not out[m // 2].any() and not dfeat[m // 2].any()
     assert torch.equal(out, cck.contconv_collect(*args, d=d))
     assert torch.equal(d_f, cck.contconv_bwd_filters(*args, dout, d=d))
+    assert torch.equal(dfeat, cck.contconv_bwd_feat(*args, dout, d=d))
 
 
 @pytest.mark.parametrize("m,k,ci,co,d", _PLAN_SHAPES)
@@ -335,7 +412,7 @@ def test_b3_backward_launches_b4_b5_and_b6_only_for_geometry(cuda):
 @pytest.mark.parametrize("m,k,ci,co,d", [(97, 32, 3, 5, 4), (130, 32, 128, 128, 6),
                                          (45, 6, 128, 128, 4), (70, 40, 16, 16, 3),
                                          (33, 7, 5, 3, 3), (50, 40, 16, 16, 2),
-                                         (20_000, 32, 128, 128, 6)])
+                                         (20_000, 32, 128, 128, 6), (20_000, 32, 128, 128, 4)])
 def test_b4_b5_b6_match_plain_backward(cuda, m, k, ci, co, d):
     args = _collect_inputs(m, k, ci, co, d, m + k, cuda)
     dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
@@ -365,10 +442,11 @@ def test_b4_b5_b6_reject(cuda):
             bwd(*args, dout.cpu(), d=4)
         with pytest.raises(RuntimeError):  # d = 1: refused by the launch, no twin
             bwd(*args[:5], args[5][:1].contiguous(), dout, d=1)
-    wide = _collect_inputs(40, 8, 160, 16, 3, 2, cuda)  # ci > 128: B5/B6 refuse
-    for bwd in _BWD[:2]:
-        with pytest.raises(RuntimeError):
-            bwd(*wide, dout, d=3)
+    wide = _collect_inputs(40, 8, 160, 16, 3, 2, cuda)  # ci > 128: B6 refuses, B5 takes it
+    with pytest.raises(RuntimeError):
+        cck.contconv_bwd_geom(*wide, dout, d=3)
+    _close(cck.contconv_bwd_feat(*wide, dout, d=3),
+           cck.contconv_collect_bwd_torch(*wide, dout, d=3, need=(False,) * 4 + (True, False))[4])
 
 
 def test_b6_takes_a_misaligned_feature_view(cuda):
