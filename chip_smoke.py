@@ -156,9 +156,6 @@ GNN_1M = dict(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean", nei
               scale_factor=1e6, knn_method="morton", knn_impl="kernel")
 CHUNKS = 4         # node chunks of the 100k ContConv training run
 SAMPLE_1M = 4096   # receivers of the 1M path's exact-search and direct-sum checks
-# published peaks of one H100 SXM (NVIDIA's data sheet): FP32
-# outside the tensor cores and HBM bandwidth
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -183,9 +180,11 @@ def card_line() -> str:
 def bound(flops: float, nbytes: float):
     """(bound_ms, bound_by): the least time of work that does ``flops``
     FP32 operations and moves ``nbytes`` (each input read once, each output
-    written once), the larger of the two at the card's published peaks."""
-    t_ops, t_bytes = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    written once), the larger of the two at an H100's published peaks
+    (``nbody_tpu_torch.utils.timing.bound_ms``)."""
+    from nbody_tpu_torch.utils.timing import bound_ms
+
+    return bound_ms(flops, nbytes)
 
 
 def collect_bound(gx, gy, gz, win, ci: int, co: int, d: int, other_bytes: float):
@@ -342,8 +341,8 @@ def phase1_kernels():
             f"rel {rel_u:.3e} (bar {B2_TOL}) kernel {ms_uk:.4f} ms  twin {ms_ut:.4f} ms")
         if not rel_u <= B2_TOL:
             raise AssertionError(f"B2 (masked) disagrees with its twin at N={n}: {rel_u}")
-        # B1: ~20 flops a pair (csrc/pairwise.cu); B2: ~13 a pair of the upper triangle
-        results[n] = dict(b1=(d_acc, ms_k, ms_t, bound(20.0 * n * n, 40.0 * n)),
+        # B2: ~13 flops a pair of the upper triangle
+        results[n] = dict(b1=(d_acc, ms_k, ms_t, bound(*pw.force_work(n, n))),
                           b2=(d_u, ms_uk, ms_ut, bound(13.0 * n * (n - 1) / 2, 32.0 * n + 4)))
 
     pos, _, mass = generate_spiral(torch.Generator().manual_seed(8), 8_000, device=dev)
@@ -1357,7 +1356,7 @@ def _hold_1m_kernels(pos, mass, idx, valid):
                             ((acc, acc_t), (acc, acc_d), (acc_t, acc_d)))
     ms1 = cuda_time_ms(lambda: pw.partial_accelerations(q, pos, mass, G, EPS), reps=5,
                        warmup=1)
-    bnd1 = bound(20.0 * q.shape[0] * n, 12.0 * q.shape[0] + 16.0 * n + 12.0 * q.shape[0])
+    bnd1 = bound(*pw.force_work(q.shape[0], n))
     log(f"[10b] knn_morton(kernel) N={n} k={k}: recall vs exact on {rows.shape[0]} receivers "
         f"{recall:.5f} (bar {RECALL})")
     log(f"[10b] B1 force {q.shape[0]} x {n}: max|da|/max|a| against the plain version "

@@ -41,9 +41,7 @@ namespace {
 // groups of the warp), and one load feeds TPT pairs. The rsqrt is
 // rsqrt.approx.ftz: d2 >= 1e-18 is never subnormal, so it gives rsqrtf's
 // value without rsqrtf's guard for subnormal inputs (three instructions a
-// pair). Where eps^2 >= 1e-18 the floor cannot bind (d2 >= eps^2 after the
-// FMAs' monotone rounding) and the max is left out (FLOOR = false): the same
-// bits either way. Coordinate differences are exact (no |a|^2 + |b|^2 - 2ab
+// pair). Coordinate differences are exact (no |a|^2 + |b|^2 - 2ab
 // expansion) and there are no tensor cores: the TPU kernel's matrix-unit form
 // lost ~1e-4 relative accuracy to cancellation (nbody_tpu/ops/pairwise.py:
 // 93-96).
@@ -84,19 +82,16 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
 }
 
 // The one pair of both forms of B1: the source s = [x, y, z, m] pulls the
-// target (xi, yi, zi); adds m (r_s - r_i) / (|r_s - r_i|^2 + eps^2)^{3/2},
-// without the factor G. FLOOR: apply the 1e-18 floor (needed when eps^2 is
-// below it).
-template <bool FLOOR>
+// target (xi, yi, zi); adds m (r_s - r_i) / max(|r_s - r_i|^2 + eps^2,
+// 1e-18)^{3/2}, without the factor G.
 __device__ __forceinline__ void pair_pull(const float4 s, float xi, float yi,
                                           float zi, float eps2, float& ax,
                                           float& ay, float& az) {
   const float dx = s.x - xi;
   const float dy = s.y - yi;
   const float dz = s.z - zi;
-  float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
-  if (FLOOR) d2 = fmaxf(d2, D2_FLOOR);
-  const float inv = rsqrt_ftz(d2);
+  const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
+  const float inv = rsqrt_ftz(fmaxf(d2, D2_FLOOR));
   const float w = s.w * inv * inv * inv;
   ax = fmaf(w, dx, ax);
   ay = fmaf(w, dy, ay);
@@ -116,7 +111,6 @@ __device__ __forceinline__ void lane_sum(float& ax, float& ay, float& az) {
 // Block (tile x, chunk y): targets x * FORCE_ROWS .. of pos_i against the
 // sources y * chunk .. min(nj, (y + 1) * chunk). One chunk: out = G * a
 // (ni, 3); several: out = chunk y's sum, unscaled, at (y * ni + i) * 3.
-template <bool FLOOR>
 __global__ void __launch_bounds__(FORCE_THREADS)
 force_kernel(const float* __restrict__ pos_i, const float4* __restrict__ src,
              int ni, int nj, int chunk, float g, float eps2, float* __restrict__ out) {
@@ -146,7 +140,7 @@ force_kernel(const float* __restrict__ pos_i, const float4* __restrict__ src,
       const float4 s = tile[t];
 #pragma unroll
       for (int u = 0; u < TPT; ++u)
-        pair_pull<FLOOR>(s, xi[u], yi[u], zi[u], eps2, px[u], py[u], pz[u]);
+        pair_pull(s, xi[u], yi[u], zi[u], eps2, px[u], py[u], pz[u]);
     }
 #pragma unroll
     for (int u = 0; u < TPT; ++u) {
@@ -227,7 +221,7 @@ near_force_kernel(const float* __restrict__ q, const float4* __restrict__ src,
     __syncthreads();
 #pragma unroll 8
     for (int t = lane; t < TILE; t += SPLIT)
-      pair_pull<true>(tile[t], xi, yi, zi, eps2, ax, ay, az);
+      pair_pull(tile[t], xi, yi, zi, eps2, ax, ay, az);
     __syncthreads();
   }
   lane_sum(ax, ay, az);
@@ -349,14 +343,8 @@ int nbody_force(const float* pos_i, const void* src, int ni, int nj, int chunk, 
     return (int)cudaErrorInvalidValue;
   const dim3 grid((ni + FORCE_ROWS - 1) / FORCE_ROWS, (unsigned)chunks);
   const cudaStream_t s = (cudaStream_t)stream;
-  const float eps2 = eps * eps;
-  float* out = chunks > 1 ? partial : acc;
-  if (eps2 >= D2_FLOOR)  // the floor cannot bind: the same bits without it
-    force_kernel<false><<<grid, FORCE_THREADS, 0, s>>>(pos_i, (const float4*)src, ni, nj,
-                                                       chunk, g, eps2, out);
-  else
-    force_kernel<true><<<grid, FORCE_THREADS, 0, s>>>(pos_i, (const float4*)src, ni, nj,
-                                                      chunk, g, eps2, out);
+  force_kernel<<<grid, FORCE_THREADS, 0, s>>>(pos_i, (const float4*)src, ni, nj, chunk, g,
+                                              eps * eps, chunks > 1 ? partial : acc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
   const long long n = 3LL * ni;

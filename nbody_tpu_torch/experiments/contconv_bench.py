@@ -28,6 +28,7 @@ from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.models.contconv import conv_geometry
 from nbody_tpu_torch.ops import contconv_kernel as cck
 from nbody_tpu_torch.ops.radius import radius_neighbors
+from nbody_tpu_torch.utils import timing
 from nbody_tpu_torch.utils.timing import cuda_time_ms, profile_ms
 
 
@@ -39,18 +40,13 @@ def _ms(fn, dev, reps):
     return 1e3 * (time.perf_counter() - t0)
 
 
-# published peaks of one H100 SXM: FP32 outside the tensor cores, HBM bandwidth
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-
-
 def bound_ms(pairs: int, m: int, k: int, ci: int, co: int, d: int):
     """(ms, "operations" or "bytes"): the larger of the call's FP32
     operations (2 ci co a (receiver, cell) pair, 2 ci an edge corner) and its
     bytes (geometry, features or their cotangent, bank and an (M, co)
     operand, each once) at the card's peaks; the same for B3, B4 and B5."""
-    t_ops = 1e3 * (2.0 * pairs * ci * co + 16.0 * m * k * ci) / PEAK_FLOPS
-    t_bytes = 1e3 * 4.0 * (4 * m * k + m * k * ci + d ** 3 * ci * co + m * co) / PEAK_BYTES
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return timing.bound_ms(2.0 * pairs * ci * co + 16.0 * m * k * ci,
+                           4.0 * (4 * m * k + m * k * ci + d ** 3 * ci * co + m * co))
 
 
 def _rel(got, want):

@@ -1,18 +1,30 @@
 """Times B1 (the direct-sum force, ``ops.pairwise.partial_accelerations``) at
-given target x source shapes and holds it to the float64 sum:
+given target x source shapes and holds it to the float64 sum, and times the
+recipe datagen's rollout step, which launches B1 once a step:
 
     python -m nbody_tpu_torch.experiments.force_bench --shapes 20000 100000 4096x1000000
+    python -m nbody_tpu_torch.experiments.force_bench --shapes 100000 --softening 0.05 1e-10
+    python -m nbody_tpu_torch.experiments.force_bench --shapes --datagen 3 25 50 100 250 500
+
+It is the tool for A/B runs of B1: run it from two checkouts on one card in
+one session, in the order A, B, B, A. The datagen rows use only what every
+version of the port has (``data.generate.run_scenario`` and B1's launch
+count), so a copy of this file placed in an older checkout times that one.
 
 A shape ``N`` takes N spiral bodies as targets and sources; ``TxN`` takes T
-of N bodies (a seeded random choice) as targets. Per shape it prints one
-JSON row: the sizes, the source chunks B1 splits into
+of N bodies (a seeded random choice) as targets. Per shape and softening it
+prints one JSON row: the sizes, the source chunks B1 splits into
 (``ops.pairwise.force_chunk``), milliseconds (CUDA events, the mean of
 ``--reps`` calls after a warm-up), the least time an H100 could take
-(``bound_ms``: 20 FP32 operations a pair at the FP32 peak, against the
-bytes), the largest |a - a64| / max |a64| on ``--check-rows`` sampled
-targets against the plain version run in float64, and whether two calls
-give the same bits. On the CPU (``--device cpu``) the plain version runs,
-timed on the host.
+(``bound_ms``, ``ops.pairwise.force_work`` at ``utils.timing``'s peaks),
+the largest |a - a64| / max |a64| on ``--check-rows`` sampled targets
+against the plain version run in float64, and whether two calls give the
+same bits. A softening whose square is under 1e-18 takes the kernel's
+variant that applies the 1e-18 distance floor; 0.05 (the recipe's) leaves
+it out. Per ``--datagen`` size it prints the rollout's ms/step (the recipe
+scene: spiral, seed 42, energies on, ``--steps`` steps, file writes left
+out) and B1's launches a step. On the CPU (``--device cpu``) the plain
+versions run, timed on the host.
 """
 
 from __future__ import annotations
@@ -26,20 +38,9 @@ import torch
 from nbody_tpu_torch.experiments.common import resolve_device
 from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.ops import pairwise
-from nbody_tpu_torch.utils.timing import cuda_time_ms
+from nbody_tpu_torch.utils import timing
 
 G, EPS = 4.5e-6, 0.05
-# published peaks of one H100 SXM: FP32 outside the tensor cores, HBM bandwidth
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-
-
-def bound_ms(ni: int, nj: int):
-    """(ms, "operations" or "bytes"): 20 FP32 operations a (target, source)
-    pair (csrc/pairwise.cu) against the targets and sources read once and
-    the forces written once, at the card's peaks."""
-    t_ops = 1e3 * 20.0 * ni * nj / PEAK_FLOPS
-    t_bytes = 1e3 * (12.0 * ni + 16.0 * nj + 12.0 * ni) / PEAK_BYTES
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def parse_shape(text: str):
@@ -48,8 +49,10 @@ def parse_shape(text: str):
     return (int(t), int(n or t))
 
 
-def bench(ni: int, nj: int, dev: torch.device, reps: int, check_rows: int) -> dict:
-    """One row for ``ni`` targets among ``nj`` spiral bodies."""
+def bench(ni: int, nj: int, eps: float, dev: torch.device, reps: int,
+          check_rows: int) -> dict:
+    """One row for ``ni`` targets among ``nj`` spiral bodies at softening
+    ``eps``."""
     pos, _, mass = generate_spiral(torch.Generator().manual_seed(nj), nj, device=dev)
     gen = torch.Generator().manual_seed(ni)
     tgt = pos if ni == nj else pos[torch.randperm(nj, generator=gen)[:ni].to(dev)]
@@ -57,33 +60,52 @@ def bench(ni: int, nj: int, dev: torch.device, reps: int, check_rows: int) -> di
     sms = torch.cuda.get_device_properties(dev).multi_processor_count if cuda else 132
 
     def call():
-        return pairwise.partial_accelerations(tgt, pos, mass, G, EPS)
+        return pairwise.partial_accelerations(tgt, pos, mass, G, eps)
 
     acc = call()
     same = torch.equal(acc, call())
     rows = torch.randperm(ni, generator=gen)[:check_rows].to(dev)
     p64, m64, q64 = pos.double(), mass.double(), tgt[rows].double()
-    want = torch.cat([pairwise.partial_accelerations_torch(q, p64, m64, G, EPS)
+    want = torch.cat([pairwise.partial_accelerations_torch(q, p64, m64, G, eps)
                       for q in q64.split(128)])
     err = float((acc[rows].double() - want).abs().max()) / float(want.abs().max())
     if cuda:
-        ms = cuda_time_ms(call, reps=reps, warmup=1)
+        ms = timing.cuda_time_ms(call, reps=reps, warmup=1)
     else:
         t0 = time.perf_counter()
         for _ in range(reps):
             call()
         ms = 1e3 * (time.perf_counter() - t0) / reps
     chunk = pairwise.force_chunk(ni, nj, sms)
-    bnd = bound_ms(ni, nj)
-    return {"targets": ni, "sources": nj, "device": str(dev), "chunks": -(-nj // chunk),
-            "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1], "rel_err_vs_float64": err,
-            "check_rows": int(rows.numel()), "same_bits_twice": same}
+    bnd = timing.bound_ms(*pairwise.force_work(ni, nj))
+    return {"targets": ni, "sources": nj, "softening": eps, "device": str(dev),
+            "chunks": -(-nj // chunk), "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "rel_err_vs_float64": err, "check_rows": int(rows.numel()),
+            "same_bits_twice": same}
+
+
+def datagen_step(n: int, steps: int, dev: torch.device) -> dict:
+    """The recipe datagen's rollout of one ``n``-body scene: ms/step and B1's
+    launches a step."""
+    from nbody_tpu_torch.data.generate import run_scenario, scenario_product
+
+    (cfg,) = scenario_product(n_bodies=n, sim_type="spiral", steps=steps, seed=42,
+                              force_backend="kernel" if dev.type == "cuda" else "dense")
+    before = pairwise.partial_accelerations.launches
+    _, _, step_time = run_scenario(cfg, device=dev)
+    return {"datagen_n": n, "steps": steps, "device": str(dev), "ms_per_step": 1e3 * step_time,
+            "b1_launches_per_step": (pairwise.partial_accelerations.launches - before) / steps}
 
 
 def main(argv=None) -> list:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--shapes", nargs="+", default=["20000", "100000", "4096x1000000"],
+    p.add_argument("--shapes", nargs="*", default=["20000", "100000", "4096x1000000"],
                    help="N (N targets and sources) or TxN (T of N bodies as targets)")
+    p.add_argument("--softening", type=float, nargs="+", default=[EPS],
+                   help="each shape runs at each of these, in this order")
+    p.add_argument("--datagen", type=int, nargs="*", default=[],
+                   help="body counts of recipe datagen scenes to time")
+    p.add_argument("--steps", type=int, default=1000, help="steps of a datagen scene")
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--check-rows", type=int, default=512)
     p.add_argument("--device", default=None, help="default cuda; cpu only when given")
@@ -92,9 +114,12 @@ def main(argv=None) -> list:
     rows = []
     for text in args.shapes:
         ni, nj = parse_shape(text)
-        row = bench(ni, nj, dev, args.reps, args.check_rows)
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        for eps in args.softening:
+            rows.append(bench(ni, nj, eps, dev, args.reps, args.check_rows))
+            print(json.dumps(rows[-1]), flush=True)
+    for n in args.datagen:
+        rows.append(datagen_step(n, args.steps, dev))
+        print(json.dumps(rows[-1]), flush=True)
     return rows
 
 

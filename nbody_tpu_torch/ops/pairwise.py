@@ -27,6 +27,7 @@ potential) and zero masked output rows, as the JAX entry points do.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -42,7 +43,8 @@ _DIST_FLOOR = 1e-30
 _TWIN_ROWS = 2048
 # (target, source) pairs per step of the near-list twin
 _TWIN_PAIRS = 1 << 22
-# B1's launch shape (csrc/pairwise.cu): targets a block, sources staged a step
+# B1's launch shape, FORCE_ROWS and TILE of csrc/pairwise.cu (a CPU test holds
+# them equal): targets a block, sources staged a step
 _B1_ROWS, _B1_TILE = 128, 256
 # B1 cuts its sources into chunks only where the target tiles are fewer than
 # this many blocks an SM, aims at _B1_SPLIT_BLOCKS blocks an SM when it does,
@@ -106,6 +108,19 @@ def partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening):
     return acc
 
 
+def force_work(ni: int, nj: int):
+    """(FP32 operations, bytes) of B1 on ``ni`` targets and ``nj`` sources:
+    ~20 operations a pair (csrc/pairwise.cu), the targets and the sources
+    read once and the forces written once."""
+    return 20.0 * ni * nj, 12.0 * ni + 16.0 * nj + 12.0 * ni
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``, read once a device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def force_chunk(ni: int, nj: int, sms: int) -> int:
     """Sources a chunk of B1 for ``ni`` targets and ``nj`` sources on a card
     of ``sms`` SMs: ``max(nj, 1)`` (one chunk, one launch) unless the target
@@ -114,6 +129,8 @@ def force_chunk(ni: int, nj: int, sms: int) -> int:
     with at least ``_B1_MIN_CHUNK`` sources each. Chunk c holds sources ``c *
     chunk .. min(nj, (c + 1) * chunk) - 1``; their sums are added in chunk
     order."""
+    if nj < 2 * _B1_MIN_CHUNK:  # too few sources for two chunks
+        return max(nj, 1)
     tiles = -(-ni // _B1_ROWS)
     chunks = min(-(-_B1_SPLIT_BLOCKS * sms // max(tiles, 1)), nj // _B1_MIN_CHUNK)
     if tiles >= _B1_FULL_BLOCKS * sms or chunks <= 1:
@@ -138,8 +155,7 @@ def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
     if ni == 0:
         return acc
     src = _pack_sources(pos_j, mass_j)
-    chunk = force_chunk(ni, nj, torch.cuda.get_device_properties(
-        pos_i.device).multi_processor_count)
+    chunk = force_chunk(ni, nj, _sm_count(pos_i.device.index))
     partial = (torch.empty((-(-nj // chunk), ni, 3), dtype=torch.float32,
                            device=pos_i.device) if nj > chunk else None)
     with torch.cuda.device(pos_i.device):

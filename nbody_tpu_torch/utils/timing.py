@@ -12,6 +12,10 @@ from typing import Callable, List, Tuple
 
 import torch
 
+# published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
+# tensor cores, and HBM bandwidth
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
 
 def synchronize(device) -> None:
     """Wait for the queued work of a CUDA ``device``; no-op for the CPU."""
@@ -71,3 +75,11 @@ def cuda_time_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> f
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(flops: float, nbytes: float) -> Tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time of work that does
+    ``flops`` FP32 operations and moves ``nbytes`` (each input read once,
+    each output written once), the larger of the two at the card's peaks."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")

@@ -226,14 +226,21 @@ def test_determinism_check_repeats_the_loss_on_one_path_only(tmp_path):
 
 def test_force_bench_rows_on_the_cpu():
     """``force_bench`` on the CPU: the plain version at a square and a
-    few-targets shape, within the force bar of its float64 run, one chunk
-    (the split rule leaves shapes this small whole), the same bits twice."""
+    few-targets shape, at the recipe's softening and at one under the
+    distance floor, within the force bar of its float64 run, one chunk
+    (the split rule leaves shapes this small whole), the same bits twice;
+    then the datagen rows, with no kernel launch on the CPU."""
     from nbody_tpu_torch.experiments import force_bench
 
-    rows = force_bench.main(["--device", "cpu", "--shapes", "300", "40x3000", "--reps", "1",
-                             "--check-rows", "32"])
-    assert [(r["targets"], r["sources"]) for r in rows] == [(300, 300), (40, 3000)]
-    for r in rows:
+    rows = force_bench.main(["--device", "cpu", "--shapes", "300", "40x3000", "--softening",
+                             "0.05", "1e-10", "--reps", "1", "--check-rows", "32",
+                             "--datagen", "3", "25", "--steps", "4"])
+    shapes, steps = rows[:4], rows[4:]
+    assert [(r["targets"], r["sources"], r["softening"]) for r in shapes] == [
+        (300, 300, 0.05), (300, 300, 1e-10), (40, 3000, 0.05), (40, 3000, 1e-10)]
+    for r in shapes:
         assert r["rel_err_vs_float64"] <= 2e-5 and r["same_bits_twice"] and r["chunks"] == 1
         assert r["ms"] > 0 and r["bound_ms"] > 0 and r["bound_by"] == "operations"
         assert r["check_rows"] == min(32, r["targets"])
+    assert [(r["datagen_n"], r["steps"]) for r in steps] == [(3, 4), (25, 4)]
+    assert all(r["ms_per_step"] > 0 and r["b1_launches_per_step"] == 0 for r in steps)

@@ -6,6 +6,9 @@ Bars come from the JAX package's own tests: forces atol 2e-5 on
 max-scaled accelerations (tests/test_forces.py:56,65), potential energy
 relative 1e-5 (tests/test_forces.py:114-154)."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,6 +170,18 @@ def test_b1_split_rule_covers_the_sources_once_in_order(ni, nj, sms):
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
     # every SM gets several blocks, unless the chunks are at their least size
     assert tiles * chunks >= 4 * sms or chunk <= tpw._B1_MIN_CHUNK + tpw._B1_TILE
+
+
+def test_b1_split_rule_uses_the_kernels_launch_shape():
+    """The split rule's targets a block and sources a tile are FORCE_ROWS
+    and TILE of csrc/pairwise.cu, read from the source, so a change of the
+    kernel's launch shape cannot leave the rule counting other tiles."""
+    src = (Path(tpw.__file__).parents[1] / "csrc" / "pairwise.cu").read_text()
+    consts = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
+        consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    assert (consts["FORCE_ROWS"], consts["TILE"]) == (tpw._B1_ROWS, tpw._B1_TILE)
+    assert tpw._B1_MIN_CHUNK % consts["TILE"] == 0
 
 
 def test_cpu_calls_use_the_twin_and_count_no_launch():
