@@ -8,8 +8,9 @@
 // returns cudaGetLastError() after its launches, so a launch the device
 // refuses is reported to the wrapper, which raises.
 //
-// Sources arrive packed as float4 [x, y, z, m] (the wrapper builds that copy
-// from the (N, 3) positions and (N,) masses); targets stay (N, 3) row-major.
+// B1's sources arrive packed as float4 [x, y, z, m] (the wrapper builds that
+// copy from the (N, 3) positions and (N,) masses); targets stay (N, 3)
+// row-major. B2 reads the (N, 3) positions and (N,) masses as they are.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -243,88 +244,190 @@ near_force_kernel(const float* __restrict__ q, const float4* __restrict__ src,
 // indices, so each unordered pair counts once. masked == 0: every (i, j) pair
 // of two disjoint sets (the cross term of a block-triangle decomposition).
 //
-// What bounds it: FP32 issue again, now about 25-30 instructions per pair: an
-// IEEE sqrtf and an IEEE division each expand to a MUFU approximation plus
-// Newton fix-ups. Memory traffic is one float4 per source per block.
+// What bounds it: the multi-function unit and issue. Per pair: 3
+// subtractions, a multiply and 2 FMAs for d2, sqrt.approx, the add of eps,
+// the floor's max, rcp.approx and one FMA into the sum, about 11
+// instructions of which two are MUFU operations. At 16 MUFU results a clock
+// an SM the two take 16 cycles of a warp's pair where the other nine take
+// nine, so at 20k bodies (2e8 pairs) the floor is ~0.1 ms; replacing a
+// MUFU operation by FMA iterations moves the work to issue without gain.
+// Memory traffic is a few MB.
 //
-// Design: a 2-D grid of (ENERGY_ROWS x ENERGY_TILE) tiles, one target per
-// thread. In the masked variant a tile wholly on or below the diagonal writes
-// a zero partial and returns before any arithmetic, which halves the work.
-// Each thread sums m_j / d over its tile in f32; the block reduces m_i * sum
-// over its threads in f64 with a fixed tree, and writes one partial per tile.
-// A second kernel of one block reduces the partials in f64, in a fixed order.
-// No float atomics anywhere, so the result is the same on every run.
-constexpr int ENERGY_ROWS = 256;
-constexpr int ENERGY_TILE = 256;
-constexpr int REDUCE_THREADS = 1024;
+// Design: one launch a call. The (rows x sources) plane is cut into square
+// E_ROWS x E_TILE tiles; masked, only the tiles on or above the diagonal
+// exist (the "items"), and only the diagonal ones test j > i. The items are
+// numbered row-major and each of `gridDim.x` blocks (a function of the shape
+// and the SM count, ops/pairwise.py::energy_tiles) walks one contiguous range
+// of them, so no block exits empty. Per item the block stages E_TILE sources
+// from the (N, 3) positions and (N,) masses; a group of E_SPLIT lanes holds
+// E_TPT targets, each lane takes every E_SPLIT-th source (one shared-memory
+// load feeds E_TPT pairs). A lane sums its 32 pairs of a target in float32
+// into a fresh partial, then adds m_i * partial in float64: no float32
+// chain spans more than one tile. The block reduces its float64 sum
+// in a fixed order and writes one partial; the last block to finish (an
+// integer ticket, no float atomics) adds the partials in block order in
+// float64, writes -G * U as float32 to the 0-d output and resets the
+// ticket. So the result has the same bits on every run on one card.
+//
+// Scratch (ticket and partials) belongs to one (device, stream): calls on
+// one stream run one after another, so the next call starts after the last
+// block of this one has reset the ticket; calls on two streams get two
+// scratch buffers (ops/pairwise.py::_energy_scratch). It must be zeroed once
+// when it is made.
+constexpr int E_THREADS = 256;
+constexpr int E_SPLIT = 4;                       // lanes a target group
+constexpr int E_TPT = 2;                         // targets a group (a thread)
+constexpr int E_ROWS = E_THREADS / E_SPLIT * E_TPT;  // targets a tile
+constexpr int E_TILE = E_ROWS;                   // sources a tile (square tiles)
 constexpr float DIST_FLOOR = 1e-30f;
 
-__global__ void __launch_bounds__(ENERGY_ROWS)
-energy_partials_kernel(const float* __restrict__ pos_i,
-                       const float* __restrict__ mass_i, int ni,
-                       const float4* __restrict__ src, int nj, float eps,
-                       int masked, double* __restrict__ partials) {
-  __shared__ float4 tile[ENERGY_TILE];
-  __shared__ double red[ENERGY_ROWS];
-  const int row0 = blockIdx.x * ENERGY_ROWS;
-  const int col0 = blockIdx.y * ENERGY_TILE;
-  double* out = partials + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  if (masked && col0 + ENERGY_TILE - 1 <= row0) {
-    // every pair of this tile has col <= row: nothing above the diagonal
-    if (threadIdx.x == 0) *out = 0.0;
-    return;
-  }
-  const int j = col0 + threadIdx.x;
-  tile[threadIdx.x] = j < nj ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-  const int row = row0 + threadIdx.x;
-  float xi = 0.f, yi = 0.f, zi = 0.f, mi = 0.f;
-  if (row < ni) {
-    xi = pos_i[3 * row];
-    yi = pos_i[3 * row + 1];
-    zi = pos_i[3 * row + 2];
-    mi = mass_i[row];
-  }
-  __syncthreads();
-  float s = 0.f;
-  for (int t = 0; t < ENERGY_TILE; ++t) {
-    const float4 q = tile[t];
-    const float dx = q.x - xi;
-    const float dy = q.y - yi;
-    const float dz = q.z - zi;
-    const float dist =
-        fmaxf(sqrtf(fmaf(dx, dx, fmaf(dy, dy, dz * dz))) + eps, DIST_FLOOR);
-    const float term = q.w / dist;
-    if (!masked || col0 + t > row) s += term;
-  }
-  red[threadIdx.x] = (double)mi * (double)s;
-  __syncthreads();
-  for (int w = ENERGY_ROWS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *out = -red[0];
+static_assert(32 % E_SPLIT == 0, "a group's lanes must share a warp");
+static_assert(E_TILE <= E_THREADS, "one thread stages one source");
+
+__device__ __forceinline__ float sqrt_ftz(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(REDUCE_THREADS)
-reduce_kernel(const double* __restrict__ partials, long long n,
-              double* __restrict__ out) {
-  __shared__ double red[REDUCE_THREADS];
+__device__ __forceinline__ float rcp_ftz(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Items (row tile t, column tile c) before row tile t: t * ct for the cross
+// form; masked, row s holds ct - s items (c = s .. ct - 1).
+__host__ __device__ __forceinline__ long long items_before(long long t, long long ct,
+                                                          int masked) {
+  return masked ? t * ct - t * (t - 1) / 2 : t * ct;
+}
+
+// One tile: each thread's E_TPT targets (rows i0 .. i0 + E_TPT - 1) against
+// its share of the staged sources (columns j0 + lane, j0 + lane + E_SPLIT,
+// ...); p[u] = sum m_j / max(d + eps, 1e-30). MASK keeps j > i only.
+template <bool MASK>
+__device__ __forceinline__ void energy_tile(const float4* tile, int lane, int i0, int j0,
+                                            const float (&xi)[E_TPT], const float (&yi)[E_TPT],
+                                            const float (&zi)[E_TPT], float eps,
+                                            float (&p)[E_TPT]) {
+#pragma unroll
+  for (int u = 0; u < E_TPT; ++u) p[u] = 0.f;
+#pragma unroll 4
+  for (int t = lane; t < E_TILE; t += E_SPLIT) {
+    const float4 s = tile[t];
+#pragma unroll
+    for (int u = 0; u < E_TPT; ++u) {
+      const float dx = s.x - xi[u];
+      const float dy = s.y - yi[u];
+      const float dz = s.z - zi[u];
+      const float d2 = fmaf(dx, dx, fmaf(dy, dy, dz * dz));
+      const float term = s.w * rcp_ftz(fmaxf(sqrt_ftz(d2) + eps, DIST_FLOOR));
+      if (MASK) {
+        p[u] += j0 + t > i0 + u ? term : 0.f;
+      } else {
+        p[u] += term;
+      }
+    }
+  }
+}
+
+// Sum of v over the block in a fixed order (a butterfly a warp, then the
+// warps in order); the result is valid in thread 0.
+__device__ __forceinline__ double block_sum(double v, double* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
   double s = 0.0;
-  for (long long k = threadIdx.x; k < n; k += REDUCE_THREADS) s += partials[k];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = REDUCE_THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *out = red[0];
+  if (threadIdx.x == 0)
+    for (int w = 0; w < E_THREADS / 32; ++w) s += red[w];
+  return s;
 }
 
-long long energy_grid(int ni, int nj, dim3* grid) {
-  const unsigned gx = (unsigned)((ni + ENERGY_ROWS - 1) / ENERGY_ROWS);
-  const unsigned gy = (unsigned)((nj + ENERGY_TILE - 1) / ENERGY_TILE);
-  if (grid) *grid = dim3(gx, gy);
-  return (long long)gx * gy;
+__global__ void __launch_bounds__(E_THREADS, 4)
+energy_kernel(const float* __restrict__ pos_i, const float* __restrict__ mass_i, int ni,
+              const float* __restrict__ pos_j, const float* __restrict__ mass_j, int nj,
+              double g, float eps, int masked, unsigned int* __restrict__ ticket,
+              double* __restrict__ partials, float* __restrict__ out) {
+  __shared__ float4 tile[E_TILE];
+  __shared__ double red[E_THREADS / 32];
+  __shared__ bool last;
+  const int lane = threadIdx.x % E_SPLIT;
+  const int grp = threadIdx.x / E_SPLIT;
+  const long long rt = (ni + E_ROWS - 1) / E_ROWS;
+  const long long ct = (nj + E_TILE - 1) / E_TILE;
+  const long long items = items_before(rt, ct, masked);
+  const long long lo = blockIdx.x * items / gridDim.x;
+  const long long hi = (blockIdx.x + 1) * items / gridDim.x;
+  // the item lo -> (t, c): t the last row tile that starts at or before lo
+  long long t = 0, c = 0;
+  if (masked) {
+    long long a = 0, b = rt - 1;
+    while (a < b) {
+      const long long mid = (a + b + 1) / 2;
+      if (items_before(mid, ct, masked) <= lo) a = mid; else b = mid - 1;
+    }
+    t = a;
+    c = t + (lo - items_before(t, ct, masked));
+  } else {
+    t = lo / ct;
+    c = lo % ct;
+  }
+  double acc = 0.0;
+  float xi[E_TPT], yi[E_TPT], zi[E_TPT], mi[E_TPT];
+  long long loaded = -1;
+  for (long long it = lo; it < hi; ++it) {
+    const int i0 = (int)(t * E_ROWS) + grp * E_TPT;
+    if (t != loaded) {  // this row tile's targets, into registers
+#pragma unroll
+      for (int u = 0; u < E_TPT; ++u) {
+        const int i = i0 + u;
+        xi[u] = i < ni ? pos_i[3 * (size_t)i] : 0.f;
+        yi[u] = i < ni ? pos_i[3 * (size_t)i + 1] : 0.f;
+        zi[u] = i < ni ? pos_i[3 * (size_t)i + 2] : 0.f;
+        mi[u] = i < ni ? mass_i[i] : 0.f;
+      }
+      loaded = t;
+    }
+    const int j0 = (int)(c * E_TILE);
+    if (threadIdx.x < E_TILE) {
+      const int j = j0 + threadIdx.x;
+      tile[threadIdx.x] = j < nj ? make_float4(pos_j[3 * (size_t)j], pos_j[3 * (size_t)j + 1],
+                                               pos_j[3 * (size_t)j + 2], mass_j[j])
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+    float p[E_TPT];
+    if (masked && t == c)
+      energy_tile<true>(tile, lane, i0, j0, xi, yi, zi, eps, p);
+    else
+      energy_tile<false>(tile, lane, i0, j0, xi, yi, zi, eps, p);
+#pragma unroll
+    for (int u = 0; u < E_TPT; ++u) acc += (double)mi[u] * (double)p[u];
+    __syncthreads();
+    if (++c == ct) {
+      ++t;
+      c = masked ? t : 0;
+    }
+  }
+  const double mine = block_sum(acc, red);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = mine;
+    __threadfence();  // the partial is visible before the ticket is taken
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double s = 0.0;
+  for (int blk = threadIdx.x; blk < (int)gridDim.x; blk += E_THREADS) s += __ldcg(partials + blk);
+  __syncthreads();  // red is reused
+  const double total = block_sum(s, red);
+  if (threadIdx.x == 0) {
+    *out = (float)(-g * total);
+    *ticket = 0u;
+  }
 }
 
 }  // namespace
@@ -370,26 +473,22 @@ int nbody_near_force(const float* q, const void* src, const int* near, int group
   return (int)cudaGetLastError();
 }
 
-// Number of f64 partials nbody_energy needs as scratch for (ni, nj).
-long long nbody_energy_num_partials(int ni, int nj) {
-  return energy_grid(ni, nj, nullptr);
-}
-
-// *out (one f64) = -sum m_i m_j / max(d + eps, 1e-30), without the factor G.
-int nbody_energy(const float* pos_i, const float* mass_i, int ni,
-                 const void* src, int nj, float eps, int masked,
-                 double* partials, long long n_partials, double* out,
-                 void* stream) {
-  dim3 grid;
-  if (ni <= 0 || nj <= 0 || n_partials != energy_grid(ni, nj, &grid) ||
-      grid.y > 65535u)
+// *out (a float32) = -g * sum m_i m_j / max(d + eps, 1e-30) in one launch of
+// `blocks` blocks (1 <= blocks <= the tile items; ops/pairwise.py::
+// energy_tiles). scratch: this stream's ticket (zero between calls) followed
+// by `blocks` doubles of partials.
+int nbody_energy(const float* pos_i, const float* mass_i, int ni, const float* pos_j,
+                 const float* mass_j, int nj, double g, float eps, int masked, int blocks,
+                 void* scratch, float* out, void* stream) {
+  const long long rt = (ni + E_ROWS - 1) / E_ROWS;
+  const long long ct = (nj + E_TILE - 1) / E_TILE;
+  if (ni <= 0 || nj <= 0 || (masked && ni != nj) || blocks <= 0 ||
+      blocks > items_before(rt, ct, masked))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  energy_partials_kernel<<<grid, ENERGY_ROWS, 0, s>>>(
-      pos_i, mass_i, ni, (const float4*)src, nj, eps, masked, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_kernel<<<1, REDUCE_THREADS, 0, s>>>(partials, n_partials, out);
+  unsigned int* ticket = (unsigned int*)scratch;
+  double* partials = (double*)scratch + 1;
+  energy_kernel<<<blocks, E_THREADS, 0, (cudaStream_t)stream>>>(
+      pos_i, mass_i, ni, pos_j, mass_j, nj, g, eps, masked, ticket, partials, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,20 @@
 """Times B1 (the direct-sum force, ``ops.pairwise.partial_accelerations``) at
-given target x source shapes and holds it to the float64 sum, and times the
-recipe datagen's rollout step, which launches B1 once a step:
+given target x source shapes and holds it to the float64 sum, B2 (the
+pairwise potential, ``ops.pairwise.pair_potential``) and the chunked exact
+energy, and the recipe datagen's rollout step, which launches B1 once a
+step and B2 once a step with energies:
 
     python -m nbody_tpu_torch.experiments.force_bench --shapes 20000 100000 4096x1000000
     python -m nbody_tpu_torch.experiments.force_bench --shapes 100000 --softening 0.05 1e-10
     python -m nbody_tpu_torch.experiments.force_bench --shapes --datagen 3 25 50 100 250 500
+    python -m nbody_tpu_torch.experiments.force_bench --shapes --energy 500 20000 3000x5000 \
+        --chunked 1000000:200000
 
-It is the tool for A/B runs of B1: run it from two checkouts on one card in
-one session, in the order A, B, B, A. The datagen rows use only what every
-version of the port has (``data.generate.run_scenario`` and B1's launch
-count), so a copy of this file placed in an older checkout times that one.
+It is the tool for A/B runs of B1 and B2: run it from two checkouts on one
+card in one session, in the order A, B, B, A. It uses only what every
+version of the port has (``data.generate.run_scenario``, the wrappers and
+their launch counts), so a copy of this file placed in an older checkout
+times that one.
 
 A shape ``N`` takes N spiral bodies as targets and sources; ``TxN`` takes T
 of N bodies (a seeded random choice) as targets. Per shape and softening it
@@ -23,7 +28,15 @@ same bits. A softening whose square is under 1e-18 takes the kernel's
 variant that applies the 1e-18 distance floor; 0.05 (the recipe's) leaves
 it out. Per ``--datagen`` size it prints the rollout's ms/step (the recipe
 scene: spiral, seed 42, energies on, ``--steps`` steps, file writes left
-out) and B1's launches a step. On the CPU (``--device cpu``) the plain
+out) and B1's and B2's launches a step. Per ``--energy`` shape (``N``: the
+masked potential of N spiral bodies; ``AxB``: the cross potential of the
+first A and the next B) it prints the milliseconds a call (CUDA events, the
+host's share included), the device milliseconds and CUDA kernels a call
+(``torch.profiler``), B2's launches a call, the relative error against the
+plain version (up to 20,000 bodies), whether five calls give one value, and
+the bound (~13 operations a pair). Per ``--chunked N:CHUNK`` it prints the
+host-timed seconds of ``chunked_potential_energy`` (one synchronised
+float per launch) and its value. On the CPU (``--device cpu``) the plain
 versions run, timed on the host.
 """
 
@@ -86,15 +99,85 @@ def bench(ni: int, nj: int, eps: float, dev: torch.device, reps: int,
 
 def datagen_step(n: int, steps: int, dev: torch.device) -> dict:
     """The recipe datagen's rollout of one ``n``-body scene: ms/step and B1's
-    launches a step."""
+    and B2's launches a step."""
     from nbody_tpu_torch.data.generate import run_scenario, scenario_product
 
     (cfg,) = scenario_product(n_bodies=n, sim_type="spiral", steps=steps, seed=42,
                               force_backend="kernel" if dev.type == "cuda" else "dense")
-    before = pairwise.partial_accelerations.launches
+    b1, b2 = pairwise.partial_accelerations.launches, pairwise.pair_potential.launches
     _, _, step_time = run_scenario(cfg, device=dev)
     return {"datagen_n": n, "steps": steps, "device": str(dev), "ms_per_step": 1e3 * step_time,
-            "b1_launches_per_step": (pairwise.partial_accelerations.launches - before) / steps}
+            "b1_launches_per_step": (pairwise.partial_accelerations.launches - b1) / steps,
+            "b2_launches_per_step": (pairwise.pair_potential.launches - b2) / steps}
+
+
+def device_ms_and_kernels(fn, reps: int = 20):
+    """Device milliseconds and CUDA kernels a call of ``fn``, from
+    ``torch.profiler``'s kernel events over ``reps`` calls after one, and
+    the kernels' names. The profiler can miss an event of a session, which
+    reads as a fraction under the true count (one in ``reps``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    return us / 1e3 / reps, len(kernels) / reps, sorted({e.name for e in kernels})
+
+
+def energy_row(text: str, dev: torch.device, reps: int) -> dict:
+    """B2 on ``N`` spiral bodies (masked) or the first A and next B of A + B
+    (cross, ``AxB``)."""
+    a, _, b = text.partition("x")
+    ni, nj = int(a), int(b or 0)
+    pos, _, mass = generate_spiral(torch.Generator().manual_seed(ni + nj), ni + nj, device=dev)
+    masked = nj == 0
+    if masked:
+        args = (pos, mass, pos, mass)
+        pairs, nbytes = ni * (ni - 1) / 2, 16.0 * ni + 4
+    else:
+        args = (pos[:ni].contiguous(), mass[:ni].contiguous(), pos[ni:].contiguous(),
+                mass[ni:].contiguous())
+        pairs, nbytes = float(ni) * nj, 16.0 * (ni + nj) + 4
+
+    def call():
+        return pairwise.pair_potential(*args, G, EPS, masked)
+
+    before = pairwise.pair_potential.launches
+    u = call()
+    launches = pairwise.pair_potential.launches - before
+    values = {float(call()) for _ in range(5)}
+    row = {"energy_targets": ni, "energy_sources": nj or ni, "masked": masked,
+           "device": str(dev), "u": float(u), "b2_launches_per_call": launches,
+           "one_value_in_5_calls": len(values) == 1}
+    if ni + nj <= 20_000:
+        want = float(pairwise.pair_potential_torch(*args, G, EPS, masked))
+        row["rel_err_vs_plain"] = abs(float(u) - want) / abs(want)
+    bnd = timing.bound_ms(13.0 * pairs, nbytes)
+    row.update(bound_ms=bnd[0], bound_by=bnd[1])
+    if dev.type == "cuda":
+        row["ms"] = timing.cuda_time_ms(call, reps=reps, warmup=1)
+        row["device_ms"], row["kernels_per_call"], row["kernel_names"] = \
+            device_ms_and_kernels(call)
+    return row
+
+
+def chunked_row(text: str, dev: torch.device) -> dict:
+    """``chunked_potential_energy`` of N spiral bodies in CHUNK-row pieces,
+    host-timed (it reads one float a launch)."""
+    n, chunk = (int(v) for v in text.split(":"))
+    pos, _, mass = generate_spiral(torch.Generator().manual_seed(n), n, device=dev)
+    pairwise.chunked_potential_energy(pos[:2 * chunk], mass[:2 * chunk], G, EPS, chunk)
+    before = pairwise.pair_potential.launches
+    u, sec = timing.device_time(
+        lambda: pairwise.chunked_potential_energy(pos, mass, G, EPS, chunk), dev)
+    return {"chunked_n": n, "chunk": chunk, "device": str(dev), "u": u, "seconds": sec,
+            "b2_launches": pairwise.pair_potential.launches - before}
 
 
 def main(argv=None) -> list:
@@ -106,6 +189,10 @@ def main(argv=None) -> list:
     p.add_argument("--datagen", type=int, nargs="*", default=[],
                    help="body counts of recipe datagen scenes to time")
     p.add_argument("--steps", type=int, default=1000, help="steps of a datagen scene")
+    p.add_argument("--energy", nargs="*", default=[],
+                   help="B2 shapes: N (masked, one set) or AxB (cross, two sets)")
+    p.add_argument("--chunked", nargs="*", default=[], metavar="N:CHUNK",
+                   help="time chunked_potential_energy of N bodies in CHUNK-row pieces")
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--check-rows", type=int, default=512)
     p.add_argument("--device", default=None, help="default cuda; cpu only when given")
@@ -117,6 +204,12 @@ def main(argv=None) -> list:
         for eps in args.softening:
             rows.append(bench(ni, nj, eps, dev, args.reps, args.check_rows))
             print(json.dumps(rows[-1]), flush=True)
+    for text in args.energy:
+        rows.append(energy_row(text, dev, args.reps))
+        print(json.dumps(rows[-1]), flush=True)
+    for text in args.chunked:
+        rows.append(chunked_row(text, dev))
+        print(json.dumps(rows[-1]), flush=True)
     for n in args.datagen:
         rows.append(datagen_step(n, args.steps, dev))
         print(json.dumps(rows[-1]), flush=True)

@@ -50,6 +50,10 @@ _B1_ROWS, _B1_TILE = 128, 256
 # this many blocks an SM, aims at _B1_SPLIT_BLOCKS blocks an SM when it does,
 # and gives a chunk at least _B1_MIN_CHUNK sources
 _B1_FULL_BLOCKS, _B1_SPLIT_BLOCKS, _B1_MIN_CHUNK = 4, 8, 16 * _B1_TILE
+# B2's tiles, E_ROWS and E_TILE of csrc/pairwise.cu (a CPU test holds them
+# equal): square, so that masked only the diagonal tiles straddle i < j; and
+# the blocks an SM that B2 launches at most
+_B2_TILE, _B2_BLOCKS_PER_SM = 128, 8
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -59,16 +63,13 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load_library("pairwise")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        i64 = ctypes.c_longlong
         lib.nbody_force.argtypes = [ptr, ptr, i32, i32, i32, f32, f32, ptr, ptr, ptr]
         lib.nbody_force.restype = i32
         lib.nbody_near_force.argtypes = [
             ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, ptr, ptr]
         lib.nbody_near_force.restype = i32
-        lib.nbody_energy_num_partials.argtypes = [i32, i32]
-        lib.nbody_energy_num_partials.restype = i64
         lib.nbody_energy.argtypes = [
-            ptr, ptr, i32, ptr, i32, f32, i32, ptr, i64, ptr, ptr]
+            ptr, ptr, i32, ptr, ptr, i32, ctypes.c_double, f32, i32, i32, ptr, ptr, ptr]
         lib.nbody_energy.restype = i32
         _LIB = lib
     return _LIB
@@ -259,11 +260,73 @@ def pair_potential_torch(pos_i, mass_i, pos_j, mass_j, g_const, softening,
     return (g_const * total).to(torch.float32)
 
 
+def energy_tiles(ni: int, nj: int, masked: bool, sms: int) -> dict:
+    """B2's launch plan for ``ni`` targets and ``nj`` sources on a card of
+    ``sms`` SMs: square tiles of ``_B2_TILE`` rows and sources, the tile
+    items (masked: the tiles on and above the diagonal of one set, row-major;
+    else every tile), and one launch of ``blocks`` blocks, each walking
+    items ``b * items // blocks`` to ``(b + 1) * items // blocks - 1``
+    (:func:`energy_block_tiles`)."""
+    rt, ct = -(-ni // _B2_TILE), -(-nj // _B2_TILE)
+    items = _items_before(rt, ct, masked)
+    return {"row_tiles": rt, "col_tiles": ct, "items": items,
+            "blocks": max(1, min(items, _B2_BLOCKS_PER_SM * sms))}
+
+
+def _items_before(t: int, ct: int, masked: bool) -> int:
+    """Items of the row tiles before ``t`` (masked, row s holds ct - s)."""
+    return t * ct - t * (t - 1) // 2 if masked else t * ct
+
+
+def energy_block_tiles(plan: dict, block: int, masked: bool):
+    """The (row tile, column tile) items block ``block`` of a B2 launch
+    walks, in its order: what ``energy_kernel`` computes from its block
+    index (csrc/pairwise.cu), for the CPU tests."""
+    rt, ct, items, blocks = (plan[k] for k in ("row_tiles", "col_tiles", "items", "blocks"))
+    lo, hi = block * items // blocks, (block + 1) * items // blocks
+    if masked:
+        t = max(s for s in range(rt) if _items_before(s, ct, True) <= lo) if rt else 0
+        c = t + lo - _items_before(t, ct, True)
+    else:
+        t, c = divmod(lo, ct)
+    for _ in range(lo, hi):
+        yield t, c
+        c += 1
+        if c == ct:
+            t += 1
+            c = t if masked else 0
+
+
+# (device index, stream) -> B2's scratch: its ticket, zero between calls, and
+# room for the partials of the most blocks a launch takes
+_ENERGY_SCRATCH: dict = {}
+
+
+def _energy_scratch(device: torch.device, stream: int, sms: int) -> torch.Tensor:
+    """The scratch of B2 launches on one stream: calls on one stream run one
+    after another, so they can share it (csrc/pairwise.cu, B2). Made zeroed
+    on a stream's first call, which is the one call that launches a fill."""
+    key = (device.index, stream)
+    if key not in _ENERGY_SCRATCH:
+        _ENERGY_SCRATCH[key] = torch.zeros(1 + _B2_BLOCKS_PER_SM * sms,
+                                           dtype=torch.float64, device=device)
+    return _ENERGY_SCRATCH[key]
+
+
+def energy_work(ni: int, nj: int, masked: bool):
+    """(FP32 operations, bytes) of B2: ~13 operations a pair (the upper
+    triangle masked), positions and masses read once, one float written."""
+    pairs = ni * (ni - 1) / 2 if masked else ni * nj
+    return 13.0 * pairs, (16.0 * ni + (0 if masked else 16.0 * nj)) + 4.0
+
+
 def pair_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening,
                    masked: bool):
     """Pairwise potential (a 0-d float32 tensor on the inputs' device; no
     host sync). ``masked``: ``pos_i`` and ``pos_j`` are the same set and each
-    unordered pair counts once. Otherwise the two sets must be disjoint."""
+    unordered pair counts once. Otherwise the two sets must be disjoint.
+    One kernel launch (:func:`energy_tiles`), which writes the float32
+    result itself."""
     if build.on_cpu(pos_i, mass_i, pos_j, mass_j):
         return pair_potential_torch(pos_i, mass_i, pos_j, mass_j, g_const,
                                     softening, masked)
@@ -274,21 +337,21 @@ def pair_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening,
     build.check("mass_j", mass_j, (nj,))
     if masked and ni != nj:
         raise ValueError("the masked potential takes one set (ni == nj)")
+    out = torch.empty((), dtype=torch.float32, device=pos_i.device)
     if ni == 0 or nj == 0:
-        return torch.zeros((), dtype=torch.float32, device=pos_i.device)
-    lib = _lib()
-    src = _pack_sources(pos_j, mass_j)
-    n_part = lib.nbody_energy_num_partials(ni, nj)
-    partials = torch.empty(n_part, dtype=torch.float64, device=pos_i.device)
-    out = torch.empty((), dtype=torch.float64, device=pos_i.device)
+        return out.zero_()
+    sms = _sm_count(pos_i.device.index)
     with torch.cuda.device(pos_i.device):
-        rc = lib.nbody_energy(
-            pos_i.data_ptr(), mass_i.data_ptr(), ni, src.data_ptr(), nj,
-            float(softening), int(masked), partials.data_ptr(), n_part,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch = _energy_scratch(pos_i.device, stream, sms)
+        rc = _lib().nbody_energy(
+            pos_i.data_ptr(), mass_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(), nj,
+            float(g_const), float(softening), int(masked),
+            energy_tiles(ni, nj, masked, sms)["blocks"], scratch.data_ptr(), out.data_ptr(),
+            stream)
     build.raise_on(rc, "nbody_energy launch")
     pair_potential.launches += 1
-    return (g_const * out).to(torch.float32)
+    return out
 
 
 pair_potential.launches = 0

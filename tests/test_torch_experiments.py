@@ -244,3 +244,35 @@ def test_force_bench_rows_on_the_cpu():
         assert r["check_rows"] == min(32, r["targets"])
     assert [(r["datagen_n"], r["steps"]) for r in steps] == [(3, 4), (25, 4)]
     assert all(r["ms_per_step"] > 0 and r["b1_launches_per_step"] == 0 for r in steps)
+
+
+def test_force_bench_energy_rows_on_the_cpu():
+    """``force_bench``'s B2 rows on the CPU (the plain version, no launch, no
+    device time), masked and cross, and the chunked exact energy equal to
+    the masked one within the energy bar."""
+    from nbody_tpu_torch.experiments import force_bench
+
+    rows = force_bench.main(["--device", "cpu", "--shapes", "--energy", "300", "100x200",
+                             "--chunked", "300:110"])
+    masked, cross, chunked = rows
+    assert (masked["energy_targets"], masked["masked"]) == (300, True)
+    assert (cross["energy_targets"], cross["energy_sources"], cross["masked"]) == (100, 200,
+                                                                                   False)
+    for r in (masked, cross):
+        assert r["rel_err_vs_plain"] == 0.0 and r["one_value_in_5_calls"]
+        assert r["b2_launches_per_call"] == 0 and r["bound_ms"] > 0 and "ms" not in r
+    assert chunked["b2_launches"] == 0 and chunked["seconds"] > 0
+    assert abs(chunked["u"] - masked["u"]) <= 1e-5 * abs(masked["u"])
+
+
+def test_select_bench_rows_on_the_cpu():
+    """``select_bench`` on the CPU: B7's and B8's plain versions against
+    themselves (equal), the bounds of the shape, no times."""
+    from nbody_tpu_torch.experiments import select_bench
+
+    rows = select_bench.main(["--device", "cpu", "--n-bodies", "700", "--cases", "8",
+                              "32:self"])
+    assert [(r["k"], r["include_self"]) for r in rows] == [(8, False), (32, True)]
+    for r in rows:
+        assert r["b7_equal_plain"] and r["b8_equal_plain"] and "b7_ms" not in r
+        assert r["b7_bound_by"] == "operations" and r["b8_bound_ms"] > 0

@@ -201,3 +201,74 @@ def test_wrappers_reject_devices_without_kernel_or_twin():
         tpw.partial_accelerations(pos, pos, mass, G, EPS)
     with pytest.raises(ValueError):
         tpw.pair_potential(pos, mass, pos, mass, G, EPS, masked=True)
+
+
+def _b2_pairs(ni, nj, masked, sms):
+    """Every (i, j) pair the B2 launch plan visits, with its count: each
+    block's tile items as the kernel walks them, all pairs of a tile, the
+    diagonal tiles of the masked form only j > i."""
+    plan = tpw.energy_tiles(ni, nj, masked, sms)
+    seen = np.zeros((ni, nj), np.int32)
+    tile = tpw._B2_TILE
+    for blk in range(plan["blocks"]):
+        for t, c in tpw.energy_block_tiles(plan, blk, masked):
+            rows = np.arange(t * tile, min((t + 1) * tile, ni))[:, None]
+            cols = np.arange(c * tile, min((c + 1) * tile, nj))[None, :]
+            keep = (cols > rows) if (masked and t == c) else np.ones_like(cols > rows)
+            seen[rows, cols] += keep
+    return plan, seen
+
+
+@pytest.mark.parametrize("ni,nj,masked,sms", [(3, 3, True, 132), (25, 25, True, 132),
+                                              (50, 50, True, 132), (100, 100, True, 132),
+                                              (250, 250, True, 132), (500, 500, True, 132),
+                                              (1000, 1000, True, 16), (1500, 1500, True, 3),
+                                              (300, 700, False, 132), (129, 1, False, 2),
+                                              (1000, 900, False, 5)])
+def test_b2_tile_plan_covers_each_pair_once(ni, nj, masked, sms):
+    """B2's one launch (``energy_tiles``) visits each unordered pair of one
+    set exactly once (masked), or each (i, j) of two sets once; no block is
+    empty, there are at most ``_B2_BLOCKS_PER_SM`` blocks an SM, and every
+    recipe size (N <= 500) gives each tile its own block."""
+    plan, seen = _b2_pairs(ni, nj, masked, sms)
+    want = np.triu(np.ones((ni, nj), np.int32), 1) if masked else np.ones((ni, nj), np.int32)
+    np.testing.assert_array_equal(seen, want)
+    assert 1 <= plan["blocks"] <= min(plan["items"], tpw._B2_BLOCKS_PER_SM * sms)
+    assert all(plan["items"] * (b + 1) // plan["blocks"] > plan["items"] * b // plan["blocks"]
+               for b in range(plan["blocks"]))
+    if masked and ni <= 500:
+        assert plan["blocks"] == plan["items"]
+
+
+@pytest.mark.parametrize("n,sms", [(20_000, 132), (100_000, 132), (1_000_000, 114)])
+def test_b2_tile_plan_at_large_n(n, sms):
+    """At the ground-truth and audit sizes the blocks' item ranges tile the
+    upper triangle of tiles in row-major order, without gaps or overlaps,
+    and differ by at most one item."""
+    plan = tpw.energy_tiles(n, n, True, sms)
+    rt = plan["row_tiles"]
+    assert plan["items"] == rt * (rt + 1) // 2 and plan["blocks"] == tpw._B2_BLOCKS_PER_SM * sms
+    sizes = {plan["items"] * (b + 1) // plan["blocks"] - plan["items"] * b // plan["blocks"]
+             for b in range(plan["blocks"])}
+    assert max(sizes) - min(sizes) <= 1
+    for blk in (0, 1, plan["blocks"] // 2, plan["blocks"] - 1):
+        tiles = list(tpw.energy_block_tiles(plan, blk, True))
+        assert all(0 <= t <= c < rt for t, c in tiles)
+        assert all((t2, c2) > (t1, c1) for (t1, c1), (t2, c2) in zip(tiles, tiles[1:]))
+
+
+def test_b2_plan_uses_the_kernels_tiles():
+    """``_B2_TILE`` is E_ROWS and E_TILE of csrc/pairwise.cu, read from the
+    source: square tiles, so only diagonal tiles straddle the diagonal."""
+    src = (Path(tpw.__file__).parents[1] / "csrc" / "pairwise.cu").read_text()
+    consts = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
+        consts[name] = eval(expr.split("//")[0].replace("/", "//"), {}, dict(consts))
+    assert consts["E_ROWS"] == consts["E_TILE"] == tpw._B2_TILE
+
+
+@pytest.mark.parametrize("n", [3, 500])
+def test_b2_energy_work_counts_upper_triangle(n):
+    flops, nbytes = tpw.energy_work(n, n, True)
+    assert flops == 13.0 * n * (n - 1) / 2 and nbytes == 16.0 * n + 4
+    assert tpw.energy_work(n, 2 * n, False) == (13.0 * 2 * n * n, 48.0 * n + 4)

@@ -10,7 +10,8 @@ conftest):
 
 Bars as on the CPU side: forces atol 2e-5 on max-scaled accelerations (B1
 also against its float64 run at 2^20 sources and more),
-potential energy relative 1e-5, the collect and each cotangent of its
+potential energy relative 1e-5 (B2 also one kernel a call and the same bits
+on every call), the collect and each cotangent of its
 backward 2e-4 of its max (tests/test_models.py:161); B7 and B8 equal their
 twins exactly; B9 and B10 1e-5 of max |plain|, B1's near-list form B1's
 2e-5; the treecode engines' kernel path against their dense path at the
@@ -93,8 +94,26 @@ def test_b1_against_float64_at_a_million_sources(cuda, ni, nj):
     assert err <= 2e-5 * float(want.abs().max()), err
 
 
-@pytest.mark.parametrize("n", [2, 255, 256, 1000])
+def _kernels_a_call(fn, calls=10):
+    """The CUDA kernels ``calls`` calls of ``fn`` launch, by name, from
+    ``torch.profiler`` (after one call outside it). The profiler can miss an
+    event of a session, never add one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("n", [2, 3, 25, 255, 256, 500, 1000, 20_000])
 def test_b2_kernel_matches_twin(cuda, n):
+    """Masked and cross, with zero-mass rows (a mask's tail and every third
+    row), one kernel a call, the same bits five times."""
     pos, _, mass = _spiral(n, n, cuda)
     got = pw.potential_energy(pos, mass, G, EPS)
     want = pw.pair_potential_torch(pos, mass, pos, mass, G, EPS, masked=True)
@@ -104,6 +123,21 @@ def test_b2_kernel_matches_twin(cuda, n):
     m = mass * mask
     want_m = pw.pair_potential_torch(pos, m, pos, m, G, EPS, masked=True)
     assert abs(float(got_m) - float(want_m)) <= 1e-5 * abs(float(want_m)) + 1e-30
+    m3 = torch.where(torch.arange(n, device=cuda) % 3 == 1, 0.0, mass)
+    a = n // 3 + 1
+    x = (pos[:a].contiguous(), m3[:a].contiguous(), pos[a:].contiguous(), m3[a:].contiguous())
+    for args, masked in (((pos, m3, pos, m3), True), (x, False)):
+        if args[2].shape[0] == 0:
+            continue
+        got = pw.pair_potential(*args, G, EPS, masked)
+        want = pw.pair_potential_torch(*args, G, EPS, masked)
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want)) + 1e-30
+        names = _kernels_a_call(lambda: pw.pair_potential(*args, G, EPS, masked))
+        assert 9 <= len(names) <= 10 and all("energy_kernel" in x for x in names), names
+        before = pw.pair_potential.launches
+        bits = {pw.pair_potential(*args, G, EPS, masked).view(torch.int32).item()
+                for _ in range(5)}
+        assert len(bits) == 1 and pw.pair_potential.launches == before + 5
 
 
 def test_b2_cross_and_chunked(cuda):
@@ -163,10 +197,16 @@ from nbody_tpu_torch.ops import spatial as sp  # noqa: E402
 from nbody_tpu_torch.ops.radius import radius_neighbors  # noqa: E402
 
 
-@pytest.mark.parametrize("n,k,include_self,block", [(1500, 10, False, 256),
-                                                    (2000, 32, True, 256),
-                                                    (1000, 7, False, 128)])
+@pytest.mark.parametrize("n,k,include_self,block", [
+    (1500, 10, False, 256), (2000, 32, True, 256), (1000, 7, False, 128),
+    *((2000, k, inc, 256) for k in (1, 8, 10, 16, 17, 32) for inc in (False, True)
+      if (k, inc) not in ((10, False), (32, True))),
+    (1000, 32, True, 128), (1000, 8, False, 128), (3000, 10, False, 682), (3000, 32, True, 682),
+])
 def test_morton_kernels_match_twins(cuda, n, k, include_self, block):
+    """B7 (every K of the kernel: 8, 16, 32; blocks of 128, 256 and 682) and
+    B8 equal their twins; knn_morton launches each once and equals its CPU
+    run."""
     pos, _, _ = _spiral(n, n + k, cuda)
     order = sp._curve_order(pos, None, 4)
     cand, _ = sp._candidates(pos, order, block)
@@ -186,6 +226,25 @@ def test_morton_kernels_match_twins(cuda, n, k, include_self, block):
     idx_c, valid_c = sp.knn_morton(pos.cpu(), k, include_self=include_self,
                                    block=block, impl="kernel")
     assert torch.equal(idx.cpu(), idx_c) and torch.equal(valid.cpu(), valid_c)
+
+
+@pytest.mark.parametrize("k,include_self,block", [(8, False, 256), (10, False, 256),
+                                                  (32, True, 256), (32, False, 128),
+                                                  (10, True, 682)])
+def test_morton_select_with_sentinels_in_windows(cuda, k, include_self, block):
+    """B7 equals its twin where sentinels (masked rows moved far away, in
+    curve order) sit inside windows, not only in the padding blocks."""
+    n = 3000
+    pos, _, _ = _spiral(n, 11, cuda)
+    mask = torch.ones(n, dtype=torch.bool)
+    mask[torch.randperm(n, generator=torch.Generator().manual_seed(k))[:n // 10]] = False
+    mask = mask.to(cuda)
+    order = sp._curve_order(pos, None, 4)
+    cand, _ = sp._candidates(torch.where(mask[:, None], pos, sp._BIG), order, block)
+    ids, d2 = sp.morton_select(cand, k, block, include_self)
+    ids_t, d2_t = sp.morton_select_torch(cand, k, block, include_self)
+    assert torch.equal(ids, ids_t)
+    assert torch.equal(d2.view(torch.int32), d2_t.view(torch.int32))
 
 
 def _collect_inputs(m, k, ci, co, d, seed, dev):

@@ -14,6 +14,8 @@ Bars and their sources:
 - Mask, self and no-duplicate cases as in ``tests/test_spatial.py:89-165``.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,3 +189,110 @@ def test_radius_neighbors_match_jax(method, impl):
         torch.from_numpy(pos)[None], 1.0, 32, method=method, impl=impl)
     assert b_idx.shape == (1, 1200, 32)
     assert not got[1][1150:].any()
+
+
+_EMPTY = (1 << 32) - 1
+
+
+def _walk(nchunk, own):
+    """B7's chunk order for one warp (csrc/spatial.cu): its own chunk, then
+    right and left in turn, the rest of one side when the other runs out."""
+    order, left, right = [own], own, own + 1
+    for step in range(1, nchunk):
+        if right < nchunk and (left == 0 or step & 1):
+            order.append(right)
+            right += 1
+        else:
+            left -= 1
+            order.append(left)
+    return order
+
+
+def _select_walk_plain(cand, k, block, include_self):
+    """A plain version of B7's walk, all warps of every block at once (a
+    partial last warp padded with lanes that never keep a candidate, as the
+    kernel's are): each warp's 32-column chunks in the kernel's order; per
+    chunk each lane keeps the candidates whose d2 is under its threshold's
+    distance and whose key is under its threshold (its k-th key at the last
+    merge), merges them into its K sorted keys (K - k zeros, then its k
+    smallest), and takes its new threshold, the last of them. A chunk that
+    the kernel skips (every lane's box distance above its threshold) must
+    hold no kept candidate. Returns (ids, d2) as ``morton_select_torch``
+    does."""
+    c_, L, _ = cand.shape
+    b = block
+    nb = L // b - 2
+    ncol, nbits = 3 * b, tsp._nbits(3 * b)
+    cm = (1 << nbits) - 1
+    K = 8 if k <= 8 else 16 if k <= 16 else 32
+    nchunk, nwarp = -(-ncol // 32), -(-b // 32)
+    win = cand.unfold(1, ncol, b)[:, :, :3].permute(0, 1, 3, 2)  # (C, nb, 3b, 3)
+    gid = cand[..., 3].contiguous().view(torch.int32).unfold(1, ncol, b)  # (C, nb, 3b)
+    r = torch.arange(nwarp * 32).reshape(nwarp, 32)
+    live = r < b
+    q = win[:, :, torch.where(live, b + r, b)]  # (C, nb, W, 32, 3)
+    top = torch.full((c_, nb, nwarp, 32, K), _EMPTY, dtype=torch.long)
+    top[..., :K - k] = 0  # below every packed key
+    thr = torch.where(live, _EMPTY, 0).expand(c_, nb, -1, -1)
+    thr_d2 = torch.where(live, float("inf"), -1.0).expand(c_, nb, -1, -1)
+    walks = torch.tensor([_walk(nchunk, (b + 32 * w) // 32) for w in range(nwarp)])
+    skipped = 0
+    for step in range(nchunk):
+        cols = walks[:, step, None] * 32 + torch.arange(32)  # (W, 32)
+        valid = cols < ncol
+        p = win[:, :, cols.clamp(max=ncol - 1)]  # (C, nb, W, 32 columns, 3)
+        d = [p[:, :, :, None, :, a] - q[..., a, None] for a in range(3)]
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]  # (C, nb, W, lanes, columns)
+        bad = d2 >= tsp._BAD_D2
+        if not include_self:
+            bad = bad | (cols[:, None, :] == (b + r)[:, :, None])
+        keys = tsp._pack(torch.where(bad, tsp._INF, torch.clamp(d2, min=0.0)),
+                         cols[:, None, :].to(torch.int32), nbits).long()
+        keep = ~(d2 > thr_d2[..., None]) & (keys < thr[..., None]) & valid[:, None, :]
+        lo = torch.where(valid[..., None], p, float("inf")).amin(3)  # (C, nb, W, 3)
+        hi = torch.where(valid[..., None], p, float("-inf")).amax(3)
+        g = torch.clamp(torch.maximum(lo[:, :, :, None] - q, q - hi[:, :, :, None]), min=0.0)
+        lb = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
+        skip = (lb > thr_d2).all(-1)  # (C, nb, W)
+        assert not keep[skip].any()
+        skipped += int(skip.sum())
+        merged = torch.cat([top, torch.where(keep, keys, _EMPTY)], -1)
+        top = torch.sort(merged, -1).values[..., :K]
+        thr = torch.where(live, top[..., K - 1], 0)
+        hi_d2 = (thr | cm).to(torch.int32).view(torch.float32)
+        thr_d2 = torch.where(live, torch.where(thr >= tsp._INF_BITS & ~cm, float("inf"), hi_d2),
+                             -1.0)
+    sel = top[..., K - k:].reshape(c_, nb, nwarp * 32, k)[:, :, :b]
+    assert (sel < _EMPTY).all() and skipped > 0
+    ids = torch.gather(gid, 2, (sel & cm).reshape(c_, nb, -1)).reshape(c_, nb * b, k)
+    return ids, (sel & ~cm).to(torch.int32).view(torch.float32).reshape(c_, nb * b, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_candidates(n, block):
+    """B7's input for a spiral of ``n`` bodies, 5% of them masked: their
+    sentinels sit in curve order, inside windows."""
+    pos, _, _ = generate_spiral(torch.Generator().manual_seed(6), n)
+    mask = torch.ones(n, dtype=torch.bool)
+    mask[torch.randperm(n, generator=torch.Generator().manual_seed(n))[:n // 20]] = False
+    order = tsp._curve_order(pos, None, 4)
+    return tsp._candidates(torch.where(mask[:, None], pos, tsp._BIG), order, block)[0]
+
+
+@pytest.mark.parametrize("n,block,k,include_self", [
+    *((1500, 128, k, inc) for k, inc in ((1, False), (8, False), (10, True), (17, False),
+                                         (32, True), (32, False))),
+    *((2100, 256, k, inc) for k, inc in ((8, False), (10, False), (16, True), (32, True))),
+    (1400, 682, 10, False), (1400, 682, 32, True),
+])
+def test_b7_walk_gives_the_plain_selection(n, block, k, include_self):
+    """The premise of B7's design on the CPU: its near-first walk, with
+    thresholds that go stale within a chunk and per-chunk merges into K = 8,
+    16 or 32 sorted keys, gives ``morton_select_torch``'s ids and d2 bits,
+    with self columns in or out, sentinels of masked rows inside windows and
+    the padding block after the last."""
+    cand = _window_candidates(n, block)
+    got = _select_walk_plain(cand, k, block, include_self)
+    want = tsp.morton_select_torch(cand, k, block, include_self)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
