@@ -279,6 +279,7 @@ constexpr int E_SPLIT = 4;                       // lanes a target group
 constexpr int E_TPT = 2;                         // targets a group (a thread)
 constexpr int E_ROWS = E_THREADS / E_SPLIT * E_TPT;  // targets a tile
 constexpr int E_TILE = E_ROWS;                   // sources a tile (square tiles)
+constexpr int E_BLOCKS_PER_SM = 8;              // resident an SM (launch bound), launched at most
 constexpr float DIST_FLOOR = 1e-30f;
 
 static_assert(32 % E_SPLIT == 0, "a group's lanes must share a warp");
@@ -345,7 +346,7 @@ __device__ __forceinline__ double block_sum(double v, double* red) {
   return s;
 }
 
-__global__ void __launch_bounds__(E_THREADS, 4)
+__global__ void __launch_bounds__(E_THREADS, E_BLOCKS_PER_SM)
 energy_kernel(const float* __restrict__ pos_i, const float* __restrict__ mass_i, int ni,
               const float* __restrict__ pos_j, const float* __restrict__ mass_j, int nj,
               double g, float eps, int masked, unsigned int* __restrict__ ticket,

@@ -11,10 +11,10 @@ step and B2 once a step with energies:
         --chunked 1000000:200000
 
 It is the tool for A/B runs of B1 and B2: run it from two checkouts on one
-card in one session, in the order A, B, B, A. It uses only what every
-version of the port has (``data.generate.run_scenario``, the wrappers and
-their launch counts), so a copy of this file placed in an older checkout
-times that one.
+card in one session, in the order A, B, B, A. It uses only the wrappers,
+their launch counts, ``data.generate.run_scenario`` and ``utils.timing``,
+so a copy of this file and of ``utils/timing.py`` placed in an older
+checkout times that one.
 
 A shape ``N`` takes N spiral bodies as targets and sources; ``TxN`` takes T
 of N bodies (a seeded random choice) as targets. Per shape and softening it
@@ -111,25 +111,6 @@ def datagen_step(n: int, steps: int, dev: torch.device) -> dict:
             "b2_launches_per_step": (pairwise.pair_potential.launches - b2) / steps}
 
 
-def device_ms_and_kernels(fn, reps: int = 20):
-    """Device milliseconds and CUDA kernels a call of ``fn``, from
-    ``torch.profiler``'s kernel events over ``reps`` calls after one, and
-    the kernels' names. The profiler can miss an event of a session, which
-    reads as a fraction under the true count (one in ``reps``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    us = sum(e.time_range.elapsed_us() for e in kernels)
-    return us / 1e3 / reps, len(kernels) / reps, sorted({e.name for e in kernels})
-
-
 def energy_row(text: str, dev: torch.device, reps: int) -> dict:
     """B2 on ``N`` spiral bodies (masked) or the first A and next B of A + B
     (cross, ``AxB``)."""
@@ -162,8 +143,12 @@ def energy_row(text: str, dev: torch.device, reps: int) -> dict:
     row.update(bound_ms=bnd[0], bound_by=bnd[1])
     if dev.type == "cuda":
         row["ms"] = timing.cuda_time_ms(call, reps=reps, warmup=1)
-        row["device_ms"], row["kernels_per_call"], row["kernel_names"] = \
-            device_ms_and_kernels(call)
+        events = timing.kernel_events(call, reps=reps)
+        # a call's device ms: the mean event times the whole kernels a call
+        per_call = max(1, round(len(events) / reps))
+        row["device_ms"] = per_call * sum(ms for _, ms in events) / max(len(events), 1)
+        row["kernels_per_call"] = len(events) / reps
+        row["kernel_names"] = sorted({name for name, _ in events})
     return row
 
 

@@ -1,30 +1,33 @@
 """Times B7 (the Morton select, ``ops.spatial.morton_select``) and B8 (the
-merge) on spiral bodies, holds both to their plain versions, and times the
-whole ``knn_morton(impl="kernel")`` search around them:
+merge) on spiral bodies, and the whole ``knn_morton(impl="kernel")`` search
+around them:
 
     python -m nbody_tpu_torch.experiments.select_bench --n-bodies 100000 1000000 \\
         --cases 8 10 32:self
 
 It is the tool for A/B runs of B7: run it from two checkouts on one card in
 one session, in the order A, B, B, A. It uses only what every version of
-the port has (``_curve_order``, ``_candidates``, ``_to_rows`` and the two
-wrappers), so a copy of this file placed in an older checkout times that
-one.
+the port has (``_curve_order``, ``_candidates``, ``_to_rows``, the two
+wrappers and ``utils.timing.cuda_time_ms``), so a copy of this file placed
+in an older checkout times that one. It checks nothing: the card tests and
+``chip_smoke.py`` hold both kernels to their plain versions.
 
 A case ``K`` is k = K without self edges (the GNN graphs: k = 8 at 1M, 10 in
 the recipe); ``K:self`` with them (the radius search's k = 32). Per N and
 case it prints one JSON row: B7's and B8's milliseconds (CUDA events, the
-mean of ``--reps`` calls after a warm-up), whether each equals its plain
-version (ids exactly, d2 to the bit), their bounds (``utils.timing``'s
-peaks: B7 9 operations a (query, candidate), B8 2 k a candidate), and the
-whole search's milliseconds. ``--device cpu`` runs the plain versions and
-times nothing.
+mean of ``--reps`` calls after a warm-up), B7's host microseconds a call
+(the time ``--reps`` calls take to return, before the card has finished:
+what a host-bound loop pays for the launch), their bounds
+(``utils.timing``'s peaks: B7 9 operations a (query, candidate), B8 2 k a
+candidate), and the whole search's milliseconds. ``--device cpu`` gives
+the bounds and times nothing.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import torch
 
@@ -49,23 +52,24 @@ def bench(n: int, k: int, include_self: bool, dev: torch.device, reps: int) -> d
     order = sp._curve_order(pos, None, COPIES)
     cand, qg = sp._candidates(pos, order, BLOCK)
     ids, d2 = sp.morton_select(cand, k, BLOCK, include_self)
-    ids_t, d2_t = sp.morton_select_torch(cand, k, BLOCK, include_self)
-    same7 = torch.equal(ids, ids_t) and torch.equal(d2.view(torch.int32), d2_t.view(torch.int32))
     mc, md = sp._to_rows(qg, ids, d2, n)
-    m_ids, m_d2 = sp.morton_merge(mc, md, k)
-    t_ids, t_d2 = sp.morton_merge_torch(mc, md, k)
-    same8 = torch.equal(m_ids, t_ids) and torch.equal(m_d2.view(torch.int32),
-                                                      t_d2.view(torch.int32))
+    m_ids, _ = sp.morton_merge(mc, md, k)
     b7 = timing.bound_ms(9.0 * COPIES * ids.shape[1] * 3 * BLOCK,
                          16.0 * cand.shape[0] * cand.shape[1] + 8.0 * ids.numel())
     b8 = timing.bound_ms(2.0 * n * k * mc.shape[1], 8.0 * mc.numel() + 8.0 * m_ids.numel())
     row = {"n": n, "k": k, "include_self": include_self, "block": BLOCK, "device": str(dev),
-           "b7_equal_plain": same7, "b8_equal_plain": same8,
            "b7_bound_ms": b7[0], "b7_bound_by": b7[1], "b8_bound_ms": b8[0],
            "b8_bound_by": b8[1]}
     if dev.type == "cuda":
-        row["b7_ms"] = timing.cuda_time_ms(
-            lambda: sp.morton_select(cand, k, BLOCK, include_self), reps=reps, warmup=1)
+        def select():
+            return sp.morton_select(cand, k, BLOCK, include_self)
+
+        row["b7_ms"] = timing.cuda_time_ms(select, reps=reps, warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            select()
+        row["b7_host_us"] = 1e6 * (time.perf_counter() - t0) / reps
         row["b8_ms"] = timing.cuda_time_ms(lambda: sp.morton_merge(mc, md, k), reps=reps,
                                            warmup=1)
         row["knn_morton_ms"] = timing.cuda_time_ms(
@@ -88,8 +92,6 @@ def main(argv=None) -> list:
         for text in args.cases:
             rows.append(bench(n, *parse_case(text), dev, args.reps))
             print(json.dumps(rows[-1]), flush=True)
-    if not all(r["b7_equal_plain"] and r["b8_equal_plain"] for r in rows):
-        raise SystemExit("select_bench: a kernel disagrees with its plain version")
     return rows
 
 

@@ -50,9 +50,10 @@ _B1_ROWS, _B1_TILE = 128, 256
 # this many blocks an SM, aims at _B1_SPLIT_BLOCKS blocks an SM when it does,
 # and gives a chunk at least _B1_MIN_CHUNK sources
 _B1_FULL_BLOCKS, _B1_SPLIT_BLOCKS, _B1_MIN_CHUNK = 4, 8, 16 * _B1_TILE
-# B2's tiles, E_ROWS and E_TILE of csrc/pairwise.cu (a CPU test holds them
-# equal): square, so that masked only the diagonal tiles straddle i < j; and
-# the blocks an SM that B2 launches at most
+# B2's tiles and blocks an SM, E_ROWS (= E_TILE) and E_BLOCKS_PER_SM of
+# csrc/pairwise.cu (a CPU test holds them equal): square tiles, so that
+# masked only the diagonal tiles straddle i < j; at most as many blocks as
+# fit on the SMs at once
 _B2_TILE, _B2_BLOCKS_PER_SM = 128, 8
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -264,37 +265,13 @@ def energy_tiles(ni: int, nj: int, masked: bool, sms: int) -> dict:
     """B2's launch plan for ``ni`` targets and ``nj`` sources on a card of
     ``sms`` SMs: square tiles of ``_B2_TILE`` rows and sources, the tile
     items (masked: the tiles on and above the diagonal of one set, row-major;
-    else every tile), and one launch of ``blocks`` blocks, each walking
-    items ``b * items // blocks`` to ``(b + 1) * items // blocks - 1``
-    (:func:`energy_block_tiles`)."""
+    else every tile), and one launch of ``blocks`` blocks, block ``b``
+    walking items ``b * items // blocks`` to ``(b + 1) * items // blocks - 1``
+    (``energy_kernel`` in csrc/pairwise.cu)."""
     rt, ct = -(-ni // _B2_TILE), -(-nj // _B2_TILE)
-    items = _items_before(rt, ct, masked)
+    items = rt * ct - rt * (rt - 1) // 2 if masked else rt * ct
     return {"row_tiles": rt, "col_tiles": ct, "items": items,
             "blocks": max(1, min(items, _B2_BLOCKS_PER_SM * sms))}
-
-
-def _items_before(t: int, ct: int, masked: bool) -> int:
-    """Items of the row tiles before ``t`` (masked, row s holds ct - s)."""
-    return t * ct - t * (t - 1) // 2 if masked else t * ct
-
-
-def energy_block_tiles(plan: dict, block: int, masked: bool):
-    """The (row tile, column tile) items block ``block`` of a B2 launch
-    walks, in its order: what ``energy_kernel`` computes from its block
-    index (csrc/pairwise.cu), for the CPU tests."""
-    rt, ct, items, blocks = (plan[k] for k in ("row_tiles", "col_tiles", "items", "blocks"))
-    lo, hi = block * items // blocks, (block + 1) * items // blocks
-    if masked:
-        t = max(s for s in range(rt) if _items_before(s, ct, True) <= lo) if rt else 0
-        c = t + lo - _items_before(t, ct, True)
-    else:
-        t, c = divmod(lo, ct)
-    for _ in range(lo, hi):
-        yield t, c
-        c += 1
-        if c == ct:
-            t += 1
-            c = t if masked else 0
 
 
 # (device index, stream) -> B2's scratch: its ticket, zero between calls, and

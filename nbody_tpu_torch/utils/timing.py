@@ -15,6 +15,9 @@ import torch
 # published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# seconds between the start of a profiler session and the first recorded
+# call of :func:`kernel_events`
+_RECORDING_DELAY_S = 0.02
 
 
 def synchronize(device) -> None:
@@ -47,6 +50,8 @@ def profile_ms(fn: Callable[[], object], device, top: int = 6
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     synchronize(device)
     with profile(activities=activities) as prof:
+        if cuda:  # as in kernel_events: the card's recording may start late
+            time.sleep(_RECORDING_DELAY_S)
         fn()
         synchronize(device)
     rows = []
@@ -58,6 +63,34 @@ def profile_ms(fn: Callable[[], object], device, top: int = 6
             rows.append((e.key, e.self_cpu_time_total / 1e3))
     rows.sort(key=lambda r: -r[1])
     return sum(ms for _, ms in rows), rows[:top]
+
+
+def kernel_events(fn: Callable[[], object], reps: int = 20) -> List[Tuple[str, float]]:
+    """(name, device ms) of every CUDA kernel and copy that ``reps`` calls
+    of ``fn`` put on the card, from :mod:`torch.profiler`. The calls run
+    once before the profiler, and the recorded ones start
+    ``_RECORDING_DELAY_S`` into its session: the profiler's recording of
+    the card can begin a few milliseconds after the session does, and then
+    misses the first kernels. Divide a sum of times by the events it
+    counts, not by ``reps``, so that a missed event cannot make a kernel
+    look faster."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_events profiles CUDA work; no CUDA device")
+
+    def calls():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    calls()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(_RECORDING_DELAY_S)
+        calls()
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
 
 
 def cuda_time_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> float:

@@ -266,13 +266,17 @@ def test_force_bench_energy_rows_on_the_cpu():
 
 
 def test_select_bench_rows_on_the_cpu():
-    """``select_bench`` on the CPU: B7's and B8's plain versions against
-    themselves (equal), the bounds of the shape, no times."""
+    """``select_bench`` on the CPU: one row a case with the shape's bounds
+    and no times; a case is ``K`` or ``K:self`` and nothing else."""
     from nbody_tpu_torch.experiments import select_bench
 
     rows = select_bench.main(["--device", "cpu", "--n-bodies", "700", "--cases", "8",
                               "32:self"])
     assert [(r["k"], r["include_self"]) for r in rows] == [(8, False), (32, True)]
     for r in rows:
-        assert r["b7_equal_plain"] and r["b8_equal_plain"] and "b7_ms" not in r
+        assert "b7_ms" not in r and "b7_host_us" not in r
         assert r["b7_bound_by"] == "operations" and r["b8_bound_ms"] > 0
+    # the 32-deep select reads the same candidates as the 8-deep one
+    assert rows[0]["b7_bound_ms"] == rows[1]["b7_bound_ms"]
+    with pytest.raises(ValueError):
+        select_bench.parse_case("8:all")

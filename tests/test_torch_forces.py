@@ -203,6 +203,30 @@ def test_wrappers_reject_devices_without_kernel_or_twin():
         tpw.pair_potential(pos, mass, pos, mass, G, EPS, masked=True)
 
 
+def _items_before(t, ct, masked):
+    """Items of the row tiles before ``t`` (masked, row s holds ct - s)."""
+    return t * ct - t * (t - 1) // 2 if masked else t * ct
+
+
+def _block_tiles(plan, block, masked):
+    """The (row tile, column tile) items block ``block`` of a B2 launch
+    walks, in its order, as ``energy_kernel`` finds them from its block
+    index (csrc/pairwise.cu)."""
+    rt, ct, items, blocks = (plan[k] for k in ("row_tiles", "col_tiles", "items", "blocks"))
+    lo, hi = block * items // blocks, (block + 1) * items // blocks
+    if masked:
+        t = max(s for s in range(rt) if _items_before(s, ct, True) <= lo) if rt else 0
+        c = t + lo - _items_before(t, ct, True)
+    else:
+        t, c = divmod(lo, ct)
+    for _ in range(lo, hi):
+        yield t, c
+        c += 1
+        if c == ct:
+            t += 1
+            c = t if masked else 0
+
+
 def _b2_pairs(ni, nj, masked, sms):
     """Every (i, j) pair the B2 launch plan visits, with its count: each
     block's tile items as the kernel walks them, all pairs of a tile, the
@@ -211,7 +235,7 @@ def _b2_pairs(ni, nj, masked, sms):
     seen = np.zeros((ni, nj), np.int32)
     tile = tpw._B2_TILE
     for blk in range(plan["blocks"]):
-        for t, c in tpw.energy_block_tiles(plan, blk, masked):
+        for t, c in _block_tiles(plan, blk, masked):
             rows = np.arange(t * tile, min((t + 1) * tile, ni))[:, None]
             cols = np.arange(c * tile, min((c + 1) * tile, nj))[None, :]
             keep = (cols > rows) if (masked and t == c) else np.ones_like(cols > rows)
@@ -252,19 +276,23 @@ def test_b2_tile_plan_at_large_n(n, sms):
              for b in range(plan["blocks"])}
     assert max(sizes) - min(sizes) <= 1
     for blk in (0, 1, plan["blocks"] // 2, plan["blocks"] - 1):
-        tiles = list(tpw.energy_block_tiles(plan, blk, True))
+        tiles = list(_block_tiles(plan, blk, True))
         assert all(0 <= t <= c < rt for t, c in tiles)
         assert all((t2, c2) > (t1, c1) for (t1, c1), (t2, c2) in zip(tiles, tiles[1:]))
 
 
 def test_b2_plan_uses_the_kernels_tiles():
     """``_B2_TILE`` is E_ROWS and E_TILE of csrc/pairwise.cu, read from the
-    source: square tiles, so only diagonal tiles straddle the diagonal."""
+    source: square tiles, so only diagonal tiles straddle the diagonal; and
+    ``_B2_BLOCKS_PER_SM`` is the kernel's E_BLOCKS_PER_SM, its launch
+    bound's blocks an SM."""
     src = (Path(tpw.__file__).parents[1] / "csrc" / "pairwise.cu").read_text()
     consts = {}
     for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
         consts[name] = eval(expr.split("//")[0].replace("/", "//"), {}, dict(consts))
     assert consts["E_ROWS"] == consts["E_TILE"] == tpw._B2_TILE
+    assert consts["E_BLOCKS_PER_SM"] == tpw._B2_BLOCKS_PER_SM
+    assert "__launch_bounds__(E_THREADS, E_BLOCKS_PER_SM)\nenergy_kernel(" in src
 
 
 @pytest.mark.parametrize("n", [3, 500])

@@ -27,6 +27,7 @@ from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.models import GraphModel
 from nbody_tpu_torch.ops import pairwise as pw
 from nbody_tpu_torch.train import autoregressive_rollout
+from nbody_tpu_torch.utils.timing import kernel_events
 
 pytestmark = pytest.mark.gpu
 
@@ -94,22 +95,6 @@ def test_b1_against_float64_at_a_million_sources(cuda, ni, nj):
     assert err <= 2e-5 * float(want.abs().max()), err
 
 
-def _kernels_a_call(fn, calls=10):
-    """The CUDA kernels ``calls`` calls of ``fn`` launch, by name, from
-    ``torch.profiler`` (after one call outside it). The profiler can miss an
-    event of a session, never add one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
 @pytest.mark.parametrize("n", [2, 3, 25, 255, 256, 500, 1000, 20_000])
 def test_b2_kernel_matches_twin(cuda, n):
     """Masked and cross, with zero-mass rows (a mask's tail and every third
@@ -132,12 +117,23 @@ def test_b2_kernel_matches_twin(cuda, n):
         got = pw.pair_potential(*args, G, EPS, masked)
         want = pw.pair_potential_torch(*args, G, EPS, masked)
         assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want)) + 1e-30
-        names = _kernels_a_call(lambda: pw.pair_potential(*args, G, EPS, masked))
-        assert 9 <= len(names) <= 10 and all("energy_kernel" in x for x in names), names
+        names = [name for name, _ in kernel_events(
+            lambda: pw.pair_potential(*args, G, EPS, masked), reps=10)]
+        assert len(names) == 10 and all("energy_kernel" in x for x in names), names
         before = pw.pair_potential.launches
         bits = {pw.pair_potential(*args, G, EPS, masked).view(torch.int32).item()
                 for _ in range(5)}
         assert len(bits) == 1 and pw.pair_potential.launches == before + 5
+
+
+def test_kernel_events_sees_every_kernel(cuda):
+    """Twenty profiler sessions of twenty B2 calls at 20k bodies each see
+    all twenty kernels, and their times are the kernel's."""
+    pos, _, mass = _spiral(20_000, 5, cuda)
+    for _ in range(20):
+        events = kernel_events(lambda: pw.potential_energy(pos, mass, G, EPS), reps=20)
+        assert len(events) == 20 and all("energy_kernel" in name for name, _ in events)
+        assert all(0 < ms < 10 for _, ms in events)
 
 
 def test_b2_cross_and_chunked(cuda):
