@@ -56,7 +56,10 @@ the port's main path once:
 9. the treecodes: (a) B9 (far field), B10 (grouped multipoles) and B1's
    near-list form against their plain versions, each twice for the same
    bits, on the shapes of the 100,000-body bh recipe (M=32, B=256) and of
-   the 1,000,000-body bh3 recipe (B=128, C=16, rc=48, Bs=32, K=48); (b) each
+   the 1,000,000-body bh3 recipe (B=128, C=16, rc=48, Bs=32, K=48; B10's
+   four launches there: refinement, coarse and near subtraction, sub-block
+   multipoles), each timed between events around the wrapper and by its
+   kernel's device time from the profiler; (b) each
    engine's kernel path against its dense path on one partition at 100,000
    bodies; (c) ``nbody_tpu_torch.experiments.bh_rollout`` through its
    ``main``: bh at 100,000 bodies for 200 steps with the exact energy audit
@@ -145,6 +148,8 @@ TREE_N, TREE_1M = 100_000, 1_000_000
 BH_100K = dict(n_near=32, block=256)
 BH3_1M = dict(n_near=32, block=128, coarse=16, rc=48, sub_block=32, n_sub=48)
 MULT_TOL = 1e-5    # B9/B10 against their plain versions, max |d| / max |plain|
+# a substring of each treecode kernel's name, as the profiler reports it
+B9_NAME, B10_NAME, NEAR_NAME = "multipole_far", "multipole_grouped", "near_force"
 NEAR_ATOL = {"bh": 5e-9, "bh2": 5e-9, "bh3": 2e-8}  # kernel vs dense path, rtol 2e-3
 # (tests/test_treeforce.py:136-137,241-242,401-402), met at 100k by all but
 SEAM_SHARE = 1e-4  # this share of elements (see phase9_engines)
@@ -1094,12 +1099,15 @@ def _rows(top):
     return "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top)
 
 
-def _against_plain(label, kernel, plain, tol, bound_):
+def _against_plain(label, kernel, plain, tol, bound_, name):
     """A kernel call against its plain version on the same inputs, twice for
-    the same bits; returns (max abs err, kernel ms, plain ms, bound)."""
+    the same bits; its ms between events around 10 wrapper calls, and its
+    device ms: the events of kernels whose name holds ``name``, summed and
+    divided by their count (:func:`kernel_events`). Returns (max abs err,
+    kernel ms, plain ms, bound)."""
     import torch
 
-    from nbody_tpu_torch.utils.timing import cuda_time_ms
+    from nbody_tpu_torch.utils.timing import cuda_time_ms, kernel_events
 
     got, again = kernel(), kernel()
     same = torch.equal(got, again)
@@ -1107,13 +1115,16 @@ def _against_plain(label, kernel, plain, tol, bound_):
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
     ms = cuda_time_ms(kernel, reps=10, warmup=1)
+    events = [t for n, t in kernel_events(kernel, reps=10) if name in n]
+    device_ms = sum(events) / max(len(events), 1)
     plain_ms = cuda_time_ms(plain, reps=2, warmup=1)
     log(f"[9a] {label}: max|d|/max|plain| {rel:.3e} (bar {tol}), same bits twice {same}; "
-        f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_[0]:.4f} ms "
-        f"({bound_[1]})")
-    if not (rel <= tol and same and bool(torch.isfinite(got).all())):
+        f"kernel {ms:.4f} ms (events around the wrapper), {device_ms:.4f} device ms "
+        f"({len(events)} events of 10 calls)  plain {plain_ms:.4f} ms  bound "
+        f"{bound_[0]:.4f} ms ({bound_[1]})")
+    if not (rel <= tol and same and bool(torch.isfinite(got).all()) and events):
         raise AssertionError(f"{label}: the kernel disagrees with its plain version "
-                             f"({rel}, same bits {same})")
+                             f"({rel}, same bits {same}) or left no event ({len(events)})")
     return err, ms, plain_ms, bound_
 
 
@@ -1159,16 +1170,16 @@ def phase9_kernels():
     _against_plain(f"B9 far field N={TREE_N}: {p} receivers x {k} blocks",
                    lambda: tf.multipole_acc(spos, table, G, eps2),
                    lambda: tf.multipole_acc_torch(spos, table, G, eps2), MULT_TOL,
-                   bound(45.0 * p * k, 24.0 * p + 40.0 * k))
+                   bound(45.0 * p * k, 24.0 * p + 40.0 * k), B9_NAME)
     _against_plain(f"B10 near subtraction N={TREE_N}: {nb} groups x {b} x {m} blocks",
                    lambda: tf.grouped_multipole_acc(q_blocks, table, part.near, G, eps2),
                    lambda: tf.grouped_multipole_acc_torch(q_blocks, table, part.near, G, eps2),
-                   MULT_TOL, bound(45.0 * p * m, 24.0 * p + 40.0 * k + 4.0 * nb * m))
+                   MULT_TOL, bound(45.0 * p * m, 24.0 * p + 40.0 * k + 4.0 * nb * m), B10_NAME)
     _against_plain(f"B1 near list N={TREE_N}: {nb} groups x {b} x {m} blocks of {b}",
                    lambda: pw.near_accelerations(q_blocks, spos, sm, part.near, b, G, EPS),
                    lambda: pw.near_accelerations_torch(q_blocks, spos, sm, part.near, b, G,
                                                        EPS),
-                   B1_TOL, bound(20.0 * p * m * b, 24.0 * p + 16.0 * p + 4.0 * nb * m))
+                   B1_TOL, bound(20.0 * p * m * b, 24.0 * p + 16.0 * p + 4.0 * nb * m), NEAR_NAME)
     del pos, mass, part, spos, sm, q_blocks, table
 
     pos, mass, part = _tree_shapes(TREE_1M, TREE_1M + 9, tf.build_bh3_partition, BH3_1M)
@@ -1179,7 +1190,7 @@ def phase9_kernels():
     _, table_s = _table(tf, spos, sm, bs)
     p, nbc, rc = spos.shape[0], *part.refined.shape
     nb, kk = part.sub_near.shape
-    u = part.sub_far.shape[1]
+    m, u = part.near.shape[1], part.sub_far.shape[1]
     fine_ids = (part.refined[:, :, None] * c + torch.arange(
         c, dtype=torch.int32, device=spos.device)).reshape(nbc, rc * c).contiguous()
     qg = spos.reshape(nbc, c * b, 3)
@@ -1188,27 +1199,33 @@ def phase9_kernels():
         f"B9 far field N={TREE_1M}: {p} receivers x {nbc} superblocks",
         lambda: tf.multipole_acc(spos, table_c, G, eps2),
         lambda: tf.multipole_acc_torch(spos, table_c, G, eps2), MULT_TOL,
-        bound(45.0 * p * nbc, 24.0 * p + 40.0 * nbc))
+        bound(45.0 * p * nbc, 24.0 * p + 40.0 * nbc), B9_NAME)
     out["b10"] = _against_plain(
         f"B10 refinement N={TREE_1M}: {nbc} groups x {c * b} x {rc * c} fine blocks",
         lambda: tf.grouped_multipole_acc(qg, table_f, fine_ids, G, eps2),
         lambda: tf.grouped_multipole_acc_torch(qg, table_f, fine_ids, G, eps2), MULT_TOL,
-        bound(45.0 * p * rc * c, 24.0 * p + 40.0 * nb + 4.0 * fine_ids.numel()))
+        bound(45.0 * p * rc * c, 24.0 * p + 40.0 * nb + 4.0 * fine_ids.numel()), B10_NAME)
     _against_plain(
         f"B10 coarse subtraction N={TREE_1M}: {nbc} groups x {c * b} x {rc} superblocks",
         lambda: tf.grouped_multipole_acc(qg, table_c, part.refined, G, eps2),
         lambda: tf.grouped_multipole_acc_torch(qg, table_c, part.refined, G, eps2), MULT_TOL,
-        bound(45.0 * p * rc, 24.0 * p + 40.0 * nbc + 4.0 * part.refined.numel()))
+        bound(45.0 * p * rc, 24.0 * p + 40.0 * nbc + 4.0 * part.refined.numel()), B10_NAME)
+    _against_plain(
+        f"B10 near subtraction N={TREE_1M}: {nb} groups x {b} x {m} blocks",
+        lambda: tf.grouped_multipole_acc(q_blocks, table_f, part.near, G, eps2),
+        lambda: tf.grouped_multipole_acc_torch(q_blocks, table_f, part.near, G, eps2),
+        MULT_TOL, bound(45.0 * p * m, 24.0 * p + 40.0 * nb + 4.0 * nb * m), B10_NAME)
     _against_plain(
         f"B10 sub-block multipoles N={TREE_1M}: {nb} groups x {b} x {u} sub-blocks",
         lambda: tf.grouped_multipole_acc(q_blocks, table_s, part.sub_far, G, eps2),
         lambda: tf.grouped_multipole_acc_torch(q_blocks, table_s, part.sub_far, G, eps2),
-        MULT_TOL, bound(45.0 * p * u, 24.0 * p + 40.0 * table_s.shape[0] + 4.0 * nb * u))
+        MULT_TOL, bound(45.0 * p * u, 24.0 * p + 40.0 * table_s.shape[0] + 4.0 * nb * u),
+        B10_NAME)
     out["b1n"] = _against_plain(
         f"B1 near list N={TREE_1M}: {nb} groups x {b} x {kk} sub-blocks of {bs}",
         lambda: pw.near_accelerations(q_blocks, spos, sm, part.sub_near, bs, G, EPS),
         lambda: pw.near_accelerations_torch(q_blocks, spos, sm, part.sub_near, bs, G, EPS),
-        B1_TOL, bound(20.0 * p * kk * bs, 24.0 * p + 16.0 * p + 4.0 * nb * kk))
+        B1_TOL, bound(20.0 * p * kk * bs, 24.0 * p + 16.0 * p + 4.0 * nb * kk), NEAR_NAME)
     del pos, mass, part, spos, sm, q_blocks, qg, fine_ids
     torch.cuda.empty_cache()
     return out

@@ -68,13 +68,14 @@ constexpr int SPLIT = 8;                        // lanes a target group
 constexpr int FORCE_THREADS = 256;
 constexpr int TILE = FORCE_THREADS;             // sources staged a step
 constexpr int GROUPS = FORCE_THREADS / SPLIT;   // target groups a block
-constexpr int TPT = 4;                          // B1: targets a group (a thread)
-constexpr int FORCE_ROWS = GROUPS * TPT;        // B1: targets a block
-constexpr int NEAR_ROWS = GROUPS;               // near list: one target a group
+constexpr int TPT = 4;                          // targets a group (a thread)
+constexpr int FORCE_ROWS = GROUPS * TPT;        // targets a block, both forms
+constexpr int NEAR_IDS = 1024;                  // near list: ids staged a segment
 constexpr int SUM_THREADS = 256;
 constexpr float D2_FLOOR = 1e-18f;
 
 static_assert(32 % SPLIT == 0, "a group's lanes must share a warp");
+static_assert(NEAR_IDS % TILE == 0, "a segment's candidates end on a tile boundary");
 
 __device__ __forceinline__ float rsqrt_ftz(float x) {
   float y;
@@ -109,6 +110,63 @@ __device__ __forceinline__ void lane_sum(float& ax, float& ay, float& az) {
   }
 }
 
+// The tile body of both forms of B1: the TILE staged sources on a thread's
+// TPT targets (x, y, z), lane `lane` taking every SPLIT-th, summed into a
+// fresh partial that is then added to the running totals (ax, ay, az).
+__device__ __forceinline__ void add_tile(const float4* __restrict__ tile, int lane,
+                                         const float (&x)[TPT], const float (&y)[TPT],
+                                         const float (&z)[TPT], float eps2, float (&ax)[TPT],
+                                         float (&ay)[TPT], float (&az)[TPT]) {
+  float px[TPT], py[TPT], pz[TPT];
+#pragma unroll
+  for (int u = 0; u < TPT; ++u) px[u] = py[u] = pz[u] = 0.f;
+#pragma unroll 8
+  for (int t = lane; t < TILE; t += SPLIT) {
+    const float4 s = tile[t];
+#pragma unroll
+    for (int u = 0; u < TPT; ++u) pair_pull(s, x[u], y[u], z[u], eps2, px[u], py[u], pz[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < TPT; ++u) {
+    ax[u] += px[u];
+    ay[u] += py[u];
+    az[u] += pz[u];
+  }
+}
+
+// Rows row0 .. row0 + TPT - 1 of pos (n rows) into (x, y, z), rows past n
+// as the origin, and zero totals.
+__device__ __forceinline__ void load_targets(const float* __restrict__ pos, int row0, int n,
+                                             float (&x)[TPT], float (&y)[TPT], float (&z)[TPT],
+                                             float (&ax)[TPT], float (&ay)[TPT],
+                                             float (&az)[TPT]) {
+#pragma unroll
+  for (int u = 0; u < TPT; ++u) {
+    const int r = row0 + u;
+    x[u] = r < n ? pos[3 * (size_t)r] : 0.f;
+    y[u] = r < n ? pos[3 * (size_t)r + 1] : 0.f;
+    z[u] = r < n ? pos[3 * (size_t)r + 2] : 0.f;
+    ax[u] = ay[u] = az[u] = 0.f;
+  }
+}
+
+// The lanes' butterfly, then scale * the totals into rows row0 + u < n of
+// dst (n, 3): TPT lanes write, one target each.
+__device__ __forceinline__ void write_targets(float* __restrict__ dst, int row0, int n, int lane,
+                                              float scale, float (&ax)[TPT], float (&ay)[TPT],
+                                              float (&az)[TPT]) {
+#pragma unroll
+  for (int u = 0; u < TPT; ++u) {
+    lane_sum(ax[u], ay[u], az[u]);
+    const int r = row0 + u;
+    if (lane == u && r < n) {  // every lane has the sums: TPT lanes write
+      dst[3 * (size_t)r] = scale * ax[u];
+      dst[3 * (size_t)r + 1] = scale * ay[u];
+      dst[3 * (size_t)r + 2] = scale * az[u];
+    }
+  }
+}
+
 // Block (tile x, chunk y): targets x * FORCE_ROWS .. of pos_i against the
 // sources y * chunk .. min(nj, (y + 1) * chunk). One chunk: out = G * a
 // (ni, 3); several: out = chunk y's sum, unscaled, at (y * ni + i) * 3.
@@ -119,51 +177,20 @@ force_kernel(const float* __restrict__ pos_i, const float4* __restrict__ src,
   const int lane = threadIdx.x % SPLIT;
   const int row0 = blockIdx.x * FORCE_ROWS + (threadIdx.x / SPLIT) * TPT;
   float xi[TPT], yi[TPT], zi[TPT], ax[TPT], ay[TPT], az[TPT];
-#pragma unroll
-  for (int u = 0; u < TPT; ++u) {
-    const int r = row0 + u;
-    xi[u] = r < ni ? pos_i[3 * (size_t)r] : 0.f;
-    yi[u] = r < ni ? pos_i[3 * (size_t)r + 1] : 0.f;
-    zi[u] = r < ni ? pos_i[3 * (size_t)r + 2] : 0.f;
-    ax[u] = ay[u] = az[u] = 0.f;
-  }
+  load_targets(pos_i, row0, ni, xi, yi, zi, ax, ay, az);
   const int j0 = blockIdx.y * chunk;
   const int j1 = min(nj, j0 + chunk);
   for (int base = j0; base < j1; base += TILE) {
     const int j = base + threadIdx.x;
     tile[threadIdx.x] = j < j1 ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
-    float px[TPT], py[TPT], pz[TPT];  // this tile's partial
-#pragma unroll
-    for (int u = 0; u < TPT; ++u) px[u] = py[u] = pz[u] = 0.f;
-#pragma unroll 8
-    for (int t = lane; t < TILE; t += SPLIT) {
-      const float4 s = tile[t];
-#pragma unroll
-      for (int u = 0; u < TPT; ++u)
-        pair_pull(s, xi[u], yi[u], zi[u], eps2, px[u], py[u], pz[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < TPT; ++u) {
-      ax[u] += px[u];
-      ay[u] += py[u];
-      az[u] += pz[u];
-    }
+    add_tile(tile, lane, xi, yi, zi, eps2, ax, ay, az);
     __syncthreads();
   }
   const bool one = gridDim.y == 1;
   const float scale = one ? g : 1.f;
   float* dst = out + (one ? 0 : (size_t)blockIdx.y * ni * 3);
-#pragma unroll
-  for (int u = 0; u < TPT; ++u) {
-    lane_sum(ax[u], ay[u], az[u]);
-    const int r = row0 + u;
-    if (lane == u && r < ni) {  // every lane has the sums: TPT lanes write
-      dst[3 * (size_t)r] = scale * ax[u];
-      dst[3 * (size_t)r + 1] = scale * ay[u];
-      dst[3 * (size_t)r + 2] = scale * az[u];
-    }
-  }
+  write_targets(dst, row0, ni, lane, scale, ax, ay, az);
 }
 
 // acc (n floats) = G * the chunks' partial sums (chunks, n), added in chunk
@@ -186,51 +213,66 @@ force_chunks_kernel(const float* __restrict__ part, int chunks, long long n, flo
 // receiver blocks: group g's `rows` targets (rows g * rows .. of q) see the
 // `list` source blocks near[g, :], each `src_block` consecutive rows of the
 // packed sources, read by id (no gathered (groups, list * src_block) copy).
-// Candidate c of a group is row c % src_block of block near[g, c / src_block],
-// and a target's sum runs over c in order: B1's pair function (with the
-// floor), tile, lane split and butterfly, one target a lane group, each lane
-// summing its share of a list (a few thousand candidates) in one running
-// total. An id outside [0, n_src_blocks) reads as a zero-mass source. Bound:
-// FP32 throughput, ~20 flops and one MUFU rsqrt per pair, as B1.
+// Candidate c of a group is row c % src_block of block near[g, c / src_block].
+// An id outside [0, n_src_blocks) reads as zero-mass sources at the origin,
+// which add exact zeros.
+//
+// Bound: FP32 issue, ~20 flops and one MUFU rsqrt a pair, as B1. So the
+// design is B1's: FORCE_ROWS targets a block, TPT a thread over SPLIT lanes,
+// and the tile body itself (add_tile), so one shared-memory load feeds
+// TPT pairs and a target sums a fresh partial a tile of TILE candidates,
+// tiles at multiples of TILE of c: the same order, and the same bits, as
+// force_kernel on the gathered candidates in one chunk. What the near list
+// adds is the addressing. The block stages its group's ids in shared memory
+// once (NEAR_IDS a segment; a segment's candidates end on a tile boundary,
+// so segments do not move the tiles), each as its first source row
+// j * src_block, or -1; a thread then walks its candidate c = base +
+// threadIdx.x as (k, r) = (c / src_block, c % src_block), divided once and
+// advanced a tile by (TILE / src_block, TILE % src_block) with one carry, so
+// no runtime divide a candidate for any src_block.
 __global__ void __launch_bounds__(FORCE_THREADS)
 near_force_kernel(const float* __restrict__ q, const float4* __restrict__ src,
                   const int* __restrict__ near, int rows, int list, int src_block,
                   int n_src_blocks, int tiles, float g, float eps2,
                   float* __restrict__ acc) {
   __shared__ float4 tile[TILE];
+  __shared__ int first[NEAR_IDS];  // a staged id's first source row, or -1
   const int grp = blockIdx.x / tiles;
   const int lane = threadIdx.x % SPLIT;
-  const int row = (blockIdx.x % tiles) * NEAR_ROWS + threadIdx.x / SPLIT;
-  const size_t qrow = (size_t)grp * rows + row;
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (row < rows) {
-    xi = q[3 * qrow];
-    yi = q[3 * qrow + 1];
-    zi = q[3 * qrow + 2];
-  }
+  const int row0 = (blockIdx.x % tiles) * FORCE_ROWS + (threadIdx.x / SPLIT) * TPT;
+  float xi[TPT], yi[TPT], zi[TPT], ax[TPT], ay[TPT], az[TPT];
+  load_targets(q + (size_t)grp * rows * 3, row0, rows, xi, yi, zi, ax, ay, az);
   const int* ids = near + (size_t)grp * list;
-  const int ncand = list * src_block;
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int base = 0; base < ncand; base += TILE) {
-    const int c = base + threadIdx.x;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < ncand) {
-      const int j = ids[c / src_block];
-      if (j >= 0 && j < n_src_blocks) s = src[(size_t)j * src_block + c % src_block];
+  const int k0 = threadIdx.x / src_block, r0 = threadIdx.x % src_block;
+  const int dk = TILE / src_block, dr = TILE % src_block;
+  for (int seg = 0; seg < list; seg += NEAR_IDS) {
+    const int nk = min(NEAR_IDS, list - seg);
+    __syncthreads();  // the last segment's tiles are read
+    for (int i = threadIdx.x; i < nk; i += FORCE_THREADS) {
+      const int j = ids[seg + i];
+      first[i] = j >= 0 && j < n_src_blocks ? j * src_block : -1;
     }
-    tile[threadIdx.x] = s;
-    __syncthreads();
-#pragma unroll 8
-    for (int t = lane; t < TILE; t += SPLIT)
-      pair_pull(tile[t], xi, yi, zi, eps2, ax, ay, az);
-    __syncthreads();
+    const int ncand = nk * src_block;
+    int k = k0, r = r0;
+    for (int base = 0; base < ncand; base += TILE) {
+      __syncthreads();  // ids staged; the last tile read
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < nk) {
+        const int f = first[k];
+        if (f >= 0) s = src[(size_t)f + r];
+      }
+      tile[threadIdx.x] = s;
+      __syncthreads();
+      add_tile(tile, lane, xi, yi, zi, eps2, ax, ay, az);
+      k += dk;
+      r += dr;
+      if (r >= src_block) {
+        r -= src_block;
+        ++k;
+      }
+    }
   }
-  lane_sum(ax, ay, az);
-  if (lane == 0 && row < rows) {
-    acc[3 * qrow] = g * ax;
-    acc[3 * qrow + 1] = g * ay;
-    acc[3 * qrow + 2] = g * az;
-  }
+  write_targets(acc + (size_t)grp * rows * 3, row0, rows, lane, g, ax, ay, az);
 }
 
 // --------------------------------------------------------------- B2: energy
@@ -464,9 +506,9 @@ int nbody_near_force(const float* q, const void* src, const int* near, int group
                      int rows, int list, int src_block, int n_src_blocks, float g,
                      float eps, float* acc, void* stream) {
   if (groups <= 0 || rows <= 0 || list < 0 || src_block <= 0 || n_src_blocks < 0 ||
-      (long long)list * src_block > INT_MAX)
+      (long long)list * src_block > INT_MAX || (long long)n_src_blocks * src_block > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const int tiles = (rows + NEAR_ROWS - 1) / NEAR_ROWS;
+  const int tiles = (rows + FORCE_ROWS - 1) / FORCE_ROWS;
   if ((long long)groups * tiles > INT_MAX) return (int)cudaErrorInvalidValue;
   near_force_kernel<<<groups * tiles, FORCE_THREADS, 0, (cudaStream_t)stream>>>(
       q, (const float4*)src, near, rows, list, src_block, n_src_blocks, tiles, g,

@@ -24,78 +24,114 @@
 // (3, P) coordinate planes, a layout workaround for the TPU's (8, 128)
 // operand tiling; here receivers stay (P, 3).
 //
-// What bounds both: FP32 throughput. Per receiver-block pair about 45 flops
-// (the JAX cost estimate) and one MUFU rsqrt; the bytes are a few per pair,
-// since every staged block row serves all receivers of the thread block.
+// What bounds both: FP32 issue. multipole_pull compiles to 37 instructions
+// a (receiver, block) pair (45 flops, the JAX cost estimate; one MUFU
+// rsqrt; the sum's order leaves nine for the three accumulations and four
+// for s^2), few of them FMAs, so the SM's issue rate (4 schedulers x 32
+// lanes a clock), and not the FP32 peak of the bound, is the floor: 0.85 ms
+// for the 1M bh3 refinement's 7.7e8 pairs at 1.98 GHz, against 0.52 ms at
+// 67 TFLOP/s. The bytes are a few a pair, since every staged block row
+// serves all receivers of the thread block.
 //
-// Design: MP_ROWS receivers per thread block, MP_SPLIT lanes per receiver.
-// The block stages up to MP_TILE table rows in shared memory; lane s of a
-// receiver takes every MP_SPLIT-th staged row, in table (or list) order, and
-// the lanes' partial sums meet in a fixed butterfly of warp shuffles. So each
-// receiver's sum has one order on every run: deterministic, no atomics. B10
-// gathers its group's rows by id into the same tile (one row per thread), so
-// no (G, S, 10) gathered copy exists in device memory. Full FP32, no tensor
-// cores: the near pass subtracts exactly this expansion for the near blocks,
-// and the two must cancel at rounding level.
+// Staged layout, both kernels: a row is three float4s in shared memory
+// (ROW_PAD floats, the last two zero), so a lane reads it with three 16-byte
+// loads and rows 48 bytes apart fall on distinct banks for any 8 lanes.
+// Rows are copied from device memory by consecutive threads, float by float.
+// The rsqrt is rsqrt.approx.ftz: s^2 >= 1e-10 is never subnormal, so it
+// gives rsqrtf's value without rsqrtf's subnormal guard.
+//
+// B9: MP_ROWS receivers a thread block, MP_SPLIT lanes a receiver, lane s
+// taking every MP_SPLIT-th staged row; the lanes' sums meet in a fixed
+// butterfly of warp shuffles.
+//
+// B10: MP_RPT receivers a thread, `LANES` lanes a receiver group (4, or 8
+// for groups under 256 receivers: a template argument the wrapper picks from
+// the group size, ops/treeforce.py::grouped_plan), so one shared-memory read
+// of a row feeds MP_RPT pulls and a block holds MP_THREADS / LANES * MP_RPT
+// receivers of one group: 256 for the 2048-receiver groups of the bh3
+// refinement (8 blocks stage a group's list, where 32 did), 128 for the
+// 128-receiver groups of bh3's near pass (one block a group). A block stages a tile's ids first (one a thread, an
+// id outside [0, k) as -1), then copies the rows. No (G, S, 10) gathered copy
+// exists in device memory.
+//
+// Each receiver's sum has one order on every run: deterministic, no atomics.
+// Full FP32, no tensor cores: the near pass subtracts exactly this expansion
+// for the near blocks, and the two must cancel at rounding level.
 
 #include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int ROW = 10;  // floats per block row
-constexpr int MP_ROWS = 64;
-constexpr int MP_SPLIT = 4;
-constexpr int MP_THREADS = MP_ROWS * MP_SPLIT;
-constexpr int MP_TILE = MP_THREADS;  // rows staged per pass (10 KB)
+constexpr int ROW = 10;      // floats of a table row
+constexpr int ROW_PAD = 12;  // floats of a staged row: three float4s
+constexpr int MP_THREADS = 256;
+constexpr int MP_TILE = 256;  // rows staged a pass (12 KiB)
+constexpr int MP_SPLIT = 4;   // B9: lanes a receiver
+constexpr int MP_ROWS = MP_THREADS / MP_SPLIT;  // B9: receivers a block
+constexpr int MP_RPT = 4;     // B10: receivers a thread
+// B10: blocks an SM its registers must allow (at most 85 a thread). With a
+// launch bound of threads alone the compiler held 64 registers and spilled.
+constexpr int MP_BLOCKS_PER_SM = 3;
 constexpr float MP_D2_FLOOR = 1e-10f;
 
 static_assert(32 % MP_SPLIT == 0, "a receiver's lanes must share a warp");
+static_assert(MP_TILE <= MP_THREADS, "one thread stages one id");
+
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // The one copy of the expansion, shared by B9 and B10: adds the pull of the
-// block row b on the receiver (qx, qy, qz), without the factor G.
-__device__ __forceinline__ void multipole_pull(const float* b, float qx, float qy,
+// staged block row (b0, b1, b2) = ([com, m], [Qxx, Qyy, Qzz, Qxy], [Qxz,
+// Qyz, 0, 0]) on the receiver (qx, qy, qz), without the factor G, in
+// _multipole_tile's order.
+__device__ __forceinline__ void multipole_pull(const float4 b0, const float4 b1,
+                                               const float4 b2, float qx, float qy,
                                                float qz, float eps2, float& ax,
                                                float& ay, float& az) {
-  const float rx = qx - b[0];
-  const float ry = qy - b[1];
-  const float rz = qz - b[2];
+  const float rx = qx - b0.x;
+  const float ry = qy - b0.y;
+  const float rz = qz - b0.z;
   const float s2 = rx * rx + ry * ry + rz * rz + eps2;
-  const float inv = rsqrtf(fmaxf(s2, MP_D2_FLOOR));
+  const float inv = rsqrt_ftz(fmaxf(s2, MP_D2_FLOOR));
   const float inv2 = inv * inv;
   const float inv3 = inv * inv2;
   const float inv5 = inv3 * inv2;
   const float inv7 = inv5 * inv2;
-  const float qrx = b[4] * rx + b[7] * ry + b[8] * rz;
-  const float qry = b[7] * rx + b[5] * ry + b[9] * rz;
-  const float qrz = b[8] * rx + b[9] * ry + b[6] * rz;
+  const float qrx = b1.x * rx + b1.w * ry + b2.x * rz;
+  const float qry = b1.w * rx + b1.y * ry + b2.y * rz;
+  const float qrz = b2.x * rx + b2.y * ry + b1.z * rz;
   const float rqr = qrx * rx + qry * ry + qrz * rz;
-  const float cr = -b[3] * inv3 - 2.5f * rqr * inv7;  // radial coefficient
+  const float cr = -b0.w * inv3 - 2.5f * rqr * inv7;  // radial coefficient
   ax += cr * rx + inv5 * qrx;
   ay += cr * ry + inv5 * qry;
   az += cr * rz + inv5 * qrz;
 }
 
-// The n staged rows on this thread's receiver, then the butterfly.
-__device__ __forceinline__ void pull_tile(const float* tile, int n, int lane,
-                                          float qx, float qy, float qz,
-                                          float eps2, float& ax, float& ay,
-                                          float& az) {
-  for (int t = lane; t < n; t += MP_SPLIT)
-    multipole_pull(tile + t * ROW, qx, qy, qz, eps2, ax, ay, az);
+// Copies n table rows into the staged layout: staged row t is table row
+// sid[t] (zeros where that is negative) or, without sid, row base + t;
+// consecutive threads copy consecutive floats.
+__device__ __forceinline__ void stage_rows(float4* tile, const float* __restrict__ table,
+                                           int n, const int* sid, int base) {
+  float* dst = reinterpret_cast<float*>(tile);
+  for (int f = threadIdx.x; f < n * ROW_PAD; f += MP_THREADS) {
+    const int t = f / ROW_PAD, c = f % ROW_PAD;
+    const int j = sid ? sid[t] : base + t;
+    dst[f] = c < ROW && j >= 0 ? table[(size_t)j * ROW + c] : 0.f;
+  }
 }
 
-__device__ __forceinline__ void finish(float ax, float ay, float az, int lane,
-                                       bool live, float g, float* out) {
-  for (int off = MP_SPLIT / 2; off > 0; off >>= 1) {
+// The lanes' sums in a fixed butterfly over LANES lanes.
+template <int LANES>
+__device__ __forceinline__ void lane_sum(float& ax, float& ay, float& az) {
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) {
     ax += __shfl_xor_sync(0xffffffffu, ax, off);
     ay += __shfl_xor_sync(0xffffffffu, ay, off);
     az += __shfl_xor_sync(0xffffffffu, az, off);
-  }
-  if (lane == 0 && live) {
-    out[0] = g * ax;
-    out[1] = g * ay;
-    out[2] = g * az;
   }
 }
 
@@ -103,7 +139,7 @@ __device__ __forceinline__ void finish(float ax, float ay, float az, int lane,
 __global__ void __launch_bounds__(MP_THREADS)
 multipole_far_kernel(const float* __restrict__ q, const float* __restrict__ table,
                      int p, int k, float g, float eps2, float* __restrict__ acc) {
-  __shared__ float tile[MP_TILE * ROW];
+  __shared__ float4 tile[MP_TILE * 3];
   const int lane = threadIdx.x % MP_SPLIT;
   const int row = blockIdx.x * MP_ROWS + threadIdx.x / MP_SPLIT;
   const bool live = row < p;
@@ -116,55 +152,89 @@ multipole_far_kernel(const float* __restrict__ q, const float* __restrict__ tabl
   float ax = 0.f, ay = 0.f, az = 0.f;
   for (int base = 0; base < k; base += MP_TILE) {
     const int n = min(MP_TILE, k - base);
-    const float* src = table + (size_t)base * ROW;
-    for (int i = threadIdx.x; i < n * ROW; i += MP_THREADS) tile[i] = src[i];
+    stage_rows(tile, table, n, nullptr, base);
     __syncthreads();
-    pull_tile(tile, n, lane, qx, qy, qz, eps2, ax, ay, az);
+    for (int t = lane; t < n; t += MP_SPLIT)
+      multipole_pull(tile[3 * t], tile[3 * t + 1], tile[3 * t + 2], qx, qy, qz, eps2, ax,
+                     ay, az);
     __syncthreads();
   }
-  finish(ax, ay, az, lane, live, g, acc + 3 * (size_t)row);
+  lane_sum<MP_SPLIT>(ax, ay, az);
+  if (lane == 0 && live) {
+    acc[3 * (size_t)row] = g * ax;
+    acc[3 * (size_t)row + 1] = g * ay;
+    acc[3 * (size_t)row + 2] = g * az;
+  }
 }
 
 // ---------------------------------------------------------- B10: per group
 // Receivers of group gr are rows gr * p .. gr * p + p - 1 of q; they see the
 // s rows ids[gr, :] of the table. An id outside [0, k) reads as a zero row.
-__global__ void __launch_bounds__(MP_THREADS)
+// Block x holds receivers (x % tiles) * RECV .. of group x / tiles.
+template <int LANES>
+__global__ void __launch_bounds__(MP_THREADS, MP_BLOCKS_PER_SM)
 multipole_grouped_kernel(const float* __restrict__ q, const float* __restrict__ table,
                          const int* __restrict__ ids, int p, int s, int k,
                          int tiles, float g, float eps2, float* __restrict__ acc) {
-  __shared__ float tile[MP_TILE * ROW];
+  static_assert(32 % LANES == 0, "a receiver group's lanes must share a warp");
+  constexpr int RECV = MP_THREADS / LANES * MP_RPT;
+  __shared__ float4 tile[MP_TILE * 3];
+  __shared__ int sid[MP_TILE];
   const int grp = blockIdx.x / tiles;
-  const int lane = threadIdx.x % MP_SPLIT;
-  const int row = (blockIdx.x % tiles) * MP_ROWS + threadIdx.x / MP_SPLIT;
-  const bool live = row < p;
-  const size_t qrow = (size_t)grp * p + row;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    qx = q[3 * qrow];
-    qy = q[3 * qrow + 1];
-    qz = q[3 * qrow + 2];
+  const int lane = threadIdx.x % LANES;
+  const int r0 = (blockIdx.x % tiles) * RECV + (threadIdx.x / LANES) * MP_RPT;
+  const float* qg = q + (size_t)grp * p * 3;
+  float qx[MP_RPT], qy[MP_RPT], qz[MP_RPT], ax[MP_RPT], ay[MP_RPT], az[MP_RPT];
+#pragma unroll
+  for (int u = 0; u < MP_RPT; ++u) {
+    const int r = r0 + u;
+    qx[u] = r < p ? qg[3 * (size_t)r] : 0.f;
+    qy[u] = r < p ? qg[3 * (size_t)r + 1] : 0.f;
+    qz[u] = r < p ? qg[3 * (size_t)r + 2] : 0.f;
+    ax[u] = ay[u] = az[u] = 0.f;
   }
   const int* list = ids + (size_t)grp * s;
-  float ax = 0.f, ay = 0.f, az = 0.f;
   for (int base = 0; base < s; base += MP_TILE) {
     const int n = min(MP_TILE, s - base);
-    if (threadIdx.x < n) {
+    if ((int)threadIdx.x < n) {
       const int j = list[base + threadIdx.x];
-      float* dst = tile + threadIdx.x * ROW;
-      if (j >= 0 && j < k) {
-        const float* src = table + (size_t)j * ROW;
-#pragma unroll
-        for (int c = 0; c < ROW; ++c) dst[c] = src[c];
-      } else {
-#pragma unroll
-        for (int c = 0; c < ROW; ++c) dst[c] = 0.f;
-      }
+      sid[threadIdx.x] = j >= 0 && j < k ? j : -1;
     }
     __syncthreads();
-    pull_tile(tile, n, lane, qx, qy, qz, eps2, ax, ay, az);
+    stage_rows(tile, table, n, sid, 0);
+    __syncthreads();
+#pragma unroll 1
+    for (int t = lane; t < n; t += LANES) {
+      const float4 b0 = tile[3 * t], b1 = tile[3 * t + 1], b2 = tile[3 * t + 2];
+#pragma unroll
+      for (int u = 0; u < MP_RPT; ++u)
+        multipole_pull(b0, b1, b2, qx[u], qy[u], qz[u], eps2, ax[u], ay[u], az[u]);
+    }
     __syncthreads();
   }
-  finish(ax, ay, az, lane, live, g, acc + 3 * qrow);
+  float* out = acc + (size_t)grp * p * 3;
+#pragma unroll
+  for (int u = 0; u < MP_RPT; ++u) {
+    lane_sum<LANES>(ax[u], ay[u], az[u]);
+    const int r = r0 + u;
+    if (lane == u % LANES && r < p) {
+      out[3 * (size_t)r] = g * ax[u];
+      out[3 * (size_t)r + 1] = g * ay[u];
+      out[3 * (size_t)r + 2] = g * az[u];
+    }
+  }
+}
+
+template <int LANES>
+cudaError_t launch_grouped(const float* q, const float* table, const int* ids, int groups,
+                           int p, int s, int k, float g, float eps2, float* acc,
+                           cudaStream_t stream) {
+  constexpr int RECV = MP_THREADS / LANES * MP_RPT;
+  const int tiles = (p + RECV - 1) / RECV;
+  if ((long long)groups * tiles > INT_MAX) return cudaErrorInvalidValue;
+  multipole_grouped_kernel<LANES><<<groups * tiles, MP_THREADS, 0, stream>>>(
+      q, table, ids, p, s, k, tiles, g, eps2, acc);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -182,16 +252,18 @@ int multipole_far(const float* q, const float* table, int p, int k, float g,
 }
 
 // acc (groups, p, 3) = pull of table rows ids[gr, :] (s of them) on the p
-// receivers q[gr] (groups, p, 3), for every group gr.
+// receivers q[gr] (groups, p, 3), for every group gr, `lanes` (4 or 8) lanes
+// a receiver group.
 int multipole_grouped(const float* q, const float* table, const int* ids,
-                      int groups, int p, int s, int k, float g, float eps2,
+                      int groups, int p, int s, int k, int lanes, float g, float eps2,
                       float* acc, void* stream) {
   if (groups <= 0 || p <= 0 || s < 0 || k < 0) return (int)cudaErrorInvalidValue;
-  const int tiles = (p + MP_ROWS - 1) / MP_ROWS;
-  if ((long long)groups * tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  multipole_grouped_kernel<<<groups * tiles, MP_THREADS, 0, (cudaStream_t)stream>>>(
-      q, table, ids, p, s, k, tiles, g, eps2, acc);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (lanes) {
+    case 4: return (int)launch_grouped<4>(q, table, ids, groups, p, s, k, g, eps2, acc, st);
+    case 8: return (int)launch_grouped<8>(q, table, ids, groups, p, s, k, g, eps2, acc, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -44,7 +44,8 @@ _TWIN_ROWS = 2048
 # (target, source) pairs per step of the near-list twin
 _TWIN_PAIRS = 1 << 22
 # B1's launch shape, FORCE_ROWS and TILE of csrc/pairwise.cu (a CPU test holds
-# them equal): targets a block, sources staged a step
+# them equal): targets a block, sources staged a step; its near-list form
+# launches blocks of the same FORCE_ROWS targets
 _B1_ROWS, _B1_TILE = 128, 256
 # B1 cuts its sources into chunks only where the target tiles are fewer than
 # this many blocks an SM, aims at _B1_SPLIT_BLOCKS blocks an SM when it does,
@@ -175,18 +176,25 @@ partial_accelerations.launches = 0
 
 def near_accelerations_torch(q, pos, mass, near, src_block, g_const, softening):
     """Plain-torch twin of B1's near-list form: per group, B1's twin
-    arithmetic over the gathered candidates, in list order."""
+    arithmetic over the gathered candidates, in list order. An id outside
+    [0, n_blocks) reads as a zero-mass block, as in the kernel."""
     groups, rows, _ = q.shape
     eps2 = float(softening) ** 2
     bpos, bmass = pos.reshape(-1, src_block, 3), mass.reshape(-1, src_block)
+    n_blocks = bpos.shape[0]
+    if n_blocks == 0:  # every id out of range: no sources
+        return torch.zeros_like(q)
     step = max(1, _TWIN_PAIRS // max(rows * near.shape[1] * src_block, 1))
     outs = []
     for g0 in range(0, groups, step):
         ids = near[g0:g0 + step].long()
+        valid = (ids >= 0) & (ids < n_blocks)
+        ids = ids.clamp(0, n_blocks - 1)
         d = bpos[ids].flatten(1, 2)[:, None, :, :] - q[g0:g0 + step, :, None, :]
         d2 = (d * d).sum(-1) + eps2
         inv = torch.rsqrt(torch.clamp(d2, min=_D2_FLOOR))
-        w = inv * inv * inv * bmass[ids].flatten(1, 2)[:, None, :]
+        m = (bmass[ids] * valid[..., None]).flatten(1, 2)
+        w = inv * inv * inv * m[:, None, :]
         outs.append(g_const * (w[..., None] * d).sum(2))
     return torch.cat(outs) if outs else torch.zeros_like(q)
 
@@ -198,7 +206,10 @@ def near_accelerations(q, pos, mass, near, src_block: int, g_const, softening):
     (block j is rows j * src_block .. j * src_block + src_block - 1). What
     ``jax.vmap(pallas_partial_accelerations)`` computes on the gathered
     candidates, with B1's exact differences and 1e-18 floor; one launch for
-    all groups, reading candidates by id."""
+    all groups, reading candidates by id. The kernel runs B1's tile body on
+    four targets a thread, so each group gets B1's sums on its gathered
+    candidates in one chunk, bit for bit. An id outside [0, n_blocks)
+    reads as a block of zero-mass sources."""
     if build.on_cpu(q, pos, mass, near):
         return near_accelerations_torch(q, pos, mass, near, src_block, g_const, softening)
     groups, rows = q.shape[0], q.shape[1]

@@ -29,7 +29,8 @@ Two near-pass implementations, named as the port names them elsewhere:
   :func:`multipole_acc` (far field, replaces the Pallas
   ``_multipole_kernel``), B10 :func:`grouped_multipole_acc` (per-group block
   lists: the bh2/bh3 refinement, the near-set subtraction and bh3's
-  sub-block multipoles; replaces ``_grouped_multipole_kernel``), both in
+  sub-block multipoles; replaces ``_grouped_multipole_kernel``; its block
+  shape follows the group size, :func:`grouped_plan`), both in
   ``nbody_tpu_torch/csrc/treeforce.cu``, and B1's near-list form
   :func:`nbody_tpu_torch.ops.pairwise.near_accelerations` (exact
   differences, B1's 1e-18 floor). ``i_chunk`` does not apply. For CPU
@@ -62,6 +63,12 @@ _D2_FLOOR = 1e-10
 NEAR_IMPLS = ("dense", "kernel", "auto")
 # (receiver, block) pairs per step of the multipole twins
 _TWIN_PAIRS = 1 << 22
+# B10's launch shape, MP_THREADS and MP_RPT of csrc/treeforce.cu (a CPU test
+# holds them equal): threads a block, receivers a thread
+_MP_THREADS, _MP_RPT = 256, 4
+# B10's lanes a receiver group, widest block first: 256 receivers a block,
+# or 128 for the 128-receiver groups of bh3's near pass
+_MP_LANES = (4, 8)
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -74,7 +81,7 @@ def _lib() -> ctypes.CDLL:
         lib.multipole_far.argtypes = [ptr, ptr, i32, i32, f32, f32, ptr, ptr]
         lib.multipole_far.restype = i32
         lib.multipole_grouped.argtypes = [
-            ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, ptr, ptr]
+            ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, ptr, ptr]
         lib.multipole_grouped.restype = i32
         _LIB = lib
     return _LIB
@@ -404,6 +411,16 @@ def multipole_acc(q, table, g_const, eps2):
 multipole_acc.launches = 0
 
 
+def _listed_rows(table, ids):
+    """``table[ids]`` with an id outside [0, K) read as a zero row, as the
+    kernels read it."""
+    k = table.shape[0]
+    if k == 0:
+        return table.new_zeros((*ids.shape, table.shape[1]))
+    valid = (ids >= 0) & (ids < k)
+    return table[ids.clamp(0, k - 1).long()] * valid[..., None]
+
+
 def grouped_multipole_acc_torch(q, table, ids, g_const, eps2):
     """Plain-torch version of B10 (see :func:`grouped_multipole_acc`), in
     chunks of groups and rows."""
@@ -413,17 +430,31 @@ def grouped_multipole_acc_torch(q, table, ids, g_const, eps2):
     step = max(1, _TWIN_PAIRS // max(rows * s, 1))
     outs = []
     for g0 in range(0, groups, step):
-        blk = table[ids[g0:g0 + step].long()]  # (gc, S, 10)
+        blk = _listed_rows(table, ids[g0:g0 + step])  # (gc, S, 10)
         outs.append(torch.cat([_pull(q[g0:g0 + step, r0:r0 + rows], blk, g_const, eps2)
                                for r0 in range(0, p, rows)], dim=1))
     return torch.cat(outs) if outs else torch.zeros_like(q)
 
 
+def grouped_plan(groups: int, p: int) -> dict:
+    """B10's launch for ``groups`` groups of ``p`` receivers: ``lanes`` lanes
+    a receiver group (the first of ``_MP_LANES`` whose block, ``_MP_THREADS
+    // lanes * _MP_RPT`` receivers of one group, is no larger than ``p``;
+    else the narrowest), ``tiles`` blocks a group and ``blocks`` in all.
+    Block ``b`` holds receivers ``(b % tiles) * receivers ..`` of group ``b
+    // tiles`` (``multipole_grouped_kernel`` in csrc/treeforce.cu)."""
+    lanes = next((n for n in _MP_LANES if _MP_THREADS // n * _MP_RPT <= p), _MP_LANES[-1])
+    recv = _MP_THREADS // lanes * _MP_RPT
+    tiles = -(-p // recv)
+    return {"lanes": lanes, "receivers": recv, "tiles": tiles, "blocks": groups * tiles}
+
+
 def grouped_multipole_acc(q, table, ids, g_const, eps2):
     """B10: per group g, the pull (G, P, 3) of the table rows ``ids[g, :]``
     (G, S) int32 on that group's receivers ``q[g]`` (G, P, 3); one launch
-    for all groups. The kernel gathers the rows by id: no (G, S, 10) copy
-    (the JAX entry ``pallas_grouped_multipole_acc`` takes one)."""
+    for all groups (:func:`grouped_plan`). The kernel gathers the rows by
+    id: no (G, S, 10) copy (the JAX entry ``pallas_grouped_multipole_acc``
+    takes one). An id outside [0, K) reads as a zero row."""
     if build.on_cpu(q, table, ids):
         return grouped_multipole_acc_torch(q, table, ids, g_const, eps2)
     groups, p = q.shape[0], q.shape[1]
@@ -437,7 +468,7 @@ def grouped_multipole_acc(q, table, ids, g_const, eps2):
     with torch.cuda.device(q.device):
         rc = _lib().multipole_grouped(
             q.data_ptr(), table.data_ptr(), ids.data_ptr(), groups, p, s, k,
-            float(g_const), float(eps2), acc.data_ptr(),
+            grouped_plan(groups, p)["lanes"], float(g_const), float(eps2), acc.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.raise_on(rc, "multipole_grouped launch")
     grouped_multipole_acc.launches += 1

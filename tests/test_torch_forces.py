@@ -184,6 +184,55 @@ def test_b1_split_rule_uses_the_kernels_launch_shape():
     assert tpw._B1_MIN_CHUNK % consts["TILE"] == 0
 
 
+def _kernel_consts(name):
+    src = (Path(tpw.__file__).parents[1] / "csrc" / name).read_text()
+    consts = {}
+    for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
+        consts[key] = eval(expr.replace("/", "//"), {}, dict(consts))
+    return consts
+
+
+def _near_walk(n_ids, src_block, tile, seg_ids):
+    """A replica of near_force_kernel's candidate walk: per tile, the global
+    candidate index of its first slot and the (list position, row) that
+    each thread stages there (-1 for none), from the kernel's counters."""
+    tid = np.arange(tile)
+    k0, r0 = tid // src_block, tid % src_block  # the one divide
+    dk, dr = tile // src_block, tile % src_block
+    tiles = []
+    for seg in range(0, n_ids, seg_ids):
+        nk = min(seg_ids, n_ids - seg)
+        k, r = k0.copy(), r0.copy()
+        for base in range(0, nk * src_block, tile):
+            live = k < nk
+            tiles.append((seg * src_block + base, np.where(live, seg + k, -1),
+                          np.where(live, r, -1)))
+            k, r = k + dk, r + dr
+            carry = r >= src_block
+            k, r = k + carry, r - carry * src_block
+    return tiles
+
+
+@pytest.mark.parametrize("n_ids,src_block", [(32, 256), (48, 32), (3, 17), (5, 300), (1, 1),
+                                             (0, 7), (1500, 1), (2100, 3), (1030, 256)])
+def test_near_list_walk_reads_each_candidate_once_in_order(n_ids, src_block):
+    """B1's near list stages candidate c = k * src_block + r of a group at
+    slot c % TILE of tile c // TILE, for any src_block and for id lists
+    longer than one staged segment (NEAR_IDS): the tiles of B1 on the
+    gathered candidates, so the same sums in the same order."""
+    consts = _kernel_consts("pairwise.cu")
+    tile, seg_ids = consts["TILE"], consts["NEAR_IDS"]
+    assert consts["FORCE_ROWS"] == tpw._B1_ROWS and seg_ids % tile == 0
+    walk = _near_walk(n_ids, src_block, tile, seg_ids)
+    ncand = n_ids * src_block
+    assert [start for start, _, _ in walk] == list(range(0, ncand, tile))
+    for start, k, r in walk:
+        c = start + np.arange(tile)
+        want_k = np.where(c < ncand, c // src_block, -1)
+        want_r = np.where(c < ncand, c % src_block, -1)
+        assert (k == want_k).all() and (r == want_r).all()
+
+
 def test_cpu_calls_use_the_twin_and_count_no_launch():
     pos, _, mass = _random_system(20, seed=4)
     tp, tm = _t(pos, mass)

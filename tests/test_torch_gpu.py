@@ -584,35 +584,112 @@ def test_b9_matches_plain(cuda, p, k, eps):
     assert torch.equal(got, tf.multipole_acc(q, table, G, eps * eps))
 
 
+# the redesigns' edges: groups not a multiple of a block's receivers (129,
+# 200) or under one thread's (3); an empty list; lists that end inside a
+# staged tile (257, 300, and 297 candidates); groups smaller than a block of
+# B10; src_block 17 and 300, neither dividing nor divided by the tile.
+# These cases also carry ids of -1 and past the table, read as zero rows.
+_B10_EDGES = [(3, 129, 300, 77), (2, 200, 0, 10), (5, 3, 257, 40), (4, 64, 33, 50),
+              (3, 100, 80, 90)]
+_NEAR_EDGES = [(3, 129, 5, 17), (2, 200, 4, 300), (4, 3, 7, 32), (2, 128, 0, 32),
+               (3, 130, 9, 33)]
+
+
+def _out_of_range(ids, n):
+    """``ids`` with its first column -1 and its last column n + 2: ids the
+    kernels read as zero rows."""
+    ids = ids.clone()
+    if ids.shape[1]:
+        ids[:, 0] = -1
+        ids[:, -1] = n + 2
+    return ids
+
+
+def _close_or_zero(got, want, bar, empty):
+    if empty:  # nothing listed: exact zeros
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        _close_rel(got, want, bar)
+
+
 @pytest.mark.parametrize("groups,p,s,k", [(1, 5, 3, 4), (13, 130, 40, 77), (7, 2048, 768, 900),
-                                          (31, 128, 80, 400)])
+                                          (31, 128, 80, 400), *_B10_EDGES])
 def test_b10_matches_plain(cuda, groups, p, s, k):
     table = _table(k, 3, groups + k, cuda)
     gen = torch.Generator().manual_seed(groups)
     q = torch.randn(groups, p, 3, generator=gen).to(cuda)
     ids = torch.randint(0, k, (groups, s), generator=gen, dtype=torch.int32).to(cuda)
+    if (groups, p, s, k) in _B10_EDGES:
+        ids = _out_of_range(ids, k)
     before = tf.grouped_multipole_acc.launches
     got = tf.grouped_multipole_acc(q, table, ids, G, EPS ** 2)
     assert tf.grouped_multipole_acc.launches == before + 1
-    _close_rel(got, tf.grouped_multipole_acc_torch(q, table, ids, G, EPS ** 2), 1e-5)
+    _close_or_zero(got, tf.grouped_multipole_acc_torch(q, table, ids, G, EPS ** 2), 1e-5, s == 0)
     assert torch.equal(got, tf.grouped_multipole_acc(q, table, ids, G, EPS ** 2))
 
 
-@pytest.mark.parametrize("groups,rows,lst,bs", [(7, 256, 32, 256), (13, 128, 48, 32),
-                                                (5, 37, 3, 17), (1, 1, 1, 1)])
-def test_b1_near_list_matches_plain(cuda, groups, rows, lst, bs):
+def _near_inputs(groups, rows, lst, bs, dev):
     gen = torch.Generator().manual_seed(rows + bs)
     n_blocks = lst + 5
-    pos, _, mass = _spiral(n_blocks * bs, bs, cuda)
-    q = pos[torch.randint(0, n_blocks * bs, (groups * rows,), generator=gen).to(cuda)]
+    pos, _, mass = _spiral(n_blocks * bs, bs, dev)
+    q = pos[torch.randint(0, n_blocks * bs, (groups * rows,), generator=gen).to(dev)]
     q = q.reshape(groups, rows, 3).contiguous()  # receivers on sources: self pairs
     near = torch.stack([torch.randperm(n_blocks, generator=gen)[:lst] for _ in range(groups)])
-    near = near.to(torch.int32).to(cuda)
+    near = near.to(torch.int32).to(dev)
+    if (groups, rows, lst, bs) in _NEAR_EDGES:
+        near = _out_of_range(near, n_blocks)
+    return q, pos, mass, near
+
+
+@pytest.mark.parametrize("groups,rows,lst,bs", [(7, 256, 32, 256), (13, 128, 48, 32),
+                                                (5, 37, 3, 17), (1, 1, 1, 1), *_NEAR_EDGES])
+def test_b1_near_list_matches_plain(cuda, groups, rows, lst, bs):
+    q, pos, mass, near = _near_inputs(groups, rows, lst, bs, cuda)
     before = pw.near_accelerations.launches
     got = pw.near_accelerations(q, pos, mass, near, bs, G, EPS)
     assert pw.near_accelerations.launches == before + 1
-    _close_rel(got, pw.near_accelerations_torch(q, pos, mass, near, bs, G, EPS), 2e-5)
+    _close_or_zero(got, pw.near_accelerations_torch(q, pos, mass, near, bs, G, EPS), 2e-5,
+                   lst == 0)
     assert torch.equal(got, pw.near_accelerations(q, pos, mass, near, bs, G, EPS))
+
+
+@pytest.mark.parametrize("groups,rows,lst,bs", [(3, 200, 10, 300), (2, 129, 40, 17),
+                                                (2, 128, 48, 32)])
+def test_b1_near_list_is_b1_on_the_gathered_candidates(cuda, groups, rows, lst, bs):
+    """The near list runs B1's tile body in B1's order: each group equals
+    B1 (one chunk) on its gathered candidates bit for bit, with out-of-range
+    ids as zero-mass sources at the origin."""
+    q, pos, mass, near = _near_inputs(groups, rows, lst, bs, cuda)
+    n_blocks = pos.shape[0] // bs
+    near = _out_of_range(near, n_blocks)
+    got = pw.near_accelerations(q, pos, mass, near, bs, G, EPS)
+    src = torch.cat([torch.cat([pos, mass[:, None]], 1).reshape(-1, bs, 4),
+                     torch.zeros(1, bs, 4, device=cuda)])  # the zero block last
+    ids = torch.where((near >= 0) & (near < n_blocks), near, n_blocks).long()
+    for g in range(groups):
+        cand = src[ids[g]].reshape(-1, 4)
+        assert pw.force_chunk(rows, cand.shape[0], 132) >= cand.shape[0]  # one chunk
+        one = pw.partial_accelerations(q[g], cand[:, :3].contiguous(),
+                                       cand[:, 3].contiguous(), G, EPS)
+        assert torch.equal(got[g], one), g
+
+
+def test_bh_exact_when_all_blocks_near_on_card(cuda):
+    """Every block near (M >= nb): the far field cancels against the near
+    subtraction (B9 against B10, one multipole_pull) and the kernel path is
+    B1's exact sum within B1's bar, and within the bar of its CPU twin
+    (tests/test_torch_treeforce.py::test_bh_exact_when_all_blocks_near, a
+    disk as there)."""
+    from nbody_tpu_torch.ics import generate_disk
+
+    pos, _, mass = generate_disk(torch.Generator().manual_seed(2), 5000, device=cuda)
+    wrappers = (tf.multipole_acc, tf.grouped_multipole_acc, pw.near_accelerations)
+    before = [w.launches for w in wrappers]
+    got = tf.bh_accelerations(pos, mass, G, EPS, n_near=64, block=128)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
+    exact = pw.accelerations(pos, mass, G, EPS)
+    _close_rel(got, exact, 2e-5)
+    torch.testing.assert_close(got, exact, rtol=2e-3, atol=1e-12)
 
 
 def test_treecode_wrappers_reject(cuda):

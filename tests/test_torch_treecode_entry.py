@@ -18,7 +18,7 @@ from nbody_tpu.data.schema import CSV_FIELDS as J_CSV_FIELDS
 from nbody_tpu_torch.cli import datagen
 from nbody_tpu_torch.experiments import (bh_rollout, contconv_experiment, crossover,
                                          gnn_experiment, knn_recall, large_scale, run,
-                                         train_large, treeforce_bench)
+                                         train_large, tree_kernel_bench, treeforce_bench)
 
 N = 2000
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "gnn_reference.json")
@@ -120,4 +120,14 @@ def test_entry_points_need_cuda_or_device_cpu(entry, argv, monkeypatch, tmp_path
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="--device cpu"):
         entry(argv)
+    assert not list(tmp_path.iterdir())
+
+
+def test_tree_kernel_bench_needs_cuda(monkeypatch, tmp_path):
+    """The treecode kernels' bench times CUDA kernels only: with no CUDA
+    device it exits, naming that, before it builds or writes anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tree_kernel_bench.main(["--out", "never.json"])
     assert not list(tmp_path.iterdir())

@@ -20,6 +20,8 @@ is named:
 
 import json
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -140,6 +142,88 @@ def test_b1_near_list_plain_matches_jax(groups, rows, lst, bs):
         qb, cb, mb, G, EPS, interpret=True))(q, cand[..., :3], cand[..., 3])
     assert _rel(got, np.asarray(want)[:, :rows]) <= 2e-5
     assert torch.equal(tpw.near_accelerations(*args), got)
+
+
+def test_b10_plain_matches_jax_at_bh3_sub_block_shape():
+    """The bh3 near pass's sub-block multipoles: groups of 128 receivers
+    against 80 sub-block rows each (1M recipe: 7,813 x 128 x 80)."""
+    rng = np.random.default_rng(80)
+    com, msum, quad = _random_table(rng, 300, 4)
+    qg = rng.normal(size=(3, 128, 3)).astype(np.float32)
+    ids = rng.integers(0, 300, size=(3, 80)).astype(np.int32)
+    table = _table(com, msum, quad)
+    got = ttf.grouped_multipole_acc(torch.from_numpy(qg), table, torch.from_numpy(ids),
+                                    G, EPS ** 2)
+    blkTg = np.transpose(table.numpy()[ids], (0, 2, 1))
+    want = jtf.pallas_grouped_multipole_acc(qg, blkTg, G, EPS ** 2, interpret=True)
+    assert _rel(got, want) <= 1e-5
+
+
+def test_plain_versions_read_out_of_range_ids_as_zero_rows():
+    """As the kernels do: a B10 id outside [0, K) pulls as a zero row, a
+    near-list id outside [0, n_blocks) as a block of zero-mass sources."""
+    rng = np.random.default_rng(5)
+    com, msum, quad = _random_table(rng, 20, 0)
+    table = _table(com, msum, quad)
+    padded = torch.cat([table, torch.zeros(1, 10)])
+    qg = torch.from_numpy(rng.normal(size=(2, 9, 3)).astype(np.float32))
+    ids = torch.tensor([[0, -1, 5, 20, 19], [7, 1000, -7, 3, 3]], dtype=torch.int32)
+    as_pad = torch.where((ids >= 0) & (ids < 20), ids, 20)
+    torch.testing.assert_close(ttf.grouped_multipole_acc_torch(qg, table, ids, G, EPS ** 2),
+                               ttf.grouped_multipole_acc_torch(qg, padded, as_pad, G, EPS ** 2),
+                               rtol=0, atol=0)
+    bs = 4
+    pos = torch.from_numpy(rng.normal(size=(5 * bs, 3)).astype(np.float32))
+    mass = torch.from_numpy(rng.uniform(1e-4, 1e-3, size=5 * bs).astype(np.float32))
+    near = torch.tensor([[0, -1, 4, 5], [9, 2, 2, -3]], dtype=torch.int32)
+    got = tpw.near_accelerations_torch(qg, pos, mass, near, bs, G, EPS)
+    pad_pos, pad_mass = torch.cat([pos, torch.zeros(bs, 3)]), torch.cat([mass, torch.zeros(bs)])
+    as_pad = torch.where((near >= 0) & (near < 5), near, 5)
+    want = tpw.near_accelerations_torch(qg, pad_pos, pad_mass, as_pad, bs, G, EPS)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.equal(got, tpw.near_accelerations_torch(
+        qg, pos, mass, near.clamp(0, 4), bs, G, EPS))
+
+
+@pytest.mark.parametrize("p", [1, 5, 31, 32, 33, 63, 64, 100, 128, 129, 200, 255, 256, 257,
+                               2048, 2049])
+def test_b10_plan_covers_each_receiver_once(p):
+    """B10's launch plan: every receiver of every group in exactly one
+    block; the widest block no larger than the group (so a 128-receiver
+    group of bh3's near pass is one block, a 2048-receiver refinement group
+    eight); lanes a receiver group dividing a warp."""
+    groups = 3
+    plan = ttf.grouped_plan(groups, p)
+    lanes, recv, tiles = plan["lanes"], plan["receivers"], plan["tiles"]
+    assert 32 % lanes == 0 and recv == ttf._MP_THREADS // lanes * ttf._MP_RPT
+    assert plan["blocks"] == groups * tiles and (tiles - 1) * recv < p <= tiles * recv
+    assert recv <= p or lanes == ttf._MP_LANES[-1]
+    wider = [n for n in ttf._MP_LANES if n < lanes]
+    assert all(ttf._MP_THREADS // n * ttf._MP_RPT > p for n in wider)
+    seen = np.zeros((groups, p), dtype=int)
+    for b in range(plan["blocks"]):
+        for slot in range(recv):  # thread slot // _MP_RPT, receiver slot % _MP_RPT
+            r = (b % tiles) * recv + slot
+            if r < p:
+                seen[b // tiles, r] += 1
+    assert (seen == 1).all()
+    if p == 2048:
+        assert (lanes, tiles) == (4, 8)
+    if p == 128:
+        assert (lanes, tiles) == (8, 1)
+
+
+def test_b10_plan_uses_the_kernels_launch_shape():
+    """``_MP_THREADS`` and ``_MP_RPT`` are MP_THREADS and MP_RPT of
+    csrc/treeforce.cu, read from the source, and the lanes the plan picks
+    are the ones the launch dispatches."""
+    src = (Path(ttf.__file__).parents[1] / "csrc" / "treeforce.cu").read_text()
+    consts = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
+        consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    assert (consts["MP_THREADS"], consts["MP_RPT"]) == (ttf._MP_THREADS, ttf._MP_RPT)
+    cases = re.findall(r"case (\d+): return \(int\)launch_grouped<(\d+)>", src)
+    assert [(int(a), int(b)) for a, b in cases] == [(n, n) for n in ttf._MP_LANES]
 
 
 # ------------------------------------------------------------- partitions
