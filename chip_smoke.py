@@ -133,6 +133,7 @@ B3_TOL = 2e-4      # max |dout| / max |out| (tests/test_models.py:161); B4-B6 to
 MODEL_RTOL, MODEL_ATOL = 2e-4, 1e-5  # atol times max |a|; gradients too
 # (tests/test_models.py:387-391,429-430)
 GRAD_N = 2_000     # bodies of the full-width model's card checks
+EDGE_ROWS = 8_192  # rows of B8's edge-row checks
 # configs/contconv_adopted.json's widths with the Morton radius search
 FULL_CONTCONV = dict(in_channels=4, out_channels=3, filter_resolution=(6, 4), radius=1.0,
                      agg="mean", self_loops=True, continuous_conv_layers=2,
@@ -606,6 +607,7 @@ def phase5_large_n_kernels():
     import torch
 
     from nbody_tpu_torch.experiments.knn_recall import recall_of
+    from nbody_tpu_torch.experiments.select_bench import merge_edge_rows
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.models import ContinuousConvModel
     from nbody_tpu_torch.models.contconv import conv_geometry
@@ -703,6 +705,20 @@ def phase5_large_n_kernels():
             if n == LARGE_N:
                 out[f"b3_d{d}"] = (err, ms, ms_t, bnd)
         del fj, geom
+
+    # B8 on rows beyond B7's output: duplicates, rows with fewer than k
+    # unique ids, sentinels in the column-mask column, infinite distances
+    for w, k in ((128, 32), (32, 8)):
+        mc, md = (t.to(dev) for t in merge_edge_rows(EDGE_ROWS, w, k, seed=w, inf=True))
+        got, want = sp.morton_merge(mc, md, k), sp.morton_merge_torch(mc, md, k)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32),
+                                                            want[1].view(torch.int32))
+        short = float((want[1] >= sp._BAD_D2).any(1).float().mean())
+        log(f"[5] B8 merge on {EDGE_ROWS} edge rows, w={w} k={k} ({short:.3f} of them run "
+            f"out of unique ids or pick a sentinel): ids and bits equal to its plain version "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"B8 disagrees with its plain version on edge rows, w={w}")
 
     # the full-width model: kernels on the card, twins on the CPU, same weights
     model = ContinuousConvModel(**FULL_CONTCONV,
@@ -937,7 +953,44 @@ def phase7_model_gradients() -> int:
     log(f"[7] full-width model gradients, kernels vs dense, {len(want) - len(noise)} "
         f"parameters and the positions: worst max|d|/max|ref| {worst:.3e} (rtol "
         f"{MODEL_RTOL}, atol {MODEL_ATOL} x max|ref|)")
+    _b6_at_its_launch_shape(model, pos, idx, valid)
     return launches[3]
+
+
+def _b6_at_its_launch_shape(model, pos, idx, valid) -> None:
+    """B6's device ms and bound at the shape where its counted launches run:
+    each layer of the full-width model on the GRAD_N-body graph, with
+    random features and cotangents of the layer's widths and its filters."""
+    import torch
+
+    from nbody_tpu_torch.models.contconv import conv_geometry
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.utils.timing import cuda_time_ms, kernel_events
+
+    gen = torch.Generator().manual_seed(8)
+    for conv in model.convs:
+        d, ci, co = conv.filter_resolution, conv.in_channels, conv.out_channels
+        geom = conv_geometry(pos[None], idx, valid, conv.radius)
+        grid = ((geom["mapped"][0] + 1.0) * ((d - 1) / 2.0)).contiguous()
+        gx, gy, gz = (grid[..., a].contiguous() for a in range(3))
+        win = geom["window"][0].contiguous()
+        m, k = win.shape
+        args = (gx, gy, gz, win, torch.randn(m, k, ci, generator=gen).to(pos.device),
+                conv.filters.detach().reshape(d ** 3, ci, co).contiguous(),
+                torch.randn(m, co, generator=gen).to(pos.device))
+
+        def b6():
+            return cck.contconv_bwd_geom(*args, d=d)
+
+        ms = cuda_time_ms(b6, reps=10, warmup=1)
+        events = [t for n, t in kernel_events(b6, reps=10) if "bwd_geom" in n]
+        bnd = collect_bound(gx, gy, gz, win, ci, co, d, 4.0 * m * co + 16.0 * m * k)
+        log(f"[7] B6 at its launch shape (N={GRAD_N}, k={k}, ci={ci}, co={co}, D={d}): "
+            f"{sum(events) / max(len(events), 1):.4f} device ms ({len(events)} events of 10 "
+            f"calls), {ms:.4f} ms by events around the wrapper; bound {bnd[0]:.4f} ms "
+            f"({bnd[1]})")
+        if not events:
+            raise AssertionError("B6 left no kernel event at its launch shape")
 
 
 def _sets(*overrides):
@@ -1171,6 +1224,13 @@ def phase9_kernels():
                    lambda: tf.multipole_acc(spos, table, G, eps2),
                    lambda: tf.multipole_acc_torch(spos, table, G, eps2), MULT_TOL,
                    bound(45.0 * p * k, 24.0 * p + 40.0 * k), B9_NAME)
+    all_rows = torch.arange(k, dtype=torch.int32, device=spos.device)[None]
+    same = torch.equal(tf.multipole_acc(spos, table, G, eps2),
+                       tf.grouped_multipole_acc(spos[None], table, all_rows, G, eps2)[0])
+    log(f"[9a] B9 N={TREE_N} equals B10 given one group and all {k} rows, bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("B9 differs from B10's receiver loop over every row")
     _against_plain(f"B10 near subtraction N={TREE_N}: {nb} groups x {b} x {m} blocks",
                    lambda: tf.grouped_multipole_acc(q_blocks, table, part.near, G, eps2),
                    lambda: tf.grouped_multipole_acc_torch(q_blocks, table, part.near, G, eps2),

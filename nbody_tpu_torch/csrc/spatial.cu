@@ -214,67 +214,199 @@ int launch_select(const float4* cand, int n_copies, int nb, int b, int k, int in
 //
 // Replaces nbody_tpu/ops/spatial.py::_merge_kernel (Pallas, TPU).
 //
-// Per row: the k nearest unique ids among the w = C*k candidates of all curve
-// copies. Each of k passes takes the smallest packed key, sums the ids of the
-// slots holding that key (exactly one slot while candidates remain), and sets
-// every slot holding the picked id to FLT_MAX, which removes its duplicates
-// from the other copies. Once a row is exhausted every slot holds FLT_MAX, the
-// "id" is the wrapped int32 sum of all slots and the value is FLT_MAX: the
-// caller's d2 < 1e29 test marks it invalid. The twin computes the same sum.
+// Per row: the k nearest unique ids among its w <= 128 candidate slots (the
+// C*k of all curve copies). Each of k passes takes the smallest packed key,
+// sums the ids of the slots holding that key, sets every slot holding the
+// picked id to INF_BITS (removing its duplicates from the other copies),
+// and emits the id and the key with its column bits cleared. This is the
+// plain version's definition (ops/spatial.py::morton_merge_torch) on any
+// input without a NaN distance, not only on B7's output: rows with
+// duplicates, unsorted copies, fewer than k unique ids.
 //
-// What bounds it: k passes of a 5-step warp shuffle reduction (min, then sum)
-// over at most 4 slots a lane: latency of the shuffles, not memory (each row
-// is read once, 8 bytes a slot).
+// The id without a sum: a key that is not INF_BITS is held by one slot,
+// whose column is its low bits (keys are unique per column, and a masked
+// slot holds INF_BITS), so the id is read from the row's staged ids at that
+// column. Only a minimum of INF_BITS can be held by several slots: every
+// slot of a row that ran out of unique ids, and a sentinel (d2 >= FLT_MAX)
+// in column colmask, whose packed key is INF_BITS when w is a power of two.
+// A pass in which any row of the warp meets such a minimum sums the ids of
+// every hit over the row's lanes instead (the same id where one slot hits).
 //
-// Design: one warp per row, lane l holding slots l, l+32, l+64, l+96 (w <=
-// 128) in registers; unused slots hold a key above every packed key and never
-// match. Eight rows per 256-thread block.
-constexpr int MERGE_WARPS = 8;
-constexpr int MERGE_SLOTS = 4;
+// What bounds it: bytes at 1M rows, k = 8 (w = 32): each row read once, 8
+// bytes a slot, and written once, 8 bytes an output. At w = 128, k = 32 the
+// integer pipe: a pass is ~117 instructions a warp (the built SASS), two a
+// slot for the mask (compare, select) and a half for the min (Hopper's
+// three-input VIMNMX3), nearly all integer, which an SM issues at 64 lanes
+// a clock, half its issue rate. A predicated move in place of the select
+// builds to the same select.
+//
+// Design: MERGE_LANES (4) lanes a row, so a warp serves 8 rows and the min
+// is a 2-step shuffle butterfly (8 lanes a row measured 9-39% slower at the
+// path shapes). Lane l holds slots l, l + LANES, ... (S of them, S =
+// ceil(w / LANES) rounded up to even: a template argument) as keys and ids
+// in registers. A block of MERGE_ROWS rows first copies its rows,
+// contiguous in device memory, to shared memory with consecutive threads
+// (keys packed on the way; 16 bytes a load where w is a multiple of 4 and
+// the rows are aligned), at a row stride = LANES mod 32 (and a multiple of
+// 4), so the lanes' loads of their slots meet no bank conflict. Empty slots
+// (columns at or past w) hold the key EMPTY, above every packed key, and
+// the id 0: a mask can make one INF_BITS only once the row holds a live
+// INF_BITS slot, so it is never the minimum alone, and in a sum it adds 0.
+// Lane 0 of a row puts each pass's id and value in shared memory; the block
+// writes them out after MERGE_OUT passes or the last, by consecutive
+// threads (for k <= MERGE_OUT the block's outputs are one contiguous
+// range).
+constexpr int MERGE_LANES = 4;   // lanes a row
+constexpr int MERGE_ROWS = 32;   // rows a block
+constexpr int MERGE_OUT = 32;    // passes a block buffers before it writes them
+constexpr int MERGE_MAX_W = 128;
 
-__global__ void __launch_bounds__(MERGE_WARPS * 32)
+__host__ __device__ constexpr int merge_stride(int w, int lanes) {
+  return (w + 31) / 32 * 32 + lanes;
+}
+// staged keys and ids and the buffered outputs fit the default 48 KiB
+static_assert(4 * MERGE_ROWS * (2 * merge_stride(MERGE_MAX_W, MERGE_LANES) + 2 * MERGE_OUT) <=
+                  48 * 1024,
+              "B8's shared memory");
+
+template <int S>
+__global__ void __launch_bounds__(MERGE_ROWS * MERGE_LANES)
 merge_kernel(const int* __restrict__ cand, const float* __restrict__ d2,
              int n, int w, int k, uint32_t colmask, int* __restrict__ ids,
              float* __restrict__ vals) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
-  if (row >= n) return;  // whole warps leave together
-  uint32_t key[MERGE_SLOTS];
-  int cc[MERGE_SLOTS];
+  constexpr int LANES = MERGE_LANES;
+  static_assert(32 % LANES == 0 && S % 2 == 0, "a row's lanes share a warp");
+  extern __shared__ uint32_t smem[];
+  constexpr int NT = MERGE_ROWS * LANES;
+  const int stride = merge_stride(w, LANES);
+  const int kc = min(k, MERGE_OUT);
+  uint32_t* skey = smem;                                      // [MERGE_ROWS][stride]
+  int* sid = reinterpret_cast<int*>(skey + MERGE_ROWS * stride);  // [MERGE_ROWS][stride]
+  int* oid = sid + MERGE_ROWS * stride;                      // [MERGE_ROWS][kc]
+  float* oval = reinterpret_cast<float*>(oid + MERGE_ROWS * kc);
+  const int row0 = blockIdx.x * MERGE_ROWS;
+  const int nr = min(MERGE_ROWS, n - row0);
+  // the block's rows, one contiguous range, to shared memory: 16 bytes a
+  // load where rows are whole quads and the range is aligned, else 4
+  const int* crows = cand + (size_t)row0 * w;
+  const float* drows = d2 + (size_t)row0 * w;
+  if ((w & 3) == 0 && ((reinterpret_cast<uintptr_t>(crows) |
+                        reinterpret_cast<uintptr_t>(drows)) & 15) == 0) {
+    const int wq = w / 4, dr = NT / wq, dc = NT % wq;
+    int r = threadIdx.x / wq, q = threadIdx.x % wq;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < nr * wq; e += NT) {
+      const int4 i4 = reinterpret_cast<const int4*>(crows)[e];
+      const float4 f4 = reinterpret_cast<const float4*>(drows)[e];
+      const uint32_t c = 4 * q;
+      *reinterpret_cast<uint4*>(skey + r * stride + c) = make_uint4(
+          pack_key(fmaxf(f4.x, 0.f), c, colmask), pack_key(fmaxf(f4.y, 0.f), c + 1, colmask),
+          pack_key(fmaxf(f4.z, 0.f), c + 2, colmask), pack_key(fmaxf(f4.w, 0.f), c + 3, colmask));
+      *reinterpret_cast<int4*>(sid + r * stride + c) = i4;
+      q += dc;
+      r += dr;
+      if (q >= wq) {
+        q -= wq;
+        ++r;
+      }
+    }
+  } else {
+    const int dr = NT / w, dc = NT % w;
+    int r = threadIdx.x / w, c = threadIdx.x % w;
+    for (int e = threadIdx.x; e < nr * w; e += NT) {
+      skey[r * stride + c] = pack_key(fmaxf(drows[e], 0.f), (uint32_t)c, colmask);
+      sid[r * stride + c] = crows[e];
+      c += dc;
+      r += dr;
+      if (c >= w) {
+        c -= w;
+        ++r;
+      }
+    }
+  }
+  __syncthreads();
+  const int g = threadIdx.x / LANES;  // the block's row this lane serves
+  const int lane = threadIdx.x % LANES;
+  const bool live = g < nr;
+  uint32_t key[S];
+  int cc[S];
 #pragma unroll
-  for (int s = 0; s < MERGE_SLOTS; ++s) {
-    const int col = lane + 32 * s;
-    if (col < w) {
-      const size_t at = (size_t)row * w + col;
-      cc[s] = cand[at];
-      key[s] = pack_key(fmaxf(d2[at], 0.f), (uint32_t)col, colmask);
+  for (int s = 0; s < S; ++s) {
+    const int col = s * LANES + lane;
+    const bool in = live && col < w;
+    key[s] = in ? skey[g * stride + col] : EMPTY;
+    cc[s] = in ? sid[g * stride + col] : 0;
+  }
+  for (int j0 = 0; j0 < k; j0 += kc) {
+    const int nj = min(kc, k - j0);
+    for (int jj = 0; jj < nj; ++jj) {
+      uint32_t t[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) t[s] = key[s];
+#pragma unroll
+      for (int h = 1; h < S; h *= 2)
+#pragma unroll
+        for (int s = 0; s + h < S; s += 2 * h) t[s] = min(t[s], t[s + h]);
+      uint32_t mn = t[0];
+#pragma unroll
+      for (int off = LANES / 2; off > 0; off >>= 1)
+        mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      int pid;
+      if (__any_sync(0xffffffffu, mn == INF_BITS)) {  // rare: sum every hit
+        uint32_t sum = 0;
+#pragma unroll
+        for (int s = 0; s < S; ++s) sum += key[s] == mn ? (uint32_t)cc[s] : 0u;
+#pragma unroll
+        for (int off = LANES / 2; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        pid = (int)sum;
+      } else {
+        pid = live ? sid[g * stride + (mn & colmask)] : 0;
+      }
+      if (live) {  // a row past the block's end keeps its empty slots
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (cc[s] == pid) key[s] = INF_BITS;
+      }
+      if (lane == 0) {
+        oid[g * kc + jj] = pid;
+        oval[g * kc + jj] = __uint_as_float(mn & ~colmask);
+      }
+    }
+    __syncthreads();
+    if (nj == k) {  // all passes at once: the block's outputs are contiguous
+      int* gi = ids + (size_t)row0 * k;
+      float* gv = vals + (size_t)row0 * k;
+      for (int e = threadIdx.x; e < nr * k; e += NT) {
+        gi[e] = oid[e];
+        gv[e] = oval[e];
+      }
     } else {
-      cc[s] = 0;
-      key[s] = EMPTY;
+      for (int e = threadIdx.x; e < nr * nj; e += NT) {
+        const int r = e / nj, jj = e - r * nj;
+        const size_t o = (size_t)(row0 + r) * k + j0 + jj;
+        ids[o] = oid[r * kc + jj];
+        vals[o] = oval[r * kc + jj];
+      }
     }
+    __syncthreads();
   }
-  for (int j = 0; j < k; ++j) {
-    uint32_t mn = key[0];
-#pragma unroll
-    for (int s = 1; s < MERGE_SLOTS; ++s) mn = min(mn, key[s]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-    uint32_t pid = 0;
-#pragma unroll
-    for (int s = 0; s < MERGE_SLOTS; ++s)
-      pid += key[s] == mn ? (uint32_t)cc[s] : 0u;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      pid += __shfl_xor_sync(0xffffffffu, pid, off);
-#pragma unroll
-    for (int s = 0; s < MERGE_SLOTS; ++s)
-      if (key[s] != EMPTY && cc[s] == (int)pid) key[s] = INF_BITS;
-    if (lane == 0) {
-      ids[(size_t)row * k + j] = (int)pid;
-      vals[(size_t)row * k + j] = __uint_as_float(mn & ~colmask);
-    }
+}
+
+// S, the slots a lane, the fewest even count with w <= MERGE_LANES * S
+template <int S = 2>
+int launch_merge(const int* cand, const float* d2, int n, int w, int k, uint32_t colmask,
+                 int* ids, float* vals, cudaStream_t st) {
+  if constexpr (MERGE_LANES * S < MERGE_MAX_W) {
+    if (w > MERGE_LANES * S)
+      return launch_merge<S + 2>(cand, d2, n, w, k, colmask, ids, vals, st);
   }
+  const int kc = k < MERGE_OUT ? k : MERGE_OUT;
+  const size_t smem =
+      sizeof(uint32_t) * MERGE_ROWS * (2 * merge_stride(w, MERGE_LANES) + 2 * kc);
+  merge_kernel<S><<<(n + MERGE_ROWS - 1) / MERGE_ROWS, MERGE_ROWS * MERGE_LANES, smem, st>>>(
+      cand, d2, n, w, k, colmask, ids, vals);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -302,14 +434,10 @@ int morton_select(const void* cand, int n_copies, int nb, int b, int k,
 // ids, vals (n, k) = the k nearest unique ids of each row of cand/d2 (n, w).
 int morton_merge(const int* cand, const float* d2, int n, int w, int k,
                  int nbits, int* ids, float* vals, void* stream) {
-  if (n <= 0 || w <= 0 || w > 32 * MERGE_SLOTS || k <= 0 || nbits <= 0 ||
+  if (n <= 0 || w <= 0 || w > MERGE_MAX_W || k <= 0 || nbits <= 0 || nbits > 11 ||
       (1 << nbits) < w)
     return (int)cudaErrorInvalidValue;
-  const uint32_t colmask = (1u << nbits) - 1u;
-  const dim3 grid((n + MERGE_WARPS - 1) / MERGE_WARPS);
-  merge_kernel<<<grid, MERGE_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      cand, d2, n, w, k, colmask, ids, vals);
-  return (int)cudaGetLastError();
+  return launch_merge(cand, d2, n, w, k, (1u << nbits) - 1u, ids, vals, (cudaStream_t)stream);
 }
 
 }  // extern "C"

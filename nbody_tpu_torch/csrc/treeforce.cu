@@ -40,19 +40,27 @@
 // The rsqrt is rsqrt.approx.ftz: s^2 >= 1e-10 is never subnormal, so it
 // gives rsqrtf's value without rsqrtf's subnormal guard.
 //
-// B9: MP_ROWS receivers a thread block, MP_SPLIT lanes a receiver, lane s
-// taking every MP_SPLIT-th staged row; the lanes' sums meet in a fixed
-// butterfly of warp shuffles.
-//
-// B10: MP_RPT receivers a thread, `LANES` lanes a receiver group (4, or 8
-// for groups under 256 receivers: a template argument the wrapper picks from
-// the group size, ops/treeforce.py::grouped_plan), so one shared-memory read
-// of a row feeds MP_RPT pulls and a block holds MP_THREADS / LANES * MP_RPT
-// receivers of one group: 256 for the 2048-receiver groups of the bh3
-// refinement (8 blocks stage a group's list, where 32 did), 128 for the
-// 128-receiver groups of bh3's near pass (one block a group). A block stages a tile's ids first (one a thread, an
-// id outside [0, k) as -1), then copies the rows. No (G, S, 10) gathered copy
-// exists in device memory.
+// Both kernels run one receiver loop (pull_receivers): MP_RPT receivers a
+// thread, `LANES` lanes a receiver group (4, or 8 for groups under 256
+// receivers: a template argument the wrapper picks from the group size,
+// ops/treeforce.py::grouped_plan), so one shared-memory read of a row feeds
+// MP_RPT pulls and a block holds MP_THREADS / LANES * MP_RPT receivers of
+// one group; the lanes' sums meet in a fixed butterfly of warp shuffles.
+// B9 is that loop over one group, all P receivers, and the table's rows in
+// order (no id list): 256 receivers a block, 391 blocks at 100k bodies (one
+// wave at 3 blocks an SM), 3,907 at 1M. At 4 lanes lane s takes staged rows
+// s, s + 4, ... of each tile, the order of the one-receiver-a-thread B9
+// this replaces, and B9 equals B10 given the list 0 .. K - 1 bit for bit.
+// Its bits differ from that kernel's in about one element in 10^3 (by under
+// 1e-10 of max |a|): the compiler fused the radial coefficient's monopole
+// product into an FMA in the four-receiver loop and its quadrupole product
+// in the one-receiver loop; B9 and B10 now fuse it alike. B10: 256
+// receivers a block for the 2048-receiver groups of the bh3 refinement (8
+// blocks stage a group's list), 128 for the 128-receiver groups of bh3's
+// near pass (one block a group). A B10 block stages a tile's ids first (one
+// a thread, an id outside [0, k) as -1), then copies the rows. No (G, S, 10)
+// gathered copy exists in device memory. B9 keeps a kernel of its own name
+// (multipole_far_kernel), which a profiler tells from B10's.
 //
 // Each receiver's sum has one order on every run: deterministic, no atomics.
 // Full FP32, no tensor cores: the near pass subtracts exactly this expansion
@@ -67,15 +75,12 @@ constexpr int ROW = 10;      // floats of a table row
 constexpr int ROW_PAD = 12;  // floats of a staged row: three float4s
 constexpr int MP_THREADS = 256;
 constexpr int MP_TILE = 256;  // rows staged a pass (12 KiB)
-constexpr int MP_SPLIT = 4;   // B9: lanes a receiver
-constexpr int MP_ROWS = MP_THREADS / MP_SPLIT;  // B9: receivers a block
-constexpr int MP_RPT = 4;     // B10: receivers a thread
-// B10: blocks an SM its registers must allow (at most 85 a thread). With a
+constexpr int MP_RPT = 4;     // receivers a thread
+// blocks an SM the registers must allow (at most 85 a thread). With a
 // launch bound of threads alone the compiler held 64 registers and spilled.
 constexpr int MP_BLOCKS_PER_SM = 3;
 constexpr float MP_D2_FLOOR = 1e-10f;
 
-static_assert(32 % MP_SPLIT == 0, "a receiver's lanes must share a warp");
 static_assert(MP_TILE <= MP_THREADS, "one thread stages one id");
 
 __device__ __forceinline__ float rsqrt_ftz(float x) {
@@ -135,55 +140,22 @@ __device__ __forceinline__ void lane_sum(float& ax, float& ay, float& az) {
   }
 }
 
-// ------------------------------------------------------------ B9: far field
-__global__ void __launch_bounds__(MP_THREADS)
-multipole_far_kernel(const float* __restrict__ q, const float* __restrict__ table,
-                     int p, int k, float g, float eps2, float* __restrict__ acc) {
-  __shared__ float4 tile[MP_TILE * 3];
-  const int lane = threadIdx.x % MP_SPLIT;
-  const int row = blockIdx.x * MP_ROWS + threadIdx.x / MP_SPLIT;
-  const bool live = row < p;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    qx = q[3 * (size_t)row];
-    qy = q[3 * (size_t)row + 1];
-    qz = q[3 * (size_t)row + 2];
-  }
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int base = 0; base < k; base += MP_TILE) {
-    const int n = min(MP_TILE, k - base);
-    stage_rows(tile, table, n, nullptr, base);
-    __syncthreads();
-    for (int t = lane; t < n; t += MP_SPLIT)
-      multipole_pull(tile[3 * t], tile[3 * t + 1], tile[3 * t + 2], qx, qy, qz, eps2, ax,
-                     ay, az);
-    __syncthreads();
-  }
-  lane_sum<MP_SPLIT>(ax, ay, az);
-  if (lane == 0 && live) {
-    acc[3 * (size_t)row] = g * ax;
-    acc[3 * (size_t)row + 1] = g * ay;
-    acc[3 * (size_t)row + 2] = g * az;
-  }
-}
-
-// ---------------------------------------------------------- B10: per group
-// Receivers of group gr are rows gr * p .. gr * p + p - 1 of q; they see the
-// s rows ids[gr, :] of the table. An id outside [0, k) reads as a zero row.
-// Block x holds receivers (x % tiles) * RECV .. of group x / tiles.
-template <int LANES>
-__global__ void __launch_bounds__(MP_THREADS, MP_BLOCKS_PER_SM)
-multipole_grouped_kernel(const float* __restrict__ q, const float* __restrict__ table,
-                         const int* __restrict__ ids, int p, int s, int k,
-                         int tiles, float g, float eps2, float* __restrict__ acc) {
+// ------------------------------------------------- B9 and B10: one body
+// The receiver loop of both kernels, for MP_THREADS / LANES * MP_RPT
+// receivers of one group, r0 the first of this thread's MP_RPT: rows of q
+// from qg, forces to out, both holding the group's p receivers. LISTED
+// (B10): the group sees the s table rows list[0 .. s), an id outside [0, k)
+// read as a zero row; else (B9): table rows 0 .. s. Lane `lane` of a
+// receiver group takes staged rows lane, lane + LANES, ... of each tile, so
+// a receiver's sum has one order for a given LANES, with or without a list.
+template <int LANES, bool LISTED>
+__device__ __forceinline__ void pull_receivers(const float* __restrict__ qg,
+                                               const float* __restrict__ table,
+                                               const int* __restrict__ list, int p, int s,
+                                               int k, int r0, int lane, float g, float eps2,
+                                               float* __restrict__ out) {
   static_assert(32 % LANES == 0, "a receiver group's lanes must share a warp");
-  constexpr int RECV = MP_THREADS / LANES * MP_RPT;
   __shared__ float4 tile[MP_TILE * 3];
-  __shared__ int sid[MP_TILE];
-  const int grp = blockIdx.x / tiles;
-  const int lane = threadIdx.x % LANES;
-  const int r0 = (blockIdx.x % tiles) * RECV + (threadIdx.x / LANES) * MP_RPT;
-  const float* qg = q + (size_t)grp * p * 3;
   float qx[MP_RPT], qy[MP_RPT], qz[MP_RPT], ax[MP_RPT], ay[MP_RPT], az[MP_RPT];
 #pragma unroll
   for (int u = 0; u < MP_RPT; ++u) {
@@ -193,15 +165,19 @@ multipole_grouped_kernel(const float* __restrict__ q, const float* __restrict__ 
     qz[u] = r < p ? qg[3 * (size_t)r + 2] : 0.f;
     ax[u] = ay[u] = az[u] = 0.f;
   }
-  const int* list = ids + (size_t)grp * s;
   for (int base = 0; base < s; base += MP_TILE) {
     const int n = min(MP_TILE, s - base);
-    if ((int)threadIdx.x < n) {
-      const int j = list[base + threadIdx.x];
-      sid[threadIdx.x] = j >= 0 && j < k ? j : -1;
+    if constexpr (LISTED) {
+      __shared__ int sid[MP_TILE];
+      if ((int)threadIdx.x < n) {
+        const int j = list[base + threadIdx.x];
+        sid[threadIdx.x] = j >= 0 && j < k ? j : -1;
+      }
+      __syncthreads();
+      stage_rows(tile, table, n, sid, 0);
+    } else {
+      stage_rows(tile, table, n, nullptr, base);
     }
-    __syncthreads();
-    stage_rows(tile, table, n, sid, 0);
     __syncthreads();
 #pragma unroll 1
     for (int t = lane; t < n; t += LANES) {
@@ -212,7 +188,6 @@ multipole_grouped_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
     __syncthreads();
   }
-  float* out = acc + (size_t)grp * p * 3;
 #pragma unroll
   for (int u = 0; u < MP_RPT; ++u) {
     lane_sum<LANES>(ax[u], ay[u], az[u]);
@@ -225,30 +200,73 @@ multipole_grouped_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
+// B9: the pull of table rows 0 .. k on the p receivers of q; block x holds
+// receivers x * RECV ... A kernel of its own name, so that a profiler tells
+// B9's time from B10's.
 template <int LANES>
-cudaError_t launch_grouped(const float* q, const float* table, const int* ids, int groups,
-                           int p, int s, int k, float g, float eps2, float* acc,
+__global__ void __launch_bounds__(MP_THREADS, MP_BLOCKS_PER_SM)
+multipole_far_kernel(const float* __restrict__ q, const float* __restrict__ table, int p,
+                     int k, float g, float eps2, float* __restrict__ acc) {
+  constexpr int RECV = MP_THREADS / LANES * MP_RPT;
+  const int r0 = blockIdx.x * RECV + (threadIdx.x / LANES) * MP_RPT;
+  pull_receivers<LANES, false>(q, table, nullptr, p, k, k, r0, threadIdx.x % LANES, g, eps2,
+                               acc);
+}
+
+// B10: receivers of group gr are rows gr * p .. gr * p + p - 1 of q; they
+// see the s rows ids[gr, :] of the table. Block x holds receivers (x %
+// tiles) * RECV .. of group x / tiles.
+template <int LANES>
+__global__ void __launch_bounds__(MP_THREADS, MP_BLOCKS_PER_SM)
+multipole_grouped_kernel(const float* __restrict__ q, const float* __restrict__ table,
+                         const int* __restrict__ ids, int p, int s, int k,
+                         int tiles, float g, float eps2, float* __restrict__ acc) {
+  constexpr int RECV = MP_THREADS / LANES * MP_RPT;
+  const int grp = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x % tiles) * RECV + (threadIdx.x / LANES) * MP_RPT;
+  pull_receivers<LANES, true>(q + (size_t)grp * p * 3, table, ids + (size_t)grp * s, p, s, k,
+                              r0, threadIdx.x % LANES, g, eps2, acc + (size_t)grp * p * 3);
+}
+
+// B10 over `groups` groups where `listed`, else B9 (one group of all k rows).
+template <int LANES>
+cudaError_t launch_grouped(bool listed, const float* q, const float* table, const int* ids,
+                           int groups, int p, int s, int k, float g, float eps2, float* acc,
                            cudaStream_t stream) {
   constexpr int RECV = MP_THREADS / LANES * MP_RPT;
   const int tiles = (p + RECV - 1) / RECV;
   if ((long long)groups * tiles > INT_MAX) return cudaErrorInvalidValue;
-  multipole_grouped_kernel<LANES><<<groups * tiles, MP_THREADS, 0, stream>>>(
-      q, table, ids, p, s, k, tiles, g, eps2, acc);
+  if (!listed)
+    multipole_far_kernel<LANES><<<tiles, MP_THREADS, 0, stream>>>(q, table, p, k, g, eps2, acc);
+  else
+    multipole_grouped_kernel<LANES><<<groups * tiles, MP_THREADS, 0, stream>>>(
+        q, table, ids, p, s, k, tiles, g, eps2, acc);
   return cudaGetLastError();
+}
+
+int launch_lanes(int lanes, bool listed, const float* q, const float* table, const int* ids,
+                 int groups, int p, int s, int k, float g, float eps2, float* acc,
+                 cudaStream_t st) {
+  switch (lanes) {
+    case 4: return (int)launch_grouped<4>(listed, q, table, ids, groups, p, s, k, g, eps2, acc,
+                                          st);
+    case 8: return (int)launch_grouped<8>(listed, q, table, ids, groups, p, s, k, g, eps2, acc,
+                                          st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// acc (p, 3) = pull of all k rows of table (k, 10) on q (p, 3).
-int multipole_far(const float* q, const float* table, int p, int k, float g,
+// acc (p, 3) = pull of all k rows of table (k, 10) on q (p, 3), `lanes` (4
+// or 8) lanes a receiver group.
+int multipole_far(const float* q, const float* table, int p, int k, int lanes, float g,
                   float eps2, float* acc, void* stream) {
   if (p <= 0 || k < 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((p + MP_ROWS - 1) / MP_ROWS);
-  multipole_far_kernel<<<grid, MP_THREADS, 0, (cudaStream_t)stream>>>(
-      q, table, p, k, g, eps2, acc);
-  return (int)cudaGetLastError();
+  return launch_lanes(lanes, false, q, table, nullptr, 1, p, k, k, g, eps2, acc,
+                      (cudaStream_t)stream);
 }
 
 // acc (groups, p, 3) = pull of table rows ids[gr, :] (s of them) on the p
@@ -258,12 +276,8 @@ int multipole_grouped(const float* q, const float* table, const int* ids,
                       int groups, int p, int s, int k, int lanes, float g, float eps2,
                       float* acc, void* stream) {
   if (groups <= 0 || p <= 0 || s < 0 || k < 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (lanes) {
-    case 4: return (int)launch_grouped<4>(q, table, ids, groups, p, s, k, g, eps2, acc, st);
-    case 8: return (int)launch_grouped<8>(q, table, ids, groups, p, s, k, g, eps2, acc, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_lanes(lanes, true, q, table, ids, groups, p, s, k, g, eps2, acc,
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

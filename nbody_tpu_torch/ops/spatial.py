@@ -294,7 +294,10 @@ def morton_merge_torch(cand: torch.Tensor, d2: torch.Tensor, k: int):
 def morton_merge(cand: torch.Tensor, d2: torch.Tensor, k: int):
     """B8: per row, the ``k`` nearest unique ids among the C * k candidates
     of all curve copies (k passes; each masks every slot holding the picked
-    id, which removes its duplicates).
+    id, which removes its duplicates). The kernel equals
+    :func:`morton_merge_torch` bit for bit on any input whose distances
+    hold no NaN: duplicates, unsorted copies and rows with fewer than k
+    unique ids included (``merge_kernel`` in csrc/spatial.cu).
 
     :param cand: (N, W) int32 candidate ids, W <= 128.
     :param d2: (N, W) float32 their squared distances.

@@ -63,10 +63,10 @@ _D2_FLOOR = 1e-10
 NEAR_IMPLS = ("dense", "kernel", "auto")
 # (receiver, block) pairs per step of the multipole twins
 _TWIN_PAIRS = 1 << 22
-# B10's launch shape, MP_THREADS and MP_RPT of csrc/treeforce.cu (a CPU test
+# B9's and B10's launch shape, MP_THREADS and MP_RPT of csrc/treeforce.cu (a CPU test
 # holds them equal): threads a block, receivers a thread
 _MP_THREADS, _MP_RPT = 256, 4
-# B10's lanes a receiver group, widest block first: 256 receivers a block,
+# B9's and B10's lanes a receiver group, widest block first: 256 receivers a block,
 # or 128 for the 128-receiver groups of bh3's near pass
 _MP_LANES = (4, 8)
 
@@ -78,7 +78,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load_library("treeforce")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.multipole_far.argtypes = [ptr, ptr, i32, i32, f32, f32, ptr, ptr]
+        lib.multipole_far.argtypes = [ptr, ptr, i32, i32, i32, f32, f32, ptr, ptr]
         lib.multipole_far.restype = i32
         lib.multipole_grouped.argtypes = [
             ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, ptr, ptr]
@@ -390,7 +390,10 @@ def multipole_acc_torch(q, table, g_const, eps2):
 def multipole_acc(q, table, g_const, eps2):
     """B9: the monopole + quadrupole pull (P, 3) of every row of the block
     table ``table`` (K, 10) (see :func:`_blk_rows`) on receivers ``q``
-    (P, 3); the port of ``pallas_multipole_acc``. Zero rows are inert."""
+    (P, 3); the port of ``pallas_multipole_acc``. Zero rows are inert. The
+    kernel is B10's receiver loop over one group of all P receivers and
+    every row in order (:func:`grouped_plan` ``(1, P)``), so it equals
+    :func:`grouped_multipole_acc` given the list ``0 .. K - 1``."""
     if build.on_cpu(q, table):
         return multipole_acc_torch(q, table, g_const, eps2)
     p, k = q.shape[0], table.shape[0]
@@ -400,9 +403,9 @@ def multipole_acc(q, table, g_const, eps2):
     if p == 0:
         return acc
     with torch.cuda.device(q.device):
-        rc = _lib().multipole_far(q.data_ptr(), table.data_ptr(), p, k, float(g_const),
-                                  float(eps2), acc.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
+        rc = _lib().multipole_far(q.data_ptr(), table.data_ptr(), p, k,
+                                  grouped_plan(1, p)["lanes"], float(g_const), float(eps2),
+                                  acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.raise_on(rc, "multipole_far launch")
     multipole_acc.launches += 1
     return acc
@@ -437,12 +440,13 @@ def grouped_multipole_acc_torch(q, table, ids, g_const, eps2):
 
 
 def grouped_plan(groups: int, p: int) -> dict:
-    """B10's launch for ``groups`` groups of ``p`` receivers: ``lanes`` lanes
+    """B10's launch for ``groups`` groups of ``p`` receivers (and B9's, as
+    one group of all receivers): ``lanes`` lanes
     a receiver group (the first of ``_MP_LANES`` whose block, ``_MP_THREADS
     // lanes * _MP_RPT`` receivers of one group, is no larger than ``p``;
     else the narrowest), ``tiles`` blocks a group and ``blocks`` in all.
     Block ``b`` holds receivers ``(b % tiles) * receivers ..`` of group ``b
-    // tiles`` (``multipole_grouped_kernel`` in csrc/treeforce.cu)."""
+    // tiles`` (``pull_receivers`` in csrc/treeforce.cu)."""
     lanes = next((n for n in _MP_LANES if _MP_THREADS // n * _MP_RPT <= p), _MP_LANES[-1])
     recv = _MP_THREADS // lanes * _MP_RPT
     tiles = -(-p // recv)

@@ -243,6 +243,28 @@ def test_morton_select_with_sentinels_in_windows(cuda, k, include_self, block):
     assert torch.equal(d2.view(torch.int32), d2_t.view(torch.int32))
 
 
+@pytest.mark.parametrize("n,w,k", [(4099, 32, 8), (4099, 40, 10), (4099, 128, 32),
+                                   (1001, 100, 7), (1001, 5, 3), (1001, 96, 40)])
+def test_b8_matches_plain_on_edge_rows(cuda, n, w, k):
+    """B8 equals its plain version bit for bit on rows beyond B7's output
+    (``select_bench.merge_edge_rows``: duplicates, unsorted copies, rows
+    with fewer than k unique ids, sentinels in the column-mask column at w =
+    32 and 128, infinite distances), at w not a multiple of 32, k past
+    w and past the kernel's 32 buffered passes, and a last block of part
+    rows; one launch a call, the same bits twice."""
+    from nbody_tpu_torch.experiments.select_bench import merge_edge_rows
+
+    cand, d2 = (t.to(cuda) for t in merge_edge_rows(n, w, k, seed=n + w, inf=True))
+    before = sp.morton_merge.launches
+    got = sp.morton_merge(cand, d2, k)
+    assert sp.morton_merge.launches == before + 1
+    want = sp.morton_merge_torch(cand, d2, k)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    again = sp.morton_merge(cand, d2, k)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
 def _collect_inputs(m, k, ci, co, d, seed, dev):
     g = torch.Generator().manual_seed(seed)
     gx, gy, gz = (torch.rand(m, k, generator=g) * (d + 1) - 1.0 for _ in range(3))
@@ -527,6 +549,9 @@ def test_morton_wrappers_reject(cuda):
     with pytest.raises(ValueError):
         sp.morton_merge(torch.zeros(10, 40, dtype=torch.int32, device=cuda),
                         torch.zeros(10, 40), 10)
+    with pytest.raises(ValueError):  # wider than the kernel's 128 slots a row
+        sp.morton_merge(torch.zeros(10, 129, dtype=torch.int32, device=cuda),
+                        torch.zeros(10, 129, device=cuda), 10)
     with pytest.raises(ValueError):
         sp.morton_select(torch.zeros(4, 1024, 4, device=cuda)[:, ::2], 10, 128, False)
 
@@ -582,6 +607,19 @@ def test_b9_matches_plain(cuda, p, k, eps):
     assert tf.multipole_acc.launches == before + 1
     _close_rel(got, tf.multipole_acc_torch(q, table, G, eps * eps), 1e-5)
     assert torch.equal(got, tf.multipole_acc(q, table, G, eps * eps))
+
+
+@pytest.mark.parametrize("p,k", [(1, 1), (100, 7), (255, 300), (1000, 391), (4097, 300),
+                                 (100_000, 391)])
+def test_b9_is_b10_on_every_row(cuda, p, k):
+    """B9 runs B10's receiver loop without an id list: it equals B10 given
+    one group and the list 0 .. K - 1, bit for bit (4 lanes, and 8 under
+    256 receivers)."""
+    table = _table(k, min(2, k - 1), p + k, cuda)
+    q = torch.randn(p, 3, generator=torch.Generator().manual_seed(p)).to(cuda)
+    ids = torch.arange(k, dtype=torch.int32, device=cuda)[None]
+    got = tf.multipole_acc(q, table, G, EPS ** 2)
+    assert torch.equal(got, tf.grouped_multipole_acc(q[None], table, ids, G, EPS ** 2)[0])
 
 
 # the redesigns' edges: groups not a multiple of a block's receivers (129,

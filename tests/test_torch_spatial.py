@@ -15,6 +15,8 @@ Bars and their sources:
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 from nbody_tpu.ics import generate_spiral as jgenerate_spiral
 from nbody_tpu.ops import radius as jradius
 from nbody_tpu.ops import spatial as jsp
+from nbody_tpu_torch.experiments.select_bench import merge_edge_rows
 from nbody_tpu_torch.ics import generate_disk, generate_spiral
 from nbody_tpu_torch.models import GraphModel
 from nbody_tpu_torch.ops import knn as tknn
@@ -296,3 +299,132 @@ def test_b7_walk_gives_the_plain_selection(n, block, k, include_self):
     want = tsp.morton_select_torch(cand, k, block, include_self)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+# --------------------------------------------------------------- B8's merge
+
+@pytest.mark.parametrize("w,k", [(32, 8), (40, 10), (128, 32), (100, 7)])
+def test_merge_plain_matches_jax_on_edge_rows(w, k):
+    """``morton_merge_torch`` equals the JAX ``_merge_kernel`` (interpret
+    mode) id for id and bit for bit on rows beyond B7's output: duplicates
+    across and within copies, unsorted copies, rows with fewer than k
+    unique ids (their wrapped id sums) and sentinels in the last column,
+    the column mask at w = 32 and 128."""
+    cand, d2 = merge_edge_rows(48, w, k, seed=w + k)
+    got = tsp.morton_merge_torch(cand, d2, k)
+    want = jsp._merge_pallas(jnp.asarray(cand.numpy()), jnp.asarray(d2.numpy()), k,
+                             interpret=True, chunk=48)
+    assert torch.equal(got[0], torch.from_numpy(np.array(want[0])))
+    assert torch.equal(got[1].view(torch.int32),
+                       torch.from_numpy(np.array(want[1])).view(torch.int32))
+    assert (got[1] >= tsp._BAD_D2).any(1).float().mean() > 0.3  # exhausted rows met
+
+
+def _merge_shape():
+    """B8's launch constants, read from csrc/spatial.cu: lanes a row, rows
+    a block, passes buffered before a write, the widest row; and its
+    ``merge_stride``."""
+    src = (Path(tsp.__file__).parents[1] / "csrc" / "spatial.cu").read_text()
+    consts = {a: int(b) for a, b in re.findall(r"^constexpr int MERGE_(\w+) = (\d+);", src,
+                                              re.M)}
+    assert "return (w + 31) / 32 * 32 + lanes;" in src
+    assert "merge_stride(w, MERGE_LANES)" in src
+    return consts
+
+
+def _merge_plan(w, k):
+    """B8's launch for rows of ``w`` slots and ``k`` passes: each of the
+    row's lanes holds ``slots`` slots (w / lanes rounded up to even, the
+    kernel's template argument), the staged row ``stride`` (merge_stride)
+    and the block's shared ``bytes``."""
+    c = _merge_shape()
+    lanes = c["LANES"]
+    stride = -(-w // 32) * 32 + lanes
+    return {"lanes": lanes, "slots": max(2, -(-w // (2 * lanes)) * 2), "stride": stride,
+            "rows": c["ROWS"], "bytes": 4 * c["ROWS"] * (2 * stride + 2 * min(k, c["OUT"]))}
+
+
+def _merge_walk_plain(cand, d2, k):
+    """A plain version of B8's walk (``merge_kernel`` in csrc/spatial.cu),
+    every row at once: each row's slots padded to ``lanes * slots`` with
+    empty ones (key above every packed key, id 0); per pass the row
+    minimum, then, in a warp (``32 // lanes`` rows of a block) where any
+    row's minimum is INF_BITS, the wrapped sum of the ids of every hit, and
+    elsewhere the id staged at the minimum's column bits; then every slot
+    holding the id, empty ones included, set to INF_BITS. Asserts the
+    premise of the read: where the minimum is not INF_BITS one live slot
+    holds it, the one at its column. Returns (ids, d2) as
+    ``morton_merge_torch`` does."""
+    n, w = cand.shape
+    plan = _merge_plan(w, k)
+    lanes, width = plan["lanes"], plan["lanes"] * plan["slots"]
+    nbits = tsp._nbits(w)
+    cm = (1 << nbits) - 1
+    cols = torch.arange(w, dtype=torch.int32)[None, :]
+    keys = torch.full((n, width), _EMPTY, dtype=torch.long)
+    keys[:, :w] = tsp._pack(torch.clamp(d2, min=0.0), cols, nbits).long()
+    ids = torch.zeros((n, width), dtype=torch.long)
+    ids[:, :w] = cand.long()
+    warp = torch.arange(n) // (32 // lanes)
+    out_i, out_v = [], []
+    for _ in range(k):
+        mn = keys.amin(1)
+        at_inf = mn == tsp._INF_BITS
+        summed = torch.zeros(int(warp[-1]) + 1, dtype=torch.bool).index_put_(
+            (warp,), at_inf, accumulate=True)[warp]
+        total = torch.where(keys == mn[:, None], ids, 0).sum(1)
+        total = (total + 2 ** 31) % 2 ** 32 - 2 ** 31  # int32 wrap
+        col = torch.where(at_inf, 0, mn & cm)
+        looked = ids.gather(1, col[:, None])[:, 0]
+        single = ~at_inf
+        assert (col[single] < w).all() and (keys == mn[:, None]).sum(1)[single].eq(1).all()
+        assert torch.equal(total[single], looked[single])
+        pid = torch.where(summed, total, looked)
+        keys = torch.where(ids == pid[:, None], tsp._INF_BITS, keys)
+        out_i.append(pid)
+        out_v.append(mn & ~cm)
+    vals = torch.stack(out_v, 1).to(torch.int32).view(torch.float32)
+    return torch.stack(out_i, 1).to(torch.int32), vals
+
+
+@pytest.mark.parametrize("n,w,k", [(200, 32, 8), (200, 40, 10), (200, 128, 32),
+                                   (211, 100, 7), (90, 5, 3), (120, 96, 40)])
+def test_b8_walk_gives_the_plain_merge(n, w, k):
+    """The premise of B8's design on the CPU: its walk (the id read at the
+    minimum's column, a sum only where a minimum is INF_BITS, empty pad
+    slots) gives ``morton_merge_torch``'s ids and bits on the edge rows,
+    infinite distances included, at w a power of two and not, and k past
+    w."""
+    cand, d2 = merge_edge_rows(n, w, k, seed=n + w, inf=True)
+    got = _merge_walk_plain(cand, d2, k)
+    want = tsp.morton_merge_torch(cand, d2, k)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("w", [1, 2, 5, 8, 31, 32, 33, 40, 64, 100, 127, 128])
+def test_b8_plan_covers_each_slot_once(w):
+    """B8's launch shape: every column of a row in exactly one (lane, slot),
+    slots even and no more than the row needs, a staged row stride of at
+    least w, a multiple of 4 (16-byte stores), at which a warp's lanes read
+    distinct banks, and shared memory within the default 48 KiB for any
+    k."""
+    for k in (1, 8, 32, 40):
+        plan = _merge_plan(w, k)
+        lanes, slots, stride = plan["lanes"], plan["slots"], plan["stride"]
+        assert slots % 2 == 0 and lanes * slots >= w and (slots == 2 or lanes * (slots - 2) < w)
+        assert sorted(s * lanes + ln for s in range(slots) for ln in range(lanes)
+                      if s * lanes + ln < w) == list(range(w))
+        assert stride >= w and stride % 32 == lanes and stride % 4 == 0
+        for s in range(slots):
+            banks = {(g * stride + s * lanes + ln) % 32
+                     for g in range(32 // lanes) for ln in range(lanes)}
+            assert len(banks) == 32
+        assert plan["bytes"] <= 48 * 1024
+
+
+def test_b8_takes_the_widths_its_wrapper_takes():
+    """The kernel's widest row is the wrapper's bound (128), and its slots
+    a lane reach it: 4 lanes of up to 32."""
+    c = _merge_shape()
+    assert c["MAX_W"] == 128 and _merge_plan(128, 32)["slots"] * c["LANES"] == 128

@@ -226,6 +226,28 @@ def test_b10_plan_uses_the_kernels_launch_shape():
     assert [(int(a), int(b)) for a, b in cases] == [(n, n) for n in ttf._MP_LANES]
 
 
+@pytest.mark.parametrize("p,blocks", [(100_000, 391), (1_000_000, 3907)])
+def test_b9_plan_at_the_path_shapes(p, blocks):
+    """B9 launches as one group of all receivers: at the bh 100k and bh3 1M
+    receiver counts 4 lanes, 256 receivers a block, 391 and 3,907 blocks."""
+    assert ttf.grouped_plan(1, p) == {"lanes": 4, "receivers": 256, "tiles": blocks,
+                                      "blocks": blocks}
+
+
+def test_b9_and_b10_share_one_receiver_loop():
+    """csrc/treeforce.cu has one receiver loop, one call of the pull:
+    B9's kernel (its own name, which profilers tell from B10's) runs it
+    without an id list, B10's with one, and B9's entry launches through the
+    lanes B10's dispatch takes."""
+    src = (Path(ttf.__file__).parents[1] / "csrc" / "treeforce.cu").read_text()
+    assert len(re.findall(r"\bmultipole_pull\(b0", src)) == 1
+    assert "pull_receivers<LANES, false>" in src and "pull_receivers<LANES, true>" in src
+    assert re.findall(r"^(\w+_kernel)\(", src, re.M) == ["multipole_far_kernel",
+                                                          "multipole_grouped_kernel"]
+    far = src[src.index("int multipole_far("):src.index("int multipole_grouped(")]
+    assert "launch_lanes(lanes, false, q, table, nullptr, 1, p, k, k" in far
+
+
 # ------------------------------------------------------------- partitions
 
 def _pad_blocks(n, rows):
