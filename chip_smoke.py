@@ -36,12 +36,20 @@ the port's main path once:
    model and the GNN with Morton kNN;
 7. the backward of B3 against its plain version: B4 (filters), B5
    (features) and B6 (geometry) on the 100,000-body Morton radius graph's
-   geometry at D = 6 and 4 and on one small odd shape, each twice for the
-   same bits, with B5's two passes (dG over the pair plan, the unbin pass)
-   against their plain versions on the small shape; then the full-width
+   geometry at D = 6 and 4, on one small odd shape and on a geometry with
+   coordinates on the integer grid, clamped ones and zero windows, each
+   twice for the same bits, with B5's two passes (dG over the pair plan,
+   the unbin pass) against their plain versions on the small shape and
+   B6's geometry pass against its pair-wise plain version (over the plan
+   that keeps the edges of zero window) on each, and B6's device ms at
+   100,000 bodies; (c) one shape past each cap that the card kernels once
+   had: the collect and its backward at k = 72, co = 136 and D = 11, a
+   position gradient at ci = 136, ``knn_morton(impl="kernel")`` at k = 40
+   on 20,000 bodies and B8 on 160-wide edge rows; then the full-width
    ContinuousConvModel's parameter and
    position gradients with the kernels against the dense layer (the
-   position gradient is the path that launches B6);
+   position gradient is the path that launches B6), and B6's device ms and
+   bound at that shape;
 8. the training path: ``nbody_tpu_torch.experiments.run`` with
    ``configs/contconv_adopted.json`` as it stands, at full width, whose
    layers take the kernels on the card with no override (datagen cut to 2
@@ -198,13 +206,14 @@ def bound(flops: float, nbytes: float):
 
 
 def collect_bound(gx, gy, gz, win, ci: int, co: int, d: int, other_bytes: float):
-    """(bound_ms, bound_by) of B3-B6 on one geometry: per touched (receiver,
+    """(bound_ms, bound_by) of B3-B5 on one geometry: per touched (receiver,
     cell) pair a ci x co product (2 ci co flops), per edge corner a ci-wide
     weighted feature sum (2 ci). The pairs are counted from these inputs:
     corners of nonzero weight on edges of nonzero window. Bytes: the four
     (M, k) geometry inputs, the (M, k, ci) features (or, for B5, their
     cotangent), the (D^3, ci, co) filters (or, for B4, their cotangent) and
-    ``other_bytes`` of the kernel's other operands and outputs."""
+    ``other_bytes`` of the kernel's other operands and outputs. B6's own
+    work is ``contconv_bench.b6_bound_ms``."""
     import torch
 
     from nbody_tpu_torch.ops.interpolate import trilinear_corners
@@ -849,11 +858,53 @@ def _b5_passes_against_plain(args, dout, d: int) -> None:
         raise AssertionError(f"B5's passes disagree with their plain versions: {rels}")
 
 
+def _b6_pass_against_plain(args, dout, d: int, label: str) -> None:
+    """B6's geometry pass against its pair-wise plain version
+    (``pair_geom_torch``) on one plan that keeps the edges of zero window and
+    one dG buffer, twice for the same bits (max |d| / max |plain| within
+    B3_TOL)."""
+    import torch
+
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+
+    gx, gy, gz, win, fj, filters = args
+    ci, co = filters.shape[1], filters.shape[2]
+    plan, items = cck._plan_cuda(gx, gy, gz, win, d, all_edges=True)
+    dg = cck._product_cuda(cck._padded_rows(dout), True, cck._f_transposed(filters), plan,
+                           items, co, ci, d)
+    got = cck._geom_cuda(plan, dg, gx, gy, gz, win, fj, d)
+    same = all(torch.equal(a, b) for a, b in
+               zip(got, cck._geom_cuda(plan, dg, gx, gy, gz, win, fj, d)))
+    want = cck.pair_geom_torch(plan, dg[:, :ci], gx, gy, gz, win, fj, d=d)
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(got, want))
+    dead = win == 0
+    log(f"[7] B6 geometry pass {label}: {plan.cell_r.numel()} pairs with the "
+        f"{int(dead.sum())} edges of zero window kept; max|d|/max|plain| {rel:.3e} (bar "
+        f"{B3_TOL}), same bits twice {same}; dead edges' dwindow nonzero "
+        f"{bool((got[3][dead] != 0).any()) if bool(dead.any()) else 'n/a'}")
+    if not (rel <= B3_TOL and same):
+        raise AssertionError(f"B6's pass disagrees with its plain version ({label}): {rel}, "
+                             f"same bits {same}")
+
+
+def _b6_device_ms(args, dout, d: int, reps: int = 5):
+    """B6's device ms a call: every kernel of the wrapper (plan, dG product,
+    geometry pass) and the geometry pass alone, from the profiler."""
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.utils.timing import kernel_events
+
+    events = kernel_events(lambda: cck.contconv_bwd_geom(*args, dout, d=d), reps=reps)
+    geom = [t for n, t in events if "bwd_geom" in n]
+    return sum(t for _, t in events) / reps, sum(geom) / max(len(geom), 1)
+
+
 def phase7_backward_kernels():
     """B4-B6 against the plain backward; returns the kernels line's numbers
     (100k; B4 and B5 at D = 6 and 4, B6 at D = 6)."""
     import torch
 
+    from nbody_tpu_torch.experiments.contconv_bench import b6_bound_ms
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.models.contconv import conv_geometry
     from nbody_tpu_torch.ops.radius import radius_neighbors
@@ -868,6 +919,18 @@ def phase7_backward_kernels():
     dout = torch.randn(m, co, generator=gen).to(dev)
     _bwd_against_plain(args, dout, d, f"M={m} k={k} ci={ci} co={co} D={d}", time_it=False)
     _b5_passes_against_plain(args, dout, d)
+    _b6_pass_against_plain(args, dout, d, f"M={m} k={k} ci={ci} co={co} D={d}")
+    # zero windows, coordinates clamped and on the integer grid, a dead receiver
+    g3 = [t.clone() for t in g3]
+    for t in g3:
+        on_grid = (torch.rand(m, k, generator=gen) < 0.3).to(dev)
+        t[on_grid] = torch.randint(-1, d + 1, (int(on_grid.sum()),), generator=gen).float().to(dev)
+    win = win.clone()
+    win[m // 2] = 0.0
+    edge_args = (*g3, win, *args[4:])
+    _bwd_against_plain(edge_args, dout, d, "on grid, clamped and zero-window edges",
+                       time_it=False)
+    _b6_pass_against_plain(edge_args, dout, d, "on grid, clamped and zero-window edges")
 
     pos, _, _ = generate_spiral(torch.Generator().manual_seed(LARGE_N + 5), LARGE_N,
                                 device=dev)
@@ -883,11 +946,13 @@ def phase7_backward_kernels():
                 torch.randn(d ** 3, 128, 128, generator=gen).to(dev))
         res = _bwd_against_plain(args, dout, d, f"N={LARGE_N} k=32 ci=co=128 D={d}",
                                  time_it=True)
-        # other operands: dout (M, co); B6 also writes four (M, k) cotangents
-        other = {"b4": 4.0 * LARGE_N * 128, "b5": 4.0 * LARGE_N * 128,
-                 "b6": 4.0 * LARGE_N * 128 + 16.0 * LARGE_N * 32}
-        for key, nums in res.items():
-            bnd = collect_bound(*args[:4], 128, 128, d, other[key])
+        _b6_pass_against_plain(args, dout, d, f"N={LARGE_N} k=32 ci=co=128 D={d}")
+        dev_all, dev_pass = _b6_device_ms(args, dout, d)
+        log(f"[7] B6 N={LARGE_N} D={d}: {dev_all:.4f} device ms a call (plan, dG product, "
+            f"geometry pass), {dev_pass:.4f} of them the geometry pass")
+        for key, nums in res.items():  # other operands: dout (M, co)
+            bnd = (b6_bound_ms(args[:3], args[3], 128, 128, d) if key == "b6" else
+                   collect_bound(*args[:4], 128, 128, d, 4.0 * LARGE_N * 128))
             log(f"[7] {key.upper()} D={d}: bound {bnd[0]:.4f} ms ({bnd[1]})")
             if key in ("b4", "b5"):
                 out[f"{key}_d{d}"] = (*nums, bnd)
@@ -896,6 +961,95 @@ def phase7_backward_kernels():
     del fj, geom
     torch.cuda.empty_cache()
     return out
+
+
+def phase7_caps() -> None:
+    """One shape past each cap that the card kernels once had, kernel
+    against plain version: the ContConv collect and its backward (B3-B6) at
+    k = 72, co = 136 and D = 11; a layer's position gradient at ci = 136
+    (the kernel layer against the dense one); ``knn_morton(impl="kernel")``
+    at k = 40 on 20,000 bodies (B7 in slabs, B8 on 160-wide rows) against
+    its run on the CPU, with recall against exact kNN; B8 on 160-wide edge
+    rows, bit for bit."""
+    import torch
+
+    from nbody_tpu_torch.experiments.knn_recall import recall_of
+    from nbody_tpu_torch.experiments.select_bench import merge_edge_rows
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.models import ContinuousConv
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.ops import spatial as sp
+    from nbody_tpu_torch.ops.knn import knn_neighbors
+    from nbody_tpu_torch.ops.radius import radius_neighbors
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(23)
+    for m, k, ci, co, d in ((300, 72, 16, 16, 3), (300, 8, 16, 136, 3), (300, 8, 8, 8, 11)):
+        g3 = [(torch.rand(m, k, generator=gen) * (d + 0.4) - 0.3).to(dev) for _ in range(3)]
+        win = (torch.rand(m, k, generator=gen) * (torch.rand(m, k, generator=gen) > 0.2)).to(dev)
+        args = (*g3, win, torch.randn(m, k, ci, generator=gen).to(dev),
+                torch.randn(d ** 3, ci, co, generator=gen).to(dev))
+        dout = torch.randn(m, co, generator=gen).to(dev)
+        label = f"M={m} k={k} ci={ci} co={co} D={d}"
+        out = cck.contconv_collect(*args, d=d)
+        want = cck.contconv_collect_torch(*args, d=d)
+        rel = float((out - want).abs().max()) / float(want.abs().max())
+        same = torch.equal(out, cck.contconv_collect(*args, d=d))
+        log(f"[7c] B3 collect {label}: max|d|/max|out| {rel:.3e} (bar {B3_TOL}), same bits "
+            f"twice {same}")
+        if not (rel <= B3_TOL and same):
+            raise AssertionError(f"B3 past its old caps ({label}): {rel}, same bits {same}")
+        _bwd_against_plain(args, dout, d, label, time_it=False)
+        _b6_pass_against_plain(args, dout, d, label)
+
+    # a layer's position gradient at ci = 136: B6 on 136 channels
+    n, ci = 500, 136
+    layer = ContinuousConv(ci, 8, filter_resolution=4, radius=1.0,
+                           generator=torch.Generator().manual_seed(24)).to(dev)
+    pos, _, _ = generate_spiral(torch.Generator().manual_seed(25), n, device=dev)
+    idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
+    feat = torch.randn(1, n, ci, generator=gen).to(dev)
+    cot = torch.randn(1, n, 8, generator=gen).to(dev)
+
+    def pos_grad(impl):
+        layer.impl = impl
+        q = pos[None].clone().requires_grad_(True)
+        (layer(q, feat, idx[None], valid[None]) * cot).sum().backward()
+        return q.grad
+
+    before = cck.contconv_bwd_geom.launches
+    got = pos_grad("kernel")
+    ran = cck.contconv_bwd_geom.launches - before
+    want = pos_grad("dense")
+    scale = float(want.abs().max())
+    worst = float((got - want).abs().max()) / scale
+    log(f"[7c] position gradient at ci={ci}, N={n}: kernels (B6 launches {ran}) vs dense "
+        f"layer max|d|/max|ref| {worst:.3e} (rtol {MODEL_RTOL}, atol {MODEL_ATOL} x max|ref|)")
+    if ran != 1 or not torch.allclose(got, want, rtol=MODEL_RTOL, atol=MODEL_ATOL * scale):
+        raise AssertionError(f"position gradient at ci={ci}: B6 launches {ran}, {worst}")
+
+    # the Morton search at k = 40: B7 in slabs of 32, B8 on rows of 160
+    k = 40
+    pos, _, _ = generate_spiral(torch.Generator().manual_seed(BIG_N + k), BIG_N, device=dev)
+    runs = (sp.morton_select.launches, sp.morton_merge.launches)
+    got = sp.knn_morton(pos, k, impl="kernel")
+    ran = (sp.morton_select.launches - runs[0], sp.morton_merge.launches - runs[1])
+    cpu = sp.knn_morton(pos.cpu(), k, impl="kernel")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
+    rec = recall_of(*got, *knn_neighbors(pos, k))
+    log(f"[7c] knn_morton(kernel) N={BIG_N} k={k}: launches (B7, B8) {ran}, card == CPU "
+        f"twins {same}, recall vs exact {rec:.5f} (bar {RECALL})")
+    if not (same and rec >= RECALL and ran == (1, 1)):
+        raise AssertionError(f"Morton kNN at k={k}: same {same}, recall {rec}, launches {ran}")
+    mc, md = (t.to(dev) for t in merge_edge_rows(EDGE_ROWS, 4 * k, k, seed=4 * k, inf=True))
+    got, want = sp.morton_merge(mc, md, k), sp.morton_merge_torch(mc, md, k)
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32),
+                                                        want[1].view(torch.int32))
+    log(f"[7c] B8 merge on {EDGE_ROWS} edge rows, w={4 * k} k={k}: ids and bits equal to its "
+        f"plain version {same}")
+    if not same:
+        raise AssertionError(f"B8 disagrees with its plain version on {4 * k}-wide rows")
+    torch.cuda.synchronize()
 
 
 def phase7_model_gradients() -> int:
@@ -963,6 +1117,7 @@ def _b6_at_its_launch_shape(model, pos, idx, valid) -> None:
     random features and cotangents of the layer's widths and its filters."""
     import torch
 
+    from nbody_tpu_torch.experiments.contconv_bench import b6_bound_ms
     from nbody_tpu_torch.models.contconv import conv_geometry
     from nbody_tpu_torch.ops import contconv_kernel as cck
     from nbody_tpu_torch.utils.timing import cuda_time_ms, kernel_events
@@ -983,13 +1138,15 @@ def _b6_at_its_launch_shape(model, pos, idx, valid) -> None:
             return cck.contconv_bwd_geom(*args, d=d)
 
         ms = cuda_time_ms(b6, reps=10, warmup=1)
-        events = [t for n, t in kernel_events(b6, reps=10) if "bwd_geom" in n]
-        bnd = collect_bound(gx, gy, gz, win, ci, co, d, 4.0 * m * co + 16.0 * m * k)
+        events = kernel_events(b6, reps=10)
+        geom = [t for n, t in events if "bwd_geom" in n]
+        bnd = b6_bound_ms((gx, gy, gz), win, ci, co, d)
         log(f"[7] B6 at its launch shape (N={GRAD_N}, k={k}, ci={ci}, co={co}, D={d}): "
-            f"{sum(events) / max(len(events), 1):.4f} device ms ({len(events)} events of 10 "
-            f"calls), {ms:.4f} ms by events around the wrapper; bound {bnd[0]:.4f} ms "
-            f"({bnd[1]})")
-        if not events:
+            f"{sum(t for _, t in events) / 10:.4f} device ms a call in {len(events) / 10:g} "
+            f"kernels (plan, dG product, geometry pass; {sum(geom) / max(len(geom), 1):.4f} "
+            f"the pass, {len(geom)} events of 10 calls), {ms:.4f} ms by events around the "
+            f"wrapper; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if not geom:
             raise AssertionError("B6 left no kernel event at its launch shape")
 
 
@@ -1860,6 +2017,8 @@ def main() -> int:
     stamp("5")
     slice3 = phase7_backward_kernels()
     stamp("7 (kernels)")
+    phase7_caps()
+    stamp("7c (past the old caps)")
     slice4 = phase9_kernels()
     phase9_engines()
     stamp("9a-9b")

@@ -28,13 +28,18 @@
 // kernels (operations); their bytes are the features read once and the
 // compacted bins written and read once.
 //
-// Design: one pair plan shared by B3, B4 and B5, then memory-bound passes a
-// warp a receiver (bins, B5's unbins) and grouped products over cells.
+// Design: one pair plan shared by B3, B4 and B5 (and B6, whose plan keeps the
+// edges of zero window), then memory-bound passes a warp a receiver (bins,
+// B5's unbins, B6's geometry pass) and grouped products over cells. Any k
+// (live edges in 64-bit words), any ci and co (128-wide slabs and K chunks),
+// any d whose d^3 cells fit the plan's 16 bits and whose tables fit a warp's
+// shared memory.
 //   plan   plan_masks_kernel: a warp a receiver decodes each edge once and
 //          ORs the cells of its live corners into a D^3-bit mask (integer
 //          atomicOr in shared memory; the result does not depend on order)
-//          and counts them. An edge is live when its window is non-zero, a
-//          corner when each of its three axis weights is non-zero. The
+//          and counts them. An edge is live when its window is non-zero (for
+//          B6's plan, always), a corner when each of its three axis weights
+//          is non-zero; a lane takes every 32nd mask word, so any d. The
 //          wrapper prefix-sums the counts (the receivers' first rows) and
 //          sizes the scratch. Above a few thousand receivers it reads the
 //          total P on the host (one synchronising read a launch; B4 in a
@@ -44,8 +49,8 @@
 //          short, and a wait would leave the card idle while the host
 //          catches up: the lists get worst-case rows and the spare ones stay
 //          unused. plan_cell_counts_kernel then counts each cell's pairs
-//          (mask words read once, a shared-memory histogram a block, integer
-//          atomics only), and plan_cells_kernel, a block a cell, walks the
+//          (mask words read once, a shared-memory histogram of the d^3 cells
+//          a block, integer atomics only), and plan_cells_kernel, a block a cell, walks the
 //          receivers in ascending order and gives every pair of its cell the
 //          next row of the cell: the cell-major order, receivers ascending
 //          inside a cell, with the cells' offsets and first work items. No
@@ -72,10 +77,11 @@
 //          streams 128-row tiles of the item's contiguous bin rows through a
 //          double-buffered cp.async ring; 8 x 8 FP32 register tile a thread;
 //          writes y (P, round4(co)). row_sum_kernel then adds each
-//          receiver's rows of y in cell order into out[m]: one writer, fixed
-//          order. ci above 128 runs in K chunks of 128 with F reloaded per
-//          chunk.
-//   B4     bwd_filters_kernel: grid (work item, 128-row slab of ci). The
+//          receiver's rows of y in cell order into out[m], 128 columns at a
+//          time: one writer, fixed order. ci above 128 runs in K chunks of
+//          128 with F reloaded per chunk.
+//   B4     bwd_filters_kernel: grid (work item, 128-row slab of ci, 128-column
+//          slab of co). The
 //          transposed grouped product dF[cell] = G_cell^T dout[receivers of
 //          the cell's pairs]: 64 pair rows a step, bins copied as they lie,
 //          dout rows gathered by the pair's receiver id (L2-resident), both
@@ -99,47 +105,55 @@
 // Scratch (masks, plan, g or dG, y, partial banks) is allocated by the
 // wrapper.
 //
-// B6 (the Pallas _bwd_geom_kernel) keeps the earlier design: one block of
-// 256 threads per tile of T = 64 receivers
-// walks the cells any edge of the tile touches, F^T rows of one cell at a
-// time in shared memory (double-buffered cp.async).
-//   0. Once per tile: each edge's descriptor (lower corner, fractions,
-//      window) and the list, in cell order, of the touched cells.
-//   1. Per touched cell, the cell's F^T rows are copied into shared memory
-//      with cp.async; the next cell's copy runs during this cell's work.
-//   2. Each warp marks, by ballot, which edges of its receivers touch the
-//      cell.
-//   3. Every thread accumulates an 8-receiver x 4-column register tile over
-//      the cell's rows: the left operand as 16-byte broadcasts, F^T as one
-//      16-byte read of 4 consecutive columns a lane.
-// It saves nothing from the forward: it rebuilds the edge descriptors and
-// weights of its tile from the inputs, as the JAX VJP does. The block stages
-// its tile's dout rows once, streams F^T (co rows of ci columns a cell,
-// transposed by the wrapper), and step 3 leaves dG[t, cell, :] = F_cell @
-// dout[t] in registers.
-// B6, the geometry cotangents: the walk over cells (zero-window edges kept:
-//   d(out)/d(window) does not vanish there), then per touching edge and
-//   corner s = feat_j[m, e] . dG_cell[m], a warp-wide dot reduced by a
-//   fixed shuffle butterfly, and lane 0 of the receiver's warp adds
-//   dwin += w s, dgx += window * dwx * wy * wz * s (dgy, dgz alike). tent' is
-//   JAX's _dtent: -sign(u) on |u| < 1, so 0 at integer grid coordinates and
-//   on the clamped edges, which is JAX's clip mask as well.
+//   B6     bwd_geom_kernel, the geometry cotangents, over a plan that keeps
+//          the edges of zero window (plan_masks_kernel with all_edges:
+//          d(out)/d(window) = sum over the live corners of w (feat . dG) does
+//          not vanish where window = 0) and B5's dG rows
+//          (pair_product_kernel<true>, any ci). In a backward that runs B5
+//          too, one plan and one dG buffer serve both. A warp a receiver
+//          copies its pairs' dG rows into shared memory (cp.async, as the
+//          unbin pass); per edge, dead ones included, the warp forms s =
+//          feat_j[m, e] . dG[pair] for each live corner: a lane 4 channels of
+//          each 128, the feature row read once from device memory (a group
+//          of 8 edges' loads in flight; a dead corner reads a row of zeros
+//          after the staged rows, so a group runs without a branch and its
+//          edges' chains interleave), the 8 corners' partial dots reduced
+//          together in 9 shuffles, after which lane l holds corner l / 4's
+//          s. Lane 4 c + j then forms corner c's term of cotangent j (dwin:
+//          w s; dgx: dtent_x wy wz window s, and so for y and z) and 3 more
+//          shuffles add the corners: lanes 0-3 hold the edge's four
+//          cotangents, which go to shared memory and, a receiver's at a time,
+//          to dgx, dgy, dgz and dwin by consecutive lanes. One writer per
+//          element, no atomics, the same bits on every run. A receiver with
+//          more pairs than the warp's rows takes more passes; an edge with no
+//          corner in a pass is not read in it. tent' is JAX's _dtent: -sign(u)
+//          on |u| < 1, so 0 at integer grid coordinates and on the clamped
+//          edges, which is JAX's clip mask as well. A corner with a zero axis
+//          weight is skipped: its fraction on that axis is 0 or 1, where
+//          tent' is 0 for both corners of the axis, so the corner's weight
+//          and each of its three derivative products hold a zero factor, and
+//          the corner adds nothing to any of the four cotangents.
+//          What bounds B6 here: operations, 2 ci co a pair of that plan for
+//          dG (shared with B5 where both run) and 2 ci an (edge, live corner)
+//          for the dots; its bytes are the geometry, feat_j read once, dout,
+//          the bank and the four cotangents. The dG product is B5's; the
+//          geometry pass adds the dots, which are a small part of the
+//          operations, and reads each feature row once and each dG row once
+//          a receiver, so it is bound by those bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int CT = 64;        // B6: receivers per block
 constexpr int THREADS = 256;  // 8 warps
-constexpr int T_PER = 8;      // B6: receivers per thread in the product
-constexpr int MAX_K = 64;     // one 64-bit word of live edges per receiver
-constexpr int MAX_CO = 128;   // one float4 of columns a lane
-constexpr int MAX_D = 10;     // cell masks of at most 32 words
-constexpr int MAX_WORDS = (MAX_D * MAX_D * MAX_D + 31) / 32;
+constexpr int MAX_CELLS = 32767;  // d^3: the plan keeps a cell in 16 bits
 constexpr int BATCH = 8;      // bins: feature rows in flight per lane
 constexpr int BIN_WARPS = 16; // bins, unbins: most warps of a block
+constexpr int GEOM_WARPS = 8; // B6's geometry pass: most warps of a block
+constexpr int GEOM_EDGES = 8; // B6's geometry pass: edges a lane reads at once
 constexpr int MAX_SMEM = 232448;  // bytes a block may use on sm_90
+constexpr size_t DEFAULT_SMEM = 48 * 1024;  // bytes a block may use unasked
 constexpr int SLAB = 128;     // B4: rows (of ci) and columns (co) of a dF tile
 constexpr int PW = 8;         // plan, row sum: warps (receivers) per block
 constexpr int PT = 128;       // B3, B5: pair rows of a product tile
@@ -149,40 +163,39 @@ constexpr int KT = 64;        // B4: pair rows of one step
 constexpr int COUNT_WORDS = 8;      // plan: mask words a thread of the count kernel
 constexpr int CELL_THREADS = 1024;  // plan: receivers a round of a cell's block
 
-static_assert(CT == T_PER * (THREADS / 32), "one receiver group per warp");
 static_assert(THREADS == (SLAB / 8) * (SLAB / 8), "an 8 x 8 register tile a thread");
-static_assert(MAX_WORDS <= 32, "a lane a mask word");
+static_assert(PW * ((MAX_CELLS + 31) / 32) * 4 <= DEFAULT_SMEM, "the plan's masks");
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
-// Byte offsets of the dynamic shared memory of B6: the left operand
-// of step 3 is (T, round4(rows)) (the tile's dout rows, rows = co) and F^T
-// is streamed as `rows` rows of `cols` columns a cell (cols = ci).
-struct Layout {
-  size_t fs, g, dfw, dxyz, touch, cells, flags, total;
-  __host__ __device__ Layout(int d, int rows, int cols, int k) {
-    const int gs = round4(rows), cp = round4(cols), kw = (k + 31) / 32;
-    const int nc = d * d * d;
-    fs = 0;                                          // 2 x (gs, cp) F rows
-    g = fs + (size_t)2 * gs * cp * sizeof(float);    // (T, gs) left operand
-    dfw = g + (size_t)CT * gs * sizeof(float);       // (T*k) fx fy fz w
-    dxyz = dfw + (size_t)CT * k * sizeof(float4);    // (T*k) lower corner
-    touch = dxyz + (size_t)CT * k * sizeof(int);     // (T, kw) masks
-    cells = touch + (size_t)CT * kw * sizeof(uint32_t);  // count + list
-    flags = cells + (size_t)(nc + 1) * sizeof(int);
-    total = flags + (size_t)nc;
-  }
-};
-
 // One warp's share of the bins kernel's shared memory: `rows` bin rows of gs
 // floats, per edge its 8 corner weights and 8 row numbers, the rows'
-// cell-major places, and the receiver's cell -> row table.
+// cell-major places, the receiver's cell -> row table and its live edges,
+// one bit an edge in 64-bit words.
 struct BinLayout {
-  size_t rows, ww, jj, slot, lut, per_warp;
+  size_t rows, ww, jj, slot, lut, live, per_warp;
   __host__ __device__ BinLayout(int d, int k, int gs, int nrows) {
     rows = 0;
     ww = rows + (size_t)nrows * gs * sizeof(float);
     jj = ww + (size_t)k * 8 * sizeof(float);
+    slot = jj + (size_t)k * 8 * sizeof(uint16_t);
+    lut = slot + (size_t)nrows * sizeof(int);
+    live = (lut + (size_t)d * d * d * sizeof(uint16_t) + 7) & ~(size_t)7;
+    per_warp = (live + (size_t)(k + 63) / 64 * sizeof(unsigned long long) + 15) & ~(size_t)15;
+  }
+};
+
+// One warp's share of B6's geometry pass: `rows` dG rows of gs floats and a
+// row of zeros after them (what a dead corner reads), per edge its
+// fractions and window (a float4), its four cotangents, its 8 corners' rows,
+// the rows' cell-major places and the cell -> row table.
+struct GeomLayout {
+  size_t rows, fw, res, jj, slot, lut, per_warp;
+  __host__ __device__ GeomLayout(int d, int k, int gs, int nrows) {
+    rows = 0;
+    fw = rows + (size_t)(nrows + 1) * gs * sizeof(float);
+    res = fw + (size_t)k * sizeof(float4);
+    jj = res + (size_t)4 * k * sizeof(float);
     slot = jj + (size_t)k * 8 * sizeof(uint16_t);
     lut = slot + (size_t)nrows * sizeof(int);
     per_warp = (lut + (size_t)d * d * d * sizeof(uint16_t) + 15) & ~(size_t)15;
@@ -196,15 +209,6 @@ __device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void commit_copies() {
   asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// the `rows` rows (of cp floats) of one cell of a row-blocked bank
-__device__ __forceinline__ void load_cell_async(float* dst, const float* F,
-                                                int cell, int rows, int cp) {
-  const float* src = F + (size_t)cell * rows * cp;
-  for (int q = threadIdx.x; q < rows * cp / 4; q += THREADS)
-    copy16_async(dst + 4 * q, src + 4 * q);
-  commit_copies();
 }
 
 __device__ __forceinline__ float lerp_w(int at, int lo, float f) {
@@ -241,97 +245,6 @@ __device__ __forceinline__ bool axis_live(int o, float f) {
   return o ? f != 0.f : f != 1.f;
 }
 
-// 0. Edge descriptors of the tile at m0: lower corner x | y << 8 | z << 16
-// (-1: adds nothing) and (fx, fy, fz, window); flags the 8 corner cells.
-// Zero-window edges are dropped unless keep_zero.
-__device__ void build_edges(const float* __restrict__ gx, const float* __restrict__ gy,
-                            const float* __restrict__ gz, const float* __restrict__ win,
-                            int M, int k, int d, int m0, int* dxyz, float4* dfw,
-                            unsigned char* flags, bool keep_zero) {
-  for (int e = threadIdx.x; e < CT * k; e += THREADS) {
-    int xyz = -1;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m0 + e / k < M) {
-      const size_t at = (size_t)m0 * k + e;
-      const float w = win[at];
-      if (w != 0.f || keep_zero) {
-        const Corner c = decode_edge(gx[at], gy[at], gz[at], d);
-        xyz = c.x | (c.y << 8) | (c.z << 16);
-        v = make_float4(c.fx, c.fy, c.fz, w);
-        for (int o = 0; o < 8; ++o)  // the same value from every writer
-          flags[((c.x + (o >> 2)) * d + c.y + ((o >> 1) & 1)) * d + c.z + (o & 1)] = 1;
-      }
-    }
-    dxyz[e] = xyz;
-    dfw[e] = v;
-  }
-}
-
-// the touched cells in cell order: cells[0] = count, then the list
-__device__ void list_cells(const unsigned char* flags, int* cells, int nc) {
-  if (threadIdx.x == 0) {
-    int n = 0;
-    for (int c = 0; c < nc; ++c)
-      if (flags[c]) cells[1 + n++] = c;
-    cells[0] = n;
-  }
-}
-
-// 2. which edges of each receiver touch cell (x, y, z), one bit an edge
-__device__ void mark_touch(int x, int y, int z, const int* dxyz, uint32_t* touch,
-                           int k, int kw) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < CT; t += THREADS / 32) {
-    for (int w = 0; w < kw; ++w) {
-      const int e = w * 32 + lane;
-      bool hit = false;
-      if (e < k) {
-        const int xyz = dxyz[t * k + e];
-        if (xyz >= 0) {
-          const int x0 = xyz & 255, y0 = (xyz >> 8) & 255, z0 = xyz >> 16;
-          hit = (unsigned)(x - x0) <= 1u && (unsigned)(y - y0) <= 1u &&
-                (unsigned)(z - z0) <= 1u;
-        }
-      }
-      const uint32_t bits = __ballot_sync(0xffffffffu, hit);
-      if (lane == 0) touch[t * kw + w] = bits;
-    }
-  }
-}
-
-// 3. acc[i][:] += left[i, :] @ fb[:, 4 lane .. 4 lane + 3] over the gs rows
-// of fb (row stride cp) for this warp's 8 receivers (left row stride gs)
-__device__ __forceinline__ void product(float (&acc)[T_PER][4], const float* gw,
-                                        const float* fb, int gs, int cp) {
-  const int lane = threadIdx.x & 31;
-  const bool on = 4 * lane < cp;
-  for (int r = 0; r < gs; r += 4) {
-    float4 gv[T_PER];
-#pragma unroll
-    for (int i = 0; i < T_PER; ++i) gv[i] = *(const float4*)(gw + i * gs + r);
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const float4 f = on ? *(const float4*)(fb + (size_t)(r + rr) * cp + 4 * lane)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int i = 0; i < T_PER; ++i) {
-        const float gi = rr == 0 ? gv[i].x : rr == 1 ? gv[i].y
-                       : rr == 2 ? gv[i].z : gv[i].w;
-        acc[i][0] = fmaf(gi, f.x, acc[i][0]);
-        acc[i][1] = fmaf(gi, f.y, acc[i][1]);
-        acc[i][2] = fmaf(gi, f.z, acc[i][2]);
-        acc[i][3] = fmaf(gi, f.w, acc[i][3]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[T_PER][4]) {
-#pragma unroll
-  for (int i = 0; i < T_PER; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-}
-
 // all copies but, with `more`, the newest group have landed
 __device__ __forceinline__ void wait_cell(bool more) {
   if (more)
@@ -340,60 +253,32 @@ __device__ __forceinline__ void wait_cell(bool more) {
     asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// B6's set-up: zero the flags and F's pad rows, stage the
-// tile's dout rows (zero-padded), build the descriptors and the cell list.
-__device__ int setup_dout_walk(const float* gx, const float* gy, const float* gz,
-                               const float* win, const float* __restrict__ dout,
-                               int M, int k, int ci, int co, int d, bool keep_zero,
-                               unsigned char* base, const Layout& L) {
-  const int GS = round4(co), CP = round4(ci), NC = d * d * d;
-  const int tid = threadIdx.x, m0 = blockIdx.x * CT;
-  float* fs = (float*)(base + L.fs);
-  float* g = (float*)(base + L.g);
-  int* cells = (int*)(base + L.cells);
-  unsigned char* flags = base + L.flags;
-  for (int i = tid; i < NC; i += THREADS) flags[i] = 0;
-  for (int i = tid; i < 2 * (GS - co) * CP; i += THREADS) {
-    const int b = i / ((GS - co) * CP), r = i % ((GS - co) * CP);
-    fs[(size_t)b * GS * CP + (size_t)co * CP + r] = 0.f;
-  }
-  for (int i = tid; i < CT * GS; i += THREADS) {
-    const int t = i / GS, r = i - t * GS;
-    g[i] = (m0 + t < M && r < co) ? dout[(size_t)(m0 + t) * co + r] : 0.f;
-  }
-  __syncthreads();
-  build_edges(gx, gy, gz, win, M, k, d, m0, (int*)(base + L.dxyz),
-              (float4*)(base + L.dfw), flags, keep_zero);
-  __syncthreads();
-  list_cells(flags, cells, NC);
-  __syncthreads();
-  return cells[0];
-}
-
 // ---- the pair plan ----------------------------------------------------------
 
 // A warp a receiver: the D^3-bit mask of the cells its live corners touch,
 // masks (M, nw) with nw = ceil(D^3 / 32), and their number, counts[1 + m];
 // counts[0] = 0, so that the inclusive prefix sum of counts (M + 1) gives
-// the receivers' first rows. Also zeroes cell_counts (D^3).
+// the receivers' first rows. Also zeroes cell_counts (D^3). With all_edges
+// an edge of zero window counts as live (B6's plan). The warps' masks are
+// PW x nw words of dynamic shared memory, a lane every 32nd word.
 __global__ void __launch_bounds__(PW * 32)
 plan_masks_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
                   const float* __restrict__ gz, const float* __restrict__ win,
-                  int M, int k, int d, uint32_t* __restrict__ masks,
+                  int M, int k, int d, int all_edges, uint32_t* __restrict__ masks,
                   int* __restrict__ counts, int* __restrict__ cell_counts) {
-  __shared__ uint32_t words[PW][MAX_WORDS];
+  extern __shared__ uint32_t mask_words[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = (d * d * d + 31) / 32;
   const int m = blockIdx.x * PW + warp;
   if (blockIdx.x == 0)  // for plan_cell_counts_kernel, the next launch
     for (int i = threadIdx.x; i < d * d * d; i += blockDim.x) cell_counts[i] = 0;
   if (m >= M) return;  // the whole warp; no block-wide barrier below
-  uint32_t* mine = words[warp];
-  mine[lane] = 0u;
+  uint32_t* mine = mask_words + (size_t)warp * nw;
+  for (int w = lane; w < nw; w += 32) mine[w] = 0u;
   __syncwarp();
   for (int e = lane; e < k; e += 32) {
     const size_t at = (size_t)m * k + e;
-    if (win[at] == 0.f) continue;
+    if (!all_edges && win[at] == 0.f) continue;
     const Corner c = decode_edge(gx[at], gy[at], gz[at], d);
 #pragma unroll
     for (int o = 0; o < 8; ++o) {
@@ -406,10 +291,10 @@ plan_masks_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
   }
   __syncwarp();
   int n = 0;
-  if (lane < nw) {
-    const uint32_t b = mine[lane];
-    masks[(size_t)m * nw + lane] = b;
-    n = __popc(b);
+  for (int w = lane; w < nw; w += 32) {
+    const uint32_t b = mine[w];
+    masks[(size_t)m * nw + w] = b;
+    n += __popc(b);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(0xffffffffu, n, off);
@@ -420,11 +305,12 @@ plan_masks_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
 }
 
 // cell_counts[c] += the receivers whose mask has bit c, over the M * nw mask
-// words: a histogram a block in shared memory, then one integer add a cell.
+// words: a histogram of the z cells a block in dynamic shared memory, then
+// one integer add a cell.
 __global__ void __launch_bounds__(THREADS)
 plan_cell_counts_kernel(const uint32_t* __restrict__ masks, long long nwords, int nw,
                         int z, int* __restrict__ cell_counts) {
-  __shared__ int hist[MAX_D * MAX_D * MAX_D];
+  extern __shared__ int hist[];
   for (int i = threadIdx.x; i < z; i += THREADS) hist[i] = 0;
   __syncthreads();
   const long long base = (long long)blockIdx.x * (THREADS * COUNT_WORDS);
@@ -544,14 +430,14 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int c, in
 
 // One warp, receiver m: per edge e its 8 corners' rows among the receiver's
 // pairs (jj[8 e + o], through the receiver's cell -> row table lut; 0xffff:
-// adds nothing) and weights window * wx * wy * wz (ww[8 e + o]); returns the
-// edges with a live corner, one bit an edge (k <= 64). Ends with __syncwarp.
-__device__ __forceinline__ unsigned long long edge_corner_rows(
+// adds nothing) and weights window * wx * wy * wz (ww[8 e + o]); the edges
+// with a live corner, one bit an edge, in live[e / 64] (any k). Ends with
+// __syncwarp.
+__device__ __forceinline__ void edge_corner_rows(
     const float* __restrict__ gx, const float* __restrict__ gy, const float* __restrict__ gz,
     const float* __restrict__ win, int m, int k, int d, const uint16_t* lut, uint16_t* jj,
-    float* ww) {
+    float* ww, unsigned long long* live) {
   const int lane = threadIdx.x & 31;
-  unsigned long long live = 0ull;
   for (int e0 = 0; e0 < k; e0 += 32) {
     const int e = e0 + lane;
     bool on = false;
@@ -571,10 +457,10 @@ __device__ __forceinline__ unsigned long long edge_corner_rows(
         }
       }
     }
-    live |= (unsigned long long)__ballot_sync(0xffffffffu, on) << e0;
+    const unsigned long long bits = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) live[e0 >> 6] = (e0 & 63) ? live[e0 >> 6] | bits << 32 : bits;
   }
   __syncwarp();
-  return live;
 }
 
 // g (P, gs): the bins of every (receiver, cell) pair at its cell-major row.
@@ -597,6 +483,8 @@ bins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
   uint16_t* jj = (uint16_t*)(base + L.jj);
   int* slot = (int*)(base + L.slot);
   uint16_t* lut = (uint16_t*)(base + L.lut);
+  unsigned long long* live = (unsigned long long*)(base + L.live);
+  const int kw = (k + 63) / 64;
   // 16-byte feature reads need ci % 4 == 0 and a 16-byte aligned base
   const bool vec = (ci & 3) == 0 && ((uintptr_t)feat & 15u) == 0;
 
@@ -606,7 +494,7 @@ bins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
     for (int j = lane; j < n; j += 32) lut[cell_r[r0 + j]] = (uint16_t)j;
     __syncwarp();
 
-    const unsigned long long live = edge_corner_rows(gx, gy, gz, win, m, k, d, lut, jj, ww);
+    edge_corner_rows(gx, gy, gz, win, m, k, d, lut, jj, ww, live);
 
     for (int b0 = 0; b0 < n; b0 += nrows) {  // one pass unless n > nrows
       const int nr = min(nrows, n - b0);
@@ -617,48 +505,50 @@ bins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
         ((float4*)rows)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       __syncwarp();
       for (int c0 = 4 * lane; c0 < gs; c0 += 128) {
-        unsigned long long bits = live;
-        while (bits) {
-          // up to BATCH edges at a time: their feature loads are independent
-          // and in flight together
-          int es[BATCH];
-          float4 fv[BATCH];
+        for (int w = 0; w < kw; ++w) {  // edges in edge order, 64 a word
+          unsigned long long bits = live[w];
+          while (bits) {
+            // up to BATCH edges at a time: their feature loads are independent
+            // and in flight together
+            int es[BATCH];
+            float4 fv[BATCH];
 #pragma unroll
-          for (int u = 0; u < BATCH; ++u) {
-            es[u] = bits ? __ffsll((long long)bits) - 1 : -1;
-            bits &= bits - 1ull;
-          }
-#pragma unroll
-          for (int u = 0; u < BATCH; ++u)
-            fv[u] = es[u] >= 0 ? load4(feat + ((size_t)m * k + es[u]) * ci, c0, ci, vec)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-          for (int u = 0; u < BATCH; ++u) {
-            if (es[u] < 0) break;
-            const uint4 j8 = *(const uint4*)(jj + es[u] * 8);
-            const float4 wa = *(const float4*)(ww + es[u] * 8);
-            const float4 wb = *(const float4*)(ww + es[u] * 8 + 4);
-            const unsigned js[8] = {j8.x & 0xffffu, j8.x >> 16, j8.y & 0xffffu, j8.y >> 16,
-                                    j8.z & 0xffffu, j8.z >> 16, j8.w & 0xffffu, j8.w >> 16};
-            const float ws[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-            const float4 f = fv[u];
-            // an edge's 8 corners are 8 different rows: their reads go out
-            // together, ahead of the writes; edges stay in edge order
-            float4 a[8];
-#pragma unroll
-            for (int o = 0; o < 8; ++o) {
-              const unsigned r = js[o] - (unsigned)b0;
-              if (r < (unsigned)nr) a[o] = *(const float4*)(rows + (size_t)r * gs + c0);
+            for (int u = 0; u < BATCH; ++u) {
+              es[u] = bits ? 64 * w + __ffsll((long long)bits) - 1 : -1;
+              bits &= bits - 1ull;
             }
 #pragma unroll
-            for (int o = 0; o < 8; ++o) {
-              const unsigned r = js[o] - (unsigned)b0;
-              if (r < (unsigned)nr) {
-                a[o].x = fmaf(ws[o], f.x, a[o].x);
-                a[o].y = fmaf(ws[o], f.y, a[o].y);
-                a[o].z = fmaf(ws[o], f.z, a[o].z);
-                a[o].w = fmaf(ws[o], f.w, a[o].w);
-                *(float4*)(rows + (size_t)r * gs + c0) = a[o];
+            for (int u = 0; u < BATCH; ++u)
+              fv[u] = es[u] >= 0 ? load4(feat + ((size_t)m * k + es[u]) * ci, c0, ci, vec)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int u = 0; u < BATCH; ++u) {
+              if (es[u] < 0) break;
+              const uint4 j8 = *(const uint4*)(jj + es[u] * 8);
+              const float4 wa = *(const float4*)(ww + es[u] * 8);
+              const float4 wb = *(const float4*)(ww + es[u] * 8 + 4);
+              const unsigned js[8] = {j8.x & 0xffffu, j8.x >> 16, j8.y & 0xffffu, j8.y >> 16,
+                                      j8.z & 0xffffu, j8.z >> 16, j8.w & 0xffffu, j8.w >> 16};
+              const float ws[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+              const float4 f = fv[u];
+              // an edge's 8 corners are 8 different rows: their reads go out
+              // together, ahead of the writes; edges stay in edge order
+              float4 a[8];
+#pragma unroll
+              for (int o = 0; o < 8; ++o) {
+                const unsigned r = js[o] - (unsigned)b0;
+                if (r < (unsigned)nr) a[o] = *(const float4*)(rows + (size_t)r * gs + c0);
+              }
+#pragma unroll
+              for (int o = 0; o < 8; ++o) {
+                const unsigned r = js[o] - (unsigned)b0;
+                if (r < (unsigned)nr) {
+                  a[o].x = fmaf(ws[o], f.x, a[o].x);
+                  a[o].y = fmaf(ws[o], f.y, a[o].y);
+                  a[o].z = fmaf(ws[o], f.z, a[o].z);
+                  a[o].w = fmaf(ws[o], f.w, a[o].w);
+                  *(float4*)(rows + (size_t)r * gs + c0) = a[o];
+                }
               }
             }
           }
@@ -701,6 +591,7 @@ unbins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
   uint16_t* jj = (uint16_t*)(base + L.jj);
   int* slot = (int*)(base + L.slot);
   uint16_t* lut = (uint16_t*)(base + L.lut);
+  unsigned long long* live = (unsigned long long*)(base + L.live);
   // 16-byte row writes need ci % 4 == 0 and a 16-byte aligned base
   const bool vec = (ci & 3) == 0 && ((uintptr_t)dfeat & 15u) == 0;
 
@@ -708,7 +599,7 @@ unbins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
     const int r0 = rstart[m], n = rstart[m + 1] - r0;
     for (int j = lane; j < n; j += 32) lut[cell_r[r0 + j]] = (uint16_t)j;
     __syncwarp();
-    const unsigned long long live = edge_corner_rows(gx, gy, gz, win, m, k, d, lut, jj, ww);
+    edge_corner_rows(gx, gy, gz, win, m, k, d, lut, jj, ww, live);
 
     for (int b0 = 0; b0 == 0 || b0 < n; b0 += nrows) {  // one pass unless n > nrows
       const int nr = min(nrows, n - b0), gq = gs / 4;
@@ -725,7 +616,7 @@ unbins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
         for (int e = 0; e < k; ++e) {
           float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
           bool any = false;
-          if ((live >> e) & 1ull) {
+          if ((live[e >> 6] >> (e & 63)) & 1ull) {
             const uint4 j8 = *(const uint4*)(jj + e * 8);
             const float4 wa = *(const float4*)(ww + e * 8);
             const float4 wb = *(const float4*)(ww + e * 8 + 4);
@@ -766,6 +657,190 @@ unbins_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
       }
       __syncwarp();
     }
+  }
+}
+
+// ---- B6: the geometry pass ---------------------------------------------------
+
+// 8 values a lane, each summed over the warp: 9 shuffles where one warp-wide
+// sum a value would take 40. Each step sends half of a lane's values to its
+// partner and keeps the other half; lane l ends with the sum of value l / 4
+// over all 32 lanes (the same bits in the 4 lanes of a group).
+__device__ __forceinline__ float sum8_over_warp(const float (&v)[8], int lane) {
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+  float a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (h4 ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, h4 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (h3 ? a[i + 2] : a[i]) + __shfl_xor_sync(0xffffffffu, h3 ? a[i] : a[i + 2], 8);
+  float c = (h2 ? b[1] : b[0]) + __shfl_xor_sync(0xffffffffu, h2 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(0xffffffffu, c, 2);
+  return c + __shfl_xor_sync(0xffffffffu, c, 1);
+}
+
+// One edge's share of the geometry pass once its dots are formed: s[o] is
+// lane's partial of corner o. Reduces them (lane l: corner l / 4), forms
+// lane 4 c + j's term of cotangent j for corner c (masked where the corner
+// is dead or outside the pass), adds the corners and, with `write`, adds the
+// edge's four sums to res (lanes 0-3).
+__device__ __forceinline__ void geom_terms(const float (&s)[8], int lane, float4 f,
+                                           const uint16_t* jj8, int b0, int nr, bool write,
+                                           float* res_e, int k) {
+  const int oc = lane >> 2, cj = lane & 3;
+  const int ox = oc >> 2, oy = (oc >> 1) & 1, oz = oc & 1;
+  const float sc = sum8_over_warp(s, lane);  // s of corner oc
+  const bool in_pass = write && (unsigned)jj8[oc] - (unsigned)b0 < (unsigned)nr;
+  const float wx = lerp_w(ox, 0, f.x), wy = lerp_w(oy, 0, f.y), wz = lerp_w(oz, 0, f.z);
+  const float vs = f.w * sc;
+  float t = cj == 0   ? wx * wy * wz * sc
+            : cj == 1 ? lerp_dw(ox, 0, f.x) * wy * wz * vs
+            : cj == 2 ? wx * lerp_dw(oy, 0, f.y) * wz * vs
+                      : wx * wy * lerp_dw(oz, 0, f.z) * vs;
+  t = in_pass ? t : 0.f;
+  // over the corners: ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 + c7))
+  t += __shfl_xor_sync(0xffffffffu, t, 4);
+  t += __shfl_xor_sync(0xffffffffu, t, 8);
+  t += __shfl_xor_sync(0xffffffffu, t, 16);
+  if (lane < 4 && write) res_e[lane * k] += t;
+}
+
+// s[o] += f . (4 channels at c0 of the row of corner o in this pass, or of
+// the row of zeros after the staged rows)
+__device__ __forceinline__ void corner_dots(float (&s)[8], float4 f, const uint16_t* jj8,
+                                            const float* rows, int gs, int c0, int b0, int nr,
+                                            int nrows) {
+  const uint4 j8 = *(const uint4*)jj8;
+  const unsigned js[8] = {j8.x & 0xffffu, j8.x >> 16, j8.y & 0xffffu, j8.y >> 16,
+                          j8.z & 0xffffu, j8.z >> 16, j8.w & 0xffffu, j8.w >> 16};
+#pragma unroll
+  for (int o = 0; o < 8; ++o) {
+    const unsigned r = js[o] - (unsigned)b0;
+    const float4 v = *(const float4*)(rows + (size_t)(r < (unsigned)nr ? r : nrows) * gs + c0);
+    float t = fmaf(f.x, v.x, s[o]);
+    t = fmaf(f.y, v.y, t);
+    t = fmaf(f.z, v.z, t);
+    s[o] = fmaf(f.w, v.w, t);
+  }
+}
+
+// the edges e0 .. e0 + GEOM_EDGES - 1 with a corner among this pass's rows,
+// one bit an edge (the same in every lane)
+__device__ __forceinline__ unsigned edges_in_pass(const uint16_t* jj, int e0, int k, int b0,
+                                                  int nr) {
+  unsigned here = 0u;
+#pragma unroll
+  for (int u = 0; u < GEOM_EDGES; ++u) {
+    if (e0 + u >= k) break;
+    const uint4 j8 = *(const uint4*)(jj + (e0 + u) * 8);
+    const unsigned js[8] = {j8.x & 0xffffu, j8.x >> 16, j8.y & 0xffffu, j8.y >> 16,
+                            j8.z & 0xffffu, j8.z >> 16, j8.w & 0xffffu, j8.w >> 16};
+#pragma unroll
+    for (int o = 0; o < 8; ++o)
+      if (js[o] - (unsigned)b0 < (unsigned)nr) here |= 1u << u;
+  }
+  return here;
+}
+
+// dgx, dgy, dgz, dwin (M, k) from dG (P, gs) at the plan's cell-major rows: a
+// warp a receiver (grid-stride), a lane 4 channels of each 128, the
+// receiver's dG rows in the warp's shared memory (GeomLayout, `nrows` rows;
+// a receiver with more pairs takes more passes, in order). Per edge, those of
+// zero window included: s[o] = feat_j[m, e] . dG[row of corner o] for its live
+// corners, then the four cotangents' terms a corner, added over the corners.
+// Edges go in groups of GEOM_EDGES whose feature loads are in flight
+// together, and a group's dots run over the row's 128-channel chunks. No
+// branch inside a group: an edge outside the pass (or past k) reads zero
+// features, a corner outside it the row of zeros, and their terms are
+// masked, so the group's loads, dots and shuffle chains interleave.
+__global__ void __launch_bounds__(GEOM_WARPS * 32)
+bwd_geom_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
+                const float* __restrict__ gz, const float* __restrict__ win,
+                const float* __restrict__ feat, const float* __restrict__ dg,
+                const int* __restrict__ rstart, const int16_t* __restrict__ cell_r,
+                const int* __restrict__ slot_of, int M, int k, int ci, int d, int nrows,
+                float* __restrict__ dgx, float* __restrict__ dgy, float* __restrict__ dgz,
+                float* __restrict__ dwin) {
+  extern __shared__ float4 smem4[];
+  const int gs = round4(ci);
+  const GeomLayout L(d, k, gs, nrows);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+  unsigned char* base = (unsigned char*)smem4 + (size_t)warp * L.per_warp;
+  float* rows = (float*)(base + L.rows);
+  float4* fw = (float4*)(base + L.fw);
+  float* res = (float*)(base + L.res);
+  uint16_t* jj = (uint16_t*)(base + L.jj);
+  int* slot = (int*)(base + L.slot);
+  uint16_t* lut = (uint16_t*)(base + L.lut);
+  // 16-byte feature reads need ci % 4 == 0 and a 16-byte aligned base
+  const bool vec = (ci & 3) == 0 && ((uintptr_t)feat & 15u) == 0;
+  for (int i = lane; i < gs / 4; i += 32)
+    ((float4*)(rows + (size_t)nrows * gs))[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int m = blockIdx.x * nwarp + warp; m < M; m += gridDim.x * nwarp) {
+    const int r0 = rstart[m], n = rstart[m + 1] - r0;
+    for (int j = lane; j < n; j += 32) lut[cell_r[r0 + j]] = (uint16_t)j;
+    __syncwarp();
+    // every edge: fractions and window, its live corners' rows, zero sums
+    for (int e = lane; e < k; e += 32) {
+      const size_t at = (size_t)m * k + e;
+      const Corner c = decode_edge(gx[at], gy[at], gz[at], d);
+      fw[e] = make_float4(c.fx, c.fy, c.fz, win[at]);
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const int px = o >> 2, py = (o >> 1) & 1, pz = o & 1;
+        const bool lv = axis_live(px, c.fx) && axis_live(py, c.fy) && axis_live(pz, c.fz);
+        jj[e * 8 + o] = lv ? lut[((c.x + px) * d + c.y + py) * d + c.z + pz] : (uint16_t)0xffffu;
+      }
+      res[e] = res[k + e] = res[2 * k + e] = res[3 * k + e] = 0.f;
+    }
+    __syncwarp();
+    const float* frow = feat + (size_t)m * k * ci;
+
+    for (int b0 = 0; b0 == 0 || b0 < n; b0 += nrows) {  // one pass unless n > nrows
+      const int nr = min(nrows, n - b0), gq = gs / 4;
+      for (int j = lane; j < nr; j += 32) slot[j] = slot_of[r0 + b0 + j];
+      __syncwarp();
+      for (int q = lane; q < nr * gq; q += 32) {
+        const int j = q / gq, i = q - j * gq;
+        copy16_async(rows + (size_t)j * gs + 4 * i, dg + (size_t)slot[j] * gs + 4 * i);
+      }
+      commit_copies();
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncwarp();
+      for (int e0 = 0; e0 < k; e0 += GEOM_EDGES) {
+        const unsigned here = edges_in_pass(jj, e0, k, b0, nr);
+        if (!here) continue;
+        float s[GEOM_EDGES][8];
+#pragma unroll
+        for (int u = 0; u < GEOM_EDGES; ++u)
+#pragma unroll
+          for (int o = 0; o < 8; ++o) s[u][o] = 0.f;
+        for (int c0 = 4 * lane; c0 < gs; c0 += 128) {
+          float4 fv[GEOM_EDGES];
+#pragma unroll
+          for (int u = 0; u < GEOM_EDGES; ++u)
+            fv[u] = (here >> u) & 1u ? load4(frow + (size_t)(e0 + u) * ci, c0, ci, vec)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < GEOM_EDGES; ++u)
+            corner_dots(s[u], fv[u], jj + min(e0 + u, k - 1) * 8, rows, gs, c0, b0, nr, nrows);
+        }
+#pragma unroll
+        for (int u = 0; u < GEOM_EDGES; ++u) {
+          const int e = min(e0 + u, k - 1);
+          geom_terms(s[u], lane, fw[e], jj + e * 8, b0, nr, (here >> u) & 1u, res + e, k);
+        }
+      }
+      __syncwarp();
+    }
+    float* outs[4] = {dwin, dgx, dgy, dgz};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      for (int e = lane; e < k; e += 32) outs[j][(size_t)m * k + e] = res[j * k + e];
+    __syncwarp();
   }
 }
 
@@ -905,46 +980,50 @@ pair_product_kernel(const float* __restrict__ a, const int* __restrict__ recv_of
   }
 }
 
-// out[m, :] = the receiver's rows of y, added in cell order; a warp a receiver
+// out[m, :] = the receiver's rows of y, added in cell order; a warp a
+// receiver, a lane a float4 of each 128 columns
 __global__ void __launch_bounds__(PW * 32)
 row_sum_kernel(const float* __restrict__ y, const int* __restrict__ rstart,
                const int* __restrict__ slot_of, int M, int co, float* __restrict__ out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m = blockIdx.x * PW + warp;
   if (m >= M) return;
-  const int cp = round4(co), c = 4 * lane;
-  if (c >= cp) return;
+  const int cp = round4(co);
   const int r0 = rstart[m], r1 = rstart[m + 1];
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int r = r0; r < r1; r += 4) {  // 4 rows' loads in flight, added in order
-    float4 v[4];
+  const bool vec = (co & 3) == 0 && ((uintptr_t)out & 15u) == 0;
+  for (int c = 4 * lane; c < cp; c += 128) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = r0; r < r1; r += 4) {  // 4 rows' loads in flight, added in order
+      float4 v[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      v[u] = r + u < r1 ? *(const float4*)(y + (size_t)slot_of[r + u] * cp + c)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int u = 0; u < 4; ++u)
+        v[u] = r + u < r1 ? *(const float4*)(y + (size_t)slot_of[r + u] * cp + c)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      s.x += v[u].x;
-      s.y += v[u].y;
-      s.z += v[u].z;
-      s.w += v[u].w;
+      for (int u = 0; u < 4; ++u) {
+        s.x += v[u].x;
+        s.y += v[u].y;
+        s.z += v[u].z;
+        s.w += v[u].w;
+      }
     }
-  }
-  float* o = out + (size_t)m * co + c;
-  if ((co & 3) == 0 && ((uintptr_t)out & 15u) == 0) {
-    *(float4*)o = s;
-  } else {
-    const float sv[4] = {s.x, s.y, s.z, s.w};
-    for (int j = 0; j < 4; ++j)
-      if (c + j < co) o[j] = sv[j];
+    float* o = out + (size_t)m * co + c;
+    if (vec) {
+      *(float4*)o = s;
+    } else {
+      const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < co) o[j] = sv[j];
+    }
   }
 }
 
 // ---- B4 ---------------------------------------------------------------------
 
-// One (work item, ci slab) a block: acc (128 x 128, 8 x 8 a thread) +=
-// g[s, slab]^T dout[recv_of[s], :] over the item's pair rows s, written as
-// the item's partial bank part[item] (ci, co).
+// One (work item, ci slab, co slab) a block: acc (128 x 128, 8 x 8 a
+// thread) += g[s, ci slab]^T dout[recv_of[s], co slab] over the item's pair
+// rows s, written into the item's partial bank part[item] (ci, co).
 __global__ void __launch_bounds__(THREADS)
 bwd_filters_kernel(const float* __restrict__ g, const float* __restrict__ dout,
                    const int* __restrict__ coff, const int* __restrict__ recv_of,
@@ -959,6 +1038,7 @@ bwd_filters_kernel(const float* __restrict__ g, const float* __restrict__ dout,
   if (item >= istart[ncell]) return;
   const int cell = cell_of_item(istart, ncell, item);
   const int s0 = blockIdx.y * SLAB, gq = min(SLAB, gs - s0) / 4;
+  const int t0 = blockIdx.z * SLAB, nco = min(SLAB, co - t0);  // this block's columns
   const int a0 = coff[cell] + (item - istart[cell]) * rows;
   const int a1 = min(coff[cell + 1], a0 + rows);
   const int nsteps = (a1 - a0 + KT - 1) / KT;
@@ -974,15 +1054,16 @@ bwd_filters_kernel(const float* __restrict__ g, const float* __restrict__ dout,
       copy16_async(gb + r * SLAB + 4 * c, g + (size_t)(row0 + r) * gs + s0 + 4 * c);
     }
     if (dvec) {
-      const int dq = co / 4;
+      const int dq = nco / 4;
       for (int q = tid; q < nr * dq; q += THREADS) {
         const int r = q / dq, c = q - r * dq;
-        copy16_async(db + r * SLAB + 4 * c, dout + (size_t)recv_of[row0 + r] * co + 4 * c);
+        copy16_async(db + r * SLAB + 4 * c,
+                     dout + (size_t)recv_of[row0 + r] * co + t0 + 4 * c);
       }
     } else {
-      for (int q = tid; q < nr * co; q += THREADS) {
-        const int r = q / co, c = q - r * co;
-        db[r * SLAB + c] = dout[(size_t)recv_of[row0 + r] * co + c];
+      for (int q = tid; q < nr * nco; q += THREADS) {
+        const int r = q / nco, c = q - r * nco;
+        db[r * SLAB + c] = dout[(size_t)recv_of[row0 + r] * co + t0 + c];
       }
     }
     commit_copies();
@@ -1025,7 +1106,7 @@ bwd_filters_kernel(const float* __restrict__ g, const float* __restrict__ dout,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = tile_at(tx, j);
-      if (col < co) bank[(size_t)r * co + col] = acc[i][j];
+      if (col < nco) bank[(size_t)r * co + t0 + col] = acc[i][j];
     }
   }
 }
@@ -1045,101 +1126,10 @@ __global__ void sum_banks_kernel(const float* __restrict__ part,
   }
 }
 
-// B6: dgx, dgy, dgz, dwin (M, k)
-__global__ void __launch_bounds__(THREADS)
-bwd_geom_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
-                const float* __restrict__ gz, const float* __restrict__ win,
-                const float* __restrict__ feat, const float* __restrict__ dout,
-                const float* __restrict__ FT, int M, int k, int ci, int co, int d,
-                float* __restrict__ dgx, float* __restrict__ dgy,
-                float* __restrict__ dgz, float* __restrict__ dwin) {
-  extern __shared__ float4 smem4[];
-  unsigned char* base = (unsigned char*)smem4;
-  const Layout L(d, co, ci, k);
-  const int GS = round4(co), CP = round4(ci), KW = (k + 31) / 32;
-  float* fs = (float*)(base + L.fs);
-  const float* g = (const float*)(base + L.g);
-  const float4* dfw = (const float4*)(base + L.dfw);
-  const int* dxyz = (const int*)(base + L.dxyz);
-  uint32_t* touch = (uint32_t*)(base + L.touch);
-  const int* cells = (const int*)(base + L.cells);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * CT;
-  // 16-byte feature reads need ci % 4 == 0 and a 16-byte aligned base
-  const bool vec = (ci & 3) == 0 && ((uintptr_t)feat & 15u) == 0;
-
-  for (int e = threadIdx.x; e < CT * k; e += THREADS) {
-    if (m0 + e / k >= M) break;
-    const size_t at = (size_t)m0 * k + e;
-    dgx[at] = dgy[at] = dgz[at] = dwin[at] = 0.f;
-  }  // visible to lane 0 of every warp after the set-up's barriers
-  const int ncell = setup_dout_walk(gx, gy, gz, win, dout, M, k, ci, co, d, true,
-                                    base, L);
-
-  float acc[T_PER][4];
-  if (ncell > 0) load_cell_async(fs, FT, cells[1], co, CP);
-  for (int n = 0; n < ncell; ++n) {
-    const int cell = cells[1 + n];
-    const float* fb = fs + (size_t)(n & 1) * GS * CP;
-    if (n + 1 < ncell)
-      load_cell_async(fs + (size_t)((n + 1) & 1) * GS * CP, FT, cells[2 + n], co, CP);
-    const int x = cell / (d * d), y = (cell / d) % d, z = cell % d;
-    mark_touch(x, y, z, dxyz, touch, k, KW);
-    wait_cell(n + 1 < ncell);
-    __syncthreads();
-    zero_acc(acc);
-    product(acc, g + warp * T_PER * GS, fb, GS, CP);  // dG = dout @ F_cell^T
-
-#pragma unroll
-    for (int i = 0; i < T_PER; ++i) {
-      const int t = warp * T_PER + i, m = m0 + t;
-      if (m >= M) continue;
-      for (int w = 0; w < KW; ++w) {
-        uint32_t bits = touch[t * KW + w];
-        while (bits) {
-          const int e = w * 32 + __ffs(bits) - 1;
-          bits &= bits - 1u;
-          const size_t at = (size_t)m * k + e;
-          const float* fr = feat + at * ci + 4 * lane;
-          float s = 0.f;
-          if (vec) {
-            if (4 * lane < ci) {
-              const float4 f = *(const float4*)fr;
-              s = f.x * acc[i][0];
-              s = fmaf(f.y, acc[i][1], s);
-              s = fmaf(f.z, acc[i][2], s);
-              s = fmaf(f.w, acc[i][3], s);
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (4 * lane + j < ci) s = fmaf(fr[j], acc[i][j], s);
-          }
-          // a fixed butterfly: every lane ends with the same bits
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-          if (lane == 0) {
-            const int xyz = dxyz[t * k + e];
-            const float4 v = dfw[t * k + e];
-            const int x0 = xyz & 255, y0 = (xyz >> 8) & 255, z0 = xyz >> 16;
-            const float wx = lerp_w(x, x0, v.x), wy = lerp_w(y, y0, v.y),
-                        wz = lerp_w(z, z0, v.z);
-            const float vs = v.w * s;
-            dwin[at] += wx * wy * wz * s;
-            dgx[at] += lerp_dw(x, x0, v.x) * wy * wz * vs;
-            dgy[at] += wx * lerp_dw(y, y0, v.y) * wz * vs;
-            dgz[at] += wx * wy * lerp_dw(z, z0, v.z) * vs;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
+// d^3 within the plan's 16-bit cells (which also keeps a receiver's rows,
+// at most d^3, below the 0xffff that marks a dead corner)
 bool bad_shape(int M, int k, int ci, int co, int d) {
-  return M <= 0 || k <= 0 || k > MAX_K || ci <= 0 || co <= 0 || co > MAX_CO ||
-         d < 2 || d > MAX_D;
+  return M <= 0 || k <= 0 || ci <= 0 || co <= 0 || d < 2 || d * d * d > MAX_CELLS;
 }
 
 template <typename K>
@@ -1150,22 +1140,23 @@ int set_smem(K kernel, size_t smem) {
 }
 
 // The launch of a warp-per-receiver pass over the plan (bins_kernel,
-// unbins_kernel): rows a warp all a receiver can have, or what fits with 8
-// warps a block; small shapes take more warps a block; as many blocks as stay
-// resident. Returns 0 or a CUDA error.
-template <typename K>
-int bin_launch(K kernel, int M, int k, int ci, int d, int* nrows, int* nwarp, int* blocks,
-               size_t* smem) {
+// unbins_kernel with BinLayout, bwd_geom_kernel with GeomLayout): rows a
+// warp all a receiver can have, or what fits with 8 warps a block (fewer
+// where a warp's tables alone do not fit: large d); small shapes take more
+// warps a block, up to `most_warps`; as many blocks as stay resident.
+// Returns 0 or a CUDA error.
+template <typename Lay, typename K>
+int bin_launch(K kernel, int most_warps, int M, int k, int ci, int d, int* nrows,
+               int* nwarp, int* blocks, size_t* smem) {
   const int gs = round4(ci), most = 8 * k < d * d * d ? 8 * k : d * d * d;
-  const size_t fixed = BinLayout(d, k, gs, 0).per_warp;
+  const size_t fixed = Lay(d, k, gs, 0).per_warp, row = (size_t)gs * sizeof(float) + sizeof(int);
   *nwarp = 8;
-  if ((size_t)MAX_SMEM / *nwarp < fixed + 16 + (size_t)gs * sizeof(float) + sizeof(int))
-    return (int)cudaErrorInvalidValue;
-  const size_t fit = ((size_t)MAX_SMEM / *nwarp - fixed - 16) /
-                     ((size_t)gs * sizeof(float) + sizeof(int));
+  while (*nwarp > 1 && (size_t)MAX_SMEM / *nwarp < fixed + 16 + row) *nwarp /= 2;
+  if ((size_t)MAX_SMEM / *nwarp < fixed + 16 + row) return (int)cudaErrorInvalidValue;
+  const size_t fit = ((size_t)MAX_SMEM / *nwarp - fixed - 16) / row;
   *nrows = fit < (size_t)most ? (int)fit : most;
-  const size_t per_warp = BinLayout(d, k, gs, *nrows).per_warp;
-  while (*nwarp < BIN_WARPS && 2 * *nwarp * per_warp <= (size_t)MAX_SMEM / 2) *nwarp *= 2;
+  const size_t per_warp = Lay(d, k, gs, *nrows).per_warp;
+  while (*nwarp < most_warps && 2 * *nwarp * per_warp <= (size_t)MAX_SMEM / 2) *nwarp *= 2;
   *smem = *nwarp * per_warp;
   int err = set_smem(kernel, *smem);
   if (err) return err;
@@ -1190,13 +1181,14 @@ extern "C" {
 // The plan's first half: masks (M, ceil(d^3 / 32)) and counts (M + 1: a
 // leading 0, then each receiver's) of the cells each receiver's live corners
 // touch, from gx, gy, gz, win (M, k); zeroes cell_counts (d^3) for the second
-// half.
+// half. all_edges: an edge of zero window counts as live (B6's plan).
 int contconv_plan_masks(const float* gx, const float* gy, const float* gz,
-                        const float* win, int M, int k, int d, uint32_t* masks,
-                        int* counts, int* cell_counts, void* stream) {
+                        const float* win, int M, int k, int d, int all_edges,
+                        uint32_t* masks, int* counts, int* cell_counts, void* stream) {
   if (bad_shape(M, k, 1, 1, d)) return (int)cudaErrorInvalidValue;
-  plan_masks_kernel<<<(M + PW - 1) / PW, PW * 32, 0, (cudaStream_t)stream>>>(
-      gx, gy, gz, win, M, k, d, masks, counts, cell_counts);
+  const size_t smem = (size_t)PW * ((d * d * d + 31) / 32) * sizeof(uint32_t);
+  plan_masks_kernel<<<(M + PW - 1) / PW, PW * 32, smem, (cudaStream_t)stream>>>(
+      gx, gy, gz, win, M, k, d, all_edges, masks, counts, cell_counts);
   return (int)cudaGetLastError();
 }
 
@@ -1211,7 +1203,12 @@ int contconv_plan_cells(const uint32_t* masks, const int* rstart, int M, int d, 
   if (bad_shape(M, 1, 1, 1, d) || rows < 1) return (int)cudaErrorInvalidValue;
   const int z = d * d * d, nw = (z + 31) / 32;
   const long long nwords = (long long)M * nw, per_block = THREADS * COUNT_WORDS;
-  plan_cell_counts_kernel<<<(unsigned)((nwords + per_block - 1) / per_block), THREADS, 0,
+  const size_t smem = (size_t)z * sizeof(int);
+  if (smem > DEFAULT_SMEM) {
+    const int err = set_smem(plan_cell_counts_kernel, smem);
+    if (err) return err;
+  }
+  plan_cell_counts_kernel<<<(unsigned)((nwords + per_block - 1) / per_block), THREADS, smem,
                             (cudaStream_t)stream>>>(masks, nwords, nw, z, cell_counts);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -1231,7 +1228,8 @@ int contconv_pair_bins(const float* gx, const float* gy, const float* gz,
     return (int)cudaErrorInvalidValue;
   int nrows, nwarp, blocks;
   size_t smem;
-  const int err = bin_launch(bins_kernel, M, k, ci, d, &nrows, &nwarp, &blocks, &smem);
+  const int err = bin_launch<BinLayout>(bins_kernel, BIN_WARPS, M, k, ci, d, &nrows, &nwarp,
+                                        &blocks, &smem);
   if (err) return err;
   bins_kernel<<<blocks, nwarp * 32, smem, (cudaStream_t)stream>>>(
       gx, gy, gz, win, feat, rstart, cell_r, slot_of, M, k, ci, d, nrows, g);
@@ -1248,10 +1246,33 @@ int contconv_pair_unbins(const float* gx, const float* gy, const float* gz,
     return (int)cudaErrorInvalidValue;
   int nrows, nwarp, blocks;
   size_t smem;
-  const int err = bin_launch(unbins_kernel, M, k, ci, d, &nrows, &nwarp, &blocks, &smem);
+  const int err = bin_launch<BinLayout>(unbins_kernel, BIN_WARPS, M, k, ci, d, &nrows,
+                                        &nwarp, &blocks, &smem);
   if (err) return err;
   unbins_kernel<<<blocks, nwarp * 32, smem, (cudaStream_t)stream>>>(
       gx, gy, gz, win, dg, rstart, cell_r, slot_of, M, k, ci, d, nrows, dfeat);
+  return (int)cudaGetLastError();
+}
+
+// B6's geometry pass: dgx, dgy, dgz, dwin (M, k) from dG (P, round4(ci)),
+// 16-byte aligned, at the cell-major rows of a plan that keeps the edges of
+// zero window (rstart, cell_r, slot_of), gx, gy, gz, win (M, k) and feat (M,
+// k, ci) at any 4-byte offset.
+int contconv_pair_geom(const float* gx, const float* gy, const float* gz,
+                       const float* win, const float* feat, const float* dg,
+                       const int* rstart, const int16_t* cell_r, const int* slot_of, int M,
+                       int k, int ci, int d, float* dgx, float* dgy, float* dgz,
+                       float* dwin, void* stream) {
+  if (bad_shape(M, k, ci, 1, d) || ((uintptr_t)dg & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  int nrows, nwarp, blocks;
+  size_t smem;
+  const int err = bin_launch<GeomLayout>(bwd_geom_kernel, GEOM_WARPS, M, k, ci, d, &nrows,
+                                         &nwarp, &blocks, &smem);
+  if (err) return err;
+  bwd_geom_kernel<<<blocks, nwarp * 32, smem, (cudaStream_t)stream>>>(
+      gx, gy, gz, win, feat, dg, rstart, cell_r, slot_of, M, k, ci, d, nrows, dgx, dgy, dgz,
+      dwin);
   return (int)cudaGetLastError();
 }
 
@@ -1265,7 +1286,7 @@ int contconv_pair_unbins(const float* gx, const float* gy, const float* gz,
 int contconv_pair_product(const float* a, const int* recv_of, const float* F,
                           const int* coff, const int* istart, int kd, int nd, int d,
                           int rows, int nitems, float* y, void* stream) {
-  if (kd <= 0 || nd <= 0 || d < 2 || d > MAX_D || rows < 1 || nitems < 1 ||
+  if (bad_shape(1, 1, kd, nd, d) || rows < 1 || nitems < 1 ||
       (((uintptr_t)a | (uintptr_t)F | (uintptr_t)y) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)KC * SLAB + (size_t)2 * PT * AS) * sizeof(float);
@@ -1289,8 +1310,7 @@ int contconv_pair_product(const float* a, const int* recv_of, const float* F,
 // at slot_of[rstart[m] ..], added in that order.
 int contconv_row_sum(const float* y, const int* rstart, const int* slot_of, int M,
                      int co, float* out, void* stream) {
-  if (M <= 0 || co <= 0 || co > MAX_CO || ((uintptr_t)y & 15u) != 0)
-    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || co <= 0 || ((uintptr_t)y & 15u) != 0) return (int)cudaErrorInvalidValue;
   row_sum_kernel<<<(M + PW - 1) / PW, PW * 32, 0, (cudaStream_t)stream>>>(
       y, rstart, slot_of, M, co, out);
   return (int)cudaGetLastError();
@@ -1304,13 +1324,14 @@ int contconv_bwd_filters(const float* g, const float* dout, const int* coff,
                          const int* recv_of, const int* istart, int ci, int co, int d,
                          int rows, int nitems, float* partial, float* dF, void* stream) {
   if (bad_shape(1, 1, ci, co, d) || rows < 1 || nitems < 1 || partial == nullptr ||
-      (ci + SLAB - 1) / SLAB > 65535 || ((uintptr_t)g & 15u) != 0)
+      (ci + SLAB - 1) / SLAB > 65535 || (co + SLAB - 1) / SLAB > 65535 ||
+      ((uintptr_t)g & 15u) != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)4 * KT * SLAB * sizeof(float);
   const int err = set_smem(bwd_filters_kernel, smem);
   if (err) return err;
   const int nc = d * d * d;
-  const dim3 grid(nitems, (ci + SLAB - 1) / SLAB);
+  const dim3 grid(nitems, (ci + SLAB - 1) / SLAB, (co + SLAB - 1) / SLAB);
   bwd_filters_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       g, dout, coff, recv_of, istart, ci, co, nc, rows, partial);
   cudaError_t e = cudaGetLastError();
@@ -1318,23 +1339,6 @@ int contconv_bwd_filters(const float* g, const float* dout, const int* coff,
   const size_t n = (size_t)nc * ci * co;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
   sum_banks_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(partial, istart, nc, ci * co, dF);
-  return (int)cudaGetLastError();
-}
-
-// B6: dgx, dgy, dgz, dwin (M, k) from gx, gy, gz, win (M, k), feat (M, k,
-// ci) at any 4-byte offset, dout (M, co) and F^T (d^3 * co, round4(ci)) with
-// zero pad columns, 16-byte aligned; ci <= 128.
-int contconv_bwd_geom(const float* gx, const float* gy, const float* gz,
-                      const float* win, const float* feat, const float* dout,
-                      const float* FT, int M, int k, int ci, int co, int d,
-                      float* dgx, float* dgy, float* dgz, float* dwin, void* stream) {
-  if (bad_shape(M, k, ci, co, d) || ci > MAX_CO || ((uintptr_t)FT & 15u) != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = Layout(d, co, ci, k).total;
-  const int err = set_smem(bwd_geom_kernel, smem);
-  if (err) return err;
-  bwd_geom_kernel<<<(M + CT - 1) / CT, THREADS, smem, (cudaStream_t)stream>>>(
-      gx, gy, gz, win, feat, dout, FT, M, k, ci, co, d, dgx, dgy, dgz, dwin);
   return (int)cudaGetLastError();
 }
 

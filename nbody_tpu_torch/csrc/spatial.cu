@@ -79,6 +79,12 @@ __device__ __forceinline__ uint32_t pack_key(float d2, uint32_t col,
 // computed with the operations and rounding of d2, each of them monotonic,
 // so it is at most the d2 of every candidate in the box, and none of them
 // would pass the compare.
+//
+// k above 32 (SLABS): the walk runs once for each slab of 32 outputs, the
+// candidates staged once. A slab keeps only keys above the last key of the
+// slab before it (its lane's top[K - 1]), so it selects the next 32 smallest
+// of the 3b unique keys, and the slabs' lists, written one after another,
+// are the k smallest in order: the plain version's top-k.
 constexpr int CHUNK = 32;  // columns a warp scans between merges
 constexpr int MAX_BLOCK = 682;  // 3b columns fit the packed keys' 11 bits
 constexpr int MAX_CHUNKS = (3 * MAX_BLOCK + CHUNK - 1) / CHUNK;
@@ -91,7 +97,7 @@ __device__ __forceinline__ void insert_key(uint32_t (&top)[K], uint32_t key) {
   top[0] = min(top[0], key);
 }
 
-template <int K>
+template <int K, bool SLABS>
 __global__ void select_kernel(const float4* __restrict__ cand, int L, int b,
                               int k, int include_self, uint32_t colmask,
                               int* __restrict__ ids, float* __restrict__ d2s) {
@@ -131,82 +137,89 @@ __global__ void select_kernel(const float4* __restrict__ cand, int L, int b,
   const int self = b + r;
   const float4 q = win[live ? self : b];
   const uint32_t flt_max_key = INF_BITS & ~colmask;  // keys at or above: d2 == FLT_MAX
-  uint32_t top[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) top[j] = j < K - k ? 0u : EMPTY;
-  uint32_t thr = live ? EMPTY : 0u;  // a lane past the block never appends
-  float thr_d2 = live ? __int_as_float(0x7F800000) : -1.f;  // d2 <= this to be a candidate
   const int own = (b + CHUNK * (r / 32)) / CHUNK;
-  int left = own, right = own + 1;
-  for (int step = 0; step < nchunk; ++step) {
-    int ch;
-    if (step == 0) {
-      ch = own;
-    } else if (right < nchunk && (left == 0 || (step & 1))) {
-      ch = right++;
-    } else {
-      ch = --left;
-    }
-    // the chunk's box distance, in d2's operations: <= d2 of each candidate
-    const float* bx = box[ch];
-    const float gx = fmaxf(fmaxf(__fsub_rn(bx[0], q.x), __fsub_rn(q.x, bx[3])), 0.f);
-    const float gy = fmaxf(fmaxf(__fsub_rn(bx[1], q.y), __fsub_rn(q.y, bx[4])), 0.f);
-    const float gz = fmaxf(fmaxf(__fsub_rn(bx[2], q.z), __fsub_rn(q.z, bx[5])), 0.f);
-    const float lb = __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
-                               __fmul_rn(gz, gz));
-    if (__all_sync(0xffffffffu, lb > thr_d2)) continue;  // no lane would keep a candidate
-    const int c0 = ch * CHUNK;
-    const int c1 = min(c0 + CHUNK, ncol);
-    uint32_t n = 0;
+  const size_t row = ((size_t)c * nb + i) * b + r;
+  uint32_t floor_key = 0u;  // SLABS: keys at or below it were selected before
+  // one slab of at most K outputs, j0 the first (without SLABS: k <= K, one)
+  for (int j0 = 0; j0 < (SLABS ? k : 1); j0 += K) {
+    const int ks = SLABS ? min(K, k - j0) : k;
+    uint32_t top[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) top[j] = j < K - ks ? 0u : EMPTY;
+    uint32_t thr = live ? EMPTY : 0u;  // a lane past the block never appends
+    float thr_d2 = live ? __int_as_float(0x7F800000) : -1.f;  // d2 <= this to be a candidate
+    int left = own, right = own + 1;
+    for (int step = 0; step < nchunk; ++step) {
+      int ch;
+      if (step == 0) {
+        ch = own;
+      } else if (right < nchunk && (left == 0 || (step & 1))) {
+        ch = right++;
+      } else {
+        ch = --left;
+      }
+      // the chunk's box distance, in d2's operations: <= d2 of each candidate
+      const float* bx = box[ch];
+      const float gx = fmaxf(fmaxf(__fsub_rn(bx[0], q.x), __fsub_rn(q.x, bx[3])), 0.f);
+      const float gy = fmaxf(fmaxf(__fsub_rn(bx[1], q.y), __fsub_rn(q.y, bx[4])), 0.f);
+      const float gz = fmaxf(fmaxf(__fsub_rn(bx[2], q.z), __fsub_rn(q.z, bx[5])), 0.f);
+      const float lb = __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                                 __fmul_rn(gz, gz));
+      if (__all_sync(0xffffffffu, lb > thr_d2)) continue;  // no lane would keep a candidate
+      const int c0 = ch * CHUNK;
+      const int c1 = min(c0 + CHUNK, ncol);
+      uint32_t n = 0;
 #pragma unroll 8
-    for (int col = c0; col < c1; ++col) {
-      const float4 p = win[col];
-      const float dx = __fsub_rn(p.x, q.x);
-      const float dy = __fsub_rn(p.y, q.y);
-      const float dz = __fsub_rn(p.z, q.z);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      if (!(d2 > thr_d2)) {  // a NaN goes on, as max(NaN, 0) = 0 below
-        const bool bad = d2 >= BAD_D2 || (!include_self && col == self);
-        const uint32_t key =
-            pack_key(bad ? __uint_as_float(INF_BITS) : fmaxf(d2, 0.f), (uint32_t)col, colmask);
-        if (key < thr) queue[n++ * nt + r] = key;
+      for (int col = c0; col < c1; ++col) {
+        const float4 p = win[col];
+        const float dx = __fsub_rn(p.x, q.x);
+        const float dy = __fsub_rn(p.y, q.y);
+        const float dz = __fsub_rn(p.z, q.z);
+        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                   __fmul_rn(dz, dz));
+        if (!(d2 > thr_d2)) {  // a NaN goes on, as max(NaN, 0) = 0 below
+          const bool bad = d2 >= BAD_D2 || (!include_self && col == self);
+          const uint32_t key =
+              pack_key(bad ? __uint_as_float(INF_BITS) : fmaxf(d2, 0.f), (uint32_t)col, colmask);
+          if (key < thr && (!SLABS || key > floor_key)) queue[n++ * nt + r] = key;
+        }
+      }
+      const uint32_t rounds = __reduce_max_sync(0xffffffffu, n);  // the same in every lane
+      for (uint32_t s = 0; s < rounds; ++s) insert_key<K>(top, s < n ? queue[s * nt + r] : EMPTY);
+      if (rounds > 0 && live) {
+        thr = top[K - 1];
+        // key < thr needs d2 <= the largest distance of thr's class; a
+        // threshold of FLT_MAX's class (or an unfilled list) lets every d2 in
+        thr_d2 = thr >= flt_max_key ? __int_as_float(0x7F800000) : __uint_as_float(thr | colmask);
       }
     }
-    const uint32_t rounds = __reduce_max_sync(0xffffffffu, n);  // the same in every lane
-    for (uint32_t s = 0; s < rounds; ++s) insert_key<K>(top, s < n ? queue[s * nt + r] : EMPTY);
-    if (rounds > 0 && live) {
-      thr = top[K - 1];
-      // key < thr needs d2 <= the largest distance of thr's class; a
-      // threshold of FLT_MAX's class (or an unfilled list) lets every d2 in
-      thr_d2 = thr >= flt_max_key ? __int_as_float(0x7F800000) : __uint_as_float(thr | colmask);
-    }
-  }
-  if (!live) return;
-  const size_t row = ((size_t)c * nb + i) * b + r;
+    if (live) {
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int at = j - (K - k);
-    if (at >= 0) {
-      const uint32_t key = top[j];
-      ids[row * k + at] = __float_as_int(win[key & colmask].w);
-      d2s[row * k + at] = __uint_as_float(key & ~colmask);
+      for (int j = 0; j < K; ++j) {
+        const int at = j - (K - ks);
+        if (at >= 0) {
+          const uint32_t key = top[j];
+          ids[row * k + j0 + at] = __float_as_int(win[key & colmask].w);
+          d2s[row * k + j0 + at] = __uint_as_float(key & ~colmask);
+        }
+      }
     }
+    floor_key = top[K - 1];
   }
 }
 
-template <int K>
+template <int K, bool SLABS = false>
 int launch_select(const float4* cand, int n_copies, int nb, int b, int k, int include_self,
                   uint32_t colmask, int* ids, float* d2s, cudaStream_t s) {
   const int nt = (b + 31) / 32 * 32;
   const size_t smem = (size_t)3 * b * sizeof(float4) + (size_t)CHUNK * nt * sizeof(uint32_t);
   if (smem + BOX_BYTES > 48 * 1024) {  // above the default: ask for it
     const cudaError_t e = cudaFuncSetAttribute(
-        select_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        select_kernel<K, SLABS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  select_kernel<K><<<dim3(nb, n_copies), nt, smem, s>>>(cand, (nb + 2) * b, b, k, include_self,
-                                                        colmask, ids, d2s);
+  select_kernel<K, SLABS><<<dim3(nb, n_copies), nt, smem, s>>>(
+      cand, (nb + 2) * b, b, k, include_self, colmask, ids, d2s);
   return (int)cudaGetLastError();
 }
 
@@ -214,8 +227,9 @@ int launch_select(const float4* cand, int n_copies, int nb, int b, int k, int in
 //
 // Replaces nbody_tpu/ops/spatial.py::_merge_kernel (Pallas, TPU).
 //
-// Per row: the k nearest unique ids among its w <= 128 candidate slots (the
-// C*k of all curve copies). Each of k passes takes the smallest packed key,
+// Per row: the k nearest unique ids among its w candidate slots (the C*k of
+// all curve copies; w <= 2048, the packed keys' 11 column bits, as JAX's
+// _pack_d2_cols asserts). Each of k passes takes the smallest packed key,
 // sums the ids of the slots holding that key, sets every slot holding the
 // picked id to INF_BITS (removing its duplicates from the other copies),
 // and emits the id and the key with its column bits cleared. This is the
@@ -256,10 +270,21 @@ int launch_select(const float4* cand, int n_copies, int nb, int b, int k, int in
 // writes them out after MERGE_OUT passes or the last, by consecutive
 // threads (for k <= MERGE_OUT the block's outputs are one contiguous
 // range).
+//
+// Rows wider than MERGE_MAX_W (k above 32 with 4 copies) take
+// merge_wide_kernel: a warp a row, MERGE_WIDE_ROWS rows a block, the row's
+// keys and ids staged in shared memory and left there; a pass is each
+// lane's min over its slots (l, l + 32, ...), a warp-wide min, the id read
+// at the minimum's column (the wrapped sum of every hit's id where the
+// minimum is INF_BITS, as above), and each lane masking its slots that hold
+// the id. It makes the same picks in the same order as merge_kernel and the
+// plain version, each pass reading the row from shared memory twice.
 constexpr int MERGE_LANES = 4;   // lanes a row
 constexpr int MERGE_ROWS = 32;   // rows a block
 constexpr int MERGE_OUT = 32;    // passes a block buffers before it writes them
 constexpr int MERGE_MAX_W = 128;
+constexpr int MERGE_WIDE_ROWS = 8;     // wide rows: rows (warps) a block
+constexpr int MERGE_MAX_WIDE = 2048;   // wide rows: the widest, 11 column bits
 
 __host__ __device__ constexpr int merge_stride(int w, int lanes) {
   return (w + 31) / 32 * 32 + lanes;
@@ -393,6 +418,59 @@ merge_kernel(const int* __restrict__ cand, const float* __restrict__ d2,
   }
 }
 
+// Rows of w > MERGE_MAX_W slots: a warp a row (see above). Shared memory:
+// MERGE_WIDE_ROWS x (keys, ids) of `stride` = round4(w) words.
+__global__ void __launch_bounds__(MERGE_WIDE_ROWS * 32)
+merge_wide_kernel(const int* __restrict__ cand, const float* __restrict__ d2, int n, int w,
+                  int k, uint32_t colmask, int* __restrict__ ids, float* __restrict__ vals) {
+  extern __shared__ uint32_t wide_smem[];
+  const int stride = (w + 3) & ~3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * MERGE_WIDE_ROWS + warp;
+  if (row >= n) return;  // the whole warp; no block-wide barrier below
+  uint32_t* skey = wide_smem + (size_t)warp * 2 * stride;
+  int* sid = reinterpret_cast<int*>(skey + stride);
+  for (int c = lane; c < w; c += 32) {
+    skey[c] = pack_key(fmaxf(d2[(size_t)row * w + c], 0.f), (uint32_t)c, colmask);
+    sid[c] = cand[(size_t)row * w + c];
+  }
+  __syncwarp();
+  for (int j = 0; j < k; ++j) {
+    uint32_t mn = EMPTY;
+    for (int c = lane; c < w; c += 32) mn = min(mn, skey[c]);
+    mn = __reduce_min_sync(0xffffffffu, mn);
+    int pid;
+    if (mn == INF_BITS) {  // rare: sum every hit
+      uint32_t sum = 0;
+      for (int c = lane; c < w; c += 32) sum += skey[c] == mn ? (uint32_t)sid[c] : 0u;
+      pid = (int)__reduce_add_sync(0xffffffffu, sum);
+    } else {
+      pid = sid[mn & colmask];
+    }
+    __syncwarp();  // every lane has read the slots before any is masked
+    for (int c = lane; c < w; c += 32)
+      if (sid[c] == pid) skey[c] = INF_BITS;
+    __syncwarp();
+    if (lane == 0) {
+      ids[(size_t)row * k + j] = pid;
+      vals[(size_t)row * k + j] = __uint_as_float(mn & ~colmask);
+    }
+  }
+}
+
+int launch_merge_wide(const int* cand, const float* d2, int n, int w, int k, uint32_t colmask,
+                      int* ids, float* vals, cudaStream_t st) {
+  const size_t smem = sizeof(uint32_t) * MERGE_WIDE_ROWS * 2 * ((w + 3) & ~3);
+  if (smem > 48 * 1024) {  // above the default: ask for it
+    const cudaError_t e = cudaFuncSetAttribute(
+        merge_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  merge_wide_kernel<<<(n + MERGE_WIDE_ROWS - 1) / MERGE_WIDE_ROWS, MERGE_WIDE_ROWS * 32, smem,
+                      st>>>(cand, d2, n, w, k, colmask, ids, vals);
+  return (int)cudaGetLastError();
+}
+
 // S, the slots a lane, the fewest even count with w <= MERGE_LANES * S
 template <int S = 2>
 int launch_merge(const int* cand, const float* d2, int n, int w, int k, uint32_t colmask,
@@ -413,13 +491,14 @@ int launch_merge(const int* cand, const float* d2, int n, int w, int k, uint32_t
 
 extern "C" {
 
-// ids, d2s (C, nb*b, k) = the k smallest packed keys of every query row.
-// cand: (C, L) float4 [x, y, z, gid bits] with L == (nb + 2) * b.
+// ids, d2s (C, nb*b, k) = the k smallest packed keys of every query row,
+// k <= 3b (above 32 in slabs of 32). cand: (C, L) float4 [x, y, z, gid bits]
+// with L == (nb + 2) * b.
 int morton_select(const void* cand, int n_copies, int nb, int b, int k,
                   int include_self, int nbits, int* ids, float* d2s,
                   void* stream) {
-  if (n_copies <= 0 || nb <= 0 || b <= 0 || b > MAX_BLOCK || k <= 0 || k > 32 ||
-      k > 3 * b || nbits <= 0 || (1 << nbits) < 3 * b || n_copies > 65535)
+  if (n_copies <= 0 || nb <= 0 || b <= 0 || b > MAX_BLOCK || k <= 0 || k > 3 * b ||
+      nbits <= 0 || (1 << nbits) < 3 * b || n_copies > 65535)
     return (int)cudaErrorInvalidValue;
   const uint32_t colmask = (1u << nbits) - 1u;
   const float4* c4 = (const float4*)cand;
@@ -428,16 +507,22 @@ int morton_select(const void* cand, int n_copies, int nb, int b, int k,
     return launch_select<8>(c4, n_copies, nb, b, k, include_self, colmask, ids, d2s, s);
   if (k <= 16)
     return launch_select<16>(c4, n_copies, nb, b, k, include_self, colmask, ids, d2s, s);
-  return launch_select<32>(c4, n_copies, nb, b, k, include_self, colmask, ids, d2s, s);
+  if (k <= 32)
+    return launch_select<32>(c4, n_copies, nb, b, k, include_self, colmask, ids, d2s, s);
+  return launch_select<32, true>(c4, n_copies, nb, b, k, include_self, colmask, ids, d2s, s);
 }
 
-// ids, vals (n, k) = the k nearest unique ids of each row of cand/d2 (n, w).
+// ids, vals (n, k) = the k nearest unique ids of each row of cand/d2 (n, w),
+// w <= 2048.
 int morton_merge(const int* cand, const float* d2, int n, int w, int k,
                  int nbits, int* ids, float* vals, void* stream) {
-  if (n <= 0 || w <= 0 || w > MERGE_MAX_W || k <= 0 || nbits <= 0 || nbits > 11 ||
+  if (n <= 0 || w <= 0 || w > MERGE_MAX_WIDE || k <= 0 || nbits <= 0 || nbits > 11 ||
       (1 << nbits) < w)
     return (int)cudaErrorInvalidValue;
-  return launch_merge(cand, d2, n, w, k, (1u << nbits) - 1u, ids, vals, (cudaStream_t)stream);
+  const uint32_t colmask = (1u << nbits) - 1u;
+  if (w > MERGE_MAX_W)
+    return launch_merge_wide(cand, d2, n, w, k, colmask, ids, vals, (cudaStream_t)stream);
+  return launch_merge(cand, d2, n, w, k, colmask, ids, vals, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -17,8 +17,8 @@ bins and multiplies them by the whole filter bank once.
   tensors, its twin for CPU tensors. Its backward launches B4 (filters) and
   B5 (features) on the card, and B6 only when positions need a gradient;
 - None (the default): ``"kernel"`` when the layer's tensors lie on a CUDA
-  device, ``"dense"`` otherwise. The kernels take 2 <= D <= 10, k <= 64 and
-  128 channels at most; a card model outside those limits sets ``"dense"``.
+  device, ``"dense"`` otherwise. The kernels take any k and channel widths
+  and D >= 2 with D^3 <= 32767.
 
 The JAX ``conv_geometry(tile=...)`` padding of the receiver axis exists for
 the TPU's (8, 128) tiles; the port has no tile padding and takes no

@@ -30,17 +30,22 @@ over a plan (:func:`pair_bins_torch`, :func:`pair_collect_torch`,
 :func:`pair_unbins_torch`) hold that rule without a card.
 
 The gradient is a ``torch.autograd.Function`` that saves its inputs only,
-as the JAX custom VJP does (the backward rebuilds one plan for B4 and B5,
-and one (rows, round4(ci)) buffer holds B4's bins and then B5's dG rows),
-and whose backward launches, on the card, the kernels of the Pallas
-``_collect_bwd_rule``:
+as the JAX custom VJP does (the backward rebuilds one plan for B4, B5 and
+B6, and one (rows, round4(ci)) buffer holds B4's bins and then the dG rows
+that B5 and B6 both read), and whose backward launches, on the card, the
+kernels of the Pallas ``_collect_bwd_rule``:
 
 - B4 :func:`contconv_bwd_filters` (``_bwd_filters_kernel``) when the
   filters need a gradient,
 - B5 :func:`contconv_bwd_feat` (``_bwd_feat_kernel``) when ``feat_j`` does,
 - B6 :func:`contconv_bwd_geom` (``_bwd_geom_kernel``) only when a geometry
   input (gx, gy, gz, window) does: parameter-only training never launches
-  it, as XLA drops the unused JAX call.
+  it, as XLA drops the unused JAX call. B6 runs over a plan that keeps the
+  edges of zero window (``pair_plan(all_edges=True)``: the window's
+  cotangent does not vanish there), the dG rows of B5's product, and a
+  geometry pass that forms each (edge, live corner)'s feature . dG dot
+  (plain version :func:`pair_geom_torch`); a backward that wants it builds
+  that plan for B4 and B5 as well.
 
 On the CPU each of them runs its part of :func:`contconv_collect_bwd_torch`,
 the plain backward. Every wrapper counts its launches in
@@ -58,8 +63,14 @@ is sized without asking the device where the most pairs the shape can have,
 M min(8k, D^3), keep bins and products under ``_NO_READ_BYTES`` (a few
 thousand receivers: launches so short that a wait would leave the card idle
 while the host catches up); above that from the pair count read on the host,
-the call's one wait (B4 in a backward takes the row count from its
-forward). B6 reads a row once for each of its 8 corner cells.
+the call's one wait (B4 and B5 in a backward take the row count from its
+forward; a backward with B6 reads its own plan's). B6 reads each feature row
+once.
+
+The kernels take any k, ci and co, and d >= 2 with d^3 <= 32767 (the plan
+keeps a cell in 16 bits), where one warp's tables (its receiver's cell ->
+row table, 2 d^3 bytes, and a row per edge corner) fit the card's shared
+memory; a launch raises ``RuntimeError`` on another shape.
 """
 
 from __future__ import annotations
@@ -87,8 +98,8 @@ _NO_READ_BYTES = 2 << 30
 
 _LIB: Optional[ctypes.CDLL] = None
 
-_LIMITS = ("the kernels take 2 <= d <= 10, k <= 64, co <= 128 (and ci <= 128 "
-           "for B6, within 227 KB of shared memory)")
+_LIMITS = ("the kernels take d >= 2 with d^3 <= 32767 and any k, ci and co, within "
+           "227 KB of shared memory a block")
 
 
 def _lib() -> ctypes.CDLL:
@@ -96,18 +107,18 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load_library("contconv")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.contconv_plan_masks.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 4
+        lib.contconv_plan_masks.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 4
         lib.contconv_plan_cells.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 7
         lib.contconv_pair_bins.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 2
         lib.contconv_pair_unbins.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 2
         lib.contconv_pair_product.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 2
         lib.contconv_row_sum.argtypes = [ptr] * 3 + [i32] * 2 + [ptr] * 2
         lib.contconv_bwd_filters.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 3
-        lib.contconv_bwd_geom.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 5
+        lib.contconv_pair_geom.argtypes = [ptr] * 9 + [i32] * 4 + [ptr] * 5
         for fn in (lib.contconv_plan_masks, lib.contconv_plan_cells,
                    lib.contconv_pair_bins, lib.contconv_pair_unbins,
                    lib.contconv_pair_product, lib.contconv_row_sum,
-                   lib.contconv_bwd_filters, lib.contconv_bwd_geom):
+                   lib.contconv_bwd_filters, lib.contconv_pair_geom):
             fn.restype = i32
         _LIB = lib
     return _LIB
@@ -223,11 +234,11 @@ def contconv_collect_bwd_torch(gx, gy, gz, window, feat_j, filters, dout, *, d: 
 class PairPlan(NamedTuple):
     """The distinct (receiver, cell) pairs of one geometry, P of them: the
     cells that a receiver's live corners touch. An edge is live when its
-    window is non-zero, a corner when each of its three axis weights is.
-    Receiver-major, a receiver's pairs are rows ``rstart[m] : rstart[m + 1]``,
-    cells ascending; cell-major, a cell's pairs are rows ``coff[c] :
-    coff[c + 1]``, receivers ascending. The bins and B3's products are
-    stored cell-major."""
+    window is non-zero (in B6's plan, ``all_edges``, always), a corner when
+    each of its three axis weights is. Receiver-major, a receiver's pairs are
+    rows ``rstart[m] : rstart[m + 1]``, cells ascending; cell-major, a
+    cell's pairs are rows ``coff[c] : coff[c + 1]``, receivers ascending.
+    The bins and B3's products are stored cell-major."""
 
     rstart: torch.Tensor   # (M + 1,) int32
     cell_r: torch.Tensor   # (P,) int16, the cell of each receiver-major row
@@ -240,22 +251,24 @@ class PairPlan(NamedTuple):
     # the spare rows belong to no receiver and no cell and are never read.
 
 
-def _live_corners(gx, gy, gz, window, d):
+def _live_corners(gx, gy, gz, window, d, all_edges=False):
     """Per edge corner its cell, weight and whether it adds anything, each
-    (M, k, 8)."""
+    (M, k, 8); with ``all_edges`` a corner of an edge of zero window counts
+    too."""
     if d < 2:
         raise ValueError(f"the pair plan needs d >= 2, got {d}")
     cell, w, _, live = _edge_corners(gx, gy, gz, d)
-    return cell, w, live & (window != 0)[..., None]
+    return cell, w, live if all_edges else live & (window != 0)[..., None]
 
 
-def pair_plan_torch(gx, gy, gz, window, *, d: int) -> PairPlan:
+def pair_plan_torch(gx, gy, gz, window, *, d: int, all_edges: bool = False) -> PairPlan:
     """Plain version of the plan kernels: the pairs are the distinct
-    (receiver, cell) keys of the live corners, in key order. Index
-    preparation by torch calls, as the Morton sort in ``ops/spatial.py``."""
+    (receiver, cell) keys of the live corners, in key order (``all_edges``:
+    of every edge, B6's plan). Index preparation by torch calls, as the
+    Morton sort in ``ops/spatial.py``."""
     m = window.shape[0]
     z = d ** 3
-    cell, _, live = _live_corners(gx, gy, gz, window, d)
+    cell, _, live = _live_corners(gx, gy, gz, window, d, all_edges)
     recv = torch.arange(m, device=window.device)[:, None, None].expand_as(cell)
     keys = torch.unique(recv[live] * z + cell[live])  # sorted
     recv_r = torch.div(keys, z, rounding_mode="floor").int()
@@ -270,17 +283,23 @@ def pair_plan_torch(gx, gy, gz, window, *, d: int) -> PairPlan:
     return PairPlan(rstart, (keys % z).to(torch.int16), slot_of, recv_r[perm], coff)
 
 
+def _pair_rows(plan: PairPlan, recv, cell, z: int):
+    """The cell-major rows in ``plan`` of the pairs (recv, cell)."""
+    m = plan.rstart.numel() - 1
+    p = int(plan.rstart[-1])
+    counts = (plan.rstart[1:] - plan.rstart[:-1]).long()
+    recv_r = torch.repeat_interleave(torch.arange(m, device=recv.device), counts)
+    row = torch.searchsorted(recv_r * z + plan.cell_r[:p].long(), recv * z + cell)
+    return plan.slot_of[row].long()
+
+
 def _corner_rows(plan: PairPlan, gx, gy, gz, window, d: int):
     """Every live corner of the geometry as (receiver, edge, window * corner
     weight, the cell-major row of its pair in ``plan``)."""
-    m = window.shape[0]
-    z = d ** 3
     cell, w, live = _live_corners(gx, gy, gz, window, d)
-    counts = (plan.rstart[1:] - plan.rstart[:-1]).long()
-    recv_r = torch.repeat_interleave(torch.arange(m, device=window.device), counts)
     recv, edge, corner = live.nonzero(as_tuple=True)
-    row = torch.searchsorted(recv_r * z + plan.cell_r.long(), recv * z + cell[live])
-    return recv, edge, window[recv, edge] * w[recv, edge, corner], plan.slot_of[row].long()
+    return (recv, edge, window[recv, edge] * w[recv, edge, corner],
+            _pair_rows(plan, recv, cell[live], d ** 3))
 
 
 def pair_bins_torch(plan: PairPlan, gx, gy, gz, window, feat_j, *, d: int):
@@ -301,6 +320,31 @@ def pair_unbins_torch(plan: PairPlan, dg, gx, gy, gz, window, *, d: int):
     recv, edge, wt, row = _corner_rows(plan, gx, gy, gz, window, d)
     out = torch.zeros((m * k, dg.shape[1]), dtype=dg.dtype, device=dg.device)
     return out.index_add_(0, recv * k + edge, wt[:, None] * dg[row]).reshape(m, k, -1)
+
+
+def pair_geom_torch(plan: PairPlan, dg, gx, gy, gz, window, feat_j, *, d: int):
+    """Plain version of B6's geometry pass over a plan that keeps the edges
+    of zero window (``pair_plan(..., all_edges=True)``) and its dG rows
+    (:func:`pair_dg_torch`): for every edge, dead ones included, and each
+    live corner, s = feat_j[m, e] . dg[row of the corner's pair]; then dwindow
+    = sum w s and dgx = sum (dtent_x wy wz) (window s), and so for y and z,
+    over the edge's live corners (JAX's tent', :func:`_edge_corners`).
+    Returns (dgx, dgy, dgz, dwindow), each (M, k). Corners in chunks bound
+    the gathered rows."""
+    m, k = window.shape
+    cell, w, dws, live = _edge_corners(gx, gy, gz, d)
+    recv, edge, corner = live.nonzero(as_tuple=True)
+    rows = _pair_rows(plan, recv, cell[live], d ** 3)
+    out = torch.zeros((4, m * k), dtype=dg.dtype, device=dg.device)
+    step = max(1, _TWIN_ELEMS // max(feat_j.shape[2], 1))
+    for a in range(0, recv.numel(), step):
+        r, e, c = recv[a:a + step], edge[a:a + step], corner[a:a + step]
+        s = (feat_j[r, e] * dg[rows[a:a + step]]).sum(-1)
+        ws = window[r, e] * s
+        terms = torch.stack([dws[0][r, e, c] * ws, dws[1][r, e, c] * ws,
+                             dws[2][r, e, c] * ws, w[r, e, c] * s])
+        out.index_add_(1, r * k + e, terms)
+    return tuple(out.reshape(4, m, k))
 
 
 def _cell_rows(plan: PairPlan):
@@ -403,14 +447,16 @@ def _plan_rows(m: int, k: int, d: int, ci: int, co: int) -> Optional[int]:
     return most if 4 * most * width <= _NO_READ_BYTES else None
 
 
-def _plan_cuda(gx, gy, gz, window, d: int, rows: Optional[int] = None):
+def _plan_cuda(gx, gy, gz, window, d: int, rows: Optional[int] = None,
+               all_edges: bool = False):
     """The plan on the card and its work items, ``(PairPlan, (istart, item
     rows, item bound))``: masks and counts (plan_masks_kernel), their prefix
     sum, then the cells' counts and every pair's place
     (plan_cell_counts_kernel, plan_cells_kernel). The lists have ``rows``
     rows, which must hold every pair (:func:`_plan_rows`, or the rows of an
-    earlier plan of the same geometry); with None the pair count is read on
-    the host here, the call's one wait for the device."""
+    earlier plan of the same geometry and ``all_edges``); with None the pair
+    count is read on the host here, the call's one wait for the device.
+    ``all_edges`` keeps the edges of zero window (B6's plan)."""
     m, k = window.shape
     dev = window.device
     z = d ** 3
@@ -423,8 +469,9 @@ def _plan_cuda(gx, gy, gz, window, d: int, rows: Optional[int] = None):
     what = f"contconv plan launch (d={d}, k={k}; {_LIMITS})"
     with torch.cuda.device(dev):
         rc = lib.contconv_plan_masks(gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
-                                     window.data_ptr(), m, k, d, masks.data_ptr(),
-                                     counts.data_ptr(), cell_counts.data_ptr(), _stream())
+                                     window.data_ptr(), m, k, d, int(all_edges),
+                                     masks.data_ptr(), counts.data_ptr(),
+                                     cell_counts.data_ptr(), _stream())
     build.raise_on(rc, what)
     rstart = torch.cumsum(counts, 0, dtype=torch.int32)
     p = int(rstart[-1]) if rows is None else rows
@@ -440,15 +487,15 @@ def _plan_cuda(gx, gy, gz, window, d: int, rows: Optional[int] = None):
     return plan, (istart, item_rows, bound)
 
 
-def pair_plan(gx, gy, gz, window, *, d: int) -> PairPlan:
-    """The (receiver, cell) pair plan of B3 and B4 for (M, k) float32
-    geometry: the plan kernels for CUDA tensors, :func:`pair_plan_torch` on
-    the CPU."""
+def pair_plan(gx, gy, gz, window, *, d: int, all_edges: bool = False) -> PairPlan:
+    """The (receiver, cell) pair plan of B3-B5 for (M, k) float32 geometry
+    (``all_edges``: B6's, which keeps the edges of zero window): the plan
+    kernels for CUDA tensors, :func:`pair_plan_torch` on the CPU."""
     if build.on_cpu(gx, gy, gz, window):
-        return pair_plan_torch(gx, gy, gz, window, d=d)
+        return pair_plan_torch(gx, gy, gz, window, d=d, all_edges=all_edges)
     for name, t in zip(("gx", "gy", "gz", "window"), (gx, gy, gz, window)):
         build.check(name, t, tuple(window.shape))
-    return _plan_cuda(gx, gy, gz, window, d)[0]
+    return _plan_cuda(gx, gy, gz, window, d, all_edges=all_edges)[0]
 
 
 def _bins_cuda(plan: PairPlan, gx, gy, gz, window, feat_j, d: int):
@@ -475,6 +522,21 @@ def _unbins_cuda(plan: PairPlan, dg, gx, gy, gz, window, d: int, out):
             ci, d, out.data_ptr(), _stream())
     build.raise_on(rc, f"contconv unbin launch (d={d}, k={k}, ci={ci}; {_LIMITS})")
     return out
+
+
+def _geom_cuda(plan: PairPlan, dg, gx, gy, gz, window, feat_j, d: int):
+    """B6's geometry pass, (dgx, dgy, dgz, dwindow) each (M, k), from dG
+    (rows, round4(ci)) over a plan that keeps the edges of zero window."""
+    m, k, ci = feat_j.shape
+    outs = [torch.empty((m, k), dtype=torch.float32, device=window.device)
+            for _ in range(4)]
+    with torch.cuda.device(window.device):
+        rc = _lib().contconv_pair_geom(
+            gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), window.data_ptr(),
+            feat_j.data_ptr(), dg.data_ptr(), plan.rstart.data_ptr(), plan.cell_r.data_ptr(),
+            plan.slot_of.data_ptr(), m, k, ci, d, *(o.data_ptr() for o in outs), _stream())
+    build.raise_on(rc, f"contconv_bwd_geom launch (d={d}, k={k}, ci={ci}; {_LIMITS})")
+    return tuple(outs)
 
 
 def _padded_rows(x):
@@ -535,30 +597,37 @@ def _launch(gx, gy, gz, window, feat_j, filters, d):
 
 
 def _backward_cuda(gx, gy, gz, window, feat_j, filters, dout, d: int, want_feat: bool,
-                   want_f: bool, plan_rows: Optional[int] = None):
-    """B5 and/or B4 on the card over one plan of the geometry, ``(dfeat,
-    dF)`` (None for what is not wanted). The plan has ``plan_rows`` rows
-    (the forward's), else the shape's bound or the device's count
-    (:func:`_plan_rows`). B4: the bins, then dF[cell] = G_cell^T
-    dout[receivers] over work items whose partial banks are summed in item
-    order. B5: dG = dout[receivers] @ F_cell^T over the same work items,
-    written into the bins' buffer once B4 has read it (one (rows,
-    round4(ci)) buffer for both), then the unbin pass. Each wrapper served
+                   want_f: bool, want_geom: bool = False, plan_rows: Optional[int] = None):
+    """B4, B5 and/or B6 on the card over one plan of the geometry, ``(dfeat,
+    dF, (dgx, dgy, dgz, dwindow))`` (None for what is not wanted). The plan
+    keeps the edges of zero window where B6 is wanted; it has ``plan_rows``
+    rows (the forward's, which hold only for a plan without them), else the
+    shape's bound or the device's count (:func:`_plan_rows`). B4: the bins,
+    then dF[cell] = G_cell^T dout[receivers] over work items whose partial
+    banks are summed in item order. B5 and B6: dG = dout[receivers] @
+    F_cell^T over the same work items, written into the bins' buffer once
+    B4 has read it (one (rows, round4(ci)) buffer for all three); then B5's
+    unbin pass and B6's geometry pass each read it. Each wrapper served
     counts one launch."""
     m, k = window.shape
     z, ci, co = filters.shape
     dev = window.device
     dfeat = torch.empty((m, k, ci), dtype=torch.float32, device=dev) if want_feat else None
     d_f = torch.empty((z, ci, co), dtype=torch.float32, device=dev) if want_f else None
+    geo = (tuple(torch.zeros((m, k), dtype=torch.float32, device=dev) for _ in range(4))
+           if want_geom else None)
     if m == 0:
-        return dfeat, None if d_f is None else d_f.zero_()
-    plan, items = _plan_cuda(gx, gy, gz, window, d,
-                             _plan_rows(m, k, d, ci, co) if plan_rows is None else plan_rows)
+        return dfeat, None if d_f is None else d_f.zero_(), geo
+    if want_geom or plan_rows is None:
+        plan_rows = _plan_rows(m, k, d, ci, co)
+    plan, items = _plan_cuda(gx, gy, gz, window, d, plan_rows, all_edges=want_geom)
     for want, wrapper in ((want_f, contconv_bwd_filters), (want_feat, contconv_bwd_feat)):
         if want:
             _count(wrapper, d)
+    if want_geom:
+        contconv_bwd_geom.launches += 1
     if plan.cell_r.numel() == 0:
-        return tuple(None if t is None else t.zero_() for t in (dfeat, d_f))
+        return (*(None if t is None else t.zero_() for t in (dfeat, d_f)), geo)
     buf = None
     if want_f:
         istart, rows, nitems = items
@@ -572,11 +641,14 @@ def _backward_cuda(gx, gy, gz, window, feat_j, filters, dout, d: int, want_feat:
         build.raise_on(rc, f"contconv_bwd_filters launch (d={d}, k={k}, ci={ci}, co={co}; "
                            f"{_LIMITS})")
         del partial
-    if want_feat:
+    if want_feat or want_geom:
         buf = _product_cuda(_padded_rows(dout), True, _f_transposed(filters), plan, items,
                             co, ci, d, out=buf)
+    if want_feat:
         _unbins_cuda(plan, buf, gx, gy, gz, window, d, dfeat)
-    return dfeat, d_f
+    if want_geom:
+        geo = _geom_cuda(plan, buf, gx, gy, gz, window, feat_j, d)
+    return dfeat, d_f, geo
 
 
 def contconv_bwd_filters(gx, gy, gz, window, feat_j, filters, dout, *, d: int,
@@ -592,7 +664,7 @@ def contconv_bwd_filters(gx, gy, gz, window, feat_j, filters, dout, *, d: int,
                                           need=(False,) * 5 + (True,))[5]
     _check_all(gx, gy, gz, window, feat_j, filters, d, dout)
     return _backward_cuda(gx, gy, gz, window, feat_j, filters, dout, d, False, True,
-                          plan_rows)[1]
+                          plan_rows=plan_rows)[1]
 
 
 def contconv_bwd_feat(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
@@ -611,34 +683,25 @@ def contconv_bwd_feat(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
 def contconv_bwd_geom(gx, gy, gz, window, feat_j, filters, dout, *, d: int):
     """B6: the cotangents (dgx, dgy, dgz, dwindow), each (M, k), of
     :func:`contconv_collect` for ``dout`` (M, co), with JAX's tent'
-    convention (0 at integer and clamped grid coordinates)."""
+    convention (0 at integer and clamped grid coordinates). On the card: a
+    plan that keeps the edges of zero window, B5's product dG[pair] = F_cell
+    @ dout[receiver], then per edge and live corner s = feat_j[m, e] .
+    dG[pair] and the four cotangents' sums over the corners, each element
+    written once (deterministic). Any ci."""
     if build.on_cpu(gx, gy, gz, window, feat_j, filters, dout):
         return contconv_collect_bwd_torch(gx, gy, gz, window, feat_j, filters, dout, d=d,
                                           need=(True,) * 4 + (False, False))[:4]
     _check_all(gx, gy, gz, window, feat_j, filters, d, dout)
-    m, k = window.shape
-    z, ci, co = filters.shape
-    outs = [torch.empty((m, k), dtype=torch.float32, device=window.device)
-            for _ in range(4)]
-    if m == 0:
-        return tuple(outs)
-    ft = _f_transposed(filters)
-    with torch.cuda.device(window.device):
-        rc = _lib().contconv_bwd_geom(
-            gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), window.data_ptr(),
-            feat_j.data_ptr(), dout.data_ptr(), ft.data_ptr(), m, k, ci, co, d,
-            *(o.data_ptr() for o in outs), _stream())
-    build.raise_on(rc, f"contconv_bwd_geom launch (d={d}, k={k}, ci={ci}, co={co}; "
-                       f"{_LIMITS})")
-    contconv_bwd_geom.launches += 1
-    return tuple(outs)
+    return _backward_cuda(gx, gy, gz, window, feat_j, filters, dout, d, False, False,
+                          want_geom=True)[2]
 
 
 class _Collect(torch.autograd.Function):
     """B3 (the twin on the CPU) with B4-B6 as its backward, each launched
     only for the inputs that need a gradient. Saves the inputs only, and the
     rows of the forward's plan (an integer): the backward rebuilds one plan
-    for B4 and B5, without waiting for the device to learn its size."""
+    for B4, B5 and B6, without waiting for the device to learn its size
+    where B6 is not wanted."""
 
     @staticmethod
     def forward(ctx, gx, gy, gz, window, feat_j, filters, d):
@@ -654,14 +717,17 @@ class _Collect(torch.autograd.Function):
     def backward(ctx, dout):
         args = (*ctx.saved_tensors, dout.contiguous())
         need = ctx.needs_input_grad
-        geo = (contconv_bwd_geom(*args, d=ctx.d) if any(need[:4]) else (None,) * 4)
-        if not (need[4] or need[5]):
-            dfeat = d_f = None
-        elif dout.is_cuda:  # B4 and B5 on one plan, one buffer
-            dfeat, d_f = _backward_cuda(*args, ctx.d, need[4], need[5], ctx.plan_rows)
+        geom = any(need[:4])
+        if not (geom or need[4] or need[5]):
+            dfeat = d_f = geo = None
+        elif dout.is_cuda:  # B4, B5 and B6 on one plan, one buffer
+            dfeat, d_f, geo = _backward_cuda(*args, ctx.d, need[4], need[5], geom,
+                                             ctx.plan_rows)
         else:
+            geo = contconv_bwd_geom(*args, d=ctx.d) if geom else None
             dfeat = contconv_bwd_feat(*args, d=ctx.d) if need[4] else None
             d_f = contconv_bwd_filters(*args, d=ctx.d) if need[5] else None
+        geo = geo or (None,) * 4
         return (*(g if n else None for g, n in zip(geo, need[:4])), dfeat, d_f, None)
 
 
@@ -674,10 +740,9 @@ def contconv_collect(gx, gy, gz, window, feat_j, filters, *, d: int):
     :param window: (M, k) float32 edge weights; 0 kills an edge.
     :param feat_j: (M, k, ci) float32 gathered neighbour features.
     :param filters: (d^3, ci, co) float32 flat filter bank.
-    :param d: filter grid resolution; the kernels take 2 <= d <= 10,
-        k <= 64 and co <= 128 (the backward B6 also ci <= 128), within
-        their shared memory, and a launch raises ``RuntimeError`` on other
-        shapes.
+    :param d: filter grid resolution; the kernels take any k, ci and co and
+        d >= 2 with d^3 <= 32767, within their shared memory, and a launch
+        raises ``RuntimeError`` on other shapes.
     :return: (M, co) float32, the sum over edges.
     """
     if not build.on_cpu(gx, gy, gz, window, feat_j, filters):

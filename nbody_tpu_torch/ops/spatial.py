@@ -239,7 +239,8 @@ def morton_select_torch(cand: torch.Tensor, k: int, block: int,
 def morton_select(cand: torch.Tensor, k: int, block: int, include_self: bool):
     """B7: for every curve copy and block of ``block`` queries in curve
     order, the ``k`` smallest packed keys over the 3 * block candidates of
-    the left, own and right blocks.
+    the left, own and right blocks (any k <= 3 * block; above 32 the kernel
+    selects in slabs of 32).
 
     :param cand: (C, (nb + 2) * block, 4) float32 [x, y, z, gid bits]: the
         sorted positions with one block of _BIG sentinels before and at
@@ -255,9 +256,9 @@ def morton_select(cand: torch.Tensor, k: int, block: int, include_self: bool):
     c_, L = cand.shape[0], cand.shape[1]
     nb = L // block - 2
     build.check("cand", cand, (c_, (nb + 2) * block, 4))
-    if not (nb > 0 and 0 < k <= 32 and k <= 3 * block and block <= 682):
+    if not (nb > 0 and 0 < k <= 3 * block and block <= 682):
         raise ValueError(f"morton_select: nb={nb}, k={k}, block={block} "
-                         "(the kernel takes k <= 32 and block <= 682)")
+                         "(the kernel takes k <= 3 * block and block <= 682)")
     ids = torch.empty((c_, nb * block, k), dtype=torch.int32, device=cand.device)
     d2s = torch.empty((c_, nb * block, k), dtype=torch.float32, device=cand.device)
     with torch.cuda.device(cand.device):
@@ -299,7 +300,8 @@ def morton_merge(cand: torch.Tensor, d2: torch.Tensor, k: int):
     hold no NaN: duplicates, unsorted copies and rows with fewer than k
     unique ids included (``merge_kernel`` in csrc/spatial.cu).
 
-    :param cand: (N, W) int32 candidate ids, W <= 128.
+    :param cand: (N, W) int32 candidate ids, W <= 2048 (the packed keys
+        hold the column in 11 bits, as JAX's ``_pack_d2_cols`` asserts).
     :param d2: (N, W) float32 their squared distances.
     :return: (ids (N, k) int32, d2 (N, k) float32); an exhausted row's
         surplus slots carry d2 ~3.4e38.
@@ -309,9 +311,9 @@ def morton_merge(cand: torch.Tensor, d2: torch.Tensor, k: int):
     n, w = cand.shape
     build.check("cand", cand, (n, w), torch.int32)
     build.check("d2", d2, (n, w))
-    if not (0 < w <= 128 and k > 0):
-        raise ValueError(f"morton_merge: width {w} and k {k} (the kernel takes "
-                         "at most 128 candidates a row)")
+    if not (0 < w <= 2048 and k > 0):
+        raise ValueError(f"morton_merge: width {w} and k {k} (the packed keys take "
+                         "at most 2048 candidates a row)")
     ids = torch.empty((n, k), dtype=torch.int32, device=cand.device)
     vals = torch.empty((n, k), dtype=torch.float32, device=cand.device)
     if n == 0:

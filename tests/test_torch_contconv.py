@@ -259,11 +259,17 @@ def _close_grads(got, want, geometry):
 
 
 @pytest.mark.parametrize("m,k,d,ci,co", [(70, 6, 3, 5, 4), (70, 6, 4, 3, 5),
-                                         (40, 8, 6, 8, 7)])
+                                         (40, 8, 6, 8, 7),
+                                         # one past each cap the card kernels had:
+                                         # k > 64, co > 128, D > 10, ci > 128
+                                         (20, 72, 3, 3, 4), (20, 6, 3, 4, 136),
+                                         (20, 6, 11, 3, 4), (20, 6, 3, 136, 4)])
 def test_plain_backward_matches_jax_vjp(m, k, d, ci, co):
     """All six cotangents of the plain backward against ``jax.vjp`` of the
     Pallas kernel (interpret mode) on coordinates off the integer grid,
-    some of them clamped."""
+    some of them clamped; also at one shape past each cap that the card
+    kernels once had (k = 72, co = 136, D = 11, ci = 136 with the geometry
+    cotangents), the other dimensions small."""
     args = _collect_inputs(m, k, ci, co, d, 3 * m + d)
     dout = np.random.default_rng(d).normal(size=(m, co)).astype(np.float32)
     _, vjp = jax.vjp(lambda *a: jcollect(*a, d=d, interpret=True), *map(jnp.asarray, args))
@@ -493,10 +499,11 @@ def _plan_inputs(m, k, ci, co, d, seed):
     return args
 
 
-def _pairs_by_hand(gx, gy, gz, window, d):
-    """The (receiver, cell) pairs straight from the rule, edge by edge."""
+def _pairs_by_hand(gx, gy, gz, window, d, all_edges=False):
+    """The (receiver, cell) pairs straight from the rule, edge by edge
+    (``all_edges``: the edges of zero window too, B6's plan)."""
     pairs = set()
-    for m, e in zip(*np.nonzero(window)):
+    for m, e in zip(*np.nonzero(np.ones_like(window) if all_edges else window)):
         c = np.clip(np.array([gx[m, e], gy[m, e], gz[m, e]], np.float32), 0, d - 1)
         lo = np.minimum(np.floor(c), d - 2)
         f = c - lo
@@ -508,12 +515,18 @@ def _pairs_by_hand(gx, gy, gz, window, d):
     return pairs
 
 
+@pytest.mark.parametrize("all_edges", [False, True])
 @pytest.mark.parametrize("m,k,d", [(37, 5, 2), (41, 7, 3), (33, 6, 4), (1, 3, 3),
-                                   (20, 32, 6)])
-def test_pair_plan_lists_every_pair_once_cell_major(m, k, d):
+                                   (20, 32, 6), (9, 72, 3), (11, 5, 11)])
+def test_pair_plan_lists_every_pair_once_cell_major(m, k, d, all_edges):
+    """The plan's pairs, in both orders, against the rule edge by edge;
+    with ``all_edges`` (B6's plan) the edges of zero window count too."""
     gx, gy, gz, window = _plan_inputs(m, k, 2, 2, d, 7 * m + d)[:4]
-    plan = cck.pair_plan(*map(torch.from_numpy, (gx, gy, gz, window)), d=d)  # CPU: plain
-    want = _pairs_by_hand(gx, gy, gz, window, d)
+    plan = cck.pair_plan(*map(torch.from_numpy, (gx, gy, gz, window)), d=d,
+                         all_edges=all_edges)  # CPU: plain
+    want = _pairs_by_hand(gx, gy, gz, window, d, all_edges)
+    if all_edges:  # the zero windows add pairs
+        assert len(want) > len(_pairs_by_hand(gx, gy, gz, window, d))
     rstart, cell_r, slot_of, recv_of, coff = (t.numpy().astype(np.int64) for t in plan)
     p = len(want)
     assert cell_r.shape == slot_of.shape == recv_of.shape == (p,)
@@ -601,6 +614,146 @@ def test_feature_grad_over_the_plan_matches_jax_vjp(m, k, d, ci, co):
     _close_grads(got.numpy(), vjp(jnp.asarray(dout))[4], geometry=False)
     _close_grads(got.numpy(), cck.contconv_bwd_feat(*t, d=d).numpy(), geometry=False)
     assert not got[m // 2].any()  # a receiver without a live edge
+
+
+def test_geometry_plan_of_dead_geometry_keeps_every_edge():
+    """B6's plan keeps the edges of zero window: on a geometry whose windows
+    are all zero it equals the plan of the same geometry with every window
+    live, and the window's cotangent over it is not zero (the positions'
+    ones are: each carries a window factor)."""
+    gx, gy, gz, window, feat, filters = map(torch.from_numpy, _plan_inputs(9, 4, 3, 5, 3, 1))
+    dead = torch.zeros_like(window)
+    plan = cck.pair_plan(gx, gy, gz, dead, d=3, all_edges=True)
+    for a, b in zip(plan, cck.pair_plan(gx, gy, gz, torch.ones_like(window), d=3)):
+        assert torch.equal(a, b)
+    dout = torch.from_numpy(np.random.default_rng(2).normal(size=(9, 5)).astype(np.float32))
+    dgx, dgy, dgz, dwin = cck.pair_geom_torch(plan, cck.pair_dg_torch(plan, dout, filters),
+                                              gx, gy, gz, dead, feat, d=3)
+    assert dwin.abs().min() > 0 and not (dgx.any() or dgy.any() or dgz.any())
+    want = cck.contconv_collect_bwd_torch(gx, gy, gz, dead, feat, filters, dout, d=3)
+    _close_grads(dwin.numpy(), want[3].numpy(), geometry=True)
+
+
+@pytest.mark.parametrize("m,k,d,ci,co", [(37, 5, 2, 3, 5), (41, 7, 3, 6, 4), (33, 6, 4, 3, 5),
+                                         (20, 72, 4, 3, 5), (30, 6, 11, 3, 4),
+                                         (20, 6, 3, 136, 4)])
+def test_geometry_grad_over_the_plan_matches_jax_vjp(m, k, d, ci, co):
+    """B6's route on the card (a plan that keeps the edges of zero window,
+    dG over its cell-major rows, the geometry pass) in its plain version
+    against ``jax.vjp`` of the Pallas kernel (interpret mode) and the plain
+    backward: zero windows, clamped coordinates and coordinates on the
+    integer grid, k past 64, D past 10 and ci past 128, at the bar of
+    ``test_plain_backward_matches_jax_vjp`` (1e-5 of max |ref|)."""
+    args = _plan_inputs(m, k, ci, co, d, 3 * m + d)
+    dout = np.random.default_rng(d).normal(size=(m, co)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (*args, dout)]
+    plan = cck.pair_plan(*t[:4], d=d, all_edges=True)
+    got = cck.pair_geom_torch(plan, cck.pair_dg_torch(plan, t[6], t[5]), *t[:5], d=d)
+    _, vjp = jax.vjp(lambda *a: jcollect(*a, d=d, interpret=True), *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(dout))[:4]
+    plain = cck.contconv_bwd_geom(*t, d=d)  # CPU: the plain backward
+    for g, w, p in zip(got, want, plain):
+        _close_grads(g.numpy(), w, geometry=True)
+        _close_grads(g.numpy(), p.numpy(), geometry=True)
+    dead = args[3] == 0
+    assert dead.any() and (got[3].numpy()[dead] != 0).any()  # dead edges' dwindow
+
+
+def _sum8_over_warp(v):
+    """B6's ``sum8_over_warp`` on (..., 32 lanes, 8 values) float32 partials:
+    halves of the values traded with lanes 16, 8 and 4 away, then two
+    butterfly steps; (..., 32), lane l the sum of value l // 4."""
+    lane = torch.arange(32)
+    lanes = [lane ^ off for off in (16, 8, 4, 2, 1)]
+
+    def step(x, bit, partner):  # keep the half this lane's bit selects
+        h = ((lane & bit) != 0)[:, None]
+        n = x.shape[-1] // 2
+        keep = torch.where(h, x[..., n:], x[..., :n])
+        send = torch.where(h, x[..., :n], x[..., n:])
+        return keep + send[..., partner, :]
+
+    c = step(step(step(v, 16, lanes[0]), 8, lanes[1]), 4, lanes[2])[..., 0]
+    c = c + c[..., lanes[3]]
+    return c + c[..., lanes[4]]
+
+
+def _geom_walk_plain(plan, dg, gx, gy, gz, window, feat_j, d, nrows):
+    """A plain version of B6's geometry pass (``bwd_geom_kernel`` in
+    csrc/contconv.cu), every receiver at once: passes of ``nrows`` of a
+    receiver's rows; per edge and pass, lane l's partial dot of each live
+    corner in the pass over channels 4 l .. 4 l + 3 of every 128 (chunk by
+    chunk), the 8 partials reduced by ``sum8_over_warp`` (lane l: corner l
+    // 4), lane 4 c + j's term of cotangent j (dwindow, dgx, dgy, dgz) for
+    corner c, the corners added by the butterfly over lanes 4, 8 and 16
+    apart, the pass added to the edge's sums. Returns (dgx, dgy, dgz,
+    dwindow)."""
+    m, k, ci = feat_j.shape
+    z = d ** 3
+    cell, _, _, live = cck._edge_corners(gx, gy, gz, d)
+    c_ax = torch.stack([gx, gy, gz], -1).clamp(0.0, d - 1)
+    f = c_ax - torch.clamp(torch.floor(c_ax), max=d - 2)  # fractions (m, k, 3)
+    counts = (plan.rstart[1:] - plan.rstart[:-1]).long()
+    recv = torch.arange(m)[:, None, None].expand_as(cell)
+    rr = torch.searchsorted(torch.repeat_interleave(torch.arange(m), counts) * z
+                            + plan.cell_r.long(), recv * z + cell)
+    rr = rr.clamp(max=plan.cell_r.numel() - 1)
+    j = torch.where(live, rr - plan.rstart[:-1].long()[:, None, None], -1)  # row in receiver
+    nch = -(-ci // 128)
+    fp = torch.zeros(m, k, nch * 128)
+    fp[..., :ci] = feat_j
+    gp = torch.zeros(dg.shape[0], nch * 128)
+    gp[:, :ci] = dg[:, :ci]
+    prod = (fp[:, :, None, :] * gp[plan.slot_of.long()[rr]]).reshape(m, k, 8, nch, 32, 4)
+    part_all = torch.zeros(m, k, 8, 32)
+    for c in range(nch):  # a lane's chain: chunk by chunk, its 4 channels each
+        for q in range(4):
+            part_all = part_all + prod[:, :, :, c, :, q]
+    lane = torch.arange(32)
+    oc, cj = lane // 4, lane % 4
+    bit = [((torch.arange(8) >> (2 - a)) & 1) == 1 for a in range(3)]
+    inside = [((f[..., a] > 0) & (f[..., a] < 1)).float()[..., None] for a in range(3)]
+    w3 = [torch.where(bit[a], f[..., a, None], 1 - f[..., a, None])[..., oc] for a in range(3)]
+    d3 = [torch.where(bit[a], inside[a], -inside[a])[..., oc] for a in range(3)]
+    res = torch.zeros(4, m, k)
+    for b0 in range(0, max(int(counts.max()), 1), nrows):
+        here = live & (j >= b0) & (j < b0 + nrows)  # (m, k, 8)
+        part = torch.where(here[..., None], part_all, 0.0)
+        sc = _sum8_over_warp(part.transpose(2, 3))  # (m, k, 32)
+        vs = window[..., None] * sc
+        t = torch.stack([w3[0] * w3[1] * w3[2] * sc, d3[0] * w3[1] * w3[2] * vs,
+                         w3[0] * d3[1] * w3[2] * vs, w3[0] * w3[1] * d3[2] * vs], -1)
+        t = t.gather(-1, cj.expand(m, k, 32)[..., None])[..., 0]
+        t = torch.where(here[..., oc], t, 0.0)
+        for off in (4, 8, 16):
+            t = t + t[..., lane ^ off]
+        res = res + t[..., :4].permute(2, 0, 1)
+    return res[1], res[2], res[3], res[0]
+
+
+@pytest.mark.parametrize("m,k,d,ci,nrows", [(41, 7, 3, 6, 64), (33, 6, 4, 3, 2),
+                                            (20, 72, 4, 3, 5), (20, 6, 3, 136, 3)])
+def test_b6_walk_gives_the_plain_geometry_grad(m, k, d, ci, nrows):
+    """The premise of B6's geometry pass on the CPU: its walk (a lane's
+    partial dots of the 8 corners reduced together so that lane l holds
+    corner l // 4's, the four cotangents' terms a lane each, the corners'
+    butterfly, receivers split into passes of ``nrows`` rows) gives
+    :func:`pair_geom_torch` within float32 rounding, dead edges, zero-weight
+    corners and ci past 128 included; and a corner with a zero axis weight,
+    which the pass skips, adds nothing to any cotangent in the plain
+    backward's definition."""
+    args = _plan_inputs(m, k, ci, 4, d, 5 * m + d)
+    dout = np.random.default_rng(m).normal(size=(m, 4)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (*args, dout)]
+    plan = cck.pair_plan(*t[:4], d=d, all_edges=True)
+    dg = cck.pair_dg_torch(plan, t[6], t[5])
+    got = _geom_walk_plain(plan, dg, *t[:5], d, nrows)
+    want = cck.pair_geom_torch(plan, dg, *t[:5], d=d)
+    for g, w in zip(got, want):
+        _close_grads(g.numpy(), w.numpy(), geometry=True)
+    _, w, dws, live = cck._edge_corners(*t[:3], d)
+    dead = ~live
+    assert dead.any() and not (w[dead].any() or any(x[dead].any() for x in dws))
 
 
 @pytest.mark.parametrize("m,k,d,floor", [(41, 7, 3, 4), (20, 32, 6, 16), (300, 32, 2, 64)])

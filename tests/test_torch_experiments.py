@@ -188,10 +188,25 @@ def test_contconv_bench_row_on_the_cpu():
     assert row["plan_equals_plain"] and row["same_bits_twice"]
     assert 0 < row["live_edges"] <= 600 * 8 and row["live_edges"] <= row["pairs"] <= 600 * 27
     assert row["b3_vs_plain"] == row["b4_vs_plain"] == row["b5_vs_plain"] == 0.0
+    assert row["b6_vs_plain"] == 0.0
     assert row["bins_vs_plain"] <= 1e-6 and row["dg_vs_plain"] == row["unbins_vs_plain"] == 0.0
     assert all(row[key] > 0 for key in ("plan_ms", "bins_ms", "b3_ms", "b4_ms", "dg_ms",
-                                        "unbins_ms", "b5_ms", "bound_ms"))
+                                        "unbins_ms", "b5_ms", "b6_ms", "bound_ms",
+                                        "b6_bound_ms"))
     assert row["bound_by"] in ("operations", "bytes")
+
+
+def test_contconv_bench_digests_compare_a_second_run(tmp_path):
+    """``--digests``: the first run writes B3's, B4's and B5's output
+    digests, a second run of the same code finds its bits equal to them."""
+    from nbody_tpu_torch.experiments import contconv_bench
+
+    argv = ["--device", "cpu", "--n-bodies", "300", "--d", "3", "--neighbors", "6",
+            "--width", "4", "--digests", str(tmp_path / "digests.json")]
+    (first,) = contconv_bench.main(argv)
+    assert "bits_equal_saved" not in first and (tmp_path / "digests.json").exists()
+    (second,) = contconv_bench.main(argv)
+    assert second["bits_equal_saved"] == {"b3": True, "b4": True, "b5": True}
 
 
 def test_determinism_check_repeats_the_loss_on_one_path_only(tmp_path):

@@ -198,11 +198,13 @@ from nbody_tpu_torch.ops.radius import radius_neighbors  # noqa: E402
     *((2000, k, inc, 256) for k in (1, 8, 10, 16, 17, 32) for inc in (False, True)
       if (k, inc) not in ((10, False), (32, True))),
     (1000, 32, True, 128), (1000, 8, False, 128), (3000, 10, False, 682), (3000, 32, True, 682),
+    (2000, 40, False, 256), (2000, 72, True, 128), (20_000, 40, False, 256),
 ])
 def test_morton_kernels_match_twins(cuda, n, k, include_self, block):
-    """B7 (every K of the kernel: 8, 16, 32; blocks of 128, 256 and 682) and
-    B8 equal their twins; knn_morton launches each once and equals its CPU
-    run."""
+    """B7 (every K of the kernel: 8, 16, 32, and slabs of 32 past k = 32;
+    blocks of 128, 256 and 682) and B8 (rows of 4 k: past 128 the wide
+    kernel) equal their twins; knn_morton launches each once and equals its
+    CPU run."""
     pos, _, _ = _spiral(n, n + k, cuda)
     order = sp._curve_order(pos, None, 4)
     cand, _ = sp._candidates(pos, order, block)
@@ -226,7 +228,7 @@ def test_morton_kernels_match_twins(cuda, n, k, include_self, block):
 
 @pytest.mark.parametrize("k,include_self,block", [(8, False, 256), (10, False, 256),
                                                   (32, True, 256), (32, False, 128),
-                                                  (10, True, 682)])
+                                                  (10, True, 682), (40, False, 256)])
 def test_morton_select_with_sentinels_in_windows(cuda, k, include_self, block):
     """B7 equals its twin where sentinels (masked rows moved far away, in
     curve order) sit inside windows, not only in the padding blocks."""
@@ -244,14 +246,16 @@ def test_morton_select_with_sentinels_in_windows(cuda, k, include_self, block):
 
 
 @pytest.mark.parametrize("n,w,k", [(4099, 32, 8), (4099, 40, 10), (4099, 128, 32),
-                                   (1001, 100, 7), (1001, 5, 3), (1001, 96, 40)])
+                                   (1001, 100, 7), (1001, 5, 3), (1001, 96, 40),
+                                   (4099, 160, 40), (1001, 300, 70), (203, 2048, 9)])
 def test_b8_matches_plain_on_edge_rows(cuda, n, w, k):
     """B8 equals its plain version bit for bit on rows beyond B7's output
     (``select_bench.merge_edge_rows``: duplicates, unsorted copies, rows
     with fewer than k unique ids, sentinels in the column-mask column at w =
-    32 and 128, infinite distances), at w not a multiple of 32, k past
-    w and past the kernel's 32 buffered passes, and a last block of part
-    rows; one launch a call, the same bits twice."""
+    32, 128 and 2048, infinite distances), at w not a multiple of 32, k past
+    w and past the kernel's 32 buffered passes, a last block of part rows,
+    and rows wider than 128 (the wide kernel, up to 2048); one launch a
+    call, the same bits twice."""
     from nbody_tpu_torch.experiments.select_bench import merge_edge_rows
 
     cand, d2 = (t.to(cuda) for t in merge_edge_rows(n, w, k, seed=n + w, inf=True))
@@ -360,7 +364,7 @@ def test_one_plan_serves_b4_and_b5_in_a_backward(cuda, monkeypatch):
 def test_b3_b4_on_grid_coordinates_and_wide_features(cuda, m, k, ci, co, d):
     """B3, B4 and B5 on geometry with zero-weight corners and a dead
     receiver; ci above 128 (K chunks in B3, slabs in B4 and in B5's
-    product), which B6 refuses."""
+    product)."""
     args = _grid_inputs(m, k, ci, co, d, m + d, cuda)
     dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
     out = cck.contconv_collect(*args, d=d)
@@ -445,12 +449,9 @@ def test_b3_rejects(cuda):
         cck.contconv_collect(gx, gy, gz, window.cpu(), feat, filters, d=4)
     with pytest.raises(RuntimeError):  # d = 1: refused by the launch, no twin
         cck.contconv_collect(gx, gy, gz, window, feat, filters[:1].contiguous(), d=1)
-    wide = _collect_inputs(40, 8, 16, 132, 3, 2, cuda)  # co > 128
+    big = _collect_inputs(40, 8, 4, 4, 32, 2, cuda)  # d^3 = 32768: past 16-bit cells
     with pytest.raises(RuntimeError):
-        cck.contconv_collect(*wide, d=3)
-    many = _collect_inputs(40, 65, 16, 16, 3, 2, cuda)  # k > 64
-    with pytest.raises(RuntimeError):
-        cck.contconv_collect(*many, d=3)
+        cck.contconv_collect(*big, d=32)
     with pytest.raises(ValueError):  # the plan alone checks its inputs too
         cck.pair_plan(gx, gy, gz, window[:30].contiguous(), d=4)
 
@@ -519,11 +520,87 @@ def test_b4_b5_b6_reject(cuda):
             bwd(*args, dout.cpu(), d=4)
         with pytest.raises(RuntimeError):  # d = 1: refused by the launch, no twin
             bwd(*args[:5], args[5][:1].contiguous(), dout, d=1)
-    wide = _collect_inputs(40, 8, 160, 16, 3, 2, cuda)  # ci > 128: B6 refuses, B5 takes it
-    with pytest.raises(RuntimeError):
-        cck.contconv_bwd_geom(*wide, dout, d=3)
-    _close(cck.contconv_bwd_feat(*wide, dout, d=3),
-           cck.contconv_collect_bwd_torch(*wide, dout, d=3, need=(False,) * 4 + (True, False))[4])
+    big = _collect_inputs(40, 8, 4, 16, 32, 2, cuda)  # d^3 = 32768: past 16-bit cells
+    for bwd in _BWD:
+        with pytest.raises(RuntimeError):
+            bwd(*big, dout, d=32)
+
+
+# one shape past each cap the kernels once had: k > 64, co > 128, D > 10,
+# ci > 128 (B6 refused it), at a few hundred receivers
+_PAST_CAPS = [(300, 72, 16, 16, 3), (300, 8, 16, 136, 3), (300, 8, 8, 8, 11),
+              (300, 8, 136, 16, 3)]
+
+
+@pytest.mark.parametrize("m,k,ci,co,d", _PAST_CAPS)
+def test_kernels_past_the_lifted_caps(cuda, m, k, ci, co, d):
+    """B3-B6 at shapes the JAX package runs and the card kernels refused
+    before: each against its plain version at the bar, the same bits twice,
+    one launch a call; the plan against its plain version."""
+    args = _grid_inputs(m, k, ci, co, d, m + k + d, cuda)
+    dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
+    for all_edges in (False, True):
+        plan = cck.pair_plan(*args[:4], d=d, all_edges=all_edges)
+        want_plan = cck.pair_plan_torch(*args[:4], d=d, all_edges=all_edges)
+        assert all(torch.equal(a, b) for a, b in zip(plan, want_plan))
+    before = [w.launches for w in (cck.contconv_collect, *_BWD)]
+    out = cck.contconv_collect(*args, d=d)
+    geo = cck.contconv_bwd_geom(*args, dout, d=d)
+    dfeat = cck.contconv_bwd_feat(*args, dout, d=d)
+    d_f = cck.contconv_bwd_filters(*args, dout, d=d)
+    assert [w.launches - b for w, b in zip((cck.contconv_collect, *_BWD), before)] == [1] * 4
+    _close(out, cck.contconv_collect_torch(*args, d=d))
+    want = cck.contconv_collect_bwd_torch(*args, dout, d=d)
+    for got, w in zip((*geo, dfeat, d_f), want):
+        _close(got, w)
+    assert torch.equal(out, cck.contconv_collect(*args, d=d))
+    assert all(torch.equal(a, b) for a, b in zip(geo, cck.contconv_bwd_geom(*args, dout, d=d)))
+    assert torch.equal(dfeat, cck.contconv_bwd_feat(*args, dout, d=d))
+    assert torch.equal(d_f, cck.contconv_bwd_filters(*args, dout, d=d))
+
+
+@pytest.mark.parametrize("m,k,ci,co,d", [*_PLAN_SHAPES, *_PAST_CAPS, (60, 8, 160, 24, 3),
+                                         (41, 7, 6, 5, 4)])
+def test_b6_geometry_pass_matches_plain(cuda, m, k, ci, co, d):
+    """B6's geometry pass over a plan that keeps the edges of zero window
+    and B5's dG rows, against its plain version on the same plan and dG
+    (zero windows, corners of zero weight, a receiver with no live edge,
+    receivers with more pairs than a warp's rows), each element written
+    (a NaN-filled output would show), the same bits twice."""
+    gx, gy, gz, window, feat, filters = _grid_inputs(m, k, ci, co, d, m + k + d, cuda)
+    dout = torch.randn(m, co, generator=torch.Generator().manual_seed(m)).to(cuda)
+    plan, items = cck._plan_cuda(gx, gy, gz, window, d, all_edges=True)
+    dg = cck._product_cuda(cck._padded_rows(dout), True, cck._f_transposed(filters), plan,
+                           items, co, ci, d)
+    got = cck._geom_cuda(plan, dg, gx, gy, gz, window, feat, d)
+    want = cck.pair_geom_torch(plan, dg[:, :ci], gx, gy, gz, window, feat, d=d)
+    for g, w in zip(got, want):
+        _close(g, w)
+    assert got[3][m // 2].abs().min() > 0  # the dead receiver's dwindow
+    again = cck._geom_cuda(plan, dg, gx, gy, gz, window, feat, d)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_one_plan_serves_b4_b5_and_b6_in_a_backward(cuda, monkeypatch):
+    """A backward that wants every cotangent builds one plan (the forward
+    built its own), the one that keeps the edges of zero window, and counts
+    one launch of B4, B5 and B6; the four geometry cotangents, the
+    features' and the filters' hold their plain versions."""
+    plans = []
+    real = cck._plan_cuda
+    monkeypatch.setattr(cck, "_plan_cuda",
+                        lambda *a, **kw: plans.append(kw.get("all_edges")) or real(*a, **kw))
+    gx, gy, gz, window, feat, filters = _grid_inputs(97, 32, 16, 12, 4, 5, cuda)
+    dout = torch.randn(97, 12, generator=torch.Generator().manual_seed(2)).to(cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (gx, gy, gz, window, feat, filters)]
+    out = cck.contconv_collect(*leaves, d=4)
+    before = _counts()
+    out.backward(dout)
+    assert plans == [None, True]  # the forward's, then one with the dead edges
+    assert [a - b for a, b in zip(_counts(), before)] == [1, 1, 1]
+    want = cck.contconv_collect_bwd_torch(gx, gy, gz, window, feat, filters, dout, d=4)
+    for t, w in zip(leaves, want):
+        _close(t.grad, w)
 
 
 def test_b6_takes_a_misaligned_feature_view(cuda):
@@ -549,11 +626,13 @@ def test_morton_wrappers_reject(cuda):
     with pytest.raises(ValueError):
         sp.morton_merge(torch.zeros(10, 40, dtype=torch.int32, device=cuda),
                         torch.zeros(10, 40), 10)
-    with pytest.raises(ValueError):  # wider than the kernel's 128 slots a row
-        sp.morton_merge(torch.zeros(10, 129, dtype=torch.int32, device=cuda),
-                        torch.zeros(10, 129, device=cuda), 10)
+    with pytest.raises(ValueError):  # wider than the packed keys' 2048 columns
+        sp.morton_merge(torch.zeros(10, 2049, dtype=torch.int32, device=cuda),
+                        torch.zeros(10, 2049, device=cuda), 10)
     with pytest.raises(ValueError):
         sp.morton_select(torch.zeros(4, 1024, 4, device=cuda)[:, ::2], 10, 128, False)
+    with pytest.raises(ValueError):  # more than the window's 3 * block candidates
+        sp.morton_select(torch.zeros(4, 5 * 64, 4, device=cuda), 193, 64, False)
 
 
 def test_contconv_layer_kernel_matches_dense_on_card(cuda):

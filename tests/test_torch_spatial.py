@@ -85,7 +85,7 @@ def test_morton_keys_bit_for_bit(copy):
 
 
 @pytest.mark.parametrize("impl", ["kernel", "dense"])
-@pytest.mark.parametrize("k,include_self", [(10, False), (32, True)])
+@pytest.mark.parametrize("k,include_self", [(10, False), (32, True), (40, False)])
 def test_knn_morton_matches_jax(impl, k, include_self):
     pos = np.random.default_rng(k).normal(size=(2000, 3)).astype(np.float32)
     # unique keys on the unshifted curve; the shifted copies tie only where
@@ -220,14 +220,32 @@ def _select_walk_plain(cand, k, block, include_self):
     merge), merges them into its K sorted keys (K - k zeros, then its k
     smallest), and takes its new threshold, the last of them. A chunk that
     the kernel skips (every lane's box distance above its threshold) must
-    hold no kept candidate. Returns (ids, d2) as ``morton_select_torch``
-    does."""
+    hold no kept candidate. Above k = 32 the walk runs once a slab of 32
+    outputs, keeping only keys above the last key of the slab before.
+    Returns (ids, d2) as ``morton_select_torch`` does."""
+    if k > 32:
+        c_, L, _ = cand.shape
+        nq = (L // block - 2) * block
+        ids = torch.empty((c_, nq, k), dtype=torch.int32)
+        d2s = torch.empty((c_, nq, k), dtype=torch.float32)
+        floor = None
+        for j0 in range(0, k, 32):
+            ks = min(32, k - j0)
+            ids[..., j0:j0 + ks], d2s[..., j0:j0 + ks], floor = _select_slab_plain(
+                cand, ks, block, include_self, floor)
+        return ids, d2s
+    return _select_slab_plain(cand, k, block, include_self, None)[:2]
+
+
+def _select_slab_plain(cand, k, block, include_self, floor):
+    """One slab of :func:`_select_walk_plain`: the k smallest keys above
+    ``floor`` (None: all), with each lane's last key (its top[K - 1])."""
     c_, L, _ = cand.shape
     b = block
     nb = L // b - 2
     ncol, nbits = 3 * b, tsp._nbits(3 * b)
     cm = (1 << nbits) - 1
-    K = 8 if k <= 8 else 16 if k <= 16 else 32
+    K = 8 if k <= 8 and floor is None else 16 if k <= 16 and floor is None else 32
     nchunk, nwarp = -(-ncol // 32), -(-b // 32)
     win = cand.unfold(1, ncol, b)[:, :, :3].permute(0, 1, 3, 2)  # (C, nb, 3b, 3)
     gid = cand[..., 3].contiguous().view(torch.int32).unfold(1, ncol, b)  # (C, nb, 3b)
@@ -252,6 +270,8 @@ def _select_walk_plain(cand, k, block, include_self):
         keys = tsp._pack(torch.where(bad, tsp._INF, torch.clamp(d2, min=0.0)),
                          cols[:, None, :].to(torch.int32), nbits).long()
         keep = ~(d2 > thr_d2[..., None]) & (keys < thr[..., None]) & valid[:, None, :]
+        if floor is not None:
+            keep = keep & (keys > floor[..., None])
         lo = torch.where(valid[..., None], p, float("inf")).amin(3)  # (C, nb, W, 3)
         hi = torch.where(valid[..., None], p, float("-inf")).amax(3)
         g = torch.clamp(torch.maximum(lo[:, :, :, None] - q, q - hi[:, :, :, None]), min=0.0)
@@ -266,9 +286,10 @@ def _select_walk_plain(cand, k, block, include_self):
         thr_d2 = torch.where(live, torch.where(thr >= tsp._INF_BITS & ~cm, float("inf"), hi_d2),
                              -1.0)
     sel = top[..., K - k:].reshape(c_, nb, nwarp * 32, k)[:, :, :b]
-    assert (sel < _EMPTY).all() and skipped > 0
+    assert (sel < _EMPTY).all() and (skipped > 0 or floor is not None)
     ids = torch.gather(gid, 2, (sel & cm).reshape(c_, nb, -1)).reshape(c_, nb * b, k)
-    return ids, (sel & ~cm).to(torch.int32).view(torch.float32).reshape(c_, nb * b, k)
+    return (ids, (sel & ~cm).to(torch.int32).view(torch.float32).reshape(c_, nb * b, k),
+            top[..., K - 1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -287,13 +308,15 @@ def _window_candidates(n, block):
                                          (32, True), (32, False))),
     *((2100, 256, k, inc) for k, inc in ((8, False), (10, False), (16, True), (32, True))),
     (1400, 682, 10, False), (1400, 682, 32, True),
+    (700, 128, 40, False), (700, 128, 72, True), (700, 128, 65, False),
 ])
 def test_b7_walk_gives_the_plain_selection(n, block, k, include_self):
     """The premise of B7's design on the CPU: its near-first walk, with
     thresholds that go stale within a chunk and per-chunk merges into K = 8,
     16 or 32 sorted keys, gives ``morton_select_torch``'s ids and d2 bits,
     with self columns in or out, sentinels of masked rows inside windows and
-    the padding block after the last."""
+    the padding block after the last; above k = 32 in slabs of 32, each
+    above the last key of the one before."""
     cand = _window_candidates(n, block)
     got = _select_walk_plain(cand, k, block, include_self)
     want = tsp.morton_select_torch(cand, k, block, include_self)
@@ -301,9 +324,29 @@ def test_b7_walk_gives_the_plain_selection(n, block, k, include_self):
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
 
 
+@pytest.mark.parametrize("k,include_self", [(10, False), (40, False), (40, True),
+                                            (72, False)])
+def test_select_plain_matches_jax_select_kernel(k, include_self):
+    """``morton_select_torch`` equals the JAX ``_select_kernel`` (interpret
+    mode, through ``_copy_passes_pallas``) id for id on the same sorted
+    candidates, also past k = 32, where the kernel selects in slabs of 32;
+    the distances agree to the packed keys' truncation, 2^-12 relative (XLA
+    may contract the JAX kernel's d2 into FMAs, which the plain version's
+    separate operations do not)."""
+    pos = np.random.default_rng(k).normal(size=(700, 3)).astype(np.float32)
+    block = 128
+    _, j_ids, j_d2 = jsp._copy_passes_pallas(jnp.asarray(pos), k, block, 4, include_self,
+                                             None, interpret=True)
+    order = tsp._curve_order(torch.from_numpy(pos), None, 4)
+    cand, _ = tsp._candidates(torch.from_numpy(pos), order, block)
+    ids, d2 = tsp.morton_select_torch(cand, k, block, include_self)
+    assert torch.equal(ids, torch.from_numpy(np.array(j_ids)))
+    np.testing.assert_allclose(d2.numpy(), np.array(j_d2), rtol=2.0 ** -12, atol=0)
+
+
 # --------------------------------------------------------------- B8's merge
 
-@pytest.mark.parametrize("w,k", [(32, 8), (40, 10), (128, 32), (100, 7)])
+@pytest.mark.parametrize("w,k", [(32, 8), (40, 10), (128, 32), (100, 7), (160, 40)])
 def test_merge_plain_matches_jax_on_edge_rows(w, k):
     """``morton_merge_torch`` equals the JAX ``_merge_kernel`` (interpret
     mode) id for id and bit for bit on rows beyond B7's output: duplicates
@@ -336,12 +379,16 @@ def _merge_plan(w, k):
     """B8's launch for rows of ``w`` slots and ``k`` passes: each of the
     row's lanes holds ``slots`` slots (w / lanes rounded up to even, the
     kernel's template argument), the staged row ``stride`` (merge_stride)
-    and the block's shared ``bytes``."""
+    and the block's shared ``bytes``. A row wider than MAX_W takes the wide
+    kernel: a warp a row (32 lanes), its w slots in shared memory."""
     c = _merge_shape()
+    if w > c["MAX_W"]:
+        return {"lanes": 32, "slots": -(-w // 32), "wide": True}
     lanes = c["LANES"]
     stride = -(-w // 32) * 32 + lanes
     return {"lanes": lanes, "slots": max(2, -(-w // (2 * lanes)) * 2), "stride": stride,
-            "rows": c["ROWS"], "bytes": 4 * c["ROWS"] * (2 * stride + 2 * min(k, c["OUT"]))}
+            "rows": c["ROWS"], "bytes": 4 * c["ROWS"] * (2 * stride + 2 * min(k, c["OUT"])),
+            "wide": False}
 
 
 def _merge_walk_plain(cand, d2, k):
@@ -351,13 +398,14 @@ def _merge_walk_plain(cand, d2, k):
     minimum, then, in a warp (``32 // lanes`` rows of a block) where any
     row's minimum is INF_BITS, the wrapped sum of the ids of every hit, and
     elsewhere the id staged at the minimum's column bits; then every slot
-    holding the id, empty ones included, set to INF_BITS. Asserts the
-    premise of the read: where the minimum is not INF_BITS one live slot
-    holds it, the one at its column. Returns (ids, d2) as
-    ``morton_merge_torch`` does."""
+    holding the id, empty ones included, set to INF_BITS. A wide row (the
+    wide kernel: a warp a row) has no empty slots. Asserts the premise of
+    the read: where the minimum is not INF_BITS one live slot holds it, the
+    one at its column. Returns (ids, d2) as ``morton_merge_torch`` does."""
     n, w = cand.shape
     plan = _merge_plan(w, k)
-    lanes, width = plan["lanes"], plan["lanes"] * plan["slots"]
+    lanes = plan["lanes"]
+    width = w if plan["wide"] else lanes * plan["slots"]
     nbits = tsp._nbits(w)
     cm = (1 << nbits) - 1
     cols = torch.arange(w, dtype=torch.int32)[None, :]
@@ -388,13 +436,15 @@ def _merge_walk_plain(cand, d2, k):
 
 
 @pytest.mark.parametrize("n,w,k", [(200, 32, 8), (200, 40, 10), (200, 128, 32),
-                                   (211, 100, 7), (90, 5, 3), (120, 96, 40)])
+                                   (211, 100, 7), (90, 5, 3), (120, 96, 40),
+                                   (150, 160, 40), (70, 300, 70), (40, 2048, 9)])
 def test_b8_walk_gives_the_plain_merge(n, w, k):
     """The premise of B8's design on the CPU: its walk (the id read at the
     minimum's column, a sum only where a minimum is INF_BITS, empty pad
     slots) gives ``morton_merge_torch``'s ids and bits on the edge rows,
     infinite distances included, at w a power of two and not, and k past
-    w."""
+    w; rows wider than 128 (k past 32 with 4 copies) on the wide kernel's
+    walk, a warp a row, up to the 2048 columns of the packed keys."""
     cand, d2 = merge_edge_rows(n, w, k, seed=n + w, inf=True)
     got = _merge_walk_plain(cand, d2, k)
     want = tsp.morton_merge_torch(cand, d2, k)
@@ -424,7 +474,13 @@ def test_b8_plan_covers_each_slot_once(w):
 
 
 def test_b8_takes_the_widths_its_wrapper_takes():
-    """The kernel's widest row is the wrapper's bound (128), and its slots
-    a lane reach it: 4 lanes of up to 32."""
+    """The register kernel's widest row (128) is reached by its slots a lane
+    (4 lanes of up to 32); wider rows take the wide kernel up to the
+    wrapper's bound, 2048, the columns that the packed keys' 11 bits hold
+    (JAX's ``_pack_d2_cols`` asserts the same)."""
     c = _merge_shape()
     assert c["MAX_W"] == 128 and _merge_plan(128, 32)["slots"] * c["LANES"] == 128
+    assert c["MAX_WIDE"] == 2048 and tsp._nbits(2048) == 11 and tsp._nbits(2049) == 12
+    assert _merge_plan(129, 40)["wide"] and not _merge_plan(128, 40)["wide"]
+    src = Path(tsp.__file__).read_text()
+    assert "0 < w <= 2048" in src
