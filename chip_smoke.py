@@ -83,9 +83,11 @@ the port's main path once:
     recall against the exact search and B1 against its plain version on
     4096 receivers over all 1M sources; ``u'`` and ``v`` of
     the first EdgeConv of the 1M model with the committed trained weights,
-    ``edge_message_sum`` (B11 + fallback list) against the fused layer's
-    masked tanh sum, with the in-window share, the overflow (0) and the
-    times of the torch gather, of B11 alone and of B11 + fallback; (c) the
+    ``edge_message_sum`` (one B11 launch over the plan's in-window and
+    fallback edges) against the fused layer's masked tanh sum and against
+    its plain version, with the in-window share, the overflow (0) and the
+    times of the torch gather, of B11 alone on the in-window edges and of
+    ``edge_message_sum``; (c) the
     fused against the unfused ``GraphModel`` forward at 100,000 bodies, with
     each one's peak memory; (d) ``nbody_tpu_torch.experiments.crossover``
     through its ``main``: every mode at 100k, direct, bh3 and the surrogate
@@ -1589,23 +1591,16 @@ def phase10_kernel():
     (1M rows, k = 8, d = 64, float32 gather)."""
     import torch
 
+    from nbody_tpu_torch.experiments import edgeconv_bench as ebench
+
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(23)
-
-    def case(n, k, d, spread, tile, half):
-        u = torch.randn(n, d, generator=gen).to(dev)
-        vpad = torch.nn.functional.pad(torch.randn(n, d, generator=gen), (0, 0, half, half))
-        off = torch.randint(-spread, spread + 1, (n, k), generator=gen)
-        idx = (torch.arange(n)[:, None] + off).clamp(0, n - 1).to(torch.int32)
-        mask = torch.rand(n, k, generator=gen) < 0.9
-        return u, vpad.to(dev), idx.to(dev), mask.to(dev)
-
-    small = case(3 * 37, 3, 12, 30, 37, 5)  # odd tile, half and width; edges past the window
+    # odd tile, half and width; edges past the window
+    small = ebench.window_case(torch.Generator().manual_seed(23), 3 * 37, 3, 12, 30, 5, dev)
     out = None
     for dtype in (torch.float32, torch.bfloat16):
         _b11_case(f"N=111 k=3 d=12 tile=37 half=5 {dtype}", *small, dtype, 37, 5, False)
-    n = -(-TREE_1M // WINDOW["tile"]) * WINDOW["tile"]  # 1M rows padded to whole tiles
-    big = case(n, 8, 64, 500, **WINDOW)
+    big = ebench.synthetic(TREE_1M, dev)  # 1M rows padded to whole tiles
+    n = big[0].shape[0]
     for dtype in (torch.float32, torch.bfloat16):
         nums = _b11_case(f"N={n} k=8 d=64 tile=256 half=384 {dtype}", *big, dtype,
                          WINDOW["tile"], WINDOW["half"], True)
@@ -1702,34 +1697,15 @@ def phase10_path_data() -> int:
     returns B11's launches."""
     import torch
 
-    from nbody_tpu_torch.ics import generate_spiral
-    from nbody_tpu_torch.models import GraphModel
-    from nbody_tpu_torch.models.common import select_input_features
+    from nbody_tpu_torch.experiments import edgeconv_bench as ebench
     from nbody_tpu_torch.ops import edgeconv_kernel as ek
-    from nbody_tpu_torch.ops.spatial import morton_keys
-    from nbody_tpu_torch.train.graphs import build_graph
     from nbody_tpu_torch.utils.timing import cuda_time_ms
 
-    dev = torch.device("cuda")
     n = TREE_1M
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), n, device=dev)
-    order = torch.sort(morton_keys(pos), stable=True).indices
-    pos, vel, mass = pos[order], vel[order], mass[order]
-    model = GraphModel(**GNN_1M, fused_edgeconv=True)
-    model.load_state_dict(torch.load(PARAMS_1M, map_location="cpu", weights_only=True))
-    model.to(dev).eval()
-    with torch.no_grad():
-        idx, valid = build_graph(model.graph_spec, pos[None])
-        h = select_input_features(torch.cat([pos, vel, mass[:, None]], -1)[None], 4)
-        u, v = (t[0].contiguous() for t in model.convs[0].split_terms(h))
-    idx, valid = idx[0].contiguous(), valid[0].contiguous()
+    pos, mass, u, v, idx, valid = ebench.path_data(n, torch.device("cuda"))
     _hold_1m_kernels(pos, mass, idx, valid)
 
-    def gather_sum():  # the fused layer's own k-sized step
-        t = torch.tanh(u[:, None, :] + v[idx.long()])
-        return torch.where(valid[:, :, None], t, 0.0).sum(dim=1)
-
-    want = gather_sum()
+    want = ebench.gather_sum(u, v, idx, valid)
     plan = ek.plan_windowed_gather(idx, valid, **WINDOW)
     torch.cuda.synchronize()
     share = float(plan.in_mask.sum()) / float(valid.sum())
@@ -1741,28 +1717,31 @@ def phase10_path_data() -> int:
     launches = ek.windowed_tanh_sum.launches
     rel = float((got - want).abs().max()) / float(want.abs().max())
     same = torch.equal(got, again)
-    # B11 alone: the rows padded to the plan's whole tiles, as edge_message_sum pads them
-    half, extra = WINDOW["half"], plan.in_mask.shape[0] - n
-    up, idxp = (torch.nn.functional.pad(t, (0, 0, 0, extra)) for t in (u, idx))
-    vpad = torch.nn.functional.pad(v, (0, 0, half, half + extra))
+    plain = ek.edge_message_sum_torch(u, v, idx, plan, **WINDOW)  # B11's owned mode, plain
+    err = float((got - plain).abs().max())
+    ok_plain = bool(((got - plain).abs() <= B11_TOL + B11_TOL * plain.abs()).all())
+    del plain
+    up, vpad, idxp = ebench.window_inputs(u, v, idx, plan)  # B11 alone
     ms_plan = cuda_time_ms(lambda: ek.plan_windowed_gather(idx, valid, **WINDOW), reps=3,
                            warmup=1)
-    ms_gather = cuda_time_ms(gather_sum, reps=5, warmup=1)
+    ms_gather = cuda_time_ms(lambda: ebench.gather_sum(u, v, idx, valid), reps=5, warmup=1)
     ms_b11 = cuda_time_ms(lambda: ek.windowed_tanh_sum(up, vpad, idxp, plan.in_mask, **WINDOW),
                           reps=10, warmup=1)
-    ms_all = cuda_time_ms(lambda: ek.edge_message_sum(u, v, idx, plan, **WINDOW), reps=5,
+    ms_all = cuda_time_ms(lambda: ek.edge_message_sum(u, v, idx, plan, **WINDOW), reps=10,
                           warmup=1)
     log(f"[10b] EdgeConv_0 of the 1M model on Morton-sorted spiral bodies, N={n} k=8 d=64: "
         f"in-window share {share:.4f} of {int(valid.sum())} valid edges, fallback list "
         f"{fallback} of {plan.fb_valid.numel()} slots, overflow {overflow}; "
         f"edge_message_sum vs the layer's masked tanh sum max|d|/max {rel:.3e} (bar 1e-5), "
+        f"vs its plain version max|d| {err:.3e} (within rtol = atol = {B11_TOL} {ok_plain}), "
         f"same bits twice {same}; B11 launches {launches}")
     log(f"[10b] ms per message sum: torch gather + tanh + sum {ms_gather:.4f}, B11 alone "
-        f"{ms_b11:.4f}, B11 + fallback {ms_all:.4f}; the plan (once per graph build) "
-        f"{ms_plan:.4f}")
-    if not (overflow == 0 and fallback > 0 and rel <= 1e-5 and same and launches == 2):
-        raise AssertionError("edge_message_sum disagrees with the fused layer's sum, "
-                             "dropped edges, or never launched B11")
+        f"on the in-window edges {ms_b11:.4f}, edge_message_sum (one B11 launch) "
+        f"{ms_all:.4f}; the plan (once per graph build) {ms_plan:.4f}")
+    if not (overflow == 0 and fallback > 0 and rel <= 1e-5 and same and launches == 2
+            and ok_plain):
+        raise AssertionError("edge_message_sum disagrees with the fused layer's sum or its "
+                             "plain version, dropped edges, or never launched B11")
     torch.cuda.empty_cache()
     return launches
 

@@ -251,3 +251,92 @@ def test_edge_message_sum_on_a_real_layer(aggr):
         out = (torch.where(cnt > 0, out, 0.0) if aggr == "mean"
                else out + (cnt - 1.0) * conv.dense1.bias)
         torch.testing.assert_close(out, conv(h, idx, valid)[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "overflow", "ragged"])
+def test_one_pass_plain_version_matches_jax(case):
+    """The plain version of the one-launch ``edge_message_sum`` (every edge
+    the plan keeps, the in-window ones rounded in bfloat16 mode) against the
+    JAX function (kernel + fallback list): fallback edges read unrounded
+    ``v``; with the budget too small the dropped edges stay dropped and the
+    overflow is JAX's; N not a multiple of the tile."""
+    n = 600 if case == "ragged" else 512
+    u, v, idx, valid = _graph(6, n=n, far=0.3)
+    kw = dict(budget=200) if case == "overflow" else {}
+    jp, tp = _plans(idx, valid, **kw)
+    assert (int(tp.overflow) > 0) == (case == "overflow") and int(tp.fb_valid.sum()) > 0
+    bf16 = case == "bfloat16"
+    want = np.asarray(jk.edge_message_sum(
+        *map(jnp.asarray, (u, v, idx)), jp, tile=TILE, half=HALF, interpret=True,
+        mxu_dtype=jnp.bfloat16 if bf16 else jnp.float32))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    got = ek.edge_message_sum_torch(*_t(u, v, idx), tp, tile=TILE, half=HALF,
+                                    gather_dtype=dtype)
+    assert torch.equal(got, ek.edge_message_sum(*_t(u, v, idx), tp, tile=TILE, half=HALF,
+                                                gather_dtype=dtype))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    kept = (tp.in_mask | tp.fb_mask).numpy()[:n]
+    in_mask = tp.in_mask.numpy()[:n]
+    ref = (_ref(u, v, idx, in_mask, round_v=bf16) + _ref(u, v, idx, kept & ~in_mask))
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    if case == "overflow":  # the sum misses exactly the edges beyond the budget
+        assert int((valid & ~kept).sum()) == int(tp.overflow)
+
+
+@pytest.mark.parametrize("far,n,budget", [(0.2, 512, None), (1.0, 600, None), (1.0, 512, 64)])
+def test_plan_fallback_mask_holds_the_jax_list(far, n, budget):
+    """The port's ``fb_mask`` marks the JAX plan's fallback list: its edges,
+    in row-major order, are JAX's (receiver, sender) slots with
+    ``fb_valid`` set, in list order."""
+    _, _, idx, valid = _graph(7, n=n, far=far)
+    jp, tp = _plans(idx, valid, **({} if budget is None else dict(budget=budget)))
+    np_ = tp.in_mask.shape[0]
+    assert tp.fb_mask.shape == (np_, 8) and tp.fb_mask.dtype == torch.bool
+    rows, slots = np.nonzero(tp.fb_mask.numpy())
+    idxp = np.pad(idx, ((0, np_ - n), (0, 0)))
+    ok = np.asarray(jp.fb_valid)
+    np.testing.assert_array_equal(rows, np.asarray(jp.fb_dst)[ok])
+    np.testing.assert_array_equal(idxp[rows, slots], np.asarray(jp.fb_src)[ok])
+    assert not (tp.fb_mask & tp.in_mask).any()
+
+
+def _kernel_tanh(x):
+    """The kernel's tanh (``tanh2`` in ``csrc/edgeconv.cu``, its scale read
+    from the source) in float32 numpy on the pairs (x[0], x[1]), (x[2],
+    x[3]), ..., with exact ex2 and reciprocal in place of the card's
+    approximate ones."""
+    import re
+
+    src = (Path(ek.__file__).parents[1] / "csrc" / "edgeconv.cu").read_text()
+    body = src[src.index("void tanh2("):]
+    body = body[:body.index("\n}\n")]
+    scale = np.float32(re.search(r"fabsf\(a\) \* (-?[0-9.]+)f", body).group(1))
+    f32, f64 = np.float32, np.float64
+    x = x.astype(f32)
+    with np.errstate(over="ignore"):  # |x| * scale is -inf for the largest floats
+        e = np.exp2((np.abs(x) * scale).astype(f32).astype(f64)).astype(f32)
+    d = (f32(1) + e).astype(f32)
+    da, db = d[0::2], d[1::2]
+    r = (1.0 / (da * db).astype(f32).astype(f64)).astype(f32)
+    q = np.empty_like(d)
+    q[0::2], q[1::2] = (db * r).astype(f32), (da * r).astype(f32)
+    t = (-e.astype(f64) * q + q).astype(f32)  # fmaf(-e, q, q)
+    return np.copysign(t, x)
+
+
+def test_kernel_tanh_formula_within_float32_rounding():
+    """B11's branch-free tanh with one reciprocal for two channels: with
+    exact ex2 and reciprocal it is within 1.8e-7 of tanh over [-20, 20], at
+    tiny |x|, at +-0, the largest floats and +-inf, a ninth of the 2e-6 bar
+    (the card's approximate ex2 and rcp add their own error;
+    ``tests/test_torch_gpu.py`` holds the kernel itself to the bar)."""
+    fmax = np.finfo(np.float32).max
+    x = np.concatenate([np.linspace(-20, 20, 400_002, dtype=np.float32),
+                        np.float32(10.0) ** np.linspace(-30, 0, 20_000, dtype=np.float32),
+                        np.array([0.0, -0.0, fmax, -fmax, np.inf, -np.inf], np.float32)])
+    x[:-6] = np.random.default_rng(0).permutation(x[:-6])  # pair unlike values
+    got = _kernel_tanh(x)
+    want = np.tanh(x.astype(np.float64))
+    assert float(np.abs(got - want).max()) <= 1.8e-7
+    assert np.array_equal(got[-6:], np.array([0.0, -0.0, 1, -1, 1, -1], np.float32))
+    assert np.signbit(got[-5])

@@ -280,6 +280,23 @@ def test_force_bench_energy_rows_on_the_cpu():
     assert abs(chunked["u"] - masked["u"]) <= 1e-5 * abs(masked["u"])
 
 
+def test_edgeconv_bench_rows_on_the_cpu():
+    """``edgeconv_bench`` on the CPU: the synthetic row (phase 10a's input
+    at a small N) and the path row (the 1M model's first EdgeConv, with its
+    committed weights, on a Morton graph), each function run once and no
+    time; every valid edge of the path is in the window, in the fallback
+    list or counted as overflow."""
+    from nbody_tpu_torch.experiments import edgeconv_bench
+
+    synth, path = edgeconv_bench.main(["--device", "cpu", "--n-bodies", "700"])
+    assert synth["case"] == "synthetic" and synth["rows"] == 768 and synth["device"] == "cpu"
+    assert 0 < synth["edges_in_window"] < 768 * 8
+    assert path["case"] == "path" and (path["n"], path["k"], path["d"]) == (700, 8, 64)
+    assert path["in_window"] + path["fallback"] + path["overflow"] == path["valid_edges"] > 0
+    assert all(v is None for key, v in {**synth, **path}.items() if key.endswith(("_ms",
+                                                                                 "_kernels")))
+
+
 def test_select_bench_rows_on_the_cpu():
     """``select_bench`` on the CPU: one row a case with the shape's bounds
     and no times; a case is ``K`` or ``K:self`` and nothing else."""

@@ -898,6 +898,61 @@ def test_b11_edge_message_sum_on_the_card(cuda):
         ek.edge_message_sum(u.clone().requires_grad_(True), vpad, idx, plan)
 
 
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "overflow", "ragged"])
+def test_b11_one_launch_edge_message_sum(cuda, case):
+    """``edge_message_sum`` as one launch of B11 in its owned mode: against
+    its plain version and the full gather (in bfloat16 mode the in-window
+    edges rounded, the fallback edges not; with the budget too small, the
+    kept edges only), one launch a call and the same bits twice."""
+    from nbody_tpu_torch.ops import edgeconv_kernel as ek
+
+    n = 3001 if case == "ragged" else 3072
+    u, v, idx, valid = _b11_inputs(n, 8, 64, 0, 900, 11, cuda)
+    plan = ek.plan_windowed_gather(idx, valid, tile=256, half=384,
+                                   budget=500 if case == "overflow" else n * 8)
+    assert (int(plan.overflow) > 0) == (case == "overflow") and int(plan.fb_valid.sum()) > 0
+    dtype = torch.bfloat16 if case == "bfloat16" else torch.float32
+    kw = dict(tile=256, half=384, gather_dtype=dtype)
+    before = ek.windowed_tanh_sum.launches
+    got, again = (ek.edge_message_sum(u, v, idx, plan, **kw) for _ in range(2))
+    assert ek.windowed_tanh_sum.launches == before + 2
+    assert got.shape == (n, 64) and torch.equal(got, again)
+    want = ek.edge_message_sum_torch(u, v, idx, plan, **kw)
+    kept, in_mask = (plan.in_mask | plan.fb_mask)[:n], plan.in_mask[:n]
+    g = v[idx.long()]
+    if case == "bfloat16":
+        g = torch.where(in_mask[:, :, None], g.to(torch.bfloat16).float(), g)
+    full = torch.where(kept[:, :, None], torch.tanh(u[:, None] + g), 0.0).sum(1)
+    assert int((valid & ~kept).sum()) == int(plan.overflow)
+    for ref in (want, full):
+        assert bool(((got - ref).abs() <= 2e-6 + 2e-6 * ref.abs()).all())
+
+
+def test_b11_tanh_over_the_float_range(cuda):
+    """B11's branch-free tanh, read through a k = 1 sum with zero senders,
+    against float64 tanh within the bar (rtol = atol = 2e-6): a dense sweep
+    of [-20, 20], tiny |x|, +-0, the largest floats and +-inf."""
+    from nbody_tpu_torch.ops import edgeconv_kernel as ek
+
+    fmax = torch.finfo(torch.float32).max
+    x = torch.cat([torch.linspace(-20, 20, 4_000_001, dtype=torch.float64),
+                   10.0 ** torch.linspace(-30, 0, 100_001, dtype=torch.float64),
+                   -(10.0 ** torch.linspace(-30, 0, 100_001, dtype=torch.float64)),
+                   torch.tensor([0.0, -0.0, fmax, -fmax, float("inf"), float("-inf")],
+                                dtype=torch.float64)]).float()
+    d = 64
+    n = -(-x.numel() // d)
+    u = torch.nn.functional.pad(x, (0, n * d - x.numel())).view(n, d).to(cuda)
+    zeros = torch.zeros(n, d, device=cuda)
+    idx = torch.arange(n, dtype=torch.int32, device=cuda)[:, None]
+    mask = torch.ones(n, 1, dtype=torch.bool, device=cuda)
+    got = ek.windowed_tanh_sum(u, zeros, idx, mask, tile=n, half=0).double()
+    want = torch.tanh(u.double())
+    err = (got - want).abs()
+    assert bool((err <= 2e-6 + 2e-6 * want.abs()).all()), float(err.max())
+    assert bool(torch.isfinite(got).all())
+
+
 def test_fused_remat_and_chunked_layers_on_the_card(cuda):
     """The fused EdgeConv against the unfused one, ``remat`` against plain
     autograd, and the node-chunked ContConv (B3-B5 per chunk) against the
