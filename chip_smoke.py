@@ -16,6 +16,16 @@ the port's main path once:
    the kernels' launch counters checked and the 500-body energy drift
    bounded; after the counts of phases 2-4 are read, 20 steps of its
    500-body scene under the profiler: one B2 kernel an energy;
+   (b) grouped datagen at the recipe width: ``generate_dataset`` on 8 spiral
+   scenes of 500 bodies differing only by seed (scene groups on), then the
+   same list one scene at a time: B1 and B2 once a step for the group, the
+   same bits either way (both npz only), each scene's drift bounded, and
+   the group's kernels a step under the profiler; then the same 8 scenes
+   for CSV_STEPS steps, grouped, with their CSV: the native writer's, and
+   the same bytes as every scene's rows written again through it;
+   (c) 4 scenes of 20,000 bodies for 200 steps grouped against one by one:
+   the same bits, the drift bounded, B1's and B2's grouped times beside
+   4 single-scene calls and their bound;
 3. one 20,000-body spiral scene of 200 steps with energies; after the
    counts are read, B2's share of 20 more steps' device time;
 4. the EdgeConv surrogate at the reference width (seeded random weights):
@@ -56,7 +66,9 @@ the port's main path once:
    files of 200 steps, 2 epochs, a checkpoint each), a
    resumed third epoch and the evaluation from the checkpoints (100-step
    rollouts); the
-   recipe-shape training step timed and profiled; ``gnn_experiment
+   recipe-shape training step timed and profiled; ``elastic_train`` on that
+   cut with its weights poisoned once (one restart from the last healthy
+   checkpoint at the backed-off learning rate); ``gnn_experiment
    --quick``; and the 100,000-body training step (Morton radius search,
    B3 + B4 + B5, batch 1) on a strided port-datagen dataset, with B5's
    share of its device time and its peak memory, beside the dense layer's
@@ -101,14 +113,15 @@ line is printed. Informative lines come first. The last three lines are a
 JSON object with one entry per kernel, B3, B4 and B5 once for each of the
 model's two filter resolutions (launches counted over the path that
 runs it, its counters set to 0 just before the path and read just after:
-phases 2-4 for B1 and B2, phase 6 for B3, B7 and B8, phase 8 for B4 and B5,
+phases 2-4 for B1 and B2, phase 2b's grouped run for their scene-group
+entries, phase 6 for B3, B7 and B8, phase 8 for B4 and B5,
 the phase-7 position gradient for B6, phase 9c for B9, B10 and B1's near
 list, phase 10b for B11, which stands beside the model as in the JAX
 package, so that the entry points of 10d and 10e leave it at 0: each of
 their ``main`` calls starts with the counters at 0 and is held, right after
 it returns and before any profiling helper runs, to the kernels it must
 launch, B1, B3-B5, B7-B10 and the near list between them; errors and times
-from phases 1, 5, 7, 9a and 10a; ``bound_ms``, the least
+from phases 1, 2b, 5, 7, 9a and 10a; ``bound_ms``, the least
 time of the same work on the card, from the operations and bytes of those
 inputs, see :func:`bound`), the card's ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -135,6 +148,9 @@ DRIFT_20K = 1e-3   # 20k-body drift over 200 steps (treecode tests' bar)
 RECIPE_N = [3, 25, 50, 100, 250, 500]
 SOURCES = ("pairwise", "spatial", "contconv", "treeforce", "edgeconv")
 RECIPE_STEPS = 1000
+GROUP_SEEDS = range(8)  # phase 2b: 8 recipe scenes of 500 bodies differing by seed
+CSV_STEPS = 50          # phase 2b's CSV: the same scenes, 200,000 rows
+BIG_GROUP = 4           # phase 2c: scenes of BIG_N bodies in one group
 EVAL_STEPS = 500   # rollout evaluation depth (each shape runs once more, untimed, first)
 BIG_N, BIG_STEPS, SURR_STEPS = 20_000, 200, 50
 LARGE_N, LARGE_STEPS = 100_000, 20
@@ -453,6 +469,207 @@ def phase2_datagen(out_dir: str):
     drift = rel_drift(data["scene5_u"], data["scene5_k"])
     if not drift < DRIFT_500:
         raise AssertionError(f"500-body energy drift {drift} >= {DRIFT_500}")
+
+
+def recipe_scenes(n: int, seeds, steps: int):
+    """Spiral scenes of ``n`` bodies with the reference recipe's parameters
+    (``configs/gnn_reference.json``), one a seed, through the kernels."""
+    from nbody_tpu_torch.data.generate import ScenarioConfig
+
+    with open(os.path.join(HERE, "configs", "gnn_reference.json")) as f:
+        dg = json.load(f)["datagen"]
+    keep = {k: v for k, v in dg.items()
+            if k not in ("n_bodies", "steps", "seed", "train_files", "test_files")}
+    return [ScenarioConfig(n_bodies=n, steps=steps, seed=s, force_backend="kernel", **keep)
+            for s in seeds]
+
+
+def _stacked_ics(scenes):
+    """A group's stacked initial (pos, vel, mass) on the card, each scene's
+    from its own generator, as ``run_scenario_group`` makes them."""
+    import torch
+
+    from nbody_tpu_torch.data.generate import make_initial_conditions
+
+    ics = [make_initial_conditions(c, device=torch.device("cuda")) for c in scenes]
+    return tuple(torch.stack([x[f] for x in ics]) for f in range(3))
+
+
+def grouped_kernel_numbers(pos, mass, label: str) -> dict:
+    """B1 and B2 on a group (one launch each) against their batched plain
+    versions and against one call a scene (the same bits), with times by
+    CUDA events and the bound of S x the single-scene work."""
+    import torch
+
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    s, n = mass.shape
+    out = {}
+    for key, kernel, plain, single, work, tol in (
+            ("b1g", lambda: pw.partial_accelerations(pos, pos, mass, G, EPS),
+             lambda: pw.partial_accelerations_torch(pos, pos, mass, G, EPS),
+             lambda i: pw.partial_accelerations(pos[i], pos[i], mass[i], G, EPS),
+             pw.force_work(n, n), B1_TOL),
+            ("b2g", lambda: pw.pair_potential(pos, mass, pos, mass, G, EPS, True),
+             lambda: pw.pair_potential_torch(pos, mass, pos, mass, G, EPS, True),
+             lambda i: pw.pair_potential(pos[i], mass[i], pos[i], mass[i], G, EPS, True),
+             pw.energy_work(n, n, True), B2_TOL)):
+        got, want = kernel(), plain()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max()) if key == "b1g" else float(
+            ((got.double() - want.double()).abs() / want.double().abs()).max())
+        same = all(torch.equal(got[i], single(i)) for i in range(s))
+        ms = cuda_time_ms(kernel)
+        ms_single = cuda_time_ms(lambda: [single(i) for i in range(s)])
+        ms_plain = cuda_time_ms(plain, reps=3, warmup=1)
+        bnd = bound(*(s * w for w in work))
+        log(f"[{label}] {key.upper()[:2]} grouped {s} x {n}: one launch {ms:.4f} ms, {s} "
+            f"single-scene calls {ms_single:.4f} ms, plain {ms_plain:.4f} ms, bound "
+            f"{bnd[0]:.6f} ms ({bnd[1]}); against the plain version {rel:.3e} (bar {tol}); "
+            f"each scene the bits of its own call: {same}")
+        if not (rel <= tol and same):
+            raise AssertionError(f"grouped {key} at {s} x {n}: {rel}, same bits {same}")
+        out[key] = (err, ms, ms_plain, bnd)
+    return out
+
+
+def phase2b_grouped_datagen(out_dir: str):
+    """Grouped datagen at the recipe width: 8 spiral scenes of 500 bodies
+    that differ only by seed, 1000 leapfrog steps, through
+    ``generate_dataset`` (scene groups on by default), then the same list
+    one scene at a time, both writing only the npz. Then the native CSV
+    writer on a shorter grouped run of the same scenes. Returns B1's and
+    B2's launches of the grouped run, read right after it (the counters were
+    set to 0 just before), and the kernels-line numbers of the grouped B1
+    and B2 at its shape."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from nbody_tpu_torch.core import SimulationConfig, Trajectory, simulate
+    from nbody_tpu_torch.data import io_native
+    from nbody_tpu_torch.data.generate import generate_dataset, trajectory_to_rows
+    from nbody_tpu_torch.data.schema import CSV_FIELDS
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.utils.timing import device_time, kernel_events
+
+    scenes = recipe_scenes(RECIPE_N[-1], GROUP_SEEDS, RECIPE_STEPS)
+    s, steps = len(scenes), RECIPE_STEPS
+    grouped, alone = (os.path.join(out_dir, f"{name}.csv") for name in ("grouped", "alone"))
+    t0 = time.perf_counter()
+    generate_dataset(scenes, grouped, verbose=False, write_csv_file=False, device="cuda")
+    wall_g = time.perf_counter() - t0
+    counts = {"b1g": pw.partial_accelerations.launches, "b2g": pw.pair_potential.launches}
+    t0 = time.perf_counter()
+    generate_dataset(scenes, alone, verbose=False, vmap_scenes=False, write_csv_file=False,
+                     device="cuda")
+    wall_a = time.perf_counter() - t0
+    b1_a = pw.partial_accelerations.launches - counts["b1g"]
+    b2_a = pw.pair_potential.launches - counts["b2g"]
+    zg, za = np.load(grouped[:-4] + ".npz"), np.load(alone[:-4] + ".npz")
+    ms_g = 1e3 * float(zg["scene0_meta"][3])
+    ms_a = [1e3 * float(za[f"scene{i}_meta"][3]) for i in range(s)]
+    log(f"[2b] grouped datagen, {s} x {scenes[0].n_bodies} bodies x {steps} steps: {wall_g:.2f} "
+        f"s wall (npz only), {ms_g:.4f} ms a step a scene; B1 {counts['b1g']}, "
+        f"B2 {counts['b2g']} launches ({(counts['b1g'] + counts['b2g']) / steps:.3f} a step)")
+    log(f"[2b] one scene at a time (npz only): {wall_a:.2f} s wall, ms a step a scene "
+        f"{[round(x, 4) for x in ms_a]} (mean {np.mean(ms_a):.4f}); B1 {b1_a}, B2 {b2_a} "
+        f"launches ({(b1_a + b2_a) / steps:.3f} a step)")
+    if (counts != {"b1g": steps + 1, "b2g": steps}
+            or (b1_a, b2_a) != (s * (steps + 1), s * steps)):
+        raise AssertionError(f"B1 and B2 must launch once a step for the group: grouped "
+                             f"{counts}, one at a time {b1_a}, {b2_a}")
+    drifts = []
+    for i in range(s):
+        for f in ("pos", "vel", "acc", "u", "k", "mass"):
+            if not np.array_equal(zg[f"scene{i}_{f}"], za[f"scene{i}_{f}"]):
+                raise AssertionError(f"scene {i} {f}: grouped and alone differ")
+        drifts.append(rel_drift(zg[f"scene{i}_u"], zg[f"scene{i}_k"]))
+    log(f"[2b] each scene's trajectory and energies: the same bits grouped and alone; "
+        f"energy drifts {[f'{d:.3e}' for d in drifts]} (bar {DRIFT_500})")
+    if not max(drifts) < DRIFT_500:
+        raise AssertionError(f"grouped 500-body drift {max(drifts)} >= {DRIFT_500}")
+
+    # the CSV, on the same scenes cut to CSV_STEPS steps: the native
+    # writer's, and the same bytes as every scene's rows, rebuilt from the
+    # npz twin, written again through io_native
+    if not io_native.native_available():
+        raise AssertionError("the native CSV writer did not build or load on this machine")
+    short = recipe_scenes(RECIPE_N[-1], GROUP_SEEDS, CSV_STEPS)
+    csv, again = (os.path.join(out_dir, f"{name}.csv") for name in ("short", "again"))
+    t0 = time.perf_counter()
+    generate_dataset(short, csv, verbose=False, device="cuda")
+    wall_csv = time.perf_counter() - t0
+    zs = np.load(csv[:-4] + ".npz")
+    t0 = time.perf_counter()
+    io_native.write_csv(pd.concat([pd.DataFrame(trajectory_to_rows(
+        i, c, Trajectory(*(zs[f"scene{i}_{f}"] for f in ("pos", "vel", "acc", "u", "k"))),
+        zs[f"scene{i}_mass"], float(zs[f"scene{i}_meta"][3])))
+        for i, c in enumerate(short)], ignore_index=True)[CSV_FIELDS], again)
+    write_s = time.perf_counter() - t0
+    with open(csv, "rb") as f, open(again, "rb") as g:
+        body = f.read()
+        same = body == g.read()
+    rows = body.count(b"\n") - 1
+    log(f"[2b] grouped datagen with its CSV, {s} x {short[0].n_bodies} bodies x {CSV_STEPS} "
+        f"steps: {wall_csv:.2f} s wall; CSV {rows} rows, {len(body)} bytes, native writer; "
+        f"every scene's rows written again from the npz twin in {write_s:.2f} s, the same "
+        f"bytes: {same}")
+    if rows != s * CSV_STEPS * short[0].n_bodies or not same:
+        raise AssertionError("the grouped dataset's CSV is not the native writer's bytes")
+
+    # 20 grouped steps under the profiler: kernels and device time a step
+    pos, vel, mass = _stacked_ics(scenes)
+    cfg = SimulationConfig(g_const=G, softening=EPS, dt=DT, calc_energy=True,
+                           force_backend="kernel")
+
+    def run():
+        return simulate(pos, vel, mass, 20, cfg)
+
+    run()
+    _, wall = device_time(run, "cuda")
+    events = kernel_events(run, reps=1)
+    busy = sum(ms for _, ms in events)
+    log(f"[2b] {s} x {scenes[0].n_bodies}, 20 grouped steps under the profiler: "
+        f"{len(events) / 20:.1f} kernels a step, {1e3 * wall / 20:.4f} ms/step wall "
+        f"({1e3 * wall / 20 / s:.4f} a scene), {busy / 20:.4f} on the device (idle share "
+        f"{1 - busy / (1e3 * wall):.3f})")
+    torch.cuda.synchronize()
+    return counts, grouped_kernel_numbers(pos, mass, "2b")
+
+
+def phase2c_real_size():
+    """4 scenes of 20,000 bodies for 200 steps as one group against the same
+    4 one by one (``run_scenario_group`` / ``run_scenario``): the same bits,
+    drift under the 20k bar, and B1's and B2's grouped times."""
+    import torch
+
+    from nbody_tpu_torch.data.generate import run_scenario, run_scenario_group
+
+    scenes = recipe_scenes(BIG_N, range(BIG_GROUP), BIG_STEPS)
+    t0 = time.perf_counter()
+    group = run_scenario_group(scenes, device="cuda")
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alone = [run_scenario(c, device="cuda") for c in scenes]
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    drifts = []
+    for i, ((tg, mg, _), (ta, ma, _)) in enumerate(zip(group, alone)):
+        if not (all(torch.equal(a, b) for a, b in zip(tg, ta)) and (mg == ma).all()):
+            raise AssertionError(f"20k scene {i}: grouped and alone differ")
+        drifts.append(rel_drift(tg.u_energy.cpu(), tg.k_energy.cpu()))
+    log(f"[2c] {BIG_GROUP} x {BIG_N} bodies x {BIG_STEPS} steps: grouped {wall_g:.2f} s wall, "
+        f"{1e3 * group[0][2]:.4f} ms a step a scene; one by one {wall_a:.2f} s, "
+        f"{[round(1e3 * a[2], 4) for a in alone]} ms a step; the same bits; drifts "
+        f"{[f'{d:.3e}' for d in drifts]} (bar {DRIFT_20K})")
+    if not max(drifts) < DRIFT_20K:
+        raise AssertionError(f"grouped 20k drift {max(drifts)} >= {DRIFT_20K}")
+    del group, alone
+    pos, _, mass = _stacked_ics(scenes)
+    grouped_kernel_numbers(pos, mass, "2c")
 
 
 def energy_kernels_per_energy(n: int = RECIPE_N[-1], steps: int = 20):
@@ -1176,6 +1393,47 @@ def _epoch_numbers(trainer, data_dir, batch_size, steps, **kw):
     return 1e3 * sec / steps, 1.0 - busy_ms / 1e3 / sec, [(n, t / steps) for n, t in top]
 
 
+def elastic_on_the_card(cfg, train_dir: str, save_path: str) -> None:
+    """``elastic_train`` on the recipe cut that phase 8a trains, 3 epochs,
+    with one fault: the weights poisoned once after epoch 2's health check,
+    so epoch 2's checkpoint is unhealthy and epoch 3 faults. The run must
+    restart once, from epoch 1's checkpoint (the last healthy one), at the
+    learning rate times ``lr_backoff``, and end with finite losses."""
+    import torch
+
+    from nbody_tpu_torch.train import Trainer, all_finite, elastic_train
+
+    dev = torch.device("cuda")
+    trainer = Trainer(cfg.build_model(torch.Generator().manual_seed(2)).to(dev),
+                      learning_rate=cfg.train.learning_rate, dt=cfg.train.dt)
+    seen, state = [], {"armed": True}
+
+    def poison_once(epoch, losses, mses):
+        seen.append(epoch)  # the epochs that passed the health check, in order
+        if epoch == 2 and state["armed"]:
+            state["armed"] = False
+            with torch.no_grad():
+                for p in trainer.model.parameters():
+                    p.fill_(float("nan"))
+
+    t0 = time.perf_counter()
+    res = elastic_train(trainer, train_dir, epochs=3, batch_size=cfg.train.batch_size,
+                        save_path=save_path, save_every=1, max_restarts=2, lr_backoff=0.5,
+                        verbose=False, on_epoch_end=poison_once, merge_files=True,
+                        batch_mode="mixed")
+    lr = trainer.optimizer.param_groups[0]["lr"]
+    log(f"[8a] elastic_train, 3 epochs, weights poisoned after epoch 2: "
+        f"{time.perf_counter() - t0:.2f} s wall, restarts {res.restarts}, faults {res.faults}, epochs through the health "
+        f"check {seen}, LR {lr:g} (set {cfg.train.learning_rate:g}), losses {res.epoch_losses}, "
+        f"checkpoints {sorted(os.listdir(save_path))}")
+    if not (res.restarts == 1 and [e for e, _ in res.faults] == [3] and seen == [1, 2, 2, 3]
+            and abs(lr - 0.5 * cfg.train.learning_rate) <= 1e-12 and trainer.epoch == 3
+            and len(res.epoch_losses) == 3 and all(math.isfinite(v) for v in res.epoch_losses)
+            and all_finite(trainer.model)):
+        raise AssertionError("elastic_train did not recover once from epoch 1's checkpoint "
+                             "at the backed-off LR with finite losses")
+
+
 def phase8_training(tmp: str):
     """The training path through the port's entry points; asserts the
     kernels it must (and must not) launch."""
@@ -1246,6 +1504,7 @@ def phase8_training(tmp: str):
     log(f"[8a] recipe-shape train step (mixed batches of {cfg.train.batch_size} padded to "
         f"{max(cfg.datagen.n_bodies)} bodies, {steps} steps an epoch): {ms:.4f} ms/step, "
         f"idle share {idle:.4f}, top device rows {_rows(top)}")
+    elastic_on_the_card(cfg, train_dir, os.path.join(tmp, "elastic_ckpt"))
 
     # (b) the GNN experiment
     t0 = time.perf_counter()
@@ -2024,6 +2283,16 @@ def main() -> int:
     ground_truth_step_profile(traj, masses)
     stamp("2-3 (profiles)")
 
+    # the grouped datagen path: counters at 0 again, read right after the
+    # grouped run (phase 2b), before its one-scene-at-a-time twin
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_groups_") as tmp:
+        grouped, group_numbers = phase2b_grouped_datagen(tmp)
+    launches.update(grouped)
+    stamp("2b")
+    phase2c_real_size()
+    stamp("2c")
+
     # the large-N surrogate path: counters at 0 again
     zero_counts()
     phase6_large_n_path(exact_20k_ms)
@@ -2076,8 +2345,9 @@ def main() -> int:
     log(f"[10] launches of the large-N entry points' mains together: {large_n}")
     stamp("10d-10e")
     phase10_knn_recall()
-    # B3, B4 and B5 stand in the line once for each layer's filter resolution
-    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()) + 3:
+    # B3, B4 and B5 stand in the line once for each layer's filter resolution,
+    # B1 and B2 once more for scene groups
+    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()) + 5:
         raise AssertionError(f"a kernel of a path never launched: {launches}")
     if any(m.split(".")[0] in ("jax", "flax", "nbody_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -2099,6 +2369,10 @@ def main() -> int:
               big["b1"]),
         entry("B2 energy (nbody_energy)", pair_src, "nbody_tpu/ops/pairwise.py:113", "b2",
               big["b2"]),
+        entry(f"B1 force, scene groups (nbody_force, {len(GROUP_SEEDS)} x {RECIPE_N[-1]})",
+              pair_src, "nbody_tpu/ops/pairwise.py:50", "b1g", group_numbers["b1g"]),
+        entry(f"B2 energy, scene groups (nbody_energy, {len(GROUP_SEEDS)} x {RECIPE_N[-1]})",
+              pair_src, "nbody_tpu/ops/pairwise.py:113", "b2g", group_numbers["b2g"]),
         *(entry(f"B3 collect (contconv_collect), D={d}", conv_src, f"{conv_py}:105",
                 f"b3_d{d}", slice2[f"b3_d{d}"]) for d in (6, 4)),
         *(entry(f"B4 filter grad (contconv_bwd_filters), D={d}", conv_src,

@@ -4,6 +4,11 @@ JAX runs the rollout as one ``lax.scan``. Here it is a Python step loop
 whose every operation stays on the device: each step writes into
 preallocated ``(steps, N, 3)`` and ``(steps,)`` tensors, and nothing is read
 back to the host until the caller asks (no ``.item()`` per step).
+
+A group of scenes of equal shape, stacked on a leading axis, runs as one
+loop (what ``jax.vmap(simulate)`` computes): the direct-sum backends launch
+B1 and B2 once a step for the whole group, the treecodes run the scenes one
+after another.
 """
 
 from __future__ import annotations
@@ -65,13 +70,14 @@ class SimulationConfig:
 
 
 class Trajectory(NamedTuple):
-    """Stacked per-step post-update states."""
+    """Stacked per-step post-update states; a group of S scenes has a scene
+    axis after the step axis."""
 
-    positions: torch.Tensor  # (steps, N, 3)
-    velocities: torch.Tensor  # (steps, N, 3)
-    accelerations: torch.Tensor  # (steps, N, 3)
-    u_energy: Optional[torch.Tensor]  # (steps,) or None
-    k_energy: Optional[torch.Tensor]  # (steps,) or None
+    positions: torch.Tensor  # (steps, N, 3) or (steps, S, N, 3)
+    velocities: torch.Tensor  # (steps, N, 3) or (steps, S, N, 3)
+    accelerations: torch.Tensor  # (steps, N, 3) or (steps, S, N, 3)
+    u_energy: Optional[torch.Tensor]  # (steps,) or (steps, S), or None
+    k_energy: Optional[torch.Tensor]  # (steps,) or (steps, S), or None
 
 
 def resolve_backend(config: SimulationConfig, device: torch.device) -> str:
@@ -103,7 +109,10 @@ def treecode_fns(mass, config: SimulationConfig, mask=None, i_chunk: int = 8):
 
 def make_acc_fn(mass, config: SimulationConfig, mask=None) -> Callable:
     """Bind masses and constants into a ``pos -> acc`` closure on the
-    configured backend. A treecode builds a fresh partition per call."""
+    configured backend. The direct-sum backends take a group of scenes
+    (``mass`` (S, N)); a treecode takes one scene and builds a fresh
+    partition per call (:func:`simulate` runs a group's scenes through it
+    one after another)."""
     g, eps = config.g_const, config.softening
     if config.force_backend in TREECODE_BACKENDS:
         build, acc = treecode_fns(mass, config, mask)
@@ -115,10 +124,10 @@ def make_acc_fn(mass, config: SimulationConfig, mask=None) -> Callable:
     return lambda pos: forces.pairwise_accelerations(pos, mass, g, eps, mask=mask)
 
 
-def make_energy_fn(mass, config: SimulationConfig, mask=None) -> Callable:
-    """``(pos, vel) -> (U, K)`` as 0-d tensors, on the same backend decision
-    as the forces. Energies are always exact: a treecode maps to B2 on a
-    CUDA device and to the dense path otherwise."""
+def make_potential_fn(mass, config: SimulationConfig, mask=None) -> Callable:
+    """``pos -> U``, a 0-d tensor (``(S,)`` for a group), on the same backend
+    decision as the forces. Energies are always exact: a treecode maps to B2
+    on a CUDA device and to the dense path otherwise."""
     g, eps = config.g_const, config.softening
     backend = resolve_backend(config, mass.device)
     if backend in TREECODE_BACKENDS:
@@ -126,11 +135,8 @@ def make_energy_fn(mass, config: SimulationConfig, mask=None) -> Callable:
     if backend == "kernel":
         from nbody_tpu_torch.ops.pairwise import potential_energy
 
-        return lambda pos, vel: (
-            potential_energy(pos, mass, g, eps, mask=mask),
-            forces.kinetic_energy(vel, mass, mask),
-        )
-    return lambda pos, vel: forces.energies(pos, vel, mass, g, eps, mask=mask)
+        return lambda pos: potential_energy(pos, mass, g, eps, mask=mask)
+    return lambda pos: forces.potential_energy(pos, mass, g, eps, mask=mask)
 
 
 @torch.no_grad()
@@ -140,16 +146,25 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
 
     The initial force evaluation seeds the loop (reference
     ``simulation.py:69``); each step then applies the integrator and, with
-    ``calc_energy``, the O(N^2) energy diagnostics. Runs on the device of
-    ``pos``. A treecode with ``bh_refresh > 1`` carries its partition and
-    rebuilds it before step i's force evaluation when ``i % bh_refresh ==
-    0 and i > 0``, as the JAX scan does; the initial partition seeds the
-    first acceleration.
+    ``calc_energy``, the O(N^2) potential energy; the kinetic energies come
+    from the stacked velocities at the end (:func:`forces.kinetic_energies`).
+    Runs on the device of ``pos``. A treecode with ``bh_refresh > 1``
+    carries its partition and rebuilds it before step i's force evaluation
+    when ``i % bh_refresh == 0 and i > 0``, as the JAX scan does; the
+    initial partition seeds the first acceleration.
 
-    :param pos: (N, 3) initial positions.
-    :param vel: (N, 3) initial velocities.
-    :param mass: (N,) masses.
-    :param mask: optional (N,) validity mask for padded slots.
+    A group of S scenes (``pos``/``vel`` (S, N, 3), ``mass`` (S, N)) gives
+    a :class:`Trajectory` with a scene axis after the step axis, each scene
+    what a run of it alone gives: the direct-sum backends run the group in
+    one loop (on the card B1 and B2 launch once a step for all of it, with
+    each scene's single-call bits), a treecode runs the scenes one after
+    another.
+
+    :param pos: (N, 3) initial positions, or (S, N, 3).
+    :param vel: (N, 3) initial velocities, or (S, N, 3).
+    :param mass: (N,) masses, or (S, N).
+    :param mask: optional (N,) validity mask for padded slots, shared by a
+        group's scenes.
     """
     pos = torch.as_tensor(pos, dtype=torch.float32)
     dev = pos.device
@@ -157,8 +172,12 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
     mass = torch.as_tensor(mass, dtype=torch.float32, device=dev)
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
+    if pos.dim() == 3 and config.force_backend in TREECODE_BACKENDS:
+        runs = [simulate(p, v, m, steps, config, mask) for p, v, m in zip(pos, vel, mass)]
+        return Trajectory(*(None if runs[0][f] is None else
+                            torch.stack([r[f] for r in runs], dim=1) for f in range(5)))
 
-    energy_fn = make_energy_fn(mass, config, mask=mask)
+    potential_fn = make_potential_fn(mass, config, mask=mask)
     carry = config.force_backend in TREECODE_BACKENDS and config.bh_refresh > 1
     if carry:
         build, bh_acc = treecode_fns(mass, config, mask)
@@ -168,14 +187,13 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
         acc_fn = make_acc_fn(mass, config, mask=mask)
     step_fn = INTEGRATORS[config.integrator]
 
-    n = pos.shape[0]
-    ps = torch.empty((steps, n, 3), dtype=torch.float32, device=dev)
+    lead = tuple(pos.shape[:-1])  # (N,) or (S, N)
+    ps = torch.empty((steps, *lead, 3), dtype=torch.float32, device=dev)
     vs = torch.empty_like(ps)
     accs = torch.empty_like(ps)
     us = ks = None
     if config.calc_energy:
-        us = torch.empty(steps, dtype=torch.float32, device=dev)
-        ks = torch.empty_like(us)
+        us = torch.empty((steps, *lead[:-1]), dtype=torch.float32, device=dev)
 
     p, v, a = pos, vel, acc_fn(pos)
     for s in range(steps):
@@ -184,5 +202,7 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
         p, v, a = step_fn(p, v, a, acc_fn, config.dt)
         ps[s], vs[s], accs[s] = p, v, a
         if config.calc_energy:
-            us[s], ks[s] = energy_fn(p, v)
+            us[s] = potential_fn(p)
+    if config.calc_energy:
+        ks = forces.kinetic_energies(vs, mass, mask)
     return Trajectory(ps, vs, accs, us, ks)

@@ -64,6 +64,13 @@ namespace {
 // order and scales by G. One chunk: the first kernel writes G * a itself,
 // one launch (every N <= 500 shape of the datagen). No float atomics: the
 // same bits on every run.
+//
+// Scenes: a group of S scenes of equal shape (the datagen's seed-only
+// groups, jax.vmap of the Pallas call in nbody_tpu/data/generate.py:243-256)
+// is one launch, the scene on blockIdx.z and every operand offset by its
+// scene. Each scene keeps the single-scene call's chunk (the wrapper sizes
+// it from one scene's shape), tiles and order, so scene s of a group gives
+// the bits of a call on scene s alone.
 constexpr int SPLIT = 8;                        // lanes a target group
 constexpr int FORCE_THREADS = 256;
 constexpr int TILE = FORCE_THREADS;             // sources staged a step
@@ -167,13 +174,16 @@ __device__ __forceinline__ void write_targets(float* __restrict__ dst, int row0,
   }
 }
 
-// Block (tile x, chunk y): targets x * FORCE_ROWS .. of pos_i against the
-// sources y * chunk .. min(nj, (y + 1) * chunk). One chunk: out = G * a
-// (ni, 3); several: out = chunk y's sum, unscaled, at (y * ni + i) * 3.
+// Block (tile x, chunk y, scene z): targets x * FORCE_ROWS .. of scene z's
+// pos_i against its sources y * chunk .. min(nj, (y + 1) * chunk). One
+// chunk: out = G * a (scenes, ni, 3); several: out = chunk y's sum,
+// unscaled, at ((z * chunks + y) * ni + i) * 3.
 __global__ void __launch_bounds__(FORCE_THREADS)
 force_kernel(const float* __restrict__ pos_i, const float4* __restrict__ src,
              int ni, int nj, int chunk, float g, float eps2, float* __restrict__ out) {
   __shared__ float4 tile[TILE];
+  pos_i += (size_t)blockIdx.z * ni * 3;
+  src += (size_t)blockIdx.z * nj;
   const int lane = threadIdx.x % SPLIT;
   const int row0 = blockIdx.x * FORCE_ROWS + (threadIdx.x / SPLIT) * TPT;
   float xi[TPT], yi[TPT], zi[TPT], ax[TPT], ay[TPT], az[TPT];
@@ -189,19 +199,21 @@ force_kernel(const float* __restrict__ pos_i, const float4* __restrict__ src,
   }
   const bool one = gridDim.y == 1;
   const float scale = one ? g : 1.f;
-  float* dst = out + (one ? 0 : (size_t)blockIdx.y * ni * 3);
+  float* dst = out + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * ni * 3;
   write_targets(dst, row0, ni, lane, scale, ax, ay, az);
 }
 
-// acc (n floats) = G * the chunks' partial sums (chunks, n), added in chunk
-// order.
+// acc (scenes, n floats) = G * each scene's chunk sums (scenes, chunks, n),
+// added in chunk order; total = scenes * n.
 __global__ void __launch_bounds__(SUM_THREADS)
-force_chunks_kernel(const float* __restrict__ part, int chunks, long long n, float g,
-                    float* __restrict__ acc) {
+force_chunks_kernel(const float* __restrict__ part, int chunks, long long n, long long total,
+                    float g, float* __restrict__ acc) {
   const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
-  if (i >= n) return;
-  float s = part[i];
-  for (int c = 1; c < chunks; ++c) s += part[(size_t)c * n + i];
+  if (i >= total) return;
+  const long long scene = i / n;
+  const float* p = part + scene * chunks * n + (i - scene * n);
+  float s = p[0];
+  for (int c = 1; c < chunks; ++c) s += p[(size_t)c * n];
   acc[i] = g * s;
 }
 
@@ -311,11 +323,18 @@ near_force_kernel(const float* __restrict__ q, const float4* __restrict__ src,
 // float64, writes -G * U as float32 to the 0-d output and resets the
 // ticket. So the result has the same bits on every run on one card.
 //
-// Scratch (ticket and partials) belongs to one (device, stream): calls on
+// Scratch (tickets and partials) belongs to one (device, stream): calls on
 // one stream run one after another, so the next call starts after the last
 // block of this one has reset the ticket; calls on two streams get two
-// scratch buffers (ops/pairwise.py::_energy_scratch). It must be zeroed once
-// when it is made.
+// scratch buffers (ops/pairwise.py::_energy_scratch). Its tickets must be
+// zeroed once when they are made.
+//
+// Scenes: a group of S scenes of equal shape is one launch of (blocks, S)
+// blocks, the scene on blockIdx.y, each scene with its own ticket, its own
+// run of `blocks` partial slots and its own output. A scene's blocks walk
+// the items of a single-scene call and its last block adds its partials in
+// block order, so scene s of a group gives the bits of a call on scene s
+// alone.
 constexpr int E_THREADS = 256;
 constexpr int E_SPLIT = 4;                       // lanes a target group
 constexpr int E_TPT = 2;                         // targets a group (a thread)
@@ -396,6 +415,14 @@ energy_kernel(const float* __restrict__ pos_i, const float* __restrict__ mass_i,
   __shared__ float4 tile[E_TILE];
   __shared__ double red[E_THREADS / 32];
   __shared__ bool last;
+  const unsigned int scene = blockIdx.y;
+  pos_i += (size_t)scene * ni * 3;
+  mass_i += (size_t)scene * ni;
+  pos_j += (size_t)scene * nj * 3;
+  mass_j += (size_t)scene * nj;
+  ticket += scene;
+  partials += (size_t)scene * gridDim.x;
+  out += scene;
   const int lane = threadIdx.x % E_SPLIT;
   const int grp = threadIdx.x / E_SPLIT;
   const long long rt = (ni + E_ROWS - 1) / E_ROWS;
@@ -477,25 +504,27 @@ energy_kernel(const float* __restrict__ pos_i, const float* __restrict__ mass_i,
 
 extern "C" {
 
-// acc (ni, 3) = forces on pos_i (ni, 3) from the packed sources src (nj
-// float4), the sources cut into chunks of `chunk` (a multiple of the tile, or
-// >= nj for one chunk). Several chunks need `partial`, (chunks, ni, 3) floats
-// of scratch, and a second launch that adds them in chunk order.
-int nbody_force(const float* pos_i, const void* src, int ni, int nj, int chunk, float g,
-                float eps, float* partial, float* acc, void* stream) {
-  if (ni <= 0 || nj < 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
+// acc (scenes, ni, 3) = forces on each scene's pos_i (ni, 3) from its packed
+// sources src (nj float4), the sources cut into chunks of `chunk` (a multiple
+// of the tile, or >= nj for one chunk). Several chunks need `partial`,
+// (scenes, chunks, ni, 3) floats of scratch, and a second launch that adds
+// them in chunk order. 1 <= scenes <= 65535 (the grid's z).
+int nbody_force(const float* pos_i, const void* src, int scenes, int ni, int nj, int chunk,
+                float g, float eps, float* partial, float* acc, void* stream) {
+  if (ni <= 0 || nj < 0 || chunk <= 0 || scenes <= 0 || scenes > 65535)
+    return (int)cudaErrorInvalidValue;
   const long long chunks = nj > chunk ? ((long long)nj + chunk - 1) / chunk : 1;
   if (chunks > 1 && (chunk % TILE != 0 || partial == nullptr || chunks > 65535))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((ni + FORCE_ROWS - 1) / FORCE_ROWS, (unsigned)chunks);
+  const dim3 grid((ni + FORCE_ROWS - 1) / FORCE_ROWS, (unsigned)chunks, (unsigned)scenes);
   const cudaStream_t s = (cudaStream_t)stream;
   force_kernel<<<grid, FORCE_THREADS, 0, s>>>(pos_i, (const float4*)src, ni, nj, chunk, g,
                                               eps * eps, chunks > 1 ? partial : acc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
-  const long long n = 3LL * ni;
-  force_chunks_kernel<<<(unsigned)((n + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS, 0, s>>>(
-      partial, (int)chunks, n, g, acc);
+  const long long n = 3LL * ni, total = n * scenes;
+  force_chunks_kernel<<<(unsigned)((total + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS, 0,
+                        s>>>(partial, (int)chunks, n, total, g, acc);
   return (int)cudaGetLastError();
 }
 
@@ -516,22 +545,23 @@ int nbody_near_force(const float* q, const void* src, const int* near, int group
   return (int)cudaGetLastError();
 }
 
-// *out (a float32) = -g * sum m_i m_j / max(d + eps, 1e-30) in one launch of
-// `blocks` blocks (1 <= blocks <= the tile items; ops/pairwise.py::
-// energy_tiles). scratch: this stream's ticket (zero between calls) followed
-// by `blocks` doubles of partials.
+// out[s] (float32) = -g * sum m_i m_j / max(d + eps, 1e-30) of scene s, for
+// each of `scenes` scenes (1 <= scenes <= 65535; each scene's pos_i (ni, 3),
+// mass_i (ni), pos_j (nj, 3), mass_j (nj) follow the last), in one launch of
+// `blocks` blocks a scene (1 <= blocks <= the tile items; ops/pairwise.py::
+// energy_tiles). tickets: `scenes` counters of this stream, zero between
+// calls; partials: scenes * blocks doubles.
 int nbody_energy(const float* pos_i, const float* mass_i, int ni, const float* pos_j,
-                 const float* mass_j, int nj, double g, float eps, int masked, int blocks,
-                 void* scratch, float* out, void* stream) {
+                 const float* mass_j, int nj, double g, float eps, int masked, int scenes,
+                 int blocks, unsigned int* tickets, double* partials, float* out,
+                 void* stream) {
   const long long rt = (ni + E_ROWS - 1) / E_ROWS;
   const long long ct = (nj + E_TILE - 1) / E_TILE;
   if (ni <= 0 || nj <= 0 || (masked && ni != nj) || blocks <= 0 ||
-      blocks > items_before(rt, ct, masked))
+      blocks > items_before(rt, ct, masked) || scenes <= 0 || scenes > 65535)
     return (int)cudaErrorInvalidValue;
-  unsigned int* ticket = (unsigned int*)scratch;
-  double* partials = (double*)scratch + 1;
-  energy_kernel<<<blocks, E_THREADS, 0, (cudaStream_t)stream>>>(
-      pos_i, mass_i, ni, pos_j, mass_j, nj, g, eps, masked, ticket, partials, out);
+  energy_kernel<<<dim3(blocks, scenes), E_THREADS, 0, (cudaStream_t)stream>>>(
+      pos_i, mass_i, ni, pos_j, mass_j, nj, g, eps, masked, tickets, partials, out);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,13 @@
 Each scene's initial conditions are drawn on the CPU from a seeded
 ``torch.Generator`` (so a seed gives the same galaxy on every device), the
 rollout runs on the requested device through ``core.simulate``, and the
-trajectory comes back to the host once. The long-format CSV has the columns
-of ``data.schema.CSV_FIELDS`` and the ``.npz`` twin has the JAX package's
-keys, so datasets written by either package load in the other.
+trajectory comes back to the host once. Consecutive scenes that differ only
+by seed run as one group: one rollout over a leading scene axis, whose
+direct-sum kernels launch once a step for the whole group. The long-format
+CSV has the columns of ``data.schema.CSV_FIELDS`` and is written by the
+native writer of ``data.io_native`` (the JAX package's bytes); the ``.npz``
+twin has the JAX package's keys, so datasets written by either package load
+in the other.
 """
 
 from __future__ import annotations
@@ -109,6 +113,18 @@ def simulation_config(cfg: ScenarioConfig) -> SimulationConfig:
         bh_refresh=cfg.bh_refresh)
 
 
+def _load_kernels(sim_cfg: SimulationConfig, device: torch.device) -> None:
+    """Build the rollout's kernels now: a first-use build must not count as
+    step time."""
+    backend = resolve_backend(sim_cfg, device)
+    if device.type == "cuda" and backend != "dense":
+        if backend in TREECODE_BACKENDS:
+            from nbody_tpu_torch.ops.treeforce import load_kernels
+        else:
+            from nbody_tpu_torch.ops.pairwise import load_kernels
+        load_kernels()
+
+
 def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
                  device=None):
     """ICs and the full rollout on ``device`` (default CPU). Returns
@@ -118,14 +134,7 @@ def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
     device = torch.device("cpu" if device is None else device)
     pos, vel, mass = make_initial_conditions(cfg, generator, device=device)
     sim_cfg = simulation_config(cfg)
-    backend = resolve_backend(sim_cfg, device)
-    if device.type == "cuda" and backend != "dense":
-        # a first-use build must not count as step time
-        if backend in TREECODE_BACKENDS:
-            from nbody_tpu_torch.ops.treeforce import load_kernels
-        else:
-            from nbody_tpu_torch.ops.pairwise import load_kernels
-        load_kernels()
+    _load_kernels(sim_cfg, device)
 
     bounds = np.linspace(0, cfg.steps, max(time_chunks, 1) + 1).astype(int)
     parts, times = [], np.zeros(cfg.steps)
@@ -147,6 +156,44 @@ def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
             for i in range(5)))
     step_time = float(times.mean()) if time_chunks <= 1 else times
     return traj, mass.cpu().numpy(), step_time
+
+
+def run_scenario_group(cfgs: Sequence[ScenarioConfig], device=None):
+    """Run scenarios that share every parameter but the seed as ONE rollout
+    over a leading scene axis (``jax.vmap`` in the JAX package): each
+    scene's ICs from its own generator (so they equal its ungrouped ICs),
+    stacked, then one step loop whose B1 and B2 launch once a step for the
+    whole group (a treecode runs the scenes one after another).
+
+    :return: list of (trajectory, masses, step_time) like
+        :func:`run_scenario`; step_time is the group's rollout time over
+        ``steps * len(cfgs)``.
+    """
+    base = cfgs[0]
+    assert all(dataclasses.replace(c, seed=base.seed) == base for c in cfgs), \
+        "group must differ only by seed"
+    device = torch.device("cpu" if device is None else device)
+    ics = [make_initial_conditions(c, device=device) for c in cfgs]
+    pos, vel, mass = (torch.stack(x) for x in zip(*ics))
+    sim_cfg = simulation_config(base)
+    _load_kernels(sim_cfg, device)
+    traj, elapsed = device_time(lambda: simulate(pos, vel, mass, base.steps, sim_cfg), device)
+    step_time = elapsed / (base.steps * len(cfgs))
+    masses = mass.cpu().numpy()
+    return [(Trajectory(*(None if x is None else x[:, i] for x in traj)), masses[i], step_time)
+            for i in range(len(cfgs))]
+
+
+def _group_scenarios(scenarios: Sequence[ScenarioConfig]):
+    """Consecutive runs of scenarios identical up to the seed, as lists of
+    (scene id, config)."""
+    groups = []
+    for scene_id, cfg in enumerate(scenarios):
+        if groups and dataclasses.replace(cfg, seed=groups[-1][0][1].seed) == groups[-1][0][1]:
+            groups[-1].append((scene_id, cfg))
+        else:
+            groups.append([(scene_id, cfg)])
+    return groups
 
 
 def _energy_col(x, s: int) -> np.ndarray:
@@ -192,6 +239,7 @@ def generate_dataset(
     output: str,
     write_npz: bool = True,
     verbose: bool = True,
+    vmap_scenes: bool = True,
     time_chunks: int = 1,
     check: bool = False,
     snapshot_stride: int = 1,
@@ -201,22 +249,48 @@ def generate_dataset(
     """Run every scenario on ``device`` and write one long-format CSV plus an
     ``.npz`` twin (same stem) for fast reload by ``data.dataset``.
 
+    :param vmap_scenes: run each group of consecutive seed-only-differing
+        scenarios as one rollout (:func:`run_scenario_group`); the JAX
+        package's name for it.
     :param time_chunks: >1 records per-chunk wall times in ``step_time``
-        instead of the uniform mean (see :func:`run_scenario`).
+        instead of the uniform mean (see :func:`run_scenario`); turns
+        grouping off (chunked timing needs a rollout a scene).
     :param check: raise on a non-finite trajectory instead of writing it.
     :param snapshot_stride: record every this-many-th step (always incl.
         step 0; the ``step`` column keeps original indices).
     :param write_csv_file: False writes only the npz."""
     import pandas as pd
 
+    from nbody_tpu_torch.data.io_native import write_csv
+
+    if time_chunks > 1:
+        vmap_scenes = False
+
+    results = {}
+    if vmap_scenes:
+        for group in _group_scenarios(scenarios):
+            ids = [sid for sid, _ in group]
+            cfgs = [c for _, c in group]
+            if verbose:
+                print(f"[scenes {ids[0]}..{ids[-1]}] {cfgs[0].sim_type} "
+                      f"n={cfgs[0].n_bodies} steps={cfgs[0].steps} x{len(cfgs)}")
+            runs = ([run_scenario(cfgs[0], device=device)] if len(cfgs) == 1
+                    else run_scenario_group(cfgs, device=device))
+            for sid, (traj, mass, step_time) in zip(ids, runs):  # the device holds one group
+                results[sid] = (Trajectory(*(None if x is None else x.cpu() for x in traj)),
+                                mass, step_time)
+
     frames, npz_payload = [], {}
     for scene_id, cfg in enumerate(scenarios):
-        if verbose:
-            print(f"[{scene_id + 1}/{len(scenarios)}] {cfg.sim_type} "
-                  f"n={cfg.n_bodies} steps={cfg.steps} "
-                  f"integrator={cfg.integrator} seed={cfg.seed}")
-        traj, mass, step_time = run_scenario(cfg, time_chunks=time_chunks,
-                                             device=device)
+        if scene_id in results:
+            traj, mass, step_time = results.pop(scene_id)
+        else:
+            if verbose:
+                print(f"[{scene_id + 1}/{len(scenarios)}] {cfg.sim_type} "
+                      f"n={cfg.n_bodies} steps={cfg.steps} "
+                      f"integrator={cfg.integrator} seed={cfg.seed}")
+            traj, mass, step_time = run_scenario(cfg, time_chunks=time_chunks,
+                                                 device=device)
         if check:
             for name, t in zip(("positions", "velocities", "accelerations"),
                                traj[:3]):
@@ -250,8 +324,7 @@ def generate_dataset(
         npz_payload[f"scene{scene_id}_type"] = np.array(cfg.sim_type)
 
     if write_csv_file:
-        df = pd.concat(frames, ignore_index=True)[CSV_FIELDS]
-        df.to_csv(output, index=False)
+        write_csv(pd.concat(frames, ignore_index=True)[CSV_FIELDS], output)
     if write_npz:
         save_npz_atomic(_npz_path(output), n_scenes=len(scenarios), **npz_payload)
 

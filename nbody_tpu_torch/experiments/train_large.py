@@ -187,7 +187,8 @@ def main(argv=None) -> dict:
         if args.skip_datagen and valid_npz(path[:-4] + ".npz"):
             continue
         generate_dataset([scenario(seed)], path, snapshot_stride=args.stride,
-                         write_csv_file=False, time_chunks=args.time_chunks, device=dev)
+                         write_csv_file=False, vmap_scenes=False,
+                         time_chunks=args.time_chunks, device=dev)
     datagen_s = time.perf_counter() - t0
     print(f"datagen: {datagen_s:.1f}s", flush=True)
 

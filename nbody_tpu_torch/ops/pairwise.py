@@ -11,6 +11,11 @@ Two kernels, both hand-written CUDA C++ for Hopper in
 - B2, :func:`pair_potential`: the pairwise potential of one set (strict upper
   triangle) or of two disjoint sets (replaces the Pallas ``_energy_kernel``).
 
+B1 and B2 also take a group of scenes of equal shape, stacked on a leading
+axis (``(S, N, 3)`` positions, ``(S, N)`` masses), in one launch: what
+``jax.vmap`` of the Pallas calls computes, scene by scene with the bits of a
+single-scene call.
+
 Each wrapper has a plain-torch twin of the same semantics in this module
 (``*_torch``). A wrapper takes its twin only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. Each wrapper counts its kernel
@@ -65,13 +70,14 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load_library("pairwise")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.nbody_force.argtypes = [ptr, ptr, i32, i32, i32, f32, f32, ptr, ptr, ptr]
+        lib.nbody_force.argtypes = [ptr, ptr, i32, i32, i32, i32, f32, f32, ptr, ptr, ptr]
         lib.nbody_force.restype = i32
         lib.nbody_near_force.argtypes = [
             ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, ptr, ptr]
         lib.nbody_near_force.restype = i32
         lib.nbody_energy.argtypes = [
-            ptr, ptr, i32, ptr, ptr, i32, ctypes.c_double, f32, i32, i32, ptr, ptr, ptr]
+            ptr, ptr, i32, ptr, ptr, i32, ctypes.c_double, f32, i32, i32, i32, ptr, ptr,
+            ptr, ptr]
         lib.nbody_energy.restype = i32
         _LIB = lib
     return _LIB
@@ -87,18 +93,46 @@ def _f32(x) -> torch.Tensor:
 
 
 def _pack_sources(pos_j: torch.Tensor, mass_j: torch.Tensor) -> torch.Tensor:
-    """(nj, 4) [x, y, z, m] scratch: one 16-byte float4 load per source.
+    """(..., nj, 4) [x, y, z, m] scratch: one 16-byte float4 load per source.
     The wrappers may drop their scratch while a kernel still reads it: the
     caching allocator reuses that memory only for later work on the same
     stream, which runs after the kernel."""
-    return torch.cat([pos_j, mass_j[:, None]], dim=1)
+    return torch.cat([pos_j, mass_j[..., None]], dim=-1)
+
+
+# the most scenes one launch takes: the grid's y and z dimensions
+MAX_SCENES = 65535
+
+
+def _scenes(pos: torch.Tensor) -> tuple:
+    """The leading scene axis of a kernel call, ``(S,)`` for ``(S, N, 3)``
+    positions or ``()`` for one scene's ``(N, 3)``; raises past
+    :data:`MAX_SCENES`."""
+    lead = tuple(pos.shape[:-2])
+    if len(lead) > 1 or (lead and lead[0] > MAX_SCENES):
+        raise ValueError(f"positions {tuple(pos.shape)}: one scene (N, 3) or a group "
+                         f"(S, N, 3) of at most {MAX_SCENES} scenes")
+    return lead
+
+
+def _per_scene(fn, *args):
+    """``fn`` on each scene of a group (leading axis) stacked, or on one scene."""
+    if args[0].dim() == 2:
+        return fn(*args)
+    return torch.stack([fn(*one) for one in zip(*args)])
 
 
 # --------------------------------------------------------------------- B1
 
 def partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening):
     """Plain-torch twin of B1: exact coordinate differences, rsqrt^3 with the
-    1e-18 floor, no self mask (a coincident pair adds an exact zero)."""
+    1e-18 floor, no self mask (a coincident pair adds an exact zero). A group
+    of scenes (leading axis) runs scene by scene."""
+    return _per_scene(lambda pi, pj, mj: _force_plain(pi, pj, mj, g_const, softening),
+                      pos_i, pos_j, mass_j)
+
+
+def _force_plain(pos_i, pos_j, mass_j, g_const, softening):
     ni = pos_i.shape[0]
     acc = torch.empty_like(pos_i)
     eps2 = float(softening) ** 2
@@ -147,23 +181,28 @@ def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
     ``pallas_partial_accelerations``. Float32, contiguous, one device.
     Ragged sizes need no padding: the kernel masks the last tile itself.
     Few targets over many sources split the sources over blocks
-    (:func:`force_chunk`): a second launch adds the chunks in order."""
+    (:func:`force_chunk`): a second launch adds the chunks in order.
+    A group of S scenes, ``(S, Ni, 3)``, ``(S, Nj, 3)``, ``(S, Nj)``, gives
+    ``(S, Ni, 3)`` in the same launches, each scene with the chunks, and
+    the bits, of a call on that scene alone."""
     if build.on_cpu(pos_i, pos_j, mass_j):
         return partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening)
-    ni, nj = pos_i.shape[0], pos_j.shape[0]
-    build.check("pos_i", pos_i, (ni, 3))
-    build.check("pos_j", pos_j, (nj, 3))
-    build.check("mass_j", mass_j, (nj,))
-    acc = torch.empty((ni, 3), dtype=torch.float32, device=pos_i.device)
-    if ni == 0:
+    lead = _scenes(pos_i)
+    ni, nj = pos_i.shape[-2], pos_j.shape[-2]
+    build.check("pos_i", pos_i, lead + (ni, 3))
+    build.check("pos_j", pos_j, lead + (nj, 3))
+    build.check("mass_j", mass_j, lead + (nj,))
+    acc = torch.empty(lead + (ni, 3), dtype=torch.float32, device=pos_i.device)
+    scenes = lead[0] if lead else 1
+    if ni == 0 or scenes == 0:
         return acc
     src = _pack_sources(pos_j, mass_j)
     chunk = force_chunk(ni, nj, _sm_count(pos_i.device.index))
-    partial = (torch.empty((-(-nj // chunk), ni, 3), dtype=torch.float32,
+    partial = (torch.empty((scenes, -(-nj // chunk), ni, 3), dtype=torch.float32,
                            device=pos_i.device) if nj > chunk else None)
     with torch.cuda.device(pos_i.device):
         rc = _lib().nbody_force(
-            pos_i.data_ptr(), src.data_ptr(), ni, nj, chunk, float(g_const),
+            pos_i.data_ptr(), src.data_ptr(), scenes, ni, nj, chunk, float(g_const),
             float(softening), None if partial is None else partial.data_ptr(),
             acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.raise_on(rc, "nbody_force launch")
@@ -238,7 +277,8 @@ near_accelerations.launches = 0
 def accelerations(pos, mass, g_const, softening, mask=None):
     """Softened direct-sum accelerations (N, 3) of one set through B1; the
     port of ``pallas_accelerations``. ``mask`` (N,) is folded into the
-    masses, and masked rows of the result are zero."""
+    masses, and masked rows of the result are zero. A group of scenes,
+    ``(S, N, 3)`` and ``(S, N)``, gives ``(S, N, 3)``; the mask is shared."""
     pos, mass = _f32(pos), _f32(mass)
     if mask is not None:
         m01 = mask.to(pos.device, torch.float32)
@@ -256,7 +296,13 @@ def pair_potential_torch(pos_i, mass_i, pos_j, mass_j, g_const, softening,
     """Plain-torch twin of B2: -G sum m_i m_j / max(d + eps, 1e-30) over the
     strict upper triangle (``masked``, one set) or over all pairs of two
     disjoint sets. Row blocks are summed in float64, like the kernel's
-    reduction."""
+    reduction. A group of scenes (leading axis) gives ``(S,)``, scene by
+    scene."""
+    return _per_scene(lambda pi, mi, pj, mj: _potential_plain(
+        pi, mi, pj, mj, g_const, softening, masked), pos_i, mass_i, pos_j, mass_j)
+
+
+def _potential_plain(pos_i, mass_i, pos_j, mass_j, g_const, softening, masked):
     ni = pos_i.shape[0]
     total = torch.zeros((), dtype=torch.float64, device=pos_i.device)
     cols = torch.arange(pos_j.shape[0], device=pos_i.device)
@@ -285,19 +331,23 @@ def energy_tiles(ni: int, nj: int, masked: bool, sms: int) -> dict:
             "blocks": max(1, min(items, _B2_BLOCKS_PER_SM * sms))}
 
 
-# (device index, stream) -> B2's scratch: its ticket, zero between calls, and
-# room for the partials of the most blocks a launch takes
+# (device index, stream) -> B2's scratch: (tickets, one a scene and zero
+# between calls; partials, room for the most blocks a launch gives a scene,
+# a run of them a scene), for as many scenes as a call has asked for
 _ENERGY_SCRATCH: dict = {}
 
 
-def _energy_scratch(device: torch.device, stream: int, sms: int) -> torch.Tensor:
-    """The scratch of B2 launches on one stream: calls on one stream run one
-    after another, so they can share it (csrc/pairwise.cu, B2). Made zeroed
-    on a stream's first call, which is the one call that launches a fill."""
+def _energy_scratch(device: torch.device, stream: int, sms: int, scenes: int = 1):
+    """The scratch of B2 launches on one stream, for ``scenes`` scenes: calls
+    on one stream run one after another, so they can share it
+    (csrc/pairwise.cu, B2). Its tickets are made zeroed on a stream's first
+    call, and again when a call brings more scenes than it holds: those are
+    the calls that launch a fill."""
     key = (device.index, stream)
-    if key not in _ENERGY_SCRATCH:
-        _ENERGY_SCRATCH[key] = torch.zeros(1 + _B2_BLOCKS_PER_SM * sms,
-                                           dtype=torch.float64, device=device)
+    if key not in _ENERGY_SCRATCH or _ENERGY_SCRATCH[key][0].numel() < scenes:
+        _ENERGY_SCRATCH[key] = (
+            torch.zeros(scenes, dtype=torch.int32, device=device),
+            torch.empty(scenes * _B2_BLOCKS_PER_SM * sms, dtype=torch.float64, device=device))
     return _ENERGY_SCRATCH[key]
 
 
@@ -314,29 +364,33 @@ def pair_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening,
     host sync). ``masked``: ``pos_i`` and ``pos_j`` are the same set and each
     unordered pair counts once. Otherwise the two sets must be disjoint.
     One kernel launch (:func:`energy_tiles`), which writes the float32
-    result itself."""
+    result itself. A group of S scenes (``(S, N, 3)`` positions, ``(S, N)``
+    masses) gives ``(S,)`` in the same one launch, each scene the bits of a
+    call on that scene alone."""
     if build.on_cpu(pos_i, mass_i, pos_j, mass_j):
         return pair_potential_torch(pos_i, mass_i, pos_j, mass_j, g_const,
                                     softening, masked)
-    ni, nj = pos_i.shape[0], pos_j.shape[0]
-    build.check("pos_i", pos_i, (ni, 3))
-    build.check("mass_i", mass_i, (ni,))
-    build.check("pos_j", pos_j, (nj, 3))
-    build.check("mass_j", mass_j, (nj,))
+    lead = _scenes(pos_i)
+    ni, nj = pos_i.shape[-2], pos_j.shape[-2]
+    build.check("pos_i", pos_i, lead + (ni, 3))
+    build.check("mass_i", mass_i, lead + (ni,))
+    build.check("pos_j", pos_j, lead + (nj, 3))
+    build.check("mass_j", mass_j, lead + (nj,))
     if masked and ni != nj:
         raise ValueError("the masked potential takes one set (ni == nj)")
-    out = torch.empty((), dtype=torch.float32, device=pos_i.device)
-    if ni == 0 or nj == 0:
+    out = torch.empty(lead, dtype=torch.float32, device=pos_i.device)
+    scenes = lead[0] if lead else 1
+    if ni == 0 or nj == 0 or scenes == 0:
         return out.zero_()
     sms = _sm_count(pos_i.device.index)
     with torch.cuda.device(pos_i.device):
         stream = torch.cuda.current_stream().cuda_stream
-        scratch = _energy_scratch(pos_i.device, stream, sms)
+        tickets, partials = _energy_scratch(pos_i.device, stream, sms, scenes)
         rc = _lib().nbody_energy(
             pos_i.data_ptr(), mass_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(), nj,
-            float(g_const), float(softening), int(masked),
-            energy_tiles(ni, nj, masked, sms)["blocks"], scratch.data_ptr(), out.data_ptr(),
-            stream)
+            float(g_const), float(softening), int(masked), scenes,
+            energy_tiles(ni, nj, masked, sms)["blocks"], tickets.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), stream)
     build.raise_on(rc, "nbody_energy launch")
     pair_potential.launches += 1
     return out
@@ -347,7 +401,8 @@ pair_potential.launches = 0
 
 def potential_energy(pos, mass, g_const, softening, mask=None):
     """Total pairwise PE of one set through B2; the port of
-    ``pallas_potential_energy``."""
+    ``pallas_potential_energy``. A group of scenes gives ``(S,)``; the mask
+    (N,) is shared."""
     pos, mass = _f32(pos), _f32(mass)
     if mask is not None:
         mass = mass * mask.to(pos.device, torch.float32)

@@ -160,6 +160,12 @@ class Trainer:
         if step is None:
             print("No checkpoint found")
             return
+        self._restore(tree)
+        print(f"Loaded checkpoint at epoch {self.epoch}")
+
+    def _restore(self, tree: dict) -> None:
+        """Take a checkpoint's state (``_ckpt_tree``); the optimiser must
+        exist (``_ensure_state``)."""
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         self.epoch = int(tree["epoch"])
@@ -168,7 +174,6 @@ class Trainer:
         if self.scheduler and tree["scheduler"] is not None:
             self.scheduler.load_state_dict(tree["scheduler"])
             self._set_lr(self.scheduler.lr)
-        print(f"Loaded checkpoint at epoch {self.epoch}")
 
     # -------------------------------------------------------------- buckets
     def _to_dev(self, x: np.ndarray) -> torch.Tensor:

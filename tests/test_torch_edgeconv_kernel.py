@@ -7,7 +7,12 @@ the plain version of the kernel, the window plan field by field, and
 Bar: rtol = atol = 2e-6, the JAX tests' own (``attic/test_edgeconv_kernel.py:44``);
 the bfloat16 gather mode is held to the rounded-``v`` reference at the same
 bar. On the CPU the wrapper runs the plain version; the kernel itself is
-held to it on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+held to it on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+Torch runs on one CPU thread here (``one_thread``): its CPU ``tanh`` could
+give one OpenMP thread's chunk of its first parallel call in a process
+~5e-5 relative error after other parallel work, which failed a JAX-compared
+case under ``-n 4`` now and then; on one thread it did not."""
 
 import importlib.util
 from pathlib import Path
@@ -38,6 +43,16 @@ def _attic():
 
 
 jk = _attic()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one CPU thread for this module's cases, the old count
+    restored after them."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def _graph(seed, n=512, k=8, d=64, spread=HALF - 1, far=0.0):

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (B1 force and its near-list form,
-B2 energy, B3 ContConv collect, B4-B6 its backward (B5 as its dG product and
+B2 energy, both also on a group of scenes in one launch,
+B3 ContConv collect, B4-B6 its backward (B5 as its dG product and
 unbin pass too), B7 Morton select, B8
 Morton merge, B9 and B10 the treecodes' multipole pulls, B11 the windowed
 EdgeConv message sum) against their plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
@@ -124,6 +125,60 @@ def test_b2_kernel_matches_twin(cuda, n):
         bits = {pw.pair_potential(*args, G, EPS, masked).view(torch.int32).item()
                 for _ in range(5)}
         assert len(bits) == 1 and pw.pair_potential.launches == before + 5
+
+
+def _group(s, n, seed, dev):
+    ics = [_spiral(n, seed + i, dev) for i in range(s)]
+    return torch.stack([x[0] for x in ics]), torch.stack([x[2] for x in ics])
+
+
+@pytest.mark.parametrize("s", [1, 3, 8])
+@pytest.mark.parametrize("ni,nj", [(7, 7), (500, 500), (4097, 4097), (300, 20_000)])
+def test_grouped_b1_b2_are_single_scene_calls(cuda, s, ni, nj):
+    """A group of S scenes is one launch of B1 and one of B2 (the counters
+    step by one), scene s has the bits of a call on scene s alone, and both
+    hold their batched plain versions at the bars. 300 targets over 20,000
+    sources split B1's sources into chunks (``force_chunk``)."""
+    pos, mass = _group(s, nj, 10 * nj + ni, cuda)
+    tgt = pos[:, :ni].contiguous()
+    chunk = pw.force_chunk(ni, nj, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (nj > chunk) == (ni == 300)
+    b1, b2 = pw.partial_accelerations.launches, pw.pair_potential.launches
+    acc = pw.partial_accelerations(tgt, pos, mass, G, EPS)
+    u = pw.pair_potential(pos, mass, pos, mass, G, EPS, True)
+    a = nj // 3 + 1
+    x = (pos[:, :a].contiguous(), mass[:, :a].contiguous(), pos[:, a:].contiguous(),
+         mass[:, a:].contiguous())
+    ux = pw.pair_potential(*x, G, EPS, False)
+    assert pw.partial_accelerations.launches == b1 + 1
+    assert pw.pair_potential.launches == b2 + 2
+    assert acc.shape == (s, ni, 3) and u.shape == (s,) and ux.shape == (s,)
+    for i in range(s):
+        assert torch.equal(acc[i], pw.partial_accelerations(tgt[i], pos[i], mass[i], G, EPS))
+        assert torch.equal(u[i], pw.pair_potential(pos[i], mass[i], pos[i], mass[i], G, EPS,
+                                                   True))
+        assert torch.equal(ux[i], pw.pair_potential(*(t[i] for t in x), G, EPS, False))
+    want = pw.partial_accelerations_torch(tgt, pos, mass, G, EPS)
+    assert float((acc - want).abs().max()) / float(want.abs().max()) <= 2e-5
+    for got, want in ((u, pw.pair_potential_torch(pos, mass, pos, mass, G, EPS, True)),
+                      (ux, pw.pair_potential_torch(*x, G, EPS, False))):
+        assert torch.all((got.double() - want.double()).abs() <= 1e-5 * want.double().abs())
+
+
+def test_grouped_simulate_is_each_scene_alone(cuda):
+    """``simulate`` on a group of 4 through the kernels: every field of
+    scene s equals a run of scene s alone, bit for bit, with one B1 and one
+    B2 launch a step for the group."""
+    ics = [_spiral(300, 40 + i, cuda) for i in range(4)]
+    pos, vel, mass = (torch.stack([x[f] for x in ics]) for f in range(3))
+    cfg = SimulationConfig(g_const=G, softening=EPS, dt=1e-4, force_backend="kernel")
+    b1, b2 = pw.partial_accelerations.launches, pw.pair_potential.launches
+    group = simulate(pos, vel, mass, 20, cfg)
+    assert (pw.partial_accelerations.launches - b1, pw.pair_potential.launches - b2) == (21, 20)
+    for i in range(4):
+        alone = simulate(pos[i], vel[i], mass[i], 20, cfg)
+        for g_, a_ in zip(group, alone):
+            assert torch.equal(g_[:, i], a_)
 
 
 def test_kernel_events_sees_every_kernel(cuda):
