@@ -106,7 +106,22 @@ the port's main path once:
     at 1M with the trained weights; (e) ``train_large`` through its ``main``:
     the GNN at 1M with ``--remat`` (2 epochs, a resumed third, an eval-only
     rerun from the saved weights) and the full-width ContConv at 100k with 4
-    node chunks beside the unchunked layer; (f) ``knn_recall`` at 100k.
+    node chunks beside the unchunked layer; (f) ``knn_recall`` at 100k;
+11. ``parallel/``: ``parallel.dryrun.check_paths`` on 2 ranks on cuda:0 over
+    gloo (NCCL refuses two ranks on one device; gloo moves the tensors
+    through host memory), then at world size 1 over NCCL at smaller sizes,
+    each rank 0 holding its results to the one-process ones: the ring force
+    (two hops of 50k x 50k B1 cross blocks), energies (B2) and a leapfrog
+    step at 100,000 bodies, the sharded bh, bh2 and bh3 forces (bh3 at
+    1,000,000: B = 128, rc = 48, K = 48) and a 16-step bh rollout (refresh 8)
+    at 100,000, the GNN rollout at 100,000 with the committed 1M weights
+    (k = 8, fused), the full-width ContConv forward and training gradients at
+    20,000, and ``Trainer(mesh=)`` on phase 8a's recipe cut (every step held
+    to one process's step from the same parameters), with ms a step sharded
+    and in one process beside the card line; the ranks count their
+    own launches over the sharded calls only, and each must have launched
+    B1, B1's near list, B2, B3-B5 and B7-B10, B6 none (the kernels line
+    keeps its entries from the phases above).
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
@@ -191,6 +206,13 @@ PARAMS_1M = os.path.join(HERE, "results", "large_scale", "train_1m_params.pt")
 GNN_1M = dict(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean", neighbors=8,
               scale_factor=1e6, knn_method="morton", knn_impl="kernel")
 CHUNKS = 4         # node chunks of the 100k ContConv training run
+# phase 11, parallel/: 2 ranks on the one card over gloo at these sizes, then
+# every function at world size 1 over NCCL at the smaller ones
+PAR_N, PAR_1M, PAR_CC_N = 100_000, 1_000_000, 20_000
+PAR_SMALL_N, PAR_SMALL_CC_N = 20_000, 5_000
+BH2_100K = dict(n_near=32, block=128, coarse=16, rc=48)
+# the kernels the sharded paths must launch (B6: parameter gradients only)
+PAR_NEED = ("b1", "b1n", "b2", "b3", "b4", "b5", "b7", "b8", "b9", "b10")
 SAMPLE_1M = 4096   # receivers of the 1M path's exact-search and direct-sum checks
 
 
@@ -2242,6 +2264,120 @@ def phase10_knn_recall():
         raise AssertionError(f"knn_recall: {rows}")
 
 
+def parallel_spec(train_dir: str, small: bool) -> dict:
+    """Phase 11's sizes for ``parallel.dryrun.check_paths``: the ring, bh (with
+    a 16-step rollout, refresh 8) and the GNN rollout with the committed 1M
+    weights at 100,000 bodies, one bh3 force evaluation at 1,000,000, the
+    full-width ``contconv_adopted.json`` model at 20,000 (its random initial
+    head is not zero here, and its radius graph is the Morton search, so the
+    replicated graph is the single-rank one bit for bit) and
+    ``Trainer(mesh=)`` on phase 8a's recipe cut (``train_dir``), every step
+    held from the same parameters; ``small``: the NCCL world-1 run's sizes,
+    its free-running epoch losses held too (world size 1 sums as one process
+    does)."""
+    cfg = os.path.join(HERE, "configs", "contconv_adopted.json")
+    n = PAR_SMALL_N if small else PAR_N
+    return {
+        "reps": 2,
+        "ring": {"n": n, "backend": "kernel", "dt": DT},
+        "bh": {"n": n, "steps": 16, "refresh": 8, "bh": BH_100K, "bh2": BH2_100K,
+               "bh3": BH3_1M, "bh3_n": PAR_N if small else PAR_1M},
+        "gnn": {"n": n, "steps": 3, "dt": DT, "kwargs": dict(GNN_1M, fused_edgeconv=True),
+                "weights": PARAMS_1M},
+        "contconv": {"n": PAR_SMALL_CC_N if small else PAR_CC_N, "config": cfg,
+                     "overrides": ["model.kwargs.zero_init_output=false",
+                                   "model.kwargs.radius_method=morton",
+                                   "model.kwargs.radius_impl=kernel"]},
+        "train": {"dir": train_dir, "config": cfg, "epochs": 1, "batch_size": 16,
+                  "lr": 1e-3, "batch_mode": "mixed", "merge_files": True,
+                  "hold_epochs": small},
+    }
+
+
+def _parallel_lines(label: str, out: dict, card: str) -> None:
+    """ms a step of the sharded run and of the one-process run, by path."""
+    ring, bh, gnn, cc, tr = (out[k] for k in ("ring", "bh", "gnn", "contconv", "train"))
+    rows = [("ring force (B1 hops)", ring["acc"]["ms"], ring["acc"]["single_ms"]),
+            ("ring energies (B2)", ring["energies"]["ms"], ring["energies"]["single_ms"]),
+            *((f"sharded {e} force, N={bh[e]['n']}", bh[e]["ms"], bh[e]["single_ms"])
+              for e in ("bh", "bh2", "bh3")),
+            ("bh rollout step", bh["bh_simulate"]["ms_per_step"],
+             bh["bh_simulate"]["single_ms_per_step"]),
+            (f"GNN rollout step, N={gnn['n']}", gnn["ms_per_step"], gnn["single_ms_per_step"]),
+            (f"ContConv predict, N={cc['predict']['n']}", cc["predict"]["ms"],
+             cc["predict"]["single_ms"]),
+            ("ContConv loss and grad", cc["loss"]["ms"], cc["loss"]["single_ms"]),
+            ("DP training epoch", 1e3 * tr["s_per_epoch"], 1e3 * tr["single_s_per_epoch"])]
+    for name, ms, ms1 in rows:
+        log(f"[11] {label} {name}: {ms:.4f} ms sharded, {ms1:.4f} ms in one process "
+            f"({card})")
+    bits = {e: bh[e]["bits_equal"] for e in ("bh", "bh2", "bh3")}
+    log(f"[11] {label}: treecode bits equal to one process {bits} (even blocks "
+        f"{ {e: bh[e]['even'] for e in bits} }); ring |da|/max|a| {ring['acc']['max_abs_err']:.3e}, "
+        f"GNN rollout max |d acc| {gnn['acc']['max_abs_err']:.3e}, ContConv predict "
+        f"{cc['predict']['max_abs_err']:.3e}, loss {cc['loss']['max_abs_err']:.3e}, "
+        f"grads {cc['grads']['max_abs_err']:.3e}; DP steps from the same parameters: "
+        f"{tr['steps']} losses (max |d| {tr['max_abs_err']:.3e}) and gradients (max |d|/max "
+        f"{tr['grads_max_abs_err']:.3e}) within rtol 2e-4; free-running epoch losses "
+        f"{tr['losses']} vs {tr['single_losses']} (rel {tr['epoch_rel_diff']:.3e}; one "
+        f"process from weights one ulp up: {tr['ulp_losses']}, rel "
+        f"{tr['ulp_epoch_rel_diff']:.3e}); "
+        f"wall s by path "
+        f"{ {k: round(out[k + '_wall_s'], 2) for k in ('ring', 'bh', 'gnn', 'contconv', 'train')} }")
+
+
+def phase11_parallel(tmp: str, card: str) -> dict:
+    """``parallel/`` on the card: every sharded path of
+    ``parallel.dryrun.check_paths`` on 2 ranks on cuda:0 over gloo (NCCL
+    refuses two ranks on one device; gloo moves the tensors through host
+    memory, so the 2-rank times measure that overhead, not scaling), then at
+    world size 1 over NCCL, each held by rank 0 to the one-process result at
+    the JAX tests' bars. Returns the 2-rank run's kernel launches, counted
+    in rank 0 over its sharded calls only."""
+    import random
+
+    import torch
+
+    from nbody_tpu_torch.config import ExperimentConfig
+    from nbody_tpu_torch.data.generate import generate_dataset
+    from nbody_tpu_torch.parallel import dryrun
+    from nbody_tpu_torch.parallel.launch import run_ranks
+
+    cfg = ExperimentConfig.load(os.path.join(HERE, "configs", "contconv_adopted.json"))
+    cfg = cfg.apply_overrides(RUN_SETS)
+    rng = random.Random(cfg.datagen.seed)
+    full, first = os.path.join(tmp, "cut"), os.path.join(tmp, "first_file")
+    os.makedirs(full)
+    os.makedirs(first)
+    for i in range(1, cfg.datagen.train_files + 1):  # phase 8a's recipe cut
+        generate_dataset(cfg.scenarios(seed=rng.randint(0, 1000)),
+                         os.path.join(full, f"output_file_{i}.csv"), write_csv_file=False,
+                         verbose=False, device="cuda")
+    # the world-1 run trains on the cut's first file (its npz) alone
+    os.symlink(os.path.join(full, "output_file_1.npz"), os.path.join(first, "f1.npz"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = run_ranks(dryrun.check_paths, 2, "gloo", parallel_spec(full, False),
+                    device="cuda:0", timeout=600)
+    log(f"[11] 2 ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s wall")
+    _parallel_lines("2 ranks, gloo", two, card)
+    t0 = time.perf_counter()
+    one = run_ranks(dryrun.check_paths, 1, "nccl", parallel_spec(first, True),
+                    device="cuda:0", timeout=600)
+    log(f"[11] world size 1 over NCCL: {time.perf_counter() - t0:.1f} s wall")
+    _parallel_lines("world 1, NCCL", one, card)
+    for run in (two, one):
+        if not run["device"].startswith("cuda") or run["backend"] not in ("gloo", "nccl"):
+            raise AssertionError(f"phase 11 ran on {run['device']} over {run['backend']}")
+    launches = two["launches"]
+    log(f"[11] launches on the sharded paths (rank 0 of 2): {launches}; world 1: "
+        f"{one['launches']}")
+    if min(launches[k] for k in PAR_NEED) == 0 or launches["b6"] != 0:
+        raise AssertionError(f"sharded paths' launches {launches}: {PAR_NEED} above 0, "
+                             "B6 at 0 expected")
+    return launches
+
+
 def main() -> int:
     card = phase0_device()
     import torch
@@ -2345,6 +2481,12 @@ def main() -> int:
     log(f"[10] launches of the large-N entry points' mains together: {large_n}")
     stamp("10d-10e")
     phase10_knn_recall()
+    stamp("10f")
+
+    # the sharded paths (parallel/): the ranks count their own launches
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        phase11_parallel(tmp, card)
+    stamp("11")
     # B3, B4 and B5 stand in the line once for each layer's filter resolution,
     # B1 and B2 once more for scene groups
     if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()) + 5:

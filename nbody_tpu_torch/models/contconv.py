@@ -56,15 +56,19 @@ def ball_to_cube(r: torch.Tensor) -> torch.Tensor:
     return r / (norm + 1e-8) * torch.tanh(norm)
 
 
-def conv_geometry(pos, nbr_idx, nbr_valid, radius):
+def conv_geometry(pos, nbr_idx, nbr_valid, radius, pos_src=None):
     """Per-step edge geometry shared by a stack of layers (positions are
     fixed within a model call).
 
     :param pos: (B, N, 3); :param nbr_idx, nbr_valid: (B, N, k).
+    :param pos_src: optional (B, Ns, 3) gather source of the neighbour
+        positions (``nbr_idx`` indexes it), default ``pos``. The
+        particle-sharded forward passes the all-gathered positions of every
+        rank here while ``pos`` holds this rank's rows.
     :return: dict with ``mapped`` (B, N, k, 3), ``window`` and ``in_radius``
         (B, N, k), ``nbr_idx``, ``n`` and ``radius``.
     """
-    pos_j = gather_neighbors(pos, nbr_idx)
+    pos_j = gather_neighbors(pos if pos_src is None else pos_src, nbr_idx)
     r = pos_j - pos[:, :, None, :]  # neighbour - centre
     dist2 = (r * r).sum(-1)
     r2 = float(torch.tensor(float(radius), dtype=torch.float32) ** 2)  # as JAX squares it
@@ -104,10 +108,16 @@ class ContinuousConv(nn.Module):
         with torch.no_grad():
             self.filters.normal_(generator=generator)
 
-    def forward(self, pos, feat, nbr_idx, nbr_valid, geom=None):
+    def forward(self, pos, feat, nbr_idx, nbr_valid, geom=None, feat_src=None):
         """:param pos: (B, N, 3); :param feat: (B, N, ci).
         :param nbr_idx, nbr_valid: (B, N, k) padded radius neighbour lists.
         :param geom: optional shared :func:`conv_geometry`.
+        :param feat_src: optional (B, Ns, ci) gather source of the neighbour
+            features (``nbr_idx`` indexes it; B3's ``feat_j`` rows come from
+            it), default ``feat``. The particle-sharded forward passes the
+            all-gathered features of every rank here, with a ``geom`` built
+            on the matching ``pos_src``, while ``pos`` and ``feat`` hold this
+            rank's rows.
         :return: (B, N, co).
         """
         d = self.filter_resolution
@@ -123,11 +133,12 @@ class ContinuousConv(nn.Module):
         chunked = self.node_chunks > 1
         impl = self.impl or ("kernel" if feat.is_cuda or chunked else "dense")
         collect = contconv_collect if impl == "kernel" else contconv_collect_torch
+        src = feat if feat_src is None else feat_src
 
-        def rows(feat, filters, grid, window, idx):
+        def rows(src, filters, grid, window, idx):
             """The collect of the receivers (B, r, ...) of one slice."""
             r = idx.shape[1]
-            feat_j = gather_neighbors(feat, idx).reshape(b * r, k, ci)
+            feat_j = gather_neighbors(src, idx).reshape(b * r, k, ci)
             planes = [grid[..., a].reshape(b * r, k).contiguous() for a in range(3)]
             return collect(*planes, window.reshape(b * r, k).contiguous(),
                            feat_j.contiguous(), filters, d=d).reshape(b, r, co)
@@ -137,11 +148,11 @@ class ContinuousConv(nn.Module):
             parts = []
             for lo in range(0, n, step):
                 sl = slice(lo, lo + step)
-                parts.append(checkpoint(rows, feat, filters, grid[:, sl], window[:, sl],
+                parts.append(checkpoint(rows, src, filters, grid[:, sl], window[:, sl],
                                         geom["nbr_idx"][:, sl], use_reentrant=False))
             out = torch.cat(parts, dim=1)
         else:
-            out = rows(feat, filters, grid, window, geom["nbr_idx"])
+            out = rows(src, filters, grid, window, geom["nbr_idx"])
         if self.agg == "mean":  # scatter(..., reduce="mean")
             cnt = in_radius.to(out.dtype).sum(-1, keepdim=True)
             out = out / torch.clamp(cnt, min=1.0)

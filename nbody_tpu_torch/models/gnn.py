@@ -57,23 +57,35 @@ class EdgeConv(nn.Module):
         self.aggr = aggr
         self.fused = fused
 
-    def split_terms(self, h):
+    def split_terms(self, h, h_src=None):
         """The fused layer's node-sized terms (u', v): the edge's
         pre-activation is ``u'_i + v_j`` with the bias folded into
-        ``u' = u - b1``; both (B, N, dim)."""
+        ``u' = u - b1``; u' (B, N, dim) of the receivers ``h``, v of the
+        gather source (``h_src``, default ``h``)."""
         d = h.shape[-1]
         w = self.dense0.weight  # (dim, 2d): [W1a | W1b] on [h_i | h_j - h_i]
         u = torch.nn.functional.linear(h, w[:, :d] - w[:, d:])  # u - b1
-        v = torch.nn.functional.linear(h, w[:, d:], self.dense0.bias)
+        v = torch.nn.functional.linear(h if h_src is None else h_src, w[:, d:],
+                                       self.dense0.bias)
         return u, v
 
-    def forward(self, h, nbr_idx, nbr_valid):
+    def forward(self, h, nbr_idx, nbr_valid, h_src=None):
+        """:param h: (B, N, d) receiver features.
+        :param nbr_idx, nbr_valid: (B, N, k) neighbour lists; ``nbr_idx``
+            indexes the gather source.
+        :param h_src: optional (B, Ns, d) gather source of the neighbour
+            features, default ``h``. The particle-sharded forward
+            (``parallel/surrogate.py``) passes the all-gathered features of
+            every rank here while ``h`` holds this rank's rows, so the
+            sharded path applies this layer instead of repeating its math.
+        """
+        src = h if h_src is None else h_src
         if not self.fused:
-            h_j = gather_neighbors(h, nbr_idx)  # (B, N, k, d)
+            h_j = gather_neighbors(src, nbr_idx)  # (B, N, k, d)
             h_i = h[:, :, None, :].expand_as(h_j)
             e = self.dense1(torch.tanh(self.dense0(torch.cat([h_i, h_j - h_i], dim=-1))))
             return masked_aggregate(e, nbr_valid, self.aggr, axis=2)
-        u, v = self.split_terms(h)
+        u, v = self.split_terms(h, h_src)
         t = torch.tanh(u[:, :, None, :] + gather_neighbors(v, nbr_idx))  # (B, N, k, dim)
         out = self.dense1(masked_aggregate(t, nbr_valid, self.aggr, axis=2))
         cnt = nbr_valid.to(h.dtype).sum(dim=2, keepdim=True)

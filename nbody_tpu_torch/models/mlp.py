@@ -49,6 +49,11 @@ class MaskedBatchNorm(nn.Module):
     Parameters ``weight`` (flax ``scale``) and ``bias``; buffers
     ``running_mean`` and ``running_var`` (flax ``batch_stats`` ``mean`` and
     ``var``).
+
+    ``sum_over``, None by default, is set by a data-parallel trainer
+    (``Trainer(mesh=)``) to a differentiable sum over its ranks: the
+    training statistics then cover the valid nodes of every rank's rows,
+    the statistics of the whole batch.
     """
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
@@ -59,20 +64,31 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.sum_over = None
+
+    def _batch_stats(self, xf, mask):
+        """(count, mean, biased variance) over the valid rows of ``xf``,
+        with ``sum_over`` over the valid rows of every rank."""
+        f = xf.shape[-1]
+        if self.sum_over is not None:
+            w = (torch.ones_like(xf[:, :1]) if mask is None
+                 else mask.to(xf.dtype).reshape(-1, 1))
+            s = self.sum_over(torch.cat([(xf * w).sum(0), w.sum()[None]]))
+            cnt = torch.clamp(s[f], min=1.0)
+            mean = s[:f] / cnt
+            return cnt, mean, self.sum_over((w * (xf - mean) ** 2).sum(0)) / cnt
+        if mask is not None:
+            w = mask.to(xf.dtype).reshape(-1, 1).expand(xf.shape)
+            cnt = torch.clamp(w[:, 0].sum(), min=1.0)
+            mean = (xf * w).sum(0) / cnt
+            return cnt, mean, (w * (xf - mean) ** 2).sum(0) / cnt
+        cnt = torch.tensor(float(xf.shape[0]), dtype=xf.dtype, device=xf.device)
+        mean = xf.mean(0)
+        return cnt, mean, ((xf - mean) ** 2).mean(0)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        f = x.shape[-1]
         if self.training:
-            xf = x.reshape(-1, f)
-            if mask is not None:
-                w = mask.to(x.dtype)[..., None].expand(x.shape).reshape(-1, f)
-                cnt = torch.clamp(w[:, 0].sum(), min=1.0)
-                mean = (xf * w).sum(0) / cnt
-                var = (w * (xf - mean) ** 2).sum(0) / cnt
-            else:
-                cnt = torch.tensor(float(xf.shape[0]), dtype=x.dtype, device=x.device)
-                mean = xf.mean(0)
-                var = ((xf - mean) ** 2).mean(0)
+            cnt, mean, var = self._batch_stats(x.reshape(-1, x.shape[-1]), mask)
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                 m = self.momentum

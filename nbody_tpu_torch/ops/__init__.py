@@ -18,7 +18,7 @@ from nbody_tpu_torch.ops.treeforce import (
     build_bh2_partition,
     build_bh3_partition,
 )
-from nbody_tpu_torch.ops.knn import knn_neighbors, batched_knn_neighbors
+from nbody_tpu_torch.ops.knn import knn_neighbors, knn_query, batched_knn_neighbors
 from nbody_tpu_torch.ops.segment import masked_aggregate, masked_mean, masked_sum
 from nbody_tpu_torch.ops.spatial import batched_knn_morton, knn_morton, morton_keys
 from nbody_tpu_torch.ops.radius import batched_radius_neighbors, radius_neighbors
@@ -43,6 +43,7 @@ __all__ = [
     "build_bh2_partition",
     "build_bh3_partition",
     "knn_neighbors",
+    "knn_query",
     "batched_knn_neighbors",
     "masked_aggregate",
     "masked_mean",

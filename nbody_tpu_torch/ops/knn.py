@@ -104,6 +104,45 @@ def _knn_chunked(pos, k, mask, include_self, chunk_size):
     return idx.to(torch.int32), valid
 
 
+def knn_query(
+    pos_q: torch.Tensor,
+    pos_c: torch.Tensor,
+    k: int,
+    q_offset: int = 0,
+    include_self: bool = False,
+    mask_c: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest *candidates* of a separate query set — the asymmetric kNN
+    of the particle-sharded surrogate (``parallel/surrogate.py``): a rank's
+    query shard searches the all-gathered candidates. Distances come from
+    the norm expansion |q|^2 + |c|^2 - 2 q.c, as in the JAX function.
+
+    :param pos_q: (Nq, 3) query positions (a shard of the candidates).
+    :param pos_c: (Nc, 3) candidate positions (the full array).
+    :param q_offset: index of query row 0 among the candidates: query i's
+        own slot ``q_offset + i`` is excluded unless ``include_self``.
+    :param mask_c: optional (Nc,) candidate validity.
+    :return: (idx, valid) — (Nq, k) int32 indices into the candidates.
+    """
+    if pos_q.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("knn_query needs full-float32 matmuls; "
+                           "torch.backends.cuda.matmul.allow_tf32 is True")
+    nq, nc = pos_q.shape[0], pos_c.shape[0]
+    k = min(k, nc)
+    d2 = ((pos_q * pos_q).sum(1)[:, None] + (pos_c * pos_c).sum(1)[None, :]
+          - 2.0 * (pos_q @ pos_c.T))
+    d2 = torch.clamp(d2, min=0.0)
+    cols = torch.arange(nc, device=pos_q.device)[None, :]
+    if not include_self:
+        rows = q_offset + torch.arange(nq, device=pos_q.device)
+        d2 = d2.masked_fill(cols == rows[:, None], _INF)
+    if mask_c is not None:
+        d2 = d2.masked_fill(~mask_c.bool()[None, :], _INF)
+    neg, idx = torch.topk(-d2, k, dim=-1)
+    valid = neg > -_INF
+    return torch.where(valid, idx, 0).to(torch.int32), valid
+
+
 def batched_knn_neighbors(pos, k, mask=None, include_self=False, approx=False):
     """:func:`knn_neighbors` over a leading batch axis: (B, N, 3) ->
     (B, N, k) indices and validity, each snapshot with its own graph."""

@@ -12,14 +12,26 @@
   directory, on the model's weights or a checkpoint's, aggregated into the
   reference's result-table schemas.
 
-Not taken from the JAX trainer: ``mesh`` (data parallelism, the parallel
-slice) and ``scan_chunk`` (a cap on batches per TPU dispatch, which does
-not change the math; the port dispatches each step from Python).
+With ``mesh`` (a ``parallel.mesh.Mesh`` with a ``"data"`` axis, built on
+every rank, e.g. under ``parallel.launch.run_ranks``) training is data
+parallel: every rank holds the whole model, data and batch order (the
+batch-order generator is seeded from the file paths), and takes its
+contiguous share of every batch, padded to a multiple of the axis size with
+``valid=False`` rows. The loss is the scaled RMSE of the whole batch, the
+gradients are all-reduced, so every rank takes the same optimiser step, and
+the encoder's batch norms take their statistics over every rank's valid
+rows. Only global rank 0 writes checkpoints; every rank resumes from the
+same file.
+
+Not taken from the JAX trainer: ``scan_chunk`` (a cap on batches per TPU
+dispatch, which does not change the math; the port dispatches each step
+from Python).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import warnings
 import zlib
@@ -32,6 +44,7 @@ import torch
 from nbody_tpu_torch.data.dataset import BatchIterator, SnapshotDataset
 from nbody_tpu_torch.models.common import masked_mse, scaled_rmse_and_mse
 from nbody_tpu_torch.models.mlp import MaskedBatchNorm
+from nbody_tpu_torch.parallel.mesh import DATA_AXIS, psum, psum_all
 from nbody_tpu_torch.train.checkpoint import CheckpointManager
 from nbody_tpu_torch.train.graphs import build_graph
 from nbody_tpu_torch.train.optim import PlateauScheduler, make_optimizer
@@ -75,6 +88,8 @@ class Trainer:
     :param seed: seeds the random stream that dropout draws from during
         training; the trainer keeps that stream apart from the process's
         and checkpoints it.
+    :param mesh: optional ``parallel.mesh.Mesh`` with a ``"data"`` axis:
+        data-parallel training over its ranks (see the module notes).
     """
 
     # Forwards per timed stepwise snapshot. The host timer closes with a
@@ -84,8 +99,12 @@ class Trainer:
 
     def __init__(self, model, learning_rate: float = 0.01,
                  scheduler: Optional[PlateauScheduler] = None, dt: float = 0.01,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
+        if mesh is not None and DATA_AXIS not in mesh.axis_names:
+            raise ValueError(f"Trainer(mesh=) needs a {DATA_AXIS!r} axis, "
+                             f"not {mesh.axis_names}")
         self.model = model
+        self.mesh = mesh
         self.dt = dt
         self.learning_rate = learning_rate
         self.scheduler = scheduler
@@ -96,10 +115,55 @@ class Trainer:
         self._ds_cache: Dict[str, SnapshotDataset] = {}
         self._dev_cache: Dict[tuple, dict] = {}
         self._rollout_warmed: set = set()  # (N, steps, graph spec) run once untimed
+        self.step_losses: List[float] = []  # every optimiser step's loss, last epoch
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes checkpoints and reports: always
+        without a mesh, on global rank 0 with one."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _my_rows(self, width: int) -> slice:
+        """This rank's columns of a (steps, width) batch plan, ``width`` a
+        multiple of the data axis (all of them without a mesh)."""
+        if self.mesh is None:
+            return slice(0, width)
+        q = width // self.mesh.size(DATA_AXIS)
+        me = self.mesh.index(DATA_AXIS)
+        return slice(me * q, (me + 1) * q)
+
+    def _padded(self, width: int) -> int:
+        """``width`` rounded up to a multiple of the data axis (the JAX
+        trainer pads each bucket's quota so)."""
+        n = 1 if self.mesh is None else self.mesh.size(DATA_AXIS)
+        return -(-width // n) * n
+
+    @contextlib.contextmanager
+    def _batch_norms_over_ranks(self):
+        """With a mesh, every batch norm takes its training statistics over
+        every rank's rows for the block."""
+        norms = ([m for m in self.model.modules() if isinstance(m, MaskedBatchNorm)]
+                 if self.mesh is not None else [])
+        for m in norms:
+            m.sum_over = functools.partial(psum, mesh=self.mesh, axis=DATA_AXIS)
+        try:
+            yield
+        finally:
+            for m in norms:
+                m.sum_over = None
+
+    def _global_rmse(self, sse, cnt):
+        """(scaled RMSE, MSE) of the whole batch from this rank's sum of
+        squares ``sse`` and count ``cnt``. The other ranks' share enters as
+        a constant, so this rank's backward is the gradient through its own
+        rows, and the all-reduce in :meth:`_apply_step` adds them up."""
+        tot = psum(torch.stack([sse.detach(), cnt.detach()]), self.mesh, DATA_AXIS)
+        mse = (sse + (tot[0] - sse.detach())) / torch.clamp(tot[1], min=1.0)
+        return self.model.scale_factor * torch.sqrt(mse), mse
 
     def _dataset(self, path: str) -> SnapshotDataset:
         if path not in self._ds_cache:
@@ -230,31 +294,44 @@ class Trainer:
     def _apply_step(self, loss) -> None:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            params = [p for p in self.model.parameters() if p.requires_grad]
+            grads = psum_all([torch.zeros_like(p) if p.grad is None else p.grad
+                              for p in params], self.mesh, DATA_AXIS)
+            for p, g in zip(params, grads):
+                p.grad = g.view_as(p)
         self.optimizer.step()
 
     def _train_bucketed(self, dev: dict, group, batch_size: int, losses, mses) -> None:
         """Single-size (or mixed, padded) batches per bucket, buckets and
         batches in the order of the group's numpy generator; a tail batch
-        keeps ``batch_size`` rows with valid=False padding."""
+        keeps ``batch_size`` rows with valid=False padding (and a batch
+        ``_padded(batch_size)`` rows with a mesh)."""
         rng_np = _group_rng(self.epoch, group)
         bucket_keys = list(dev.keys())
         rng_np.shuffle(bucket_keys)
         scale = self.model.scale_factor
+        mine = self._my_rows(self._padded(batch_size))
         for n in bucket_keys:
             s = dev[n][0].shape[0]
             nb = -(-s // batch_size)
             order = rng_np.permutation(s)
-            sels = np.zeros((nb, batch_size), np.int64)
-            valids = np.zeros((nb, batch_size), bool)
+            sels = np.zeros((nb, self._padded(batch_size)), np.int64)
+            valids = np.zeros((nb, self._padded(batch_size)), bool)
             for b, start in enumerate(range(0, s, batch_size)):
                 sel = order[start:start + batch_size]
                 sels[b, :len(sel)] = sel
                 valids[b, :len(sel)] = True
-            sels_d, valids_d = self._to_dev(sels), self._to_dev(valids)
+            sels_d, valids_d = self._to_dev(sels[:, mine]), self._to_dev(valids[:, mine])
             for b in range(nb):
                 x, y, mask = self._gather(dev[n], sels_d[b], valids_d[b])
-                loss, mse = scaled_rmse_and_mse(self._forward(x, mask), y, scale,
-                                                node_mask=mask)
+                pred = self._forward(x, mask)
+                if self.mesh is None:
+                    loss, mse = scaled_rmse_and_mse(pred, y, scale, node_mask=mask)
+                else:
+                    w = mask.to(pred.dtype)[..., None]
+                    loss, mse = self._global_rmse(((pred - y) ** 2 * w).sum(),
+                                                  w.sum() * pred.shape[-1])
                 self._apply_step(loss)
                 losses.append(loss.detach())
                 mses.append(mse.detach())
@@ -274,14 +351,16 @@ class Trainer:
         rng_np = _group_rng(self.epoch, group)
         sels, valids = [], []
         for s in sizes:
-            q = -(-s // steps)
+            # with a mesh the quota is padded to the data axis (valid=False)
+            q = self._padded(-(-s // steps))
             sel = np.zeros((steps, q), np.int64)
             val = np.zeros((steps, q), bool)
             order = rng_np.permutation(s)
             sel[np.arange(s) % steps, np.arange(s) // steps] = order
             val[np.arange(s) % steps, np.arange(s) // steps] = True
-            sels.append(self._to_dev(sel))
-            valids.append(self._to_dev(val))
+            mine = self._my_rows(q)
+            sels.append(self._to_dev(sel[:, mine]))
+            valids.append(self._to_dev(val[:, mine]))
         norms = [m for m in self.model.modules() if isinstance(m, MaskedBatchNorm)]
         scale = self.model.scale_factor
         for step in range(steps):
@@ -296,8 +375,11 @@ class Trainer:
                 w = mask.to(pred.dtype)[..., None]
                 sse = sse + ((pred - y) ** 2 * w).sum()
                 cnt = cnt + w.sum() * pred.shape[-1]
-            mse = sse / torch.clamp(cnt, min=1.0)
-            loss = scale * torch.sqrt(mse)
+            if self.mesh is None:
+                mse = sse / torch.clamp(cnt, min=1.0)
+                loss = scale * torch.sqrt(mse)
+            else:
+                loss, mse = self._global_rmse(sse, cnt)
             self._apply_step(loss)
             losses.append(loss.detach())
             mses.append(mse.detach())
@@ -349,7 +431,9 @@ class Trainer:
                 self.scheduler.lr = lr
             self._set_lr(lr)
 
-        mgr = CheckpointManager(save_path) if (save_path and save_every > 0) else None
+        mgr = (CheckpointManager(save_path)
+               if (save_path and save_every > 0 and self.writes) else None)
+        verbose = verbose and self.writes
         epoch_losses: List[float] = []
         epoch_mse_losses: List[float] = []
         groups = [files] if merge_files else [[f] for f in files]
@@ -357,7 +441,7 @@ class Trainer:
         for e in range(epochs):
             losses: list = []
             mses: list = []
-            with self._rng_scope():
+            with self._rng_scope(), self._batch_norms_over_ranks():
                 for group in groups:
                     if mode == "reference":
                         self._train_group_reference(group, batch_size, losses, mses)
@@ -365,7 +449,8 @@ class Trainer:
                         dev = (self._device_buckets_mixed(group) if mode == "mixed"
                                else self._device_buckets(group))
                         self._train_bucketed(dev, group, batch_size, losses, mses)
-            mean_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
+            self.step_losses = torch.stack(losses).cpu().numpy().tolist()
+            mean_loss = float(np.mean(self.step_losses))
             mean_mse = float(np.mean(torch.stack(mses).cpu().numpy()))
             epoch_losses.append(mean_loss)
             epoch_mse_losses.append(mean_mse)

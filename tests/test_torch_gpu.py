@@ -17,7 +17,8 @@ backward 2e-4 of its max (tests/test_models.py:161); B7 and B8 equal their
 twins exactly; B9 and B10 1e-5 of max |plain|, B1's near-list form B1's
 2e-5; the treecode engines' kernel path against their dense path at the
 JAX tests' bar between its two near paths (rtol 2e-3, atol 5e-9 or 2e-8);
-B11 rtol = atol = 2e-6 (attic/test_edgeconv_kernel.py:44)."""
+B11 rtol = atol = 2e-6 (attic/test_edgeconv_kernel.py:44); the sharded
+paths of ``parallel/`` at the dryrun's bars (``parallel/dryrun.py``)."""
 
 import numpy as np
 import pytest
@@ -1049,3 +1050,18 @@ def test_fused_remat_and_chunked_layers_on_the_card(cuda):
     for (name, p), q in zip(plain.named_parameters(), chunked.parameters()):
         torch.testing.assert_close(q.grad, p.grad, rtol=2e-4,
                                    atol=2e-5 * float(p.grad.abs().max()), msg=name)
+
+
+def test_parallel_dryrun_on_two_ranks_of_one_card(cuda):
+    """Every sharded path of ``parallel/`` at the dryrun's small shapes, on 2
+    ranks on cuda:0 over gloo, each rank 0 result held to one process (the
+    dryrun raises on a miss); the kernels of the paths launched on the
+    ranks."""
+    from nbody_tpu_torch.parallel import dryrun
+
+    out = dryrun.main(["--ranks", "2", "--device", "cuda:0", "--backend", "gloo"])
+    assert out["device"] == "cuda:0" and out["backend"] == "gloo" and out["world"] == 2
+    assert all(out["bh"][e]["bits_equal"] for e in ("bh", "bh2", "bh3", "bh_uneven"))
+    ran = out["launches"]
+    assert min(ran[k] for k in ("b1", "b1n", "b2", "b3", "b4", "b5", "b9", "b10")) > 0, ran
+    assert ran["b6"] == 0, ran
