@@ -121,7 +121,20 @@ the port's main path once:
     and in one process beside the card line; the ranks count their
     own launches over the sharded calls only, and each must have launched
     B1, B1's near list, B2, B3-B5 and B7-B10, B6 none (the kernels line
-    keeps its entries from the phases above).
+    keeps its entries from the phases above);
+12. scene groups: (a) B9, B10's near subtraction and B1's near list on a
+    scene axis at the shapes of a 4 x 100,000 bh group (M = 32, B = 256),
+    one launch a call, against their plain versions and each scene bit for
+    bit its own call; (b) treecode groups through ``simulate``: bh on 4 x
+    100,000 bodies (64 steps, refresh 8, exact B2 energies) and bh3 on 2 x
+    1,000,000 (B = 128, C = 16, rc = 48, Bs = 32, K = 48, 16 steps, refresh
+    8), each group's launches counted (B9 and the near list once a force
+    evaluation of the group, B10 once or 4 times), every scene equal to its
+    run alone in every field, and ms a step a scene grouped and one by one
+    with the idle share from the profiler; (c) a batch's Morton graph, 4 x
+    100,000 bodies, k = 32, block 256, 4 copies: one B7 and one B8 launch,
+    each scene the ids of its own call, B7 and B8 on the batch against
+    their plain versions, with times.
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
@@ -131,12 +144,14 @@ runs it, its counters set to 0 just before the path and read just after:
 phases 2-4 for B1 and B2, phase 2b's grouped run for their scene-group
 entries, phase 6 for B3, B7 and B8, phase 8 for B4 and B5,
 the phase-7 position gradient for B6, phase 9c for B9, B10 and B1's near
-list, phase 10b for B11, which stands beside the model as in the JAX
+list, phase 12's group rollouts and batched search for their scene-group
+entries and B7's and B8's batch entries, phase 10b for B11, which stands
+beside the model as in the JAX
 package, so that the entry points of 10d and 10e leave it at 0: each of
 their ``main`` calls starts with the counters at 0 and is held, right after
 it returns and before any profiling helper runs, to the kernels it must
 launch, B1, B3-B5, B7-B10 and the near list between them; errors and times
-from phases 1, 2b, 5, 7, 9a and 10a; ``bound_ms``, the least
+from phases 1, 2b, 5, 7, 9a, 10a and 12; ``bound_ms``, the least
 time of the same work on the card, from the operations and bytes of those
 inputs, see :func:`bound`), the card's ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -214,6 +229,11 @@ BH2_100K = dict(n_near=32, block=128, coarse=16, rc=48)
 # the kernels the sharded paths must launch (B6: parameter gradients only)
 PAR_NEED = ("b1", "b1n", "b2", "b3", "b4", "b5", "b7", "b8", "b9", "b10")
 SAMPLE_1M = 4096   # receivers of the 1M path's exact-search and direct-sum checks
+# phase 12: treecode scene groups at the 100k bh and 1M bh3 recipes' widths,
+# (scenes, bodies, steps), refresh 8, and a batch's Morton graph (scenes,
+# bodies, k) on the 1M GNN's block and copies
+GROUP_BH, GROUP_BH3, GROUP_REFRESH = (4, TREE_N, 64), (2, TREE_1M, 16), 8
+MORTON_GROUP = (4, LARGE_N, 32)
 
 
 def log(msg: str) -> None:
@@ -1381,6 +1401,8 @@ def _b6_at_its_launch_shape(model, pos, idx, valid) -> None:
         ms = cuda_time_ms(b6, reps=10, warmup=1)
         events = kernel_events(b6, reps=10)
         geom = [t for n, t in events if "bwd_geom" in n]
+        if not geom:  # the profiler's recording began late: sessions for the pass alone
+            geom = [t for _, t in kernel_events(b6, reps=10, name="bwd_geom")]
         bnd = b6_bound_ms((gx, gy, gz), win, ci, co, d)
         log(f"[7] B6 at its launch shape (N={GRAD_N}, k={k}, ci={ci}, co={co}, D={d}): "
             f"{sum(t for _, t in events) / 10:.4f} device ms a call in {len(events) / 10:g} "
@@ -1592,7 +1614,7 @@ def _rows(top):
     return "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top)
 
 
-def _against_plain(label, kernel, plain, tol, bound_, name):
+def _against_plain(label, kernel, plain, tol, bound_, name, tag="9a"):
     """A kernel call against its plain version on the same inputs, twice for
     the same bits; its ms between events around 10 wrapper calls, and its
     device ms: the events of kernels whose name holds ``name``, summed and
@@ -1608,10 +1630,10 @@ def _against_plain(label, kernel, plain, tol, bound_, name):
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
     ms = cuda_time_ms(kernel, reps=10, warmup=1)
-    events = [t for n, t in kernel_events(kernel, reps=10) if name in n]
+    events = [t for _, t in kernel_events(kernel, reps=10, name=name)]
     device_ms = sum(events) / max(len(events), 1)
     plain_ms = cuda_time_ms(plain, reps=2, warmup=1)
-    log(f"[9a] {label}: max|d|/max|plain| {rel:.3e} (bar {tol}), same bits twice {same}; "
+    log(f"[{tag}] {label}: max|d|/max|plain| {rel:.3e} (bar {tol}), same bits twice {same}; "
         f"kernel {ms:.4f} ms (events around the wrapper), {device_ms:.4f} device ms "
         f"({len(events)} events of 10 calls)  plain {plain_ms:.4f} ms  bound "
         f"{bound_[0]:.4f} ms ({bound_[1]})")
@@ -1831,6 +1853,210 @@ def phase9_bench():
             f"fresh {row['bh_fresh_ms']:.4f}, reused {row['bh_reused_ms']:.4f}, partition "
             f"{row['partition_ms']:.4f}; rel err median {row['rel_err_median']:.4e}, p99 "
             f"{row['rel_err_p99']:.4e}")
+
+def _stacked_spirals(s, n, seed):
+    """A group of s spiral scenes of n bodies on the card, (pos, vel, mass)
+    stacked on a leading scene axis, scene i from seed + i."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+
+    ics = [generate_spiral(torch.Generator().manual_seed(seed + i), n,
+                           device=torch.device("cuda")) for i in range(s)]
+    return tuple(torch.stack([x[f] for x in ics]) for f in range(3))
+
+
+def phase12_group_kernels() -> dict:
+    """B9, B10 and B1's near list on a scene axis, at the shapes of a 4 x 100k
+    bh group (M = 32, B = 256): one launch a call, against the plain
+    version, each scene bit for bit the kernel's call on it alone; returns
+    the kernels line's numbers."""
+    import torch
+
+    from nbody_tpu_torch.ops import pairwise as pw
+    from nbody_tpu_torch.ops import treeforce as tf
+
+    s, n, _ = GROUP_BH
+    pos, _, mass = _stacked_spirals(s, n, 120)
+    part = tf.build_bh_partition(pos, mass, **BH_100K)
+    spos, sm = tf._gather_sorted(pos, mass, part)
+    (nb, m), b = part.near.shape[1:], BH_100K["block"]
+    bp, _, msum, com, quad = tf._block_moments(spos, sm, nb, b)
+    q_blocks, table = bp.contiguous(), tf._blk_rows(com, msum, quad)
+    p, eps2 = spos.shape[1], EPS ** 2
+    cases = {
+        "b9g": (f"B9 far field, {s} scenes x {p} receivers x {nb} blocks",
+                lambda *a: tf.multipole_acc(*a, G, eps2), tf.multipole_acc_torch,
+                (spos, table), (G, eps2), MULT_TOL,
+                bound(45.0 * s * p * nb, s * (24.0 * p + 40.0 * nb)), B9_NAME),
+        "b10g": (f"B10 near subtraction, {s} scenes x {nb} groups x {b} x {m} blocks",
+                 lambda *a: tf.grouped_multipole_acc(*a, G, eps2),
+                 tf.grouped_multipole_acc_torch, (q_blocks, table, part.near), (G, eps2),
+                 MULT_TOL, bound(45.0 * s * p * m, s * (24.0 * p + 40.0 * nb + 4.0 * nb * m)),
+                 B10_NAME),
+        "b1ng": (f"B1 near list, {s} scenes x {nb} groups x {b} x {m} blocks of {b}",
+                 lambda *a: pw.near_accelerations(*a, b, G, EPS), pw.near_accelerations_torch,
+                 (q_blocks, spos, sm, part.near), (b, G, EPS), B1_TOL,
+                 bound(20.0 * s * p * m * b, s * (24.0 * p + 16.0 * p + 4.0 * nb * m)),
+                 NEAR_NAME)}
+    out = {}
+    for key, (label, kernel, plain, args, consts, tol, bnd, name) in cases.items():
+        wrapper = kernel_wrappers()[key[:-1]]
+        before = wrapper.launches
+        got = kernel(*args)
+        one_launch = wrapper.launches == before + 1
+        alone = all(torch.equal(got[i], kernel(*(a[i] for a in args))) for i in range(s))
+        log(f"[12a] {label}: one launch {one_launch}, each scene the bits of its own call "
+            f"{alone}")
+        if not (one_launch and alone):
+            raise AssertionError(f"{label}: one launch {one_launch}, scenes alone {alone}")
+        out[key] = _against_plain(label, lambda: kernel(*args), lambda: plain(*args, *consts),
+                                  tol, bnd, name, tag="12a")
+    del pos, mass, part, spos, sm, q_blocks, table
+    torch.cuda.empty_cache()
+    return out
+
+
+def _group_config(engine, knobs, calc_energy):
+    from nbody_tpu_torch.core import SimulationConfig
+
+    return SimulationConfig(g_const=G, softening=EPS, dt=DT, calc_energy=calc_energy,
+                            force_backend=engine, bh_near=knobs["n_near"],
+                            bh_block=knobs["block"], bh_coarse=knobs.get("coarse", 16),
+                            bh_rc=knobs.get("rc", 32), bh_sub_block=knobs.get("sub_block", 32),
+                            bh_n_sub=knobs.get("n_sub", 24), bh_refresh=GROUP_REFRESH)
+
+
+def _wall_and_idle(run, label):
+    """ms of one more call of ``run`` (after one untimed), and its idle share:
+    1 - device ms (profiler kernel rows) / that wall ms."""
+    from nbody_tpu_torch.utils.timing import device_time, profile_ms
+
+    run()
+    _, wall = device_time(run, "cuda")
+    busy, top = profile_ms(run, "cuda")
+    log(f"[12b] {label}: {1e3 * wall:.4f} ms wall, {busy:.4f} device ms, idle share "
+        f"{1 - busy / (1e3 * wall):.4f}; top device rows {_rows(top)}")
+    return 1e3 * wall, 1 - busy / (1e3 * wall)
+
+
+def phase12_group_rollout(engine, knobs, group, calc_energy, seed) -> dict:
+    """One treecode group of ``group = (scenes, bodies, steps)`` through
+    ``simulate``, the counters at 0 just before it and read just after: B9
+    and the near list once a force evaluation of the group, B10 once (bh)
+    or 4 times (bh3), B2 once a step with energies. Then each scene alone,
+    equal to its scene of the group bit for bit in every field, and ms a
+    step a scene both ways with the idle share (the bh group also without
+    energies). Returns the group run's launches."""
+    import torch
+
+    from nbody_tpu_torch.core import simulate
+    from nbody_tpu_torch.utils.timing import device_time
+
+    s, n, steps = group
+    pos, vel, mass = _stacked_spirals(s, n, seed)
+    cfg = _group_config(engine, knobs, calc_energy)
+    zero_counts()
+    traj, wall_g = device_time(lambda: simulate(pos, vel, mass, steps, cfg), "cuda")
+    ran = read_counts()
+    evals = steps + 1
+    want = {"b9": evals, "b1n": evals, "b10": evals * (4 if engine == "bh3" else 1),
+            "b2": steps if calc_energy else 0}
+    log(f"[12b] {engine} group {s} x {n} x {steps} steps (refresh {GROUP_REFRESH}, energies "
+        f"{calc_energy}): launches {ran}; {evals} force evaluations")
+    if any(ran[k] != v for k, v in want.items()):
+        raise AssertionError(f"{engine} group launches {ran}, want {want}: each kernel once "
+                             "a force evaluation of the whole group")
+    walls = []
+    for i in range(s):
+        alone, wall = device_time(lambda: simulate(pos[i], vel[i], mass[i], steps, cfg), "cuda")
+        walls.append(wall)
+        fields = [f for f, g_, a_ in zip(traj._fields, traj, alone)
+                  if not (g_ is None and a_ is None) and not torch.equal(g_[:, i], a_)]
+        if fields:
+            raise AssertionError(f"{engine} group scene {i}: {fields} differ from its run alone")
+        del alone
+    log(f"[12b] {engine} group {s} x {n}: every scene's trajectory the bits of its run "
+        f"alone; {1e3 * wall_g / (steps * s):.4f} ms a step a scene grouped, one by one "
+        f"{[round(1e3 * w / steps, 4) for w in walls]}")
+    del traj
+    timed = [(cfg, "")]
+    if calc_energy:  # the step itself, without the energies' B2
+        timed.append((_group_config(engine, knobs, False), ", no energies"))
+    for c, note in timed:
+        g_ms, g_idle = _wall_and_idle(lambda: simulate(pos, vel, mass, steps, c),
+                                      f"{engine} {s} x {n} x {steps} grouped{note}")
+        a_ms, a_idle = _wall_and_idle(lambda: simulate(pos[0], vel[0], mass[0], steps, c),
+                                      f"{engine} {n} x {steps}, scene 0 alone{note}")
+        log(f"[12b] {engine} {s} x {n}{note}: {g_ms / (steps * s):.4f} ms a step a scene "
+            f"grouped (idle share {g_idle:.4f}) against {a_ms / steps:.4f} one by one (idle "
+            f"share {a_idle:.4f})")
+    del pos, vel, mass
+    torch.cuda.empty_cache()
+    return ran
+
+
+def phase12_morton() -> tuple:
+    """A batch's Morton graph (4 x 100k, k = 32, block 256, 4 copies) through
+    ``batched_knn_morton``, the counters at 0 just before it and read just
+    after: one B7 and one B8 launch, each scene the ids of its own call; then
+    B7 on the batch's B x C copies and B8 on its B x N rows against their
+    plain versions, with times. Returns (the launches, the kernels line's
+    numbers)."""
+    import torch
+
+    from nbody_tpu_torch.ops import spatial as sp
+    from nbody_tpu_torch.utils.timing import cuda_time_ms
+
+    s, n, k = MORTON_GROUP
+    pos = _stacked_spirals(s, n, 140)[0]
+
+    def batched():
+        return sp.batched_knn_morton(pos, k, block=256, n_copies=4, impl="kernel")
+
+    zero_counts()
+    idx, valid = batched()
+    ran = read_counts()
+    log(f"[12c] batched Morton graph {s} x {n}, k={k}: launches {ran}")
+    if ran["b7"] != 1 or ran["b8"] != 1:
+        raise AssertionError(f"a batch's Morton graph launched B7 {ran['b7']}, B8 {ran['b8']} "
+                             "times, not once each")
+    alone = [sp.knn_morton(pos[i], k, block=256, n_copies=4, impl="kernel") for i in range(s)]
+    same = all(torch.equal(idx[i], a[0]) and torch.equal(valid[i], a[1])
+               for i, a in enumerate(alone))
+    ms_b = cuda_time_ms(batched, reps=5, warmup=1)
+    ms_a = cuda_time_ms(lambda: [sp.knn_morton(pos[i], k, block=256, n_copies=4,
+                                               impl="kernel") for i in range(s)],
+                        reps=5, warmup=1)
+    log(f"[12c] each scene the ids and validity of its own call: {same}; batched "
+        f"{ms_b:.4f} ms ({ms_b / s:.4f} a scene), {s} calls {ms_a:.4f} ms")
+    if not same:
+        raise AssertionError("the batched Morton graph differs from the per-scene calls")
+    order = sp._curve_order(pos, None, 4)
+    cand, qg = sp._candidates(pos, order, 256)
+    ids, d2 = sp.morton_select(cand, k, 256, False)
+    mc, md = sp._to_rows(qg, ids, d2, n, s)
+    m_ids, _ = sp.morton_merge(mc, md, k)
+    bnd7, bnd8 = select_merge_bounds(cand, ids, mc, m_ids, k, 256)
+    out = {}
+    for key, label, kernel, plain, bnd, name in (
+            ("b7g", f"B7 select, {s} scenes x 4 copies = {cand.shape[0]} copies of {n}",
+             lambda: sp.morton_select(cand, k, 256, False)[1],
+             lambda: sp.morton_select_torch(cand, k, 256, False)[1], bnd7, "select_kernel"),
+            ("b8g", f"B8 merge, {s} x {n} = {mc.shape[0]} rows of {mc.shape[1]}",
+             lambda: sp.morton_merge(mc, md, k)[1], lambda: sp.morton_merge_torch(mc, md, k)[1],
+             bnd8, "merge_kernel")):
+        out[key] = _against_plain(label, kernel, plain, 1e-6 if key == "b7g" else 0.0, bnd,
+                                  name, tag="12c")
+    same_ids = (torch.equal(ids, sp.morton_select_torch(cand, k, 256, False)[0])
+                and torch.equal(m_ids, sp.morton_merge_torch(mc, md, k)[0]))
+    log(f"[12c] B7's and B8's ids equal their plain versions': {same_ids}")
+    if not same_ids:
+        raise AssertionError("B7 or B8 ids differ from their plain versions on the batch")
+    del pos, cand, qg, ids, d2, mc, md
+    torch.cuda.empty_cache()
+    return ran, out
+
 
 def _b11_case(label, u, vpad, idx, mask, dtype, tile, half, time_it):
     """B11 against its plain version on one input, twice for the same bits;
@@ -2465,6 +2691,17 @@ def main() -> int:
     phase9_bench()
     stamp("9c")
 
+    # scene groups: a treecode group's rollout and a batch's Morton graph,
+    # each driven with the counters at 0 just before it and read just after
+    slice6 = phase12_group_kernels()
+    ran_bh = phase12_group_rollout("bh", BH_100K, GROUP_BH, True, 130)
+    ran_bh3 = phase12_group_rollout("bh3", BH3_1M, GROUP_BH3, False, 150)
+    ran_morton, morton = phase12_morton()
+    slice6.update(morton)
+    launches.update({f"{k}g": ran_bh[k] + ran_bh3[k] for k in ("b9", "b10", "b1n")},
+                    b7g=ran_morton["b7"], b8g=ran_morton["b8"])
+    stamp("12")
+
     # B11 on the crossover path's own data: its launches are counted here
     zero_counts()
     launches["b11"] = phase10_path_data()
@@ -2488,8 +2725,8 @@ def main() -> int:
         phase11_parallel(tmp, card)
     stamp("11")
     # B3, B4 and B5 stand in the line once for each layer's filter resolution,
-    # B1 and B2 once more for scene groups
-    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()) + 5:
+    # B1, B2, B7-B10 and the near list once more for scene groups
+    if min(launches.values()) == 0 or len(launches) != len(kernel_wrappers()) + 10:
         raise AssertionError(f"a kernel of a path never launched: {launches}")
     if any(m.split(".")[0] in ("jax", "flax", "nbody_tpu") for m in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -2533,6 +2770,16 @@ def main() -> int:
               "nbody_tpu/ops/treeforce.py:566", "b10", slice4["b10"]),
         entry("B1 near list (nbody_near_force)", pair_src, "nbody_tpu/ops/pairwise.py:50",
               "b1n", slice4["b1n"]),
+        entry(f"B7 select, a batch's graph ({MORTON_GROUP[0]} x {MORTON_GROUP[1]})",
+              spatial_src, "nbody_tpu/ops/spatial.py:272", "b7g", slice6["b7g"]),
+        entry(f"B8 merge, a batch's graph ({MORTON_GROUP[0]} x {MORTON_GROUP[1]})",
+              spatial_src, "nbody_tpu/ops/spatial.py:311", "b8g", slice6["b8g"]),
+        entry(f"B9 far field, scene groups ({GROUP_BH[0]} x {GROUP_BH[1]})", tree_src,
+              "nbody_tpu/ops/treeforce.py:259", "b9g", slice6["b9g"]),
+        entry(f"B10 grouped multipoles, scene groups ({GROUP_BH[0]} x {GROUP_BH[1]})",
+              tree_src, "nbody_tpu/ops/treeforce.py:566", "b10g", slice6["b10g"]),
+        entry(f"B1 near list, scene groups ({GROUP_BH[0]} x {GROUP_BH[1]})", pair_src,
+              "nbody_tpu/ops/pairwise.py:50", "b1ng", slice6["b1ng"]),
         entry("B11 windowed EdgeConv sum (edgeconv_windowed_tanh_sum)",
               "nbody_tpu_torch/csrc/edgeconv.cu", "attic/edgeconv_kernel.py:88", "b11",
               slice5),

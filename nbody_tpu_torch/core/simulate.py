@@ -7,8 +7,9 @@ back to the host until the caller asks (no ``.item()`` per step).
 
 A group of scenes of equal shape, stacked on a leading axis, runs as one
 loop (what ``jax.vmap(simulate)`` computes): the direct-sum backends launch
-B1 and B2 once a step for the whole group, the treecodes run the scenes one
-after another.
+B1 and B2 once a step for the whole group, the treecodes carry one group
+partition and launch B9, B10 and B1's near list once a force evaluation for
+the whole group.
 """
 
 from __future__ import annotations
@@ -90,7 +91,9 @@ def treecode_fns(mass, config: SimulationConfig, mask=None, i_chunk: int = 8):
     """``(build, acc)`` of the configured treecode: ``build(pos)`` makes a
     partition, ``acc(pos, partition)`` the accelerations under it (the near
     pass ``auto``: the kernels for CUDA tensors; ``i_chunk`` bounds the dense
-    near pass). A treecode takes no mask."""
+    near pass). A group of scenes (``mass`` (S, N), ``pos`` (S, N, 3)) gets
+    a group partition and ``(S, N, 3)`` accelerations. A treecode takes no
+    mask."""
     from nbody_tpu_torch.ops import treeforce as tf
 
     c, name = config, config.force_backend
@@ -109,10 +112,8 @@ def treecode_fns(mass, config: SimulationConfig, mask=None, i_chunk: int = 8):
 
 def make_acc_fn(mass, config: SimulationConfig, mask=None) -> Callable:
     """Bind masses and constants into a ``pos -> acc`` closure on the
-    configured backend. The direct-sum backends take a group of scenes
-    (``mass`` (S, N)); a treecode takes one scene and builds a fresh
-    partition per call (:func:`simulate` runs a group's scenes through it
-    one after another)."""
+    configured backend; every backend takes a group of scenes (``mass`` (S,
+    N)). A treecode builds a fresh partition per call."""
     g, eps = config.g_const, config.softening
     if config.force_backend in TREECODE_BACKENDS:
         build, acc = treecode_fns(mass, config, mask)
@@ -155,10 +156,10 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
 
     A group of S scenes (``pos``/``vel`` (S, N, 3), ``mass`` (S, N)) gives
     a :class:`Trajectory` with a scene axis after the step axis, each scene
-    what a run of it alone gives: the direct-sum backends run the group in
-    one loop (on the card B1 and B2 launch once a step for all of it, with
-    each scene's single-call bits), a treecode runs the scenes one after
-    another.
+    what a run of it alone gives, in one step loop: on the card B1 and B2
+    launch once a step for all of it, and a treecode carries one partition
+    of the group (rebuilt for every scene at once) and launches each of its
+    kernels once a force evaluation, with each scene's single-call bits.
 
     :param pos: (N, 3) initial positions, or (S, N, 3).
     :param vel: (N, 3) initial velocities, or (S, N, 3).
@@ -172,11 +173,6 @@ def simulate(pos, vel, mass, steps: int, config: SimulationConfig,
     mass = torch.as_tensor(mass, dtype=torch.float32, device=dev)
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
-    if pos.dim() == 3 and config.force_backend in TREECODE_BACKENDS:
-        runs = [simulate(p, v, m, steps, config, mask) for p, v, m in zip(pos, vel, mass)]
-        return Trajectory(*(None if runs[0][f] is None else
-                            torch.stack([r[f] for r in runs], dim=1) for f in range(5)))
-
     potential_fn = make_potential_fn(mass, config, mask=mask)
     carry = config.force_backend in TREECODE_BACKENDS and config.bh_refresh > 1
     if carry:

@@ -242,6 +242,14 @@ force_chunks_kernel(const float* __restrict__ part, int chunks, long long n, lon
 // threadIdx.x as (k, r) = (c / src_block, c % src_block), divided once and
 // advanced a tile by (TILE / src_block, TILE % src_block) with one carry, so
 // no runtime divide a candidate for any src_block.
+//
+// Scenes: a treecode scene group (S scenes of equal shape) is one launch,
+// the scene on blockIdx.y: q, near and acc hold each scene's groups after
+// the scenes before it, src each scene's n_src_blocks blocks. An id is
+// checked against its own scene's block count, so an id outside [0,
+// n_src_blocks) reads as zero-mass sources and never as a block of the next
+// scene; each group keeps add_tile's order, so each scene the bits of a call
+// on it alone.
 __global__ void __launch_bounds__(FORCE_THREADS)
 near_force_kernel(const float* __restrict__ q, const float4* __restrict__ src,
                   const int* __restrict__ near, int rows, int list, int src_block,
@@ -249,12 +257,14 @@ near_force_kernel(const float* __restrict__ q, const float4* __restrict__ src,
                   float* __restrict__ acc) {
   __shared__ float4 tile[TILE];
   __shared__ int first[NEAR_IDS];  // a staged id's first source row, or -1
-  const int grp = blockIdx.x / tiles;
+  // this block's group among all scenes' groups, and its scene's sources
+  const size_t grp = (size_t)blockIdx.y * (gridDim.x / tiles) + blockIdx.x / tiles;
+  src += (size_t)blockIdx.y * n_src_blocks * src_block;
   const int lane = threadIdx.x % SPLIT;
   const int row0 = (blockIdx.x % tiles) * FORCE_ROWS + (threadIdx.x / SPLIT) * TPT;
   float xi[TPT], yi[TPT], zi[TPT], ax[TPT], ay[TPT], az[TPT];
-  load_targets(q + (size_t)grp * rows * 3, row0, rows, xi, yi, zi, ax, ay, az);
-  const int* ids = near + (size_t)grp * list;
+  load_targets(q + grp * rows * 3, row0, rows, xi, yi, zi, ax, ay, az);
+  const int* ids = near + grp * list;
   const int k0 = threadIdx.x / src_block, r0 = threadIdx.x % src_block;
   const int dk = TILE / src_block, dr = TILE % src_block;
   for (int seg = 0; seg < list; seg += NEAR_IDS) {
@@ -284,7 +294,7 @@ near_force_kernel(const float* __restrict__ q, const float4* __restrict__ src,
       }
     }
   }
-  write_targets(acc + (size_t)grp * rows * 3, row0, rows, lane, g, ax, ay, az);
+  write_targets(acc + grp * rows * 3, row0, rows, lane, g, ax, ay, az);
 }
 
 // --------------------------------------------------------------- B2: energy
@@ -528,18 +538,20 @@ int nbody_force(const float* pos_i, const void* src, int scenes, int ni, int nj,
   return (int)cudaGetLastError();
 }
 
-// acc (groups, rows, 3) = forces on q (groups, rows, 3) from the source
-// blocks near[g, :] (groups, list) of the packed sources src
-// (n_src_blocks * src_block float4), for every group g.
-int nbody_near_force(const float* q, const void* src, const int* near, int groups,
-                     int rows, int list, int src_block, int n_src_blocks, float g,
-                     float eps, float* acc, void* stream) {
+// acc (scenes, groups, rows, 3) = forces on q (scenes, groups, rows, 3)
+// from the source blocks near[s, g, :] (scenes, groups, list) of scene s's
+// packed sources src (scenes, n_src_blocks * src_block float4), for every
+// scene s and group g; 1 <= scenes <= 65535 (the grid's y).
+int nbody_near_force(const float* q, const void* src, const int* near, int scenes,
+                     int groups, int rows, int list, int src_block, int n_src_blocks,
+                     float g, float eps, float* acc, void* stream) {
   if (groups <= 0 || rows <= 0 || list < 0 || src_block <= 0 || n_src_blocks < 0 ||
-      (long long)list * src_block > INT_MAX || (long long)n_src_blocks * src_block > INT_MAX)
+      scenes <= 0 || scenes > 65535 || (long long)list * src_block > INT_MAX ||
+      (long long)n_src_blocks * src_block > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const int tiles = (rows + FORCE_ROWS - 1) / FORCE_ROWS;
   if ((long long)groups * tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  near_force_kernel<<<groups * tiles, FORCE_THREADS, 0, (cudaStream_t)stream>>>(
+  near_force_kernel<<<dim3(groups * tiles, scenes), FORCE_THREADS, 0, (cudaStream_t)stream>>>(
       q, (const float4*)src, near, rows, list, src_block, n_src_blocks, tiles, g,
       eps * eps, acc);
   return (int)cudaGetLastError();

@@ -62,6 +62,15 @@
 // gathered copy exists in device memory. B9 keeps a kernel of its own name
 // (multipole_far_kernel), which a profiler tells from B10's.
 //
+// Scenes: a group of S scenes of equal shape (a treecode scene group:
+// jax.vmap of the whole rollout in nbody_tpu/data/generate.py:216-262 puts a
+// scene axis on both Pallas calls) is one launch of either kernel, the scene
+// on blockIdx.y and q, table, ids and acc offset by the scene. An id is
+// checked against its own scene's k, so an id outside [0, k) still reads as
+// a zero row and never as a row of the next scene. Each scene keeps the
+// launch plan of a call on it alone (grouped_plan depends on p only), so
+// scene s gets the bits of that call.
+//
 // Each receiver's sum has one order on every run: deterministic, no atomics.
 // Full FP32, no tensor cores: the near pass subtracts exactly this expansion
 // for the near blocks, and the two must cancel at rounding level.
@@ -200,58 +209,66 @@ __device__ __forceinline__ void pull_receivers(const float* __restrict__ qg,
   }
 }
 
-// B9: the pull of table rows 0 .. k on the p receivers of q; block x holds
-// receivers x * RECV ... A kernel of its own name, so that a profiler tells
-// B9's time from B10's.
+// B9: the pull of table rows 0 .. k on the p receivers of q; block (x, y)
+// holds receivers x * RECV .. of scene y, whose q, table and acc follow the
+// scenes before it. A kernel of its own name, so that a profiler tells B9's
+// time from B10's.
 template <int LANES>
 __global__ void __launch_bounds__(MP_THREADS, MP_BLOCKS_PER_SM)
 multipole_far_kernel(const float* __restrict__ q, const float* __restrict__ table, int p,
                      int k, float g, float eps2, float* __restrict__ acc) {
   constexpr int RECV = MP_THREADS / LANES * MP_RPT;
+  const size_t scene = blockIdx.y;
   const int r0 = blockIdx.x * RECV + (threadIdx.x / LANES) * MP_RPT;
-  pull_receivers<LANES, false>(q, table, nullptr, p, k, k, r0, threadIdx.x % LANES, g, eps2,
-                               acc);
+  pull_receivers<LANES, false>(q + scene * p * 3, table + scene * k * ROW, nullptr, p, k, k,
+                               r0, threadIdx.x % LANES, g, eps2, acc + scene * p * 3);
 }
 
-// B10: receivers of group gr are rows gr * p .. gr * p + p - 1 of q; they
-// see the s rows ids[gr, :] of the table. Block x holds receivers (x %
-// tiles) * RECV .. of group x / tiles.
+// B10: receivers of group gr of scene y are rows gr * p .. gr * p + p - 1 of
+// that scene's q; they see the s rows ids[y, gr, :] of that scene's table
+// (an id is checked against the scene's own k). Block (x, y) holds
+// receivers (x % tiles) * RECV .. of group x / tiles of scene y.
 template <int LANES>
 __global__ void __launch_bounds__(MP_THREADS, MP_BLOCKS_PER_SM)
 multipole_grouped_kernel(const float* __restrict__ q, const float* __restrict__ table,
                          const int* __restrict__ ids, int p, int s, int k,
                          int tiles, float g, float eps2, float* __restrict__ acc) {
   constexpr int RECV = MP_THREADS / LANES * MP_RPT;
-  const int grp = blockIdx.x / tiles;
+  const size_t grp = (size_t)blockIdx.y * (gridDim.x / tiles) + blockIdx.x / tiles;
   const int r0 = (blockIdx.x % tiles) * RECV + (threadIdx.x / LANES) * MP_RPT;
-  pull_receivers<LANES, true>(q + (size_t)grp * p * 3, table, ids + (size_t)grp * s, p, s, k,
-                              r0, threadIdx.x % LANES, g, eps2, acc + (size_t)grp * p * 3);
+  pull_receivers<LANES, true>(q + grp * p * 3, table + (size_t)blockIdx.y * k * ROW,
+                              ids + grp * s, p, s, k, r0, threadIdx.x % LANES, g, eps2,
+                              acc + grp * p * 3);
 }
 
-// B10 over `groups` groups where `listed`, else B9 (one group of all k rows).
+// B10 over `groups` groups a scene where `listed`, else B9 (one group of all
+// k rows), for each of `scenes` scenes (the grid's y): every scene keeps the
+// blocks, lanes and order of a call on it alone.
 template <int LANES>
 cudaError_t launch_grouped(bool listed, const float* q, const float* table, const int* ids,
                            int groups, int p, int s, int k, float g, float eps2, float* acc,
-                           cudaStream_t stream) {
+                           int scenes, cudaStream_t stream) {
   constexpr int RECV = MP_THREADS / LANES * MP_RPT;
   const int tiles = (p + RECV - 1) / RECV;
-  if ((long long)groups * tiles > INT_MAX) return cudaErrorInvalidValue;
+  if ((long long)groups * tiles > INT_MAX || scenes <= 0 || scenes > 65535)
+    return cudaErrorInvalidValue;
   if (!listed)
-    multipole_far_kernel<LANES><<<tiles, MP_THREADS, 0, stream>>>(q, table, p, k, g, eps2, acc);
+    multipole_far_kernel<LANES><<<dim3(tiles, scenes), MP_THREADS, 0, stream>>>(
+        q, table, p, k, g, eps2, acc);
   else
-    multipole_grouped_kernel<LANES><<<groups * tiles, MP_THREADS, 0, stream>>>(
+    multipole_grouped_kernel<LANES><<<dim3(groups * tiles, scenes), MP_THREADS, 0, stream>>>(
         q, table, ids, p, s, k, tiles, g, eps2, acc);
   return cudaGetLastError();
 }
 
 int launch_lanes(int lanes, bool listed, const float* q, const float* table, const int* ids,
                  int groups, int p, int s, int k, float g, float eps2, float* acc,
-                 cudaStream_t st) {
+                 int scenes, cudaStream_t st) {
   switch (lanes) {
     case 4: return (int)launch_grouped<4>(listed, q, table, ids, groups, p, s, k, g, eps2, acc,
-                                          st);
+                                          scenes, st);
     case 8: return (int)launch_grouped<8>(listed, q, table, ids, groups, p, s, k, g, eps2, acc,
-                                          st);
+                                          scenes, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -260,23 +277,25 @@ int launch_lanes(int lanes, bool listed, const float* q, const float* table, con
 
 extern "C" {
 
-// acc (p, 3) = pull of all k rows of table (k, 10) on q (p, 3), `lanes` (4
-// or 8) lanes a receiver group.
-int multipole_far(const float* q, const float* table, int p, int k, int lanes, float g,
-                  float eps2, float* acc, void* stream) {
+// acc (scenes, p, 3) = pull of all k rows of each scene's table (scenes, k,
+// 10) on its q (scenes, p, 3), `lanes` (4 or 8) lanes a receiver group;
+// 1 <= scenes <= 65535 (the grid's y).
+int multipole_far(const float* q, const float* table, int scenes, int p, int k, int lanes,
+                  float g, float eps2, float* acc, void* stream) {
   if (p <= 0 || k < 0) return (int)cudaErrorInvalidValue;
-  return launch_lanes(lanes, false, q, table, nullptr, 1, p, k, k, g, eps2, acc,
+  return launch_lanes(lanes, false, q, table, nullptr, 1, p, k, k, g, eps2, acc, scenes,
                       (cudaStream_t)stream);
 }
 
-// acc (groups, p, 3) = pull of table rows ids[gr, :] (s of them) on the p
-// receivers q[gr] (groups, p, 3), for every group gr, `lanes` (4 or 8) lanes
-// a receiver group.
-int multipole_grouped(const float* q, const float* table, const int* ids,
+// acc (scenes, groups, p, 3) = pull of table rows ids[sc, gr, :] (s of them)
+// of scene sc's table (scenes, k, 10) on its p receivers q[sc, gr] (scenes,
+// groups, p, 3), for every scene sc and group gr, `lanes` (4 or 8) lanes a
+// receiver group; 1 <= scenes <= 65535 (the grid's y).
+int multipole_grouped(const float* q, const float* table, const int* ids, int scenes,
                       int groups, int p, int s, int k, int lanes, float g, float eps2,
                       float* acc, void* stream) {
   if (groups <= 0 || p <= 0 || s < 0 || k < 0) return (int)cudaErrorInvalidValue;
-  return launch_lanes(lanes, true, q, table, ids, groups, p, s, k, g, eps2, acc,
+  return launch_lanes(lanes, true, q, table, ids, groups, p, s, k, g, eps2, acc, scenes,
                       (cudaStream_t)stream);
 }
 

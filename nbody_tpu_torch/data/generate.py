@@ -6,7 +6,9 @@ Each scene's initial conditions are drawn on the CPU from a seeded
 rollout runs on the requested device through ``core.simulate``, and the
 trajectory comes back to the host once. Consecutive scenes that differ only
 by seed run as one group: one rollout over a leading scene axis, whose
-direct-sum kernels launch once a step for the whole group. The long-format
+kernels (the direct sum's, or a treecode's) launch once a step for the
+whole group. Every function runs on the CUDA device unless the caller names
+another (``device="cpu"``), and raises without one. The long-format
 CSV has the columns of ``data.schema.CSV_FIELDS`` and is written by the
 native writer of ``data.io_native`` (the JAX package's bytes); the ``.npz``
 twin has the JAX package's keys, so datasets written by either package load
@@ -28,6 +30,7 @@ import torch
 from nbody_tpu_torch.core.simulate import (TREECODE_BACKENDS, SimulationConfig,
                                            Trajectory, resolve_backend, simulate)
 from nbody_tpu_torch.data.schema import CSV_FIELDS
+from nbody_tpu_torch.utils.device import resolve_device
 from nbody_tpu_torch.ics import GENERATORS
 from nbody_tpu_torch.utils.timing import device_time
 
@@ -127,11 +130,12 @@ def _load_kernels(sim_cfg: SimulationConfig, device: torch.device) -> None:
 
 def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
                  device=None):
-    """ICs and the full rollout on ``device`` (default CPU). Returns
-    (trajectory on ``device``, masses as numpy, step_time in seconds): a
-    scalar mean by default, or a per-step array when ``time_chunks > 1``
-    (the rollout then runs as that many sequentially timed segments)."""
-    device = torch.device("cpu" if device is None else device)
+    """ICs and the full rollout on ``device`` (default: the CUDA device;
+    raises without one). Returns (trajectory on ``device``, masses as numpy,
+    step_time in seconds): a scalar mean by default, or a per-step array
+    when ``time_chunks > 1`` (the rollout then runs as that many
+    sequentially timed segments)."""
+    device = resolve_device(device)
     pos, vel, mass = make_initial_conditions(cfg, generator, device=device)
     sim_cfg = simulation_config(cfg)
     _load_kernels(sim_cfg, device)
@@ -160,10 +164,14 @@ def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
 
 def run_scenario_group(cfgs: Sequence[ScenarioConfig], device=None):
     """Run scenarios that share every parameter but the seed as ONE rollout
-    over a leading scene axis (``jax.vmap`` in the JAX package): each
-    scene's ICs from its own generator (so they equal its ungrouped ICs),
-    stacked, then one step loop whose B1 and B2 launch once a step for the
-    whole group (a treecode runs the scenes one after another).
+    over a leading scene axis (``jax.vmap`` in the JAX package) on
+    ``device`` (default: the CUDA device; raises without one): each scene's
+    ICs from its own generator (so they equal its ungrouped ICs), stacked,
+    then one step loop whose kernels launch once a step for the whole
+    group: B1 and B2 for the direct sum, or for a treecode (``bh``, ``bh2``,
+    ``bh3``) one partition of the group, rebuilt for every scene at once,
+    and B9, B10 and B1's near list once a force evaluation. Each scene gets
+    the bits of its own :func:`run_scenario`.
 
     :return: list of (trajectory, masses, step_time) like
         :func:`run_scenario`; step_time is the group's rollout time over
@@ -172,7 +180,7 @@ def run_scenario_group(cfgs: Sequence[ScenarioConfig], device=None):
     base = cfgs[0]
     assert all(dataclasses.replace(c, seed=base.seed) == base for c in cfgs), \
         "group must differ only by seed"
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     ics = [make_initial_conditions(c, device=device) for c in cfgs]
     pos, vel, mass = (torch.stack(x) for x in zip(*ics))
     sim_cfg = simulation_config(base)
@@ -246,8 +254,9 @@ def generate_dataset(
     write_csv_file: bool = True,
     device=None,
 ) -> None:
-    """Run every scenario on ``device`` and write one long-format CSV plus an
-    ``.npz`` twin (same stem) for fast reload by ``data.dataset``.
+    """Run every scenario on ``device`` (default: the CUDA device; raises
+    without one) and write one long-format CSV plus an ``.npz`` twin (same
+    stem) for fast reload by ``data.dataset``.
 
     :param vmap_scenes: run each group of consecutive seed-only-differing
         scenarios as one rollout (:func:`run_scenario_group`); the JAX
@@ -265,6 +274,7 @@ def generate_dataset(
 
     if time_chunks > 1:
         vmap_scenes = False
+    device = resolve_device(device)
 
     results = {}
     if vmap_scenes:

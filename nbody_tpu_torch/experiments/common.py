@@ -8,27 +8,12 @@ import os
 import random
 from typing import Optional
 
-import torch
-
 from nbody_tpu_torch.data.generate import generate_dataset, scenario_product
+from nbody_tpu_torch.utils.device import default_device, resolve_device  # noqa: F401
 
 # The reference's datagen recipe: 6 spiral scenes per file at these body
 # counts, 1000 leapfrog steps each.
 REFERENCE_N_BODIES = [3, 25, 50, 100, 250, 500]
-
-
-def default_device() -> torch.device:
-    """The CUDA device. Without one this raises: a run on the CPU is asked
-    for (``--device cpu``), never fallen back to."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
-    return torch.device("cuda")
-
-
-def resolve_device(name=None) -> torch.device:
-    """The device of a ``--device`` flag: ``name`` when given, else
-    :func:`default_device`."""
-    return torch.device(name) if name else default_device()
 
 
 def generate_data(

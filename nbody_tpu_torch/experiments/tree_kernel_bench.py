@@ -66,7 +66,7 @@ def time_kernel(kernel: str, shape: str, fn, pairs: float, nbytes: float, reps: 
     """One row: ``fn`` (a wrapper call) timed between events and under the
     profiler; ``nbytes`` its inputs read once and its output written once."""
     ms = cuda_time_ms(fn, reps=reps, warmup=2)
-    events = [t for name, t in kernel_events(fn, reps) if KERNEL_NAMES[kernel] in name]
+    events = [t for _, t in kernel_events(fn, reps, name=KERNEL_NAMES[kernel])]
     flops = (45.0 if kernel in ("B9", "B10") else 20.0) * pairs
     bound, by = bound_ms(flops, nbytes)
     return {"kernel": kernel, "shape": shape, "ms": ms,

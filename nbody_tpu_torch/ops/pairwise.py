@@ -11,10 +11,10 @@ Two kernels, both hand-written CUDA C++ for Hopper in
 - B2, :func:`pair_potential`: the pairwise potential of one set (strict upper
   triangle) or of two disjoint sets (replaces the Pallas ``_energy_kernel``).
 
-B1 and B2 also take a group of scenes of equal shape, stacked on a leading
-axis (``(S, N, 3)`` positions, ``(S, N)`` masses), in one launch: what
-``jax.vmap`` of the Pallas calls computes, scene by scene with the bits of a
-single-scene call.
+B1, its near-list form and B2 also take a group of scenes of equal shape,
+stacked on a leading axis (``(S, N, 3)`` positions, ``(S, N)`` masses), in
+one launch: what ``jax.vmap`` of the Pallas calls computes, scene by scene
+with the bits of a single-scene call.
 
 Each wrapper has a plain-torch twin of the same semantics in this module
 (``*_torch``). A wrapper takes its twin only for tensors on the CPU; for CUDA
@@ -73,7 +73,7 @@ def _lib() -> ctypes.CDLL:
         lib.nbody_force.argtypes = [ptr, ptr, i32, i32, i32, i32, f32, f32, ptr, ptr, ptr]
         lib.nbody_force.restype = i32
         lib.nbody_near_force.argtypes = [
-            ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, ptr, ptr]
+            ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32, ptr, ptr]
         lib.nbody_near_force.restype = i32
         lib.nbody_energy.argtypes = [
             ptr, ptr, i32, ptr, ptr, i32, ctypes.c_double, f32, i32, i32, i32, ptr, ptr,
@@ -104,14 +104,14 @@ def _pack_sources(pos_j: torch.Tensor, mass_j: torch.Tensor) -> torch.Tensor:
 MAX_SCENES = 65535
 
 
-def _scenes(pos: torch.Tensor) -> tuple:
-    """The leading scene axis of a kernel call, ``(S,)`` for ``(S, N, 3)``
-    positions or ``()`` for one scene's ``(N, 3)``; raises past
-    :data:`MAX_SCENES`."""
-    lead = tuple(pos.shape[:-2])
+def _scenes(rows: torch.Tensor) -> tuple:
+    """The leading scene axis of a kernel call, ``(S,)`` for a group's
+    ``(S, N, c)`` rows (positions, a treecode's block table) or ``()`` for
+    one scene's ``(N, c)``; raises past :data:`MAX_SCENES`."""
+    lead = tuple(rows.shape[:-2])
     if len(lead) > 1 or (lead and lead[0] > MAX_SCENES):
-        raise ValueError(f"positions {tuple(pos.shape)}: one scene (N, 3) or a group "
-                         f"(S, N, 3) of at most {MAX_SCENES} scenes")
+        raise ValueError(f"rows {tuple(rows.shape)}: one scene (N, c) or a group "
+                         f"(S, N, c) of at most {MAX_SCENES} scenes")
     return lead
 
 
@@ -216,7 +216,12 @@ partial_accelerations.launches = 0
 def near_accelerations_torch(q, pos, mass, near, src_block, g_const, softening):
     """Plain-torch twin of B1's near-list form: per group, B1's twin
     arithmetic over the gathered candidates, in list order. An id outside
-    [0, n_blocks) reads as a zero-mass block, as in the kernel."""
+    [0, n_blocks) reads as a zero-mass block, as in the kernel. A group of
+    scenes runs scene by scene, each scene's ids read against its own
+    sources."""
+    if pos.dim() == 3:
+        return _per_scene(lambda p, m, qs, ns: near_accelerations_torch(
+            qs, p, m, ns, src_block, g_const, softening), pos, mass, q, near)
     groups, rows, _ = q.shape
     eps2 = float(softening) ** 2
     bpos, bmass = pos.reshape(-1, src_block, 3), mass.reshape(-1, src_block)
@@ -248,23 +253,32 @@ def near_accelerations(q, pos, mass, near, src_block: int, g_const, softening):
     all groups, reading candidates by id. The kernel runs B1's tile body on
     four targets a thread, so each group gets B1's sums on its gathered
     candidates in one chunk, bit for bit. An id outside [0, n_blocks)
-    reads as a block of zero-mass sources."""
+    reads as a block of zero-mass sources.
+
+    A group of S scenes, ``q`` (S, G, R, 3), ``pos`` (S, n_blocks *
+    src_block, 3), ``mass`` (S, n_blocks * src_block) and ``near`` (S, G,
+    L), gives (S, G, R, 3) in one launch, the scene on the grid's y: scene
+    s's ids are checked against scene s's own blocks (an id outside [0,
+    n_blocks) is zero-mass sources, never a block of another scene), and
+    each scene has the bits of a call on it alone."""
     if build.on_cpu(q, pos, mass, near):
         return near_accelerations_torch(q, pos, mass, near, src_block, g_const, softening)
-    groups, rows = q.shape[0], q.shape[1]
-    n_blocks = pos.shape[0] // max(src_block, 1)
-    build.check("q", q, (groups, rows, 3))
-    build.check("pos", pos, (n_blocks * src_block, 3))
-    build.check("mass", mass, (n_blocks * src_block,))
-    build.check("near", near, (groups, near.shape[1]), torch.int32)
+    lead = _scenes(pos)
+    groups, rows = q.shape[-3], q.shape[-2]
+    n_blocks = pos.shape[-2] // max(src_block, 1)
+    build.check("q", q, lead + (groups, rows, 3))
+    build.check("pos", pos, lead + (n_blocks * src_block, 3))
+    build.check("mass", mass, lead + (n_blocks * src_block,))
+    build.check("near", near, lead + (groups, near.shape[-1]), torch.int32)
     acc = torch.empty_like(q)
-    if groups * rows == 0:
+    scenes = lead[0] if lead else 1
+    if groups * rows * scenes == 0:
         return acc
     src = _pack_sources(pos, mass)
     with torch.cuda.device(q.device):
         rc = _lib().nbody_near_force(
-            q.data_ptr(), src.data_ptr(), near.data_ptr(), groups, rows,
-            near.shape[1], int(src_block), n_blocks, float(g_const),
+            q.data_ptr(), src.data_ptr(), near.data_ptr(), scenes, groups, rows,
+            near.shape[-1], int(src_block), n_blocks, float(g_const),
             float(softening), acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.raise_on(rc, "nbody_near_force launch")
     near_accelerations.launches += 1

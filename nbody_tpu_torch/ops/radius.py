@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from nbody_tpu_torch.ops.knn import knn_neighbors
-from nbody_tpu_torch.ops.spatial import knn_morton
+from nbody_tpu_torch.ops.spatial import batched_knn_morton, knn_morton
 
 
 def radius_neighbors(
@@ -47,7 +47,17 @@ def radius_neighbors(
                                    chunk_size=chunk_size)
     else:
         raise ValueError(f"unknown radius search method {method!r}")
-    d = pos[idx.long()] - pos[:, None, :]
+    return _within(pos, idx, valid, radius)
+
+
+def _within(pos, idx, valid, radius):
+    """The cut ``d^2 < r^2`` on the listed neighbours ``idx`` (N, k) of one
+    scene's (N, 3) positions, or of each scene of a batch (a leading axis
+    on all three)."""
+    rows = idx.long()
+    if pos.dim() == 3:
+        rows = rows + pos.shape[1] * torch.arange(pos.shape[0], device=pos.device)[:, None, None]
+    d = pos.reshape(-1, 3)[rows] - pos[..., None, :]
     d2_sel = (d * d).sum(-1)
     r2 = float(torch.tensor(float(radius), dtype=torch.float32) ** 2)  # as float32 squares it
     valid = valid & (d2_sel < r2)
@@ -56,7 +66,14 @@ def radius_neighbors(
 
 def batched_radius_neighbors(pos, radius, k_max=32, mask=None, include_self=True,
                              method="exact", impl="dense"):
-    """:func:`radius_neighbors` over a leading batch axis."""
+    """:func:`radius_neighbors` over a leading batch axis, each scene what a
+    call on it alone gives. The Morton search with ``impl="kernel"`` is one
+    batched search (:func:`batched_knn_morton`: one B7 and one B8 launch);
+    the other methods run scene by scene."""
+    if method == "morton" and impl == "kernel":
+        idx, valid = batched_knn_morton(pos, min(k_max, pos.shape[1]), mask=mask,
+                                        include_self=include_self, impl=impl)
+        return _within(pos, idx, valid, radius)
     outs = [radius_neighbors(pos[b], radius, k_max=k_max,
                              mask=None if mask is None else mask[b],
                              include_self=include_self, method=method, impl=impl)

@@ -56,6 +56,9 @@ _COPIES = (
     (((_SQ2, 0.0, -_SQ2), (0.0, 1.0, 0.0), (_SQ2, 0.0, _SQ2)), 0.59),
 )
 IMPLS = ("dense", "kernel")
+# the most curve copies one B7 launch takes (a batch's copies stacked): the
+# grid's y dimension
+MAX_COPIES = 65535
 
 # elements of one (copies, blocks, b, 3b) distance slab in the B7 twin
 _TWIN_ELEMS = 1 << 25
@@ -91,8 +94,8 @@ def _rotate(pos: torch.Tensor, rot) -> torch.Tensor:
     """``pos @ rot.T`` written out as separate multiplies and adds, so each
     output is ((x r0 + y r1) + z r2) with every operation rounded on its own
     on every device (a BLAS product may contract into FMAs)."""
-    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
-    return torch.stack([x * r[0] + y * r[1] + z * r[2] for r in rot], dim=1)
+    x, y, z = pos[..., 0], pos[..., 1], pos[..., 2]
+    return torch.stack([x * r[0] + y * r[1] + z * r[2] for r in rot], dim=-1)
 
 
 def morton_keys(pos: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -101,19 +104,21 @@ def morton_keys(pos: torch.Tensor, mask: Optional[torch.Tensor] = None,
     (one scale: the largest axis span of the masked bounding box) to a
     1024^3 grid. ``shift`` translates the grid by that fraction of the box;
     ``rot`` pre-rotates positions (3x3 row-major). Masked rows get INT32_MAX
-    keys, so they sort last."""
+    keys, so they sort last. A batch ``(B, N, 3)`` (with a ``(B, N)`` mask)
+    gives ``(B, N)``, each scene quantised in its own box: the keys of a
+    call on that scene alone."""
     if rot is not None:
         pos = _rotate(pos, rot)
     if mask is not None:
-        m = mask.bool()[:, None]
-        lo = torch.where(m, pos, float("inf")).amin(0)
-        hi = torch.where(m, pos, float("-inf")).amax(0)
+        m = mask.bool()[..., None]
+        lo = torch.where(m, pos, float("inf")).amin(-2, keepdim=True)
+        hi = torch.where(m, pos, float("-inf")).amax(-2, keepdim=True)
     else:
-        lo, hi = pos.amin(0), pos.amax(0)
-    span = torch.clamp((hi - lo).amax(), min=1e-30)
+        lo, hi = pos.amin(-2, keepdim=True), pos.amax(-2, keepdim=True)
+    span = torch.clamp((hi - lo).amax(-1, keepdim=True), min=1e-30)
     q = torch.clamp((pos - lo) * (_MAX_Q / span) + shift * _MAX_Q,
                     0, _MAX_Q).to(torch.int32)
-    key = _part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << 1) | (_part1by2(q[:, 2]) << 2)
+    key = _part1by2(q[..., 0]) | (_part1by2(q[..., 1]) << 1) | (_part1by2(q[..., 2]) << 2)
     if mask is not None:
         key = torch.where(mask.bool(), key, torch.full_like(key, 0x7FFFFFFF))
     return key
@@ -121,10 +126,10 @@ def morton_keys(pos: torch.Tensor, mask: Optional[torch.Tensor] = None,
 
 def _curve_order(pos, mask, n_copies):
     """(C, N) int64 permutations sorting rows along each curve copy (stable,
-    so equal keys keep row order)."""
+    so equal keys keep row order); a batch (B, N, 3) gives (B, C, N)."""
     keys = torch.stack([morton_keys(pos, mask, shift=s, rot=r)
-                        for r, s in _COPIES[:n_copies]])
-    return torch.sort(keys, dim=1, stable=True).indices
+                        for r, s in _COPIES[:n_copies]], dim=-2)
+    return torch.sort(keys, dim=-1, stable=True).indices
 
 
 # ------------------------------------------------------- impl="dense" path
@@ -256,9 +261,10 @@ def morton_select(cand: torch.Tensor, k: int, block: int, include_self: bool):
     c_, L = cand.shape[0], cand.shape[1]
     nb = L // block - 2
     build.check("cand", cand, (c_, (nb + 2) * block, 4))
-    if not (nb > 0 and 0 < k <= 3 * block and block <= 682):
-        raise ValueError(f"morton_select: nb={nb}, k={k}, block={block} "
-                         "(the kernel takes k <= 3 * block and block <= 682)")
+    if not (nb > 0 and 0 < k <= 3 * block and block <= 682 and c_ <= MAX_COPIES):
+        raise ValueError(f"morton_select: {c_} copies, nb={nb}, k={k}, block={block} "
+                         f"(the kernel takes k <= 3 * block, block <= 682 and at most "
+                         f"{MAX_COPIES} copies, the grid's y)")
     ids = torch.empty((c_, nb * block, k), dtype=torch.int32, device=cand.device)
     d2s = torch.empty((c_, nb * block, k), dtype=torch.float32, device=cand.device)
     with torch.cuda.device(cand.device):
@@ -333,36 +339,47 @@ morton_merge.launches = 0
 def _candidates(pos, order, block):
     """B7's input for all curve copies (JAX ``_copy_passes_pallas``): each
     copy's sorted positions with their original row ids bit-cast into column
-    3, one block of sentinels before and after.
+    3, one block of sentinels before and after. A batch, ``pos`` (B, N, 3)
+    and ``order`` (B, C, N), stacks its scenes' copies scene-major, B * C of
+    them: the sentinel blocks keep every window inside its own copy.
 
     :return: (cand (C, npad + 2 * block, 4), qg (C, npad)); qg maps each
         sorted query row to its original row (pad rows carry n)."""
-    c_, n = order.shape
+    n = order.shape[-1]
     b = block
     npad = -(-n // b) * b
     dev = pos.device
-    cand = torch.full((c_, npad + 2 * b, 4), _BIG, dtype=torch.float32, device=dev)
-    cand[:, b:b + n, :3] = pos[order]
-    sg = torch.full((c_, npad + 2 * b), n, dtype=torch.int32, device=dev)
-    sg[:, b:b + n] = order.to(torch.int32)
+    rows = (pos[order] if pos.dim() == 2 else
+            pos[torch.arange(pos.shape[0], device=dev)[:, None, None], order])
+    copies = rows.shape[:-2].numel()
+    cand = torch.full((copies, npad + 2 * b, 4), _BIG, dtype=torch.float32, device=dev)
+    cand[:, b:b + n, :3] = rows.reshape(copies, n, 3)
+    sg = torch.full((copies, npad + 2 * b), n, dtype=torch.int32, device=dev)
+    sg[:, b:b + n] = order.reshape(copies, n).to(torch.int32)
     cand[..., 3] = sg.view(torch.float32)
     return cand, sg[:, b:b + npad]
 
 
-def _to_rows(qg, ids, d2, n):
+def _to_rows(qg, ids, d2, n, scenes: int = 1):
     """Every copy's (npad, k) results scattered back to original row order
     and laid side by side: (N, C * k) ids and distances, copy c in columns
     c*k .. c*k + k - 1 (JAX's concatenation). Pad rows (qg == n) land in a
-    dropped row."""
-    c_, _, k = ids.shape
-    rows = qg.long()
-    idx_buf = torch.full((c_, n + 1, k), -1, dtype=torch.int32, device=ids.device)
-    d2_buf = torch.full((c_, n + 1, k), _INF, dtype=torch.float32, device=ids.device)
-    for c in range(c_):
-        idx_buf[c, rows[c]] = ids[c]
-        d2_buf[c, rows[c]] = d2[c]
-    return (idx_buf[:, :n].permute(1, 0, 2).reshape(n, c_ * k).contiguous(),
-            d2_buf[:, :n].permute(1, 0, 2).reshape(n, c_ * k).contiguous())
+    dropped row. A batch's ``scenes * C`` copies (scene-major, as
+    :func:`_candidates` stacks them) give (scenes * N, C * k), scene s in
+    rows s*N .. s*N + N - 1."""
+    copies, _, k = ids.shape
+    c_ = copies // scenes
+    slot = (torch.arange(copies, device=ids.device)[:, None] * (n + 1) + qg.long()).reshape(-1)
+    idx_buf = torch.full((copies * (n + 1), k), -1, dtype=torch.int32, device=ids.device)
+    d2_buf = torch.full((copies * (n + 1), k), _INF, dtype=torch.float32, device=ids.device)
+    idx_buf[slot] = ids.reshape(-1, k)
+    d2_buf[slot] = d2.reshape(-1, k)
+
+    def side_by_side(buf):
+        return (buf.view(scenes, c_, n + 1, k)[:, :, :n].permute(0, 2, 1, 3)
+                .reshape(scenes * n, c_ * k).contiguous())
+
+    return side_by_side(idx_buf), side_by_side(d2_buf)
 
 
 # ------------------------------------------------------------- entry points
@@ -401,52 +418,80 @@ def knn_morton(pos: torch.Tensor, k: int, mask: Optional[torch.Tensor] = None,
     :param impl: "dense" (plain torch) or "kernel" (B7 + B8; their twins
         for CPU tensors). The two are different algorithms.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"unknown knn_morton impl {impl!r}: one of {IMPLS}")
+    _check_impl(impl, window, block)
     n = pos.shape[0]
     k = min(k, n)
     n_copies = min(n_copies, len(_COPIES))
+    if n <= max(2 * window + 1, 2 * block):
+        return _dense_small(pos, k, mask, include_self)
+    if impl == "kernel":
+        return _kernel_search(pos, k, mask, include_self, block, n_copies)
+
+    order = _curve_order(pos, mask, n_copies)
+    # masked rows move to the sentinel: never a neighbour
+    posm = pos if mask is None else torch.where(mask.bool()[:, None], pos, _BIG)
+    outs = [_copy_pass_dense(posm, order[c], k, block, window, include_self)
+            for c in range(n_copies)]
+    qg, ids, d2 = (torch.stack(t) for t in zip(*outs))
+    idx, d2 = _merge_dedup(*_to_rows(qg, ids, d2, n), k)
+    return _valid_ids(idx, d2, mask, n)
+
+
+def _check_impl(impl, window, block):
+    if impl not in IMPLS:
+        raise ValueError(f"unknown knn_morton impl {impl!r}: one of {IMPLS}")
     if impl == "kernel" and window != 64:
         warnings.warn(
             "knn_morton(impl='kernel') has a structural window (== block); "
             f"the window={window} argument is ignored, tune `block` instead",
-            stacklevel=2)
+            stacklevel=3)
     if impl == "kernel" and 3 * block > 2048:
         raise ValueError(
             f"knn_morton(impl='kernel') supports block <= 682 (each select "
             f"row scans 3*block packed candidates, max 2048); got "
             f"block={block}. Use impl='dense' for larger blocks.")
-    if n <= max(2 * window + 1, 2 * block):
-        return _dense_small(pos, k, mask, include_self)
 
-    order = _curve_order(pos, mask, n_copies)
-    # masked rows move to the sentinel: never a neighbour
-    posm = pos if mask is None else torch.where(mask.bool()[:, None], pos, _BIG)
-    if impl == "kernel":
-        cand, qg = _candidates(posm, order, block)
-        ids, d2 = morton_select(cand, k, block, include_self)
-    else:
-        outs = [_copy_pass_dense(posm, order[c], k, block, window, include_self)
-                for c in range(n_copies)]
-        qg, ids, d2 = (torch.stack(t) for t in zip(*outs))
-    cand, cd2 = _to_rows(qg, ids, d2, n)
-    if impl == "kernel":
-        idx, d2 = morton_merge(cand, cd2, k)
-    else:
-        idx, d2 = _merge_dedup(cand, cd2, k)
+
+def _valid_ids(idx, d2, mask, n):
+    """The search's (ids, validity): sentinel distances and masked rows are
+    invalid, and invalid slots point at 0."""
     valid = d2 < _BAD_D2
     if mask is not None:
-        valid = valid & mask.bool()[:, None]
+        valid = valid & mask.bool()[..., None]
     idx = torch.where(valid, idx, 0)
     return torch.clamp(idx, 0, n - 1).to(torch.int32), valid
 
 
+def _kernel_search(pos, k, mask, include_self, block, n_copies):
+    """The kernel impl past the small-N branch on one scene (N, 3), or on a
+    batch (B, N, 3) with one B7 launch over its B * C curve copies and one B8
+    launch over its B * N rows: B7 reads each copy's own windows and B8
+    works row by row, so each scene gets the ids of a call on it alone."""
+    lead, n = pos.shape[:-2], pos.shape[-2]
+    order = _curve_order(pos, mask, n_copies)
+    # masked rows move to the sentinel: never a neighbour
+    posm = pos if mask is None else torch.where(mask.bool()[..., None], pos, _BIG)
+    cand, qg = _candidates(posm, order, block)
+    ids, d2 = morton_select(cand, k, block, include_self)
+    idx, d2 = morton_merge(*_to_rows(qg, ids, d2, n, lead.numel()), k)
+    return _valid_ids(idx.view(*lead, n, k), d2.view(*lead, n, k), mask, n)
+
+
 def batched_knn_morton(pos, k, mask=None, include_self=False, window=64,
                        block=256, n_copies=4, impl="dense"):
-    """:func:`knn_morton` over a leading batch axis: (B, N, 3) -> (B, N, k)."""
+    """:func:`knn_morton` over a leading batch axis: (B, N, 3) -> (B, N, k),
+    each scene what a call on it alone gives. With ``impl="kernel"`` past
+    the small-N branch the batch is one search: one B7 launch over its B x C
+    curve copies and one B8 launch over its B x N rows. The dense impl and
+    the small-N branch run scene by scene (torch ops, no kernel)."""
+    bsz, n = pos.shape[0], pos.shape[1]
+    if impl == "kernel" and bsz and n > max(2 * window + 1, 2 * block):
+        _check_impl(impl, window, block)
+        return _kernel_search(pos, min(k, n), mask, include_self, block,
+                              min(n_copies, len(_COPIES)))
     outs = [knn_morton(pos[b], k, mask=None if mask is None else mask[b],
                        include_self=include_self, window=window, block=block,
                        n_copies=n_copies, impl=impl)
-            for b in range(pos.shape[0])]
+            for b in range(bsz)]
     return (torch.stack([o[0] for o in outs]),
             torch.stack([o[1] for o in outs]))

@@ -8,7 +8,7 @@ every op has finished when it returns and no synchronisation is needed.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -16,8 +16,10 @@ import torch
 # tensor cores, and HBM bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # seconds between the start of a profiler session and the first recorded
-# call of :func:`kernel_events`
+# call of :func:`kernel_events` (four times as long in each session after
+# the first), and the sessions it opens at most
 _RECORDING_DELAY_S = 0.02
+_SESSIONS = 5
 
 
 def synchronize(device) -> None:
@@ -65,15 +67,19 @@ def profile_ms(fn: Callable[[], object], device, top: int = 6
     return sum(ms for _, ms in rows), rows[:top]
 
 
-def kernel_events(fn: Callable[[], object], reps: int = 20) -> List[Tuple[str, float]]:
+def kernel_events(fn: Callable[[], object], reps: int = 20, name: Optional[str] = None
+                  ) -> List[Tuple[str, float]]:
     """(name, device ms) of every CUDA kernel and copy that ``reps`` calls
-    of ``fn`` put on the card, from :mod:`torch.profiler`. The calls run
-    once before the profiler, and the recorded ones start
-    ``_RECORDING_DELAY_S`` into its session: the profiler's recording of
-    the card can begin a few milliseconds after the session does, and then
-    misses the first kernels. Divide a sum of times by the events it
-    counts, not by ``reps``, so that a missed event cannot make a kernel
-    look faster."""
+    of ``fn`` put on the card, from :mod:`torch.profiler`; with ``name``,
+    only the kernels whose name holds it. The calls run once before the
+    profiler, and the recorded ones start ``_RECORDING_DELAY_S`` into its
+    session: the profiler's recording of the card can begin some
+    milliseconds after the session does, and then misses the first kernels.
+    Late in a long process it can begin after all the calls, so a session
+    that recorded none of the wanted kernels is opened again with four times
+    the delay, up to ``_SESSIONS`` times. Divide a sum of times by the
+    events it counts, not by ``reps``, so that a missed event cannot make a
+    kernel look faster."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,11 +92,16 @@ def kernel_events(fn: Callable[[], object], reps: int = 20) -> List[Tuple[str, f
         torch.cuda.synchronize()
 
     calls()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(_RECORDING_DELAY_S)
-        calls()
-    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    events = []
+    for session in range(_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(_RECORDING_DELAY_S * 4 ** session)
+            calls()
+        events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and (name is None or name in e.name)]
+        if events:
+            break
+    return events
 
 
 def cuda_time_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> float:

@@ -39,7 +39,7 @@ def test_port_dataset_loads_in_jax(tmp_path, fmt):
     scenarios = scenario_product(n_bodies=[6, 11], steps=5, sim_type=["disk", "spiral"],
                                  seed=3, force_backend="kernel")
     out = str(tmp_path / "port.csv")
-    generate_dataset(scenarios, out, verbose=False)
+    generate_dataset(scenarios, out, verbose=False, device="cpu")
     path = out if fmt == "csv" else out[:-4] + ".npz"
     loader = "from_csv" if fmt == "csv" else "from_npz"
     mine = getattr(SnapshotDataset, loader)(path)
@@ -69,7 +69,8 @@ def test_jax_dataset_loads_in_port(tmp_path, fmt):
 
 def test_npz_payload_keys_match_jax(tmp_path):
     kw = dict(n_bodies=7, sim_type="disk", steps=3, seed=1)
-    generate_dataset([ScenarioConfig(**kw)], str(tmp_path / "p.csv"), verbose=False)
+    generate_dataset([ScenarioConfig(**kw)], str(tmp_path / "p.csv"), verbose=False,
+                     device="cpu")
     jgenerate_dataset([JScenario(**kw, force_backend="dense")], str(tmp_path / "j.csv"),
                       verbose=False)
     p, j = np.load(tmp_path / "p.npz"), np.load(tmp_path / "j.npz")
@@ -95,27 +96,27 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
 def test_snapshot_stride_and_npz_only(tmp_path):
     scenarios = scenario_product(n_bodies=8, steps=10, sim_type="disk", seed=7)
     out = str(tmp_path / "s.csv")
-    generate_dataset(scenarios, out, verbose=False, snapshot_stride=4)
+    generate_dataset(scenarios, out, verbose=False, snapshot_stride=4, device="cpu")
     df = pd.read_csv(out)
     assert sorted(df["step"].unique()) == [0, 4, 8]
     ds = SnapshotDataset.from_npz(out[:-4] + ".npz")
     assert sorted(ds.buckets[8].step.tolist()) == [0, 4, 8]
     out2 = str(tmp_path / "only.csv")
     generate_dataset(scenarios, out2, verbose=False, snapshot_stride=2,
-                     write_csv_file=False)
+                     write_csv_file=False, device="cpu")
     assert not os.path.exists(out2)
     assert SnapshotDataset.from_file(out2).n_snapshots == 5
 
 
 def test_calc_energy_off_and_time_chunks(tmp_path):
     cfg = ScenarioConfig(n_bodies=6, steps=9, seed=1, calc_energy=False)
-    traj, mass, step_time = run_scenario(cfg, time_chunks=3)
+    traj, mass, step_time = run_scenario(cfg, time_chunks=3, device="cpu")
     assert traj.u_energy is None and traj.positions.shape == (9, 6, 3)
     assert np.shape(step_time) == (9,) and np.all(np.asarray(step_time) > 0)
-    whole, _, _ = run_scenario(cfg)
+    whole, _, _ = run_scenario(cfg, device="cpu")
     torch.testing.assert_close(traj.positions, whole.positions, rtol=0, atol=0)
     out = str(tmp_path / "e.csv")
-    generate_dataset([cfg], out, verbose=False, time_chunks=3)
+    generate_dataset([cfg], out, verbose=False, time_chunks=3, device="cpu")
     df = pd.read_csv(out)
     assert df["u"].isna().all() and df["k"].isna().all()
     assert np.load(out[:-4] + ".npz")["scene0_step_time"].shape == (9,)
@@ -136,4 +137,5 @@ def test_atomic_npz_and_validity(tmp_path):
 def test_check_flag_raises_on_nonfinite(tmp_path):
     cfg = ScenarioConfig(n_bodies=4, steps=3, seed=1, dt=float("nan"))
     with pytest.raises(FloatingPointError):
-        generate_dataset([cfg], str(tmp_path / "n.csv"), verbose=False, check=True)
+        generate_dataset([cfg], str(tmp_path / "n.csv"), verbose=False, check=True,
+                         device="cpu")

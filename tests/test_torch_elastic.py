@@ -33,7 +33,7 @@ def tiny_data(tmp_path_factory):
     train_dir.mkdir()
     generate_dataset([ScenarioConfig(n_bodies=8, sim_type="spiral", steps=16, seed=1,
                                      force_backend="dense")],
-                     str(train_dir / "f1.csv"), verbose=False)
+                     str(train_dir / "f1.csv"), verbose=False, device="cpu")
     return str(train_dir)
 
 

@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels (B1 force and its near-list form,
-B2 energy, both also on a group of scenes in one launch,
+B2 energy, all three also on a group of scenes in one launch,
 B3 ContConv collect, B4-B6 its backward (B5 as its dG product and
 unbin pass too), B7 Morton select, B8
-Morton merge, B9 and B10 the treecodes' multipole pulls, B11 the windowed
+Morton merge (also a batch's search in one launch of each), B9 and B10 the
+treecodes' multipole pulls (also on a group of scenes), B11 the windowed
 EdgeConv message sum) against their plain-torch twins on the card. A CUDA kernel has no CPU mode, so without a
 CUDA device every test here skips. On the card (which has no JAX, hence no
 conftest):
@@ -184,12 +185,16 @@ def test_grouped_simulate_is_each_scene_alone(cuda):
 
 def test_kernel_events_sees_every_kernel(cuda):
     """Twenty profiler sessions of twenty B2 calls at 20k bodies each see
-    all twenty kernels, and their times are the kernel's."""
+    all twenty kernels, and their times are the kernel's; with a name, the
+    sessions keep that kernel's events."""
     pos, _, mass = _spiral(20_000, 5, cuda)
     for _ in range(20):
         events = kernel_events(lambda: pw.potential_energy(pos, mass, G, EPS), reps=20)
         assert len(events) == 20 and all("energy_kernel" in name for name, _ in events)
         assert all(0 < ms < 10 for _, ms in events)
+    named = kernel_events(lambda: pw.potential_energy(pos, mass, G, EPS), reps=5,
+                          name="energy_kernel")
+    assert len(named) == 5 and all("energy_kernel" in name for name, _ in named)
 
 
 def test_b2_cross_and_chunked(cuda):
@@ -887,6 +892,138 @@ def test_treecode_wrappers_reject(cuda):
     with pytest.raises(RuntimeError):
         pw.near_accelerations(q.reshape(1, 4, 3), torch.zeros(0, 3, device=cuda),
                               torch.zeros(0, device=cuda), wide, 1 << 16, G, EPS)
+
+
+# a scene axis on B9, B10 and the near list: (kernel, scenes, groups,
+# receivers, list, table rows or source blocks, source block rows): groups
+# of one block, of several and ragged ones; the near list's src_block
+# dividing the tile or not
+_SCENE_CASES = [("b9", 3, 1, 1000, 0, 391, 0), ("b9", 2, 1, 4097, 0, 300, 0),
+                ("b10", 4, 13, 130, 40, 77, 0), ("b10", 2, 7, 2048, 768, 900, 0),
+                ("b10", 3, 31, 128, 80, 400, 0), ("near", 4, 13, 130, 8, 20, 17),
+                ("near", 2, 7, 256, 32, 40, 256), ("near", 3, 31, 128, 48, 60, 32)]
+
+
+@pytest.mark.parametrize("kernel,s,groups,p,lst,k,bs", _SCENE_CASES)
+def test_scene_axis_kernels_are_single_scene_calls(cuda, kernel, s, groups, p, lst, k, bs):
+    """B9, B10 and B1's near list on a group of scenes: one launch, within
+    the plain version's bar, and each scene bit for bit the kernel's call on
+    that scene alone; scene 0's ids of -1 and of its own row or block count
+    read as zero rows (as a call with a zero row appended, listed there),
+    never as another scene's."""
+    gen = torch.Generator().manual_seed(s * p + k)
+    ids = torch.randint(0, k, (s, groups, lst), generator=gen, dtype=torch.int32).to(cuda)
+    if lst:
+        ids[0, :, 0], ids[0, :, -1] = -1, k
+    as_pad = torch.where((ids[0] >= 0) & (ids[0] < k), ids[0], k)
+    if kernel == "near":
+        pos, _, mass = _spiral(s * k * bs, k + bs, cuda)
+        q = pos[torch.randint(0, s * k * bs, (s * groups * p,), generator=gen).to(cuda)]
+        q = q.reshape(s, groups, p, 3).contiguous()  # receivers on sources: self pairs
+        pos, mass = pos.reshape(s, k * bs, 3), mass.reshape(s, k * bs)
+        wrapper, plain, bar = pw.near_accelerations, pw.near_accelerations_torch, 2e-5
+        args = (q, pos, mass, ids, bs, G, EPS)
+        padded = (q[0], torch.cat([pos[0], torch.zeros(bs, 3, device=cuda)]),
+                  torch.cat([mass[0], torch.zeros(bs, device=cuda)]), as_pad, bs, G, EPS)
+    else:
+        table = torch.stack([_table(k, 2, i + k, cuda) for i in range(s)])
+        q = torch.randn(s, groups, p, 3, generator=gen).to(cuda)
+        padded = (q[0], torch.cat([table[0], torch.zeros(1, 10, device=cuda)]), as_pad,
+                  G, EPS ** 2)
+        if kernel == "b9":
+            wrapper, plain = tf.multipole_acc, tf.multipole_acc_torch
+            args = (q.reshape(s, groups * p, 3), table, G, EPS ** 2)
+        else:
+            wrapper, plain = tf.grouped_multipole_acc, tf.grouped_multipole_acc_torch
+            args = (q, table, ids, G, EPS ** 2)
+        bar = 1e-5
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before + 1
+    _close_rel(got, plain(*args), bar)
+    for i in range(s):
+        assert torch.equal(got[i], wrapper(*(a[i] if torch.is_tensor(a) else a for a in args)))
+    if kernel != "b9":
+        assert torch.equal(got[0], wrapper(*padded))
+
+
+def _tree_group(engine, s, n, seed, dev):
+    knobs = {"bh": dict(n_near=16, block=128),
+             "bh2": dict(n_near=16, block=128, coarse=4, rc=6),
+             "bh3": dict(n_near=16, block=128, coarse=4, rc=6, sub_block=32, n_sub=24)}[engine]
+    ics = [_spiral(n, seed + i, dev) for i in range(s)]
+    return tuple(torch.stack([x[f] for x in ics]) for f in range(3)), knobs
+
+
+@pytest.mark.parametrize("engine", ["bh", "bh2", "bh3"])
+def test_treecode_group_is_each_scene_alone_on_card(cuda, engine):
+    """A group of 3 scenes: its partition's fields and its accelerations
+    equal each scene's own bit for bit, with each kernel launched once for
+    the group (B10 3 times for bh2, 4 for bh3, as for one scene)."""
+    (pos, _, mass), knobs = _tree_group(engine, 3, 6000, 50, cuda)
+    build = getattr(tf, f"build_{engine}_partition")
+    fn = getattr(tf, f"{engine}_accelerations")
+    part = build(pos, mass, **knobs)
+    wrappers = (tf.multipole_acc, tf.grouped_multipole_acc, pw.near_accelerations)
+    before = [w.launches for w in wrappers]
+    got = fn(pos, mass, G, EPS, partition=part)
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    assert launched == {"bh": [1, 1, 1], "bh2": [1, 3, 1], "bh3": [1, 4, 1]}[engine]
+    for i in range(3):
+        alone = build(pos[i], mass[i], **knobs)
+        for f in alone._fields:
+            assert torch.equal(getattr(part, f)[i], getattr(alone, f)), (i, f)
+        assert torch.equal(got[i], fn(pos[i], mass[i], G, EPS, partition=alone))
+
+
+@pytest.mark.parametrize("engine,refresh", [("bh", 4), ("bh3", 2)])
+def test_treecode_group_rollout_is_each_scene_alone_on_card(cuda, engine, refresh):
+    """``simulate`` on a treecode group (energies through B2) gives each scene
+    the trajectory of its run alone, every field bit for bit."""
+    (pos, vel, mass), knobs = _tree_group(engine, 3, 4000, 60, cuda)
+    cfg = SimulationConfig(g_const=G, softening=EPS, dt=1e-4, force_backend=engine,
+                           bh_near=knobs["n_near"], bh_block=knobs["block"],
+                           bh_coarse=knobs.get("coarse", 16), bh_rc=knobs.get("rc", 32),
+                           bh_sub_block=knobs.get("sub_block", 32),
+                           bh_n_sub=knobs.get("n_sub", 24), bh_refresh=refresh)
+    before = tf.multipole_acc.launches
+    group = simulate(pos, vel, mass, 8, cfg)
+    assert tf.multipole_acc.launches == before + 9  # once a force evaluation
+    for i in range(3):
+        alone = simulate(pos[i], vel[i], mass[i], 8, cfg)
+        for g_, a_ in zip(group, alone):
+            assert torch.equal(g_[:, i], a_)
+
+
+@pytest.mark.parametrize("n,k,include_self,masked", [(3000, 8, False, False),
+                                                     (2000, 32, True, True)])
+def test_batched_morton_graph_is_one_b7_and_one_b8(cuda, n, k, include_self, masked):
+    """A batch's Morton search: one B7 launch over its B x 4 copies and one
+    B8 launch over its B x N rows; each scene's ids and validity those of a
+    call on it alone, also through the Morton radius search."""
+    from nbody_tpu_torch.ops import radius
+
+    pos = torch.stack([_spiral(n, n + i, cuda)[0] for i in range(4)])
+    mask = None
+    if masked:
+        mask = torch.rand(4, n, generator=torch.Generator().manual_seed(k)).to(cuda) < 0.9
+    before = (sp.morton_select.launches, sp.morton_merge.launches)
+    idx, valid = sp.batched_knn_morton(pos, k, mask=mask, include_self=include_self,
+                                       impl="kernel")
+    assert (sp.morton_select.launches, sp.morton_merge.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    r_idx, r_valid = radius.batched_radius_neighbors(pos, 0.5, k, mask=mask,
+                                                     include_self=include_self,
+                                                     method="morton", impl="kernel")
+    for i in range(4):
+        m = None if mask is None else mask[i]
+        one = sp.knn_morton(pos[i], k, mask=m, include_self=include_self, impl="kernel")
+        assert torch.equal(idx[i], one[0]) and torch.equal(valid[i], one[1])
+        r_one = radius.radius_neighbors(pos[i], 0.5, k, mask=m, include_self=include_self,
+                                        method="morton", impl="kernel")
+        assert torch.equal(r_idx[i], r_one[0]) and torch.equal(r_valid[i], r_one[1])
+    with pytest.raises(ValueError, match="copies"):  # past the grid's y
+        sp.morton_select(torch.zeros(sp.MAX_COPIES + 1, 3, 4, device=cuda), 1, 1, True)
 
 
 @pytest.mark.parametrize("engine", ["bh", "bh2", "bh3"])

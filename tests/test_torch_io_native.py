@@ -46,7 +46,8 @@ def test_dataset_csv_is_the_jax_writers(tmp_path):
     same bytes for the frame read back, and no float64 repr is left."""
     out = str(tmp_path / "d.csv")
     tgen.generate_dataset(tgen.scenario_product(n_bodies=[5, 9], steps=4, seed=3,
-                                                sim_type="spiral"), out, verbose=False)
+                                                sim_type="spiral"), out, verbose=False,
+                          device="cpu")
     jio.write_csv(pd.read_csv(out), str(tmp_path / "j.csv"))
     text = (tmp_path / "d.csv").read_bytes()
     assert text == (tmp_path / "j.csv").read_bytes()

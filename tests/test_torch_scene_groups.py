@@ -9,7 +9,8 @@ Bars: accelerations atol 2e-5 on max-scaled values (tests/test_forces.py:
 those of tests/test_torch_simulate.py (positions and velocities rtol 1e-5
 atol 1e-7), datasets ``assert_frame_equal(rtol=1e-5, atol=1e-9)`` without
 ``step_time`` (tests/test_datagen.py:17-27). A group's scenes run the plain
-versions and the treecodes scene by scene, so those cases hold bit equality.
+versions scene by scene, and the treecodes' reductions scene by scene, so
+those cases hold bit equality.
 """
 
 import jax
@@ -144,7 +145,7 @@ def test_batched_simulate_matches_vmapped_jax(backend):
 def test_batched_simulate_is_each_scene_alone(backend):
     """Scene s of a group's trajectory (and, for the direct-sum backends, of
     ``make_acc_fn`` on the group) equals a run of scene s alone: bit for bit
-    through the plain B1/B2 and the treecode (run scene by scene), at the
+    through the plain B1/B2 and the treecode (one group partition), at the
     trajectory bars through the batched dense path."""
     pos, vel, mass = (torch.from_numpy(x) for x in _jax_group(3, 40, seed=2))
     cfg = SimulationConfig(g_const=G, softening=EPS, dt=DT, force_backend=backend,
@@ -171,8 +172,10 @@ def _scenes(backend, **kw):
 def test_grouped_dataset_matches_ungrouped(tmp_path, backend):
     """tests/test_datagen.py::test_vmapped_matches_sequential on the port."""
     cfgs = _scenes(backend)
-    tgen.generate_dataset(cfgs, str(tmp_path / "v.csv"), verbose=False, vmap_scenes=True)
-    tgen.generate_dataset(cfgs, str(tmp_path / "s.csv"), verbose=False, vmap_scenes=False)
+    tgen.generate_dataset(cfgs, str(tmp_path / "v.csv"), verbose=False, vmap_scenes=True,
+                          device="cpu")
+    tgen.generate_dataset(cfgs, str(tmp_path / "s.csv"), verbose=False, vmap_scenes=False,
+                          device="cpu")
     dv = pd.read_csv(tmp_path / "v.csv").drop(columns=["step_time"])
     ds = pd.read_csv(tmp_path / "s.csv").drop(columns=["step_time"])
     pd.testing.assert_frame_equal(dv, ds, check_exact=False, rtol=1e-5, atol=1e-9)
@@ -188,15 +191,16 @@ def test_group_runs_once_and_splits_per_scene():
     rollout, one shared step time (the group's over steps x scenes), and
     refuses a group whose scenes differ by more than the seed."""
     cfgs = _scenes("kernel")
-    res = tgen.run_scenario_group(cfgs)
+    res = tgen.run_scenario_group(cfgs, device="cpu")
     assert len(res) == 3 and len({r[2] for r in res}) == 1 and res[0][2] > 0
     for cfg, (traj, mass, _) in zip(cfgs, res):
-        alone, mass1, _ = tgen.run_scenario(cfg)
+        alone, mass1, _ = tgen.run_scenario(cfg, device="cpu")
         np.testing.assert_array_equal(mass, mass1)
         for g_, a_ in zip(traj, alone):
             assert torch.equal(g_, a_)
     with pytest.raises(AssertionError, match="only by seed"):
-        tgen.run_scenario_group(cfgs[:2] + [tgen.ScenarioConfig(n_bodies=10, steps=5, seed=9)])
+        tgen.run_scenario_group(cfgs[:2] + [tgen.ScenarioConfig(n_bodies=10, steps=5, seed=9)],
+                                device="cpu")
 
 
 def test_grouping_rules(tmp_path, monkeypatch):
@@ -207,8 +211,8 @@ def test_grouping_rules(tmp_path, monkeypatch):
     monkeypatch.setattr(tgen, "run_scenario_group",
                         lambda cfgs, **kw: calls.append(len(cfgs)) or real(cfgs, **kw))
     out = str(tmp_path / "c.csv")
-    tgen.generate_dataset(_scenes("dense"), out, verbose=False, time_chunks=2)
+    tgen.generate_dataset(_scenes("dense"), out, verbose=False, time_chunks=2, device="cpu")
     assert calls == [] and np.load(out[:-4] + ".npz")["scene2_step_time"].shape == (5,)
     mixed = _scenes("dense")[:2] + [tgen.ScenarioConfig(n_bodies=7, steps=5, seed=1)]
-    tgen.generate_dataset(mixed, out, verbose=False)
+    tgen.generate_dataset(mixed, out, verbose=False, device="cpu")
     assert calls == [2]

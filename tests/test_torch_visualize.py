@@ -44,7 +44,7 @@ def _scene_n_bodies(base):
 def _write_test_csv(path, sizes):
     generate_dataset([ScenarioConfig(n_bodies=n, sim_type="disk", steps=2, seed=i,
                                      force_backend="dense") for i, n in enumerate(sizes)],
-                     str(path), write_npz=False, verbose=False)
+                     str(path), write_npz=False, verbose=False, device="cpu")
 
 
 @pytest.fixture
