@@ -18,11 +18,14 @@ Usage::
 The JAX script's flags, plus ``--device`` (default cuda; the CPU only as
 ``--device cpu``) and ``--profile``. Prints one JSON line with the JAX
 script's keys, unrounded, plus ``device_kind`` (the card's name). Wall time
-is a synchronised host timer around the rollout, after a one-step warm-up.
-``--profile`` runs one more segment (``--chunk-steps`` steps, else
-``--steps``) twice, timed and under ``torch.profiler``, and adds its busy
+is a synchronised host timer around the rollout, after a one-step warm-up;
+``audit_s`` the same around the audit of the end state. ``--profile`` runs
+one more segment (``--chunk-steps`` steps, else ``--steps``) twice, timed
+and under ``torch.profiler``, and adds its busy
 seconds (kernel rows only on the card), idle share ``1 - busy / wall`` and
-largest rows, as ``large_scale.py --profile`` does.
+largest rows, as ``large_scale.py --profile`` does. On the card the line
+also holds ``peak_memory_gib``, ``torch.cuda.max_memory_allocated`` over the
+whole run (ICs, audits and the profiled segment included).
 """
 
 from __future__ import annotations
@@ -121,6 +124,8 @@ def sampled_force_error(pos, mass, cfg: SimulationConfig, sample: int) -> dict:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), args.n_bodies,
                                      device=dev)
     cfg = engine_config(args)
@@ -158,11 +163,15 @@ def main(argv=None) -> dict:
         traj, elapsed = device_time(lambda: simulate(pos, vel, mass, args.steps, cfg), dev)
         p_end, v_end = traj.positions[-1].clone(), traj.velocities[-1].clone()
         del traj
-    u1, k1 = exact_energy(p_end, v_end)
-    e0, e1 = u0 + k0, u1 + k1
-    audit = (sampled_force_error(p_end, mass, cfg, args.error_sample)
-             if args.no_energy_audit else
-             {"E0": e0, "E1": e1, "rel_energy_drift": abs(e1 - e0) / abs(e0)})
+    def end_audit():
+        if args.no_energy_audit:
+            return sampled_force_error(p_end, mass, cfg, args.error_sample)
+        u1, k1 = exact_energy(p_end, v_end)
+        e0, e1 = u0 + k0, u1 + k1
+        return {"E0": e0, "E1": e1, "rel_energy_drift": abs(e1 - e0) / abs(e0)}
+
+    audit, audit_s = device_time(end_audit, dev)
+    audit["audit_s"] = audit_s
     if args.profile:
         audit.update(profile_segment(p_end, v_end, mass, args.chunk_steps or args.steps,
                                      cfg, dev))
@@ -180,6 +189,8 @@ def main(argv=None) -> dict:
         "ms_per_step": elapsed / args.steps * 1e3,
         "psteps_per_s": args.n_bodies * args.steps / elapsed,
         **audit,
+        **({"peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+           if dev.type == "cuda" else {}),
         "device": "gpu" if dev.type == "cuda" else dev.type,
         "device_kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }

@@ -16,7 +16,9 @@ Usage::
 The JAX script's flags and row keys, plus ``--device`` (default cuda; the
 CPU only as ``--device cpu``). On the card every time is the mean over
 ``--reps`` back-to-back calls between CUDA events, after one warm-up call;
-on the CPU a host timer over the same calls.
+on the CPU a host timer over the same calls. On the card a row also holds
+``peak_memory_gib`` (``torch.cuda.max_memory_allocated`` over that N's
+timings and audit) and ``wall_s`` (a host timer over them).
 """
 
 from __future__ import annotations
@@ -79,6 +81,8 @@ def main(argv=None) -> list:
     p.add_argument("--error-sample", type=int, default=0,
                    help="above error-cap: grade this many sampled receivers "
                         "against an exact partial sum (O(S N))")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the spiral ICs (the JAX script's PRNGKey(0))")
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (the CPU only as --device cpu)")
     p.add_argument("--out", default=None)
@@ -97,13 +101,17 @@ def main(argv=None) -> list:
 
     rows = []
     for n in args.n_bodies:
-        pos, _, mass = generate_spiral(torch.Generator().manual_seed(0), n, device=dev)
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        pos, _, mass = generate_spiral(torch.Generator().manual_seed(args.seed), n,
+                                       device=dev)
         build, acc = treecode_fns(mass, cfg, i_chunk=args.i_chunk)
 
         def force(p_, partition=None):
             return acc(p_, build(p_) if partition is None else partition)
 
-        row = {"n": n, "n_near": args.n_near, "block": args.block, **keys}
+        row = {"n": n, "n_near": args.n_near, "block": args.block, **keys, "seed": args.seed}
         error_cap = args.error_cap or args.exact_cap
         if n <= args.exact_cap:
             row["exact_ms"] = time_ms(
@@ -133,6 +141,10 @@ def main(argv=None) -> list:
             if "exact_ms" in row:
                 row["speedup_fresh"] = row["exact_ms"] / row["bh_fresh_ms"]
                 row["speedup_reused"] = row["exact_ms"] / row["bh_reused_ms"]
+        if dev.type == "cuda":
+            row["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            synchronize(dev)
+            row["wall_s"] = time.perf_counter() - t0
         rows.append(row)
         print(json.dumps(row), flush=True)
         if args.out:  # rewritten after every row: a cut sweep keeps its rows

@@ -110,6 +110,13 @@ def check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def chunks(n: int, cap: int) -> list:
+    """``[(lo, hi), ...]``: the indices ``0 .. n - 1`` cut in order into runs
+    of at most ``cap``, one a launch where a grid dimension holds at most
+    ``cap`` (one run ``(0, n)`` for ``n <= cap``)."""
+    return [(lo, min(lo + cap, n)) for lo in range(0, n, cap)]
+
+
 def raise_on(rc: int, what: str) -> None:
     """Raise on a non-zero CUDA error code returned by a launch."""
     if rc != 0:

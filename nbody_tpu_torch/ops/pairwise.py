@@ -13,8 +13,9 @@ Two kernels, both hand-written CUDA C++ for Hopper in
 
 B1, its near-list form and B2 also take a group of scenes of equal shape,
 stacked on a leading axis (``(S, N, 3)`` positions, ``(S, N)`` masses), in
-one launch: what ``jax.vmap`` of the Pallas calls computes, scene by scene
-with the bits of a single-scene call.
+one launch (one a chunk of :data:`MAX_SCENES` scenes past that many): what
+``jax.vmap`` of the Pallas calls computes, scene by scene with the bits of
+a single-scene call.
 
 Each wrapper has a plain-torch twin of the same semantics in this module
 (``*_torch``). A wrapper takes its twin only for tensors on the CPU; for CUDA
@@ -100,19 +101,33 @@ def _pack_sources(pos_j: torch.Tensor, mass_j: torch.Tensor) -> torch.Tensor:
     return torch.cat([pos_j, mass_j[..., None]], dim=-1)
 
 
-# the most scenes one launch takes: the grid's y and z dimensions
+# the most scenes one launch takes: the grid's y and z dimensions; a larger
+# group launches in chunks of this many scenes (:func:`scene_chunks`)
 MAX_SCENES = 65535
 
 
 def _scenes(rows: torch.Tensor) -> tuple:
     """The leading scene axis of a kernel call, ``(S,)`` for a group's
     ``(S, N, c)`` rows (positions, a treecode's block table) or ``()`` for
-    one scene's ``(N, c)``; raises past :data:`MAX_SCENES`."""
+    one scene's ``(N, c)``."""
     lead = tuple(rows.shape[:-2])
-    if len(lead) > 1 or (lead and lead[0] > MAX_SCENES):
-        raise ValueError(f"rows {tuple(rows.shape)}: one scene (N, c) or a group "
-                         f"(S, N, c) of at most {MAX_SCENES} scenes")
+    if len(lead) > 1:
+        raise ValueError(f"rows {tuple(rows.shape)}: one scene (N, c) or a group (S, N, c)")
     return lead
+
+
+def scene_chunks(scenes: int) -> list:
+    """The launches of a call on ``scenes`` scenes: ``(s0, s1)`` runs of at
+    most :data:`MAX_SCENES` scenes, in order (the cap is read at the call).
+    A kernel's blocks of one scene never read another scene, so every scene
+    keeps the bits of a call on it alone in whichever chunk it falls."""
+    return build.chunks(scenes, MAX_SCENES)
+
+
+def _with_scene_axis(lead: tuple, *ts: torch.Tensor) -> list:
+    """``ts`` with a leading scene axis: a group's as they are, one scene's
+    as a group of one (the same memory), so a chunk of scenes is a slice."""
+    return [t if lead else t[None] for t in ts]
 
 
 def _per_scene(fn, *args):
@@ -183,8 +198,9 @@ def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
     Few targets over many sources split the sources over blocks
     (:func:`force_chunk`): a second launch adds the chunks in order.
     A group of S scenes, ``(S, Ni, 3)``, ``(S, Nj, 3)``, ``(S, Nj)``, gives
-    ``(S, Ni, 3)`` in the same launches, each scene with the chunks, and
-    the bits, of a call on that scene alone."""
+    ``(S, Ni, 3)`` in the same launches (a set of them for each
+    :func:`scene_chunks` chunk), each scene with the chunks, and the bits,
+    of a call on that scene alone."""
     if build.on_cpu(pos_i, pos_j, mass_j):
         return partial_accelerations_torch(pos_i, pos_j, mass_j, g_const, softening)
     lead = _scenes(pos_i)
@@ -196,17 +212,19 @@ def partial_accelerations(pos_i, pos_j, mass_j, g_const, softening):
     scenes = lead[0] if lead else 1
     if ni == 0 or scenes == 0:
         return acc
-    src = _pack_sources(pos_j, mass_j)
     chunk = force_chunk(ni, nj, _sm_count(pos_i.device.index))
-    partial = (torch.empty((scenes, -(-nj // chunk), ni, 3), dtype=torch.float32,
-                           device=pos_i.device) if nj > chunk else None)
+    tgt, src, out = _with_scene_axis(lead, pos_i, _pack_sources(pos_j, mass_j), acc)
     with torch.cuda.device(pos_i.device):
-        rc = _lib().nbody_force(
-            pos_i.data_ptr(), src.data_ptr(), scenes, ni, nj, chunk, float(g_const),
-            float(softening), None if partial is None else partial.data_ptr(),
-            acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    build.raise_on(rc, "nbody_force launch")
-    partial_accelerations.launches += 1
+        for s0, s1 in scene_chunks(scenes):
+            partial = (torch.empty((s1 - s0, -(-nj // chunk), ni, 3), dtype=torch.float32,
+                                   device=pos_i.device) if nj > chunk else None)
+            rc = _lib().nbody_force(
+                tgt[s0].data_ptr(), src[s0].data_ptr(), s1 - s0, ni, nj, chunk,
+                float(g_const), float(softening),
+                None if partial is None else partial.data_ptr(), out[s0].data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            build.raise_on(rc, "nbody_force launch")
+            partial_accelerations.launches += 1
     return acc
 
 
@@ -257,7 +275,8 @@ def near_accelerations(q, pos, mass, near, src_block: int, g_const, softening):
 
     A group of S scenes, ``q`` (S, G, R, 3), ``pos`` (S, n_blocks *
     src_block, 3), ``mass`` (S, n_blocks * src_block) and ``near`` (S, G,
-    L), gives (S, G, R, 3) in one launch, the scene on the grid's y: scene
+    L), gives (S, G, R, 3) in one launch (one a :func:`scene_chunks`
+    chunk), the scene on the grid's y: scene
     s's ids are checked against scene s's own blocks (an id outside [0,
     n_blocks) is zero-mass sources, never a block of another scene), and
     each scene has the bits of a call on it alone."""
@@ -274,14 +293,15 @@ def near_accelerations(q, pos, mass, near, src_block: int, g_const, softening):
     scenes = lead[0] if lead else 1
     if groups * rows * scenes == 0:
         return acc
-    src = _pack_sources(pos, mass)
+    qs, src, ids, out = _with_scene_axis(lead, q, _pack_sources(pos, mass), near, acc)
     with torch.cuda.device(q.device):
-        rc = _lib().nbody_near_force(
-            q.data_ptr(), src.data_ptr(), near.data_ptr(), scenes, groups, rows,
-            near.shape[-1], int(src_block), n_blocks, float(g_const),
-            float(softening), acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    build.raise_on(rc, "nbody_near_force launch")
-    near_accelerations.launches += 1
+        for s0, s1 in scene_chunks(scenes):
+            rc = _lib().nbody_near_force(
+                qs[s0].data_ptr(), src[s0].data_ptr(), ids[s0].data_ptr(), s1 - s0, groups,
+                rows, near.shape[-1], int(src_block), n_blocks, float(g_const),
+                float(softening), out[s0].data_ptr(), torch.cuda.current_stream().cuda_stream)
+            build.raise_on(rc, "nbody_near_force launch")
+            near_accelerations.launches += 1
     return acc
 
 
@@ -379,8 +399,9 @@ def pair_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening,
     unordered pair counts once. Otherwise the two sets must be disjoint.
     One kernel launch (:func:`energy_tiles`), which writes the float32
     result itself. A group of S scenes (``(S, N, 3)`` positions, ``(S, N)``
-    masses) gives ``(S,)`` in the same one launch, each scene the bits of a
-    call on that scene alone."""
+    masses) gives ``(S,)`` in the same one launch (one a
+    :func:`scene_chunks` chunk), each scene the bits of a call on that scene
+    alone."""
     if build.on_cpu(pos_i, mass_i, pos_j, mass_j):
         return pair_potential_torch(pos_i, mass_i, pos_j, mass_j, g_const,
                                     softening, masked)
@@ -397,16 +418,18 @@ def pair_potential(pos_i, mass_i, pos_j, mass_j, g_const, softening,
     if ni == 0 or nj == 0 or scenes == 0:
         return out.zero_()
     sms = _sm_count(pos_i.device.index)
+    pi, mi, pj, mj, res = _with_scene_axis(lead, pos_i, mass_i, pos_j, mass_j, out)
     with torch.cuda.device(pos_i.device):
         stream = torch.cuda.current_stream().cuda_stream
-        tickets, partials = _energy_scratch(pos_i.device, stream, sms, scenes)
-        rc = _lib().nbody_energy(
-            pos_i.data_ptr(), mass_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(), nj,
-            float(g_const), float(softening), int(masked), scenes,
-            energy_tiles(ni, nj, masked, sms)["blocks"], tickets.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), stream)
-    build.raise_on(rc, "nbody_energy launch")
-    pair_potential.launches += 1
+        for s0, s1 in scene_chunks(scenes):
+            tickets, partials = _energy_scratch(pos_i.device, stream, sms, s1 - s0)
+            rc = _lib().nbody_energy(
+                pi[s0].data_ptr(), mi[s0].data_ptr(), ni, pj[s0].data_ptr(),
+                mj[s0].data_ptr(), nj, float(g_const), float(softening), int(masked),
+                s1 - s0, energy_tiles(ni, nj, masked, sms)["blocks"], tickets.data_ptr(),
+                partials.data_ptr(), res[s0].data_ptr(), stream)
+            build.raise_on(rc, "nbody_energy launch")
+            pair_potential.launches += 1
     return out
 
 

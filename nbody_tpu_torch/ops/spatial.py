@@ -57,7 +57,8 @@ _COPIES = (
 )
 IMPLS = ("dense", "kernel")
 # the most curve copies one B7 launch takes (a batch's copies stacked): the
-# grid's y dimension
+# grid's y dimension; more launch in chunks of this many copies (the cap is
+# read at the call)
 MAX_COPIES = 65535
 
 # elements of one (copies, blocks, b, 3b) distance slab in the B7 twin
@@ -116,8 +117,11 @@ def morton_keys(pos: torch.Tensor, mask: Optional[torch.Tensor] = None,
     else:
         lo, hi = pos.amin(-2, keepdim=True), pos.amax(-2, keepdim=True)
     span = torch.clamp((hi - lo).amax(-1, keepdim=True), min=1e-30)
-    q = torch.clamp((pos - lo) * (_MAX_Q / span) + shift * _MAX_Q,
-                    0, _MAX_Q).to(torch.int32)
+    # a true division: torch takes a number over a tensor as the number
+    # times the tensor's reciprocal, which in some scenes is an ulp off and
+    # puts about 1 key in 10^4 a quantum away from JAX's
+    scale = torch.full_like(span, _MAX_Q) / span
+    q = torch.clamp((pos - lo) * scale + shift * _MAX_Q, 0, _MAX_Q).to(torch.int32)
     key = _part1by2(q[..., 0]) | (_part1by2(q[..., 1]) << 1) | (_part1by2(q[..., 2]) << 2)
     if mask is not None:
         key = torch.where(mask.bool(), key, torch.full_like(key, 0x7FFFFFFF))
@@ -255,25 +259,28 @@ def morton_select(cand: torch.Tensor, k: int, block: int, include_self: bool):
         block, k) float32 distances with the column bits cleared). A
         sentinel distance comes back as ~3.4e38, which the caller's
         d2 < 1e29 test drops.
+
+    One launch, or one a chunk of :data:`MAX_COPIES` copies past that many;
+    each copy gets the bits of a call on it alone.
     """
     if build.on_cpu(cand):
         return morton_select_torch(cand, k, block, include_self)
     c_, L = cand.shape[0], cand.shape[1]
     nb = L // block - 2
     build.check("cand", cand, (c_, (nb + 2) * block, 4))
-    if not (nb > 0 and 0 < k <= 3 * block and block <= 682 and c_ <= MAX_COPIES):
+    if not (nb > 0 and 0 < k <= 3 * block and block <= 682):
         raise ValueError(f"morton_select: {c_} copies, nb={nb}, k={k}, block={block} "
-                         f"(the kernel takes k <= 3 * block, block <= 682 and at most "
-                         f"{MAX_COPIES} copies, the grid's y)")
+                         f"(the kernel takes k <= 3 * block and block <= 682)")
     ids = torch.empty((c_, nb * block, k), dtype=torch.int32, device=cand.device)
     d2s = torch.empty((c_, nb * block, k), dtype=torch.float32, device=cand.device)
     with torch.cuda.device(cand.device):
-        rc = _lib().morton_select(
-            cand.data_ptr(), c_, nb, block, k, int(include_self),
-            _nbits(3 * block), ids.data_ptr(), d2s.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    build.raise_on(rc, "morton_select launch")
-    morton_select.launches += 1
+        for c0, c1 in build.chunks(c_, MAX_COPIES):
+            rc = _lib().morton_select(
+                cand[c0].data_ptr(), c1 - c0, nb, block, k, int(include_self),
+                _nbits(3 * block), ids[c0].data_ptr(), d2s[c0].data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            build.raise_on(rc, "morton_select launch")
+            morton_select.launches += 1
     return ids, d2s
 
 

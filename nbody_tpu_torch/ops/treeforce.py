@@ -64,7 +64,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from nbody_tpu_torch.ops import build
-from nbody_tpu_torch.ops.pairwise import _scenes, near_accelerations
+from nbody_tpu_torch.ops.pairwise import (_scenes, _with_scene_axis, near_accelerations,
+                                          scene_chunks)
 from nbody_tpu_torch.ops.spatial import _INF, _select_k, morton_keys
 
 _ADJ = 4  # structural near-window half-width (see build_bh_partition)
@@ -82,6 +83,9 @@ _MP_THREADS, _MP_RPT = 256, 4
 # B9's and B10's lanes a receiver group, widest block first: 256 receivers a block,
 # or 128 for the 128-receiver groups of bh3's near pass
 _MP_LANES = (4, 8)
+# elements of one slab of rows that a partition's selection sorts at once
+# (a (nb, nb) sort at 10M bodies, B = 512, would hold 4.6 GB of results)
+_SORT_ELEMS = 1 << 26
 # bytes of (nb, nb) float32 matrices, one a scene, that a group's partition
 # build holds at once; a larger group is built in chunks of scenes (bh3 at
 # 1M bodies, B = 128: 245 MB a scene, so 4 scenes a chunk)
@@ -290,10 +294,14 @@ def _sep2(com, rad):
 
 
 def _sep2_one(com, rad):
+    """One scene's (K, K) matrix, in place: two (K, K) floats alive at once
+    (1.53 GB each at 10M bodies, B = 512), the arithmetic of
+    ``clamp(|a|^2 + |b|^2 - 2 a.b, 0) / clamp((r_a + r_b)^2, 1e-30)``."""
     sq = (com * com).sum(1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (com @ com.T)
-    return torch.clamp(d2, min=0.0) / torch.clamp(
-        (rad[:, None] + rad[None, :]) ** 2, min=1e-30)
+    d2 = sq[:, None] + sq[None, :]
+    d2.sub_((com @ com.T).mul_(2.0))
+    den = (rad[:, None] + rad[None, :]).pow_(2).clamp_(min=1e-30)
+    return d2.clamp_(min=0.0).div_(den)
 
 
 def _sub_sep2(cand, com_b, rad_b, msum_s, com_s, rad_s):
@@ -305,10 +313,26 @@ def _sub_sep2(cand, com_b, rad_b, msum_s, com_s, rad_s):
     return torch.where(msum_s[cand] > 0, sep2, _INF)
 
 
-def _window(k, half, device):
-    """(k, k) bool: |i - j| <= half."""
-    ii = torch.arange(k, device=device)
-    return (ii[:, None] - ii[None, :]).abs() <= half
+def _force_band(sep2, half: int):
+    """``sep2`` (..., K, K) with -1 written in place on its band |i - j| <=
+    ``half`` (the forced curve window): its diagonals, no (K, K) index
+    matrix."""
+    for off in range(-min(half, sep2.shape[-1] - 1), min(half, sep2.shape[-1] - 1) + 1):
+        sep2.diagonal(off, dim1=-2, dim2=-1).fill_(-1.0)
+    return sep2
+
+
+def _select_rows(sep2, k: int):
+    """The indices of :func:`_select_k` (a stable sort a row) in slabs of
+    rows of at most ``_SORT_ELEMS`` elements: a (K, K) sort's float values,
+    int64 indices and scratch never exist whole. A row's result does not
+    depend on the slab."""
+    rows = max(1, _SORT_ELEMS // max(sep2.shape[-1], 1))
+    if sep2.shape[-2] <= rows:
+        return _select_k(sep2, k)[0]
+    # each slab's k columns copied out, so that its whole sort is freed
+    return torch.cat([_select_k(sep2[..., r0:r0 + rows, :], k)[0].contiguous()
+                      for r0 in range(0, sep2.shape[-2], rows)], dim=-2)
 
 
 def _in_scene_chunks(build_one, pos, mass, nb: int, **knobs):
@@ -342,9 +366,8 @@ def _bh_partition(pos, mass, n_near, block):
     sg_p, inv_rank, spos, sm = _sorted_payload(pos, mass, nb, block)
     _, com, rad = _com_radius(spos.reshape(*lead, nb, block, 3),
                               sm.reshape(*lead, nb, block))
-    sep2 = _sep2(com, rad)
-    sep2 = torch.where(_window(nb, min(_ADJ, (n_near - 1) // 2), pos.device), -1.0, sep2)
-    sel, _ = _select_k(sep2, n_near)
+    sep2 = _force_band(_sep2(com, rad), min(_ADJ, (n_near - 1) // 2))
+    sel = _select_rows(sep2, n_near)
     return BHPartition(sorted_gid=sg_p, near=sel.to(torch.int32), inv_rank=inv_rank)
 
 
@@ -371,24 +394,24 @@ def _bh2_partition_arrays(pos, mass, n_near, block, coarse, rc, w):
     n_near = min(n_near, rc * coarse)
     sg_p, inv_rank, spos, sm = _sorted_payload(pos, mass, nb, block)
 
-    def sep_matrix(k_blocks, blk_rows):
+    def sep_matrix(k_blocks, blk_rows):  # empty blocks at _INF, in place
         msum, com, rad = _com_radius(spos.reshape(*lead, k_blocks, blk_rows, 3),
                                      sm.reshape(*lead, k_blocks, blk_rows))
-        return torch.where((msum > 0)[..., None, :], _sep2(com, rad), _INF)
+        return _sep2(com, rad).masked_fill_(~(msum > 0)[..., None, :], _INF)
 
-    sep2c = torch.where(_window(nbc, min(w, (rc - 1) // 2), dev), -1.0,
-                        sep_matrix(nbc, coarse * block))
-    refined, _ = _select_k(sep2c, rc)
+    sep2c = _force_band(sep_matrix(nbc, coarse * block), min(w, (rc - 1) // 2))
+    refined = _select_rows(sep2c, rc)
     del sep2c
 
-    allowed_c = torch.zeros(lead + (nbc, nbc), dtype=torch.bool, device=dev)
-    allowed_c.scatter_(-1, refined, True)
-    allowed = allowed_c[..., :, None, :, None].expand(
-        *lead, nbc, coarse, nbc, coarse).reshape(*lead, nb, nb)
-    sep2f = torch.where(allowed, sep_matrix(nb, block), _INF)
-    del allowed, allowed_c
-    sep2f = torch.where(_window(nb, min(_ADJ, (n_near - 1) // 2), dev), -1.0, sep2f)
-    near, _ = _select_k(sep2f, n_near)
+    # fine blocks outside the refined parents at _INF, through a (nbc, nbc)
+    # mask broadcast over the superblocks' (coarse, coarse) tiles
+    outside = torch.ones(lead + (nbc, nbc), dtype=torch.bool, device=dev)
+    outside.scatter_(-1, refined, False)
+    sep2f = sep_matrix(nb, block)
+    sep2f.view(*lead, nbc, coarse, nbc, coarse).masked_fill_(
+        outside[..., :, None, :, None], _INF)
+    del outside
+    near = _select_rows(_force_band(sep2f, min(_ADJ, (n_near - 1) // 2)), n_near)
     return (sg_p, near.to(torch.int32), inv_rank, refined.to(torch.int32), spos, sm)
 
 
@@ -503,8 +526,9 @@ def multipole_acc(q, table, g_const, eps2):
     :func:`grouped_multipole_acc` given the list ``0 .. K - 1``.
 
     A group of S scenes, ``q`` (S, P, 3) and ``table`` (S, K, 10), gives
-    (S, P, 3) in one launch, the scene on the grid's y and each scene with
-    the blocks, and the bits, of a call on it alone."""
+    (S, P, 3) in one launch (one a ``pairwise.scene_chunks`` chunk), the
+    scene on the grid's y and each scene with the blocks, and the bits, of a
+    call on it alone."""
     if build.on_cpu(q, table):
         return multipole_acc_torch(q, table, g_const, eps2)
     lead = _scenes(table)
@@ -515,12 +539,15 @@ def multipole_acc(q, table, g_const, eps2):
     scenes = lead[0] if lead else 1
     if p * scenes == 0:
         return acc
+    qs, rows, out = _with_scene_axis(lead, q, table, acc)
     with torch.cuda.device(q.device):
-        rc = _lib().multipole_far(q.data_ptr(), table.data_ptr(), scenes, p, k,
-                                  grouped_plan(1, p)["lanes"], float(g_const), float(eps2),
-                                  acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    build.raise_on(rc, "multipole_far launch")
-    multipole_acc.launches += 1
+        for s0, s1 in scene_chunks(scenes):
+            rc = _lib().multipole_far(qs[s0].data_ptr(), rows[s0].data_ptr(), s1 - s0, p, k,
+                                      grouped_plan(1, p)["lanes"], float(g_const),
+                                      float(eps2), out[s0].data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+            build.raise_on(rc, "multipole_far launch")
+            multipole_acc.launches += 1
     return acc
 
 
@@ -578,7 +605,8 @@ def grouped_multipole_acc(q, table, ids, g_const, eps2):
     takes one). An id outside [0, K) reads as a zero row.
 
     A group of S scenes, ``q`` (S, G, P, 3), ``table`` (S, K, 10) and ``ids``
-    (S, G, L), gives (S, G, P, 3) in one launch, the scene on the grid's y:
+    (S, G, L), gives (S, G, P, 3) in one launch (one a
+    ``pairwise.scene_chunks`` chunk), the scene on the grid's y:
     scene s's ids read scene s's table, an id outside [0, K) as a zero row
     (never a row of another scene), and each scene has the blocks, and the
     bits, of a call on it alone."""
@@ -594,13 +622,15 @@ def grouped_multipole_acc(q, table, ids, g_const, eps2):
     scenes = lead[0] if lead else 1
     if groups * p * scenes == 0:
         return acc
+    qs, rows, lists, out = _with_scene_axis(lead, q, table, ids, acc)
     with torch.cuda.device(q.device):
-        rc = _lib().multipole_grouped(
-            q.data_ptr(), table.data_ptr(), ids.data_ptr(), scenes, groups, p, s, k,
-            grouped_plan(groups, p)["lanes"], float(g_const), float(eps2), acc.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    build.raise_on(rc, "multipole_grouped launch")
-    grouped_multipole_acc.launches += 1
+        for s0, s1 in scene_chunks(scenes):
+            rc = _lib().multipole_grouped(
+                qs[s0].data_ptr(), rows[s0].data_ptr(), lists[s0].data_ptr(), s1 - s0,
+                groups, p, s, k, grouped_plan(groups, p)["lanes"], float(g_const),
+                float(eps2), out[s0].data_ptr(), torch.cuda.current_stream().cuda_stream)
+            build.raise_on(rc, "multipole_grouped launch")
+            grouped_multipole_acc.launches += 1
     return acc
 
 

@@ -790,8 +790,10 @@ def _close_or_zero(got, want, bar, empty):
         _close_rel(got, want, bar)
 
 
+# groups of 8,192 and 16,384 receivers: the 10M refinement at B = 512 and 1024
 @pytest.mark.parametrize("groups,p,s,k", [(1, 5, 3, 4), (13, 130, 40, 77), (7, 2048, 768, 900),
-                                          (31, 128, 80, 400), *_B10_EDGES])
+                                          (31, 128, 80, 400), (3, 8192, 768, 1000),
+                                          (2, 16384, 48, 500), *_B10_EDGES])
 def test_b10_matches_plain(cuda, groups, p, s, k):
     table = _table(k, 3, groups + k, cuda)
     gen = torch.Generator().manual_seed(groups)
@@ -819,8 +821,11 @@ def _near_inputs(groups, rows, lst, bs, dev):
     return q, pos, mass, near
 
 
+# the 10M near lists: bh2 at B = 512 and 1024, bh3 at B = 512 with sub-blocks of 32
 @pytest.mark.parametrize("groups,rows,lst,bs", [(7, 256, 32, 256), (13, 128, 48, 32),
-                                                (5, 37, 3, 17), (1, 1, 1, 1), *_NEAR_EDGES])
+                                                (5, 37, 3, 17), (1, 1, 1, 1), (3, 512, 16, 512),
+                                                (2, 1024, 16, 1024), (3, 512, 64, 32),
+                                                *_NEAR_EDGES])
 def test_b1_near_list_matches_plain(cuda, groups, rows, lst, bs):
     q, pos, mass, near = _near_inputs(groups, rows, lst, bs, cuda)
     before = pw.near_accelerations.launches
@@ -1022,8 +1027,67 @@ def test_batched_morton_graph_is_one_b7_and_one_b8(cuda, n, k, include_self, mas
         r_one = radius.radius_neighbors(pos[i], 0.5, k, mask=m, include_self=include_self,
                                         method="morton", impl="kernel")
         assert torch.equal(r_idx[i], r_one[0]) and torch.equal(r_valid[i], r_one[1])
-    with pytest.raises(ValueError, match="copies"):  # past the grid's y
-        sp.morton_select(torch.zeros(sp.MAX_COPIES + 1, 3, 4, device=cuda), 1, 1, True)
+    # past the grid's y: one launch a chunk of copies, each copy its own call's
+    before = sp.morton_select.launches
+    wide = sp.morton_select(torch.zeros(sp.MAX_COPIES + 1, 3, 4, device=cuda), 1, 1, True)
+    assert sp.morton_select.launches == before + 2
+    one = sp.morton_select(torch.zeros(1, 3, 4, device=cuda), 1, 1, True)
+    assert all(bool((a == b).all()) for a, b in zip(wide, one))  # every copy that input
+
+
+def _past_the_cap_case(kernel, dev):
+    """(wrapper, args) of one call on a group of 7 scenes (B7: 2 scenes x 4
+    copies = 8 copies)."""
+    gen = torch.Generator().manual_seed(7)
+    if kernel in ("b1", "b1split"):  # b1split: 100 targets cut 20,000 sources in chunks
+        ni, nj = (300, 300) if kernel == "b1" else (100, 20_000)
+        pos, _, mass = _spiral(7 * nj, 11, dev)
+        pj, mj = pos.reshape(7, nj, 3), mass.reshape(7, nj)
+        return pw.partial_accelerations, (pj[:, :ni].contiguous(), pj, mj, G, EPS)
+    if kernel in ("b2", "b2cross"):
+        pos, _, mass = _spiral(7 * 700, 12, dev)
+        p, m = pos.reshape(7, 700, 3), mass.reshape(7, 700)
+        if kernel == "b2":
+            return pw.pair_potential, (p, m, p, m, G, EPS, True)
+        return pw.pair_potential, (p[:, :300].contiguous(), m[:, :300].contiguous(),
+                                   p[:, 300:].contiguous(), m[:, 300:].contiguous(), G, EPS,
+                                   False)
+    if kernel == "near":
+        pos, _, mass = _spiral(7 * 40 * 32, 13, dev)
+        q = pos[torch.randint(0, 7 * 40 * 32, (7 * 13 * 128,), generator=gen).to(dev)]
+        ids = torch.randint(0, 40, (7, 13, 8), generator=gen, dtype=torch.int32).to(dev)
+        return pw.near_accelerations, (q.reshape(7, 13, 128, 3).contiguous(),
+                                       pos.reshape(7, 40 * 32, 3), mass.reshape(7, 40 * 32),
+                                       ids, 32, G, EPS)
+    if kernel == "b7":
+        pos = torch.stack([_spiral(700, 14 + i, dev)[0] for i in range(2)])
+        cand, _ = sp._candidates(pos, sp._curve_order(pos, None, 4), 128)
+        return sp.morton_select, (cand, 5, 128, False)
+    table = torch.stack([_table(77, 2, 20 + i, dev) for i in range(7)])
+    if kernel == "b9":
+        return tf.multipole_acc, (torch.randn(7, 1000, 3, generator=gen).to(dev), table, G,
+                                  EPS ** 2)
+    ids = torch.randint(0, 77, (7, 13, 40), generator=gen, dtype=torch.int32).to(dev)
+    return tf.grouped_multipole_acc, (torch.randn(7, 13, 130, 3, generator=gen).to(dev),
+                                      table, ids, G, EPS ** 2)
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b1split", "b2", "b2cross", "near", "b9", "b10",
+                                    "b7"])
+def test_groups_past_the_scene_cap_run_in_chunks(cuda, kernel, monkeypatch):
+    """A group past the scene cap (B7: past the copy cap), here lowered to 3,
+    runs as one launch a chunk of at most 3 scenes, and every scene keeps
+    the bits of one launch over the whole group."""
+    wrapper, args = _past_the_cap_case(kernel, cuda)
+    before = wrapper.launches
+    whole = wrapper(*args)
+    assert wrapper.launches == before + 1
+    monkeypatch.setattr(sp if kernel == "b7" else pw,
+                        "MAX_COPIES" if kernel == "b7" else "MAX_SCENES", 3)
+    chunked = wrapper(*args)
+    assert wrapper.launches == before + 1 + 3  # 3 + 3 + 1 scenes (B7: 3 + 3 + 2 copies)
+    for a, b in zip(*((whole, chunked) if kernel == "b7" else ((whole,), (chunked,)))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("engine", ["bh", "bh2", "bh3"])

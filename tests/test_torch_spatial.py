@@ -70,18 +70,27 @@ def _recall(got, want):
     return hits / max(tot, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _spiral_500k():
+    return _spiral_np(500_000, 0)
+
+
 @pytest.mark.parametrize("copy", range(4))
 def test_morton_keys_bit_for_bit(copy):
+    """Also at 500,000 bodies of the 2M-10M artifacts' ICs, where a scale
+    rounded otherwise than JAX's once put 53 keys a quantum away."""
     rot, shift = jsp._COPIES[copy]
-    pos = _spiral_np(3000, 1)
-    mask = np.arange(3000) < 2900
-    for m in (None, mask):
-        want = np.asarray(jsp.morton_keys(jnp.asarray(pos), None if m is None else jnp.asarray(m),
-                                          shift=shift, rot=rot))
-        got = tsp.morton_keys(torch.from_numpy(pos), None if m is None else torch.from_numpy(m),
-                              shift=shift, rot=rot)
-        assert got.dtype == torch.int32
-        np.testing.assert_array_equal(got.numpy(), want)
+    for pos in (_spiral_np(3000, 1), _spiral_500k()):
+        mask = np.arange(len(pos)) < len(pos) - 100
+        for m in (None, mask):
+            want = np.asarray(jsp.morton_keys(jnp.asarray(pos),
+                                              None if m is None else jnp.asarray(m),
+                                              shift=shift, rot=rot))
+            got = tsp.morton_keys(torch.from_numpy(pos),
+                                  None if m is None else torch.from_numpy(m),
+                                  shift=shift, rot=rot)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("impl", ["kernel", "dense"])

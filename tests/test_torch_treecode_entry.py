@@ -23,13 +23,13 @@ from nbody_tpu_torch.experiments import (bh_rollout, contconv_experiment, crosso
 N = 2000
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "gnn_reference.json")
 ROLLOUT_KEYS = {"n", "steps", "dt", "engine", "bh_near", "block", "bh_refresh",
-                "wall_s", "ms_per_step", "psteps_per_s", "device"}
+                "wall_s", "ms_per_step", "psteps_per_s", "audit_s", "device"}
 ENERGY_KEYS = {"E0", "E1", "rel_energy_drift"}
 SAMPLE_KEYS = {"error_sample", "end_rel_err_median", "end_rel_err_p99"}
 PROFILE_KEYS = {"profile_steps", "profile_wall_s", "busy_seconds", "idle_share", "top_ms"}
 BENCH_KEYS = {"n", "n_near", "block", "exact_ms", "bh_fresh_ms", "bh_reused_ms",
               "partition_ms", "rel_err_median", "rel_err_p99", "err_over_rms_p99",
-              "speedup_fresh", "speedup_reused"}
+              "speedup_fresh", "speedup_reused", "seed"}
 
 
 def _json_lines(out):

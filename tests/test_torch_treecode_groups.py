@@ -32,6 +32,7 @@ from nbody_tpu.ops import spatial as jsp
 from nbody_tpu.ops import treeforce as jtf
 from nbody_tpu_torch.core import SimulationConfig, simulate
 from nbody_tpu_torch.data import generate as tgen
+from nbody_tpu_torch.ops import build
 from nbody_tpu_torch.ops import pairwise as tpw
 from nbody_tpu_torch.ops import radius as tradius
 from nbody_tpu_torch.ops import spatial as tsp
@@ -213,6 +214,40 @@ def test_group_engines_match_vmapped_jax_on_carried_partition(engine, impl, jax_
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3, atol=ATOL[engine])
 
 
+@pytest.mark.parametrize("engine", ["bh", "bh2", "bh3"])
+@pytest.mark.parametrize("impl,jax_impl", [("dense", "xla"), ("kernel", "pallas_interpret")])
+def test_group_engines_match_vmapped_jax_at_the_seam_seeds(engine, impl, jax_impl):
+    """Scenes from seeds 9-11, where one bh2 element of the 9,216 misses the
+    bar above by 2.5e-10: float32 cancellation across the near/far seam,
+    which JAX's own two near paths show there too. Held by the seam rule of
+    ``tests/test_torch_parallel_ring_bh.py``: at most 1e-3 of the elements
+    over that bar."""
+    pn, _, mn = _group(seed=9)
+    jpart = _jax_partition(engine, pn, mn)
+    part = ttf.partition_from_numpy({k: np.asarray(v) for k, v in jpart._asdict().items()})
+    want = np.asarray(jax.vmap(lambda p, m, jp: JAX_ENGINE[engine](
+        p, m, G, EPS, partition=jp, i_chunk=4, near_impl=jax_impl))(pn, mn, jpart))
+    got = _engine(engine)(*_torch(pn, mn), G, EPS, partition=part, i_chunk=4,
+                          near_impl=impl).numpy()
+    over = np.abs(got - want) > ATOL[engine] + 2e-3 * np.abs(want)
+    assert over.mean() <= 1e-3, f"{over.sum()} of {over.size} elements over the bar"
+
+
+@pytest.mark.parametrize("scenes,cap,want", [
+    (7, 3, [(0, 3), (3, 6), (6, 7)]), (6, 3, [(0, 3), (3, 6)]), (3, 3, [(0, 3)]),
+    (1, 3, [(0, 1)]), (0, 3, [])])
+def test_scene_chunks_cut_a_group_in_order(scenes, cap, want, monkeypatch):
+    """The launches of a group past the scene cap (lowered here): runs of at
+    most the cap, in order, covering every scene once; the cap is read at
+    the call, by the treecode wrappers too, and B7 cuts its copies the same
+    way."""
+    assert tpw.scene_chunks(65536) == [(0, 65535), (65535, 65536)]
+    monkeypatch.setattr(tpw, "MAX_SCENES", cap)
+    assert tpw.scene_chunks(scenes) == want
+    assert ttf.scene_chunks is tpw.scene_chunks
+    assert build.chunks(scenes, cap) == want
+
+
 # ------------------------------------- the scene-axis plain versions
 
 def _tables(rng, s, k):
@@ -323,7 +358,8 @@ def test_batched_morton_graph_stacks_copies_scene_major():
     """The batch's candidates are one (B * C, (nb + 2) * block, 4) array,
     scene-major, each copy with its own sentinel blocks; its rows come back
     as (B * N, C * k), scene s in rows s * N ..; more copies than one launch
-    takes are refused on the card (the CPU plain version takes any)."""
+    takes run on the card in chunks of copies (the CPU plain version takes
+    any in one call)."""
     pos = torch.from_numpy(_group(s=2, n=700, seed=4)[0])
     order = tsp._curve_order(pos, None, 4)
     assert order.shape == (2, 4, 700)
