@@ -154,6 +154,22 @@ the port's main path once:
     (e) bh3 at 10M at ``bh3_10m_tier.json``'s knobs on ``treeforce_bench``'s
     ICs and receivers, the kernel path against the dense path elementwise
     and in the sampled median and p99 of the force error.
+14. the JAX package's training configurations at full width, with the
+    counters at 0 before them and read after (B1 and B2 in the recipe
+    datagen, B3-B5 two launches each a ContConv step, B7-B10, the near list
+    and B1 in ``train_large``): (a) the GNN recipe step at
+    ``configs/gnn_reference.json`` (width 64, k = 10, batch 64,
+    ``batch_mode`` reference, exact kNN) on the recipe cut to 2 train files
+    of 1000 steps: ms per optimiser step of one epoch, the idle share and
+    top device rows of a profiled window (1 file of 100 steps), then one
+    step's 66 exact kNN graphs and the model's forward and backward on them,
+    each profiled alone (device ms); (b) the ContConv recipe step at
+    ``configs/contconv_adopted.json`` (batch 16, mixed, merged) on the same
+    files, the same readings; (c)
+    ``train_large`` GNN at 100,000 bodies through its ``main``: 1 scene of
+    40 steps, stride 4, 2 epochs and the eval, with s per epoch, the peak
+    memory and the stepwise error against the predict-zero baseline, every
+    number finite.
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
@@ -266,6 +282,12 @@ BH3_10M_TIER = dict(n_near=48, block=512, coarse=16, rc=48, sub_block=32, n_sub=
 BH2_10M_MEDIAN = 0.03   # bh_rollout_10m.json: 0.0195 after 200 steps
 BH3_10M_MEDIAN = 0.0105  # 1.5 x bh3_10m_tier_rc96.json's 0.00698
 BH2_2M_DRIFT = 1e-5
+# phase 14: the recipe cut to 2 train files (configs/*.json: 10), seed 42 as
+# in run_experiments.sh; train_large's GNN at 100k cut to 1 scene of 40 steps
+TRAIN_CUT_FILES = 2
+WINDOW_STEPS = 100  # the profiled window: 1 file of the recipe at 100 steps
+TRAIN_LARGE_CUT = ["--n-bodies", str(LARGE_N), "--train-scenes", "1", "--steps", "40",
+                   "--stride", "4", "--bh-near", "48", "--epochs", "2", "--batch-size", "1"]
 
 
 def log(msg: str) -> None:
@@ -2524,7 +2546,7 @@ def _profile_1m_rollout(steps: int = 10, refresh: int = 8):
         f"{_rows([(n, t / steps) for n, t in top])}")
 
 
-def _train_large(argv, label, steps_per_epoch, need):
+def _train_large(argv, label, steps_per_epoch, need, tag="10e"):
     """One ``train_large.main`` call with the launch counts at 0 before it;
     logs ms per optimiser step of its last epoch and the call's peak memory,
     returns the result and the call's launches (``need`` above 0)."""
@@ -2552,7 +2574,7 @@ def _train_large(argv, label, steps_per_epoch, need):
         raise AssertionError(f"train_large {label}: result {res}")
     per_epoch = res["training"]["seconds_per_epoch"]
     step_ms = 1e3 * per_epoch[-1] / steps_per_epoch if per_epoch else float("nan")
-    log(f"[10e] train_large {label}: {wall:.2f} s wall, datagen "
+    log(f"[{tag}] train_large {label}: {wall:.2f} s wall, datagen "
         f"{res['dataset']['datagen_seconds']} s, last epoch {step_ms:.4f} ms per optimiser "
         f"step, losses first {res['training']['first_scaled_rmse']} final "
         f"{res['training']['final_scaled_rmse']}; stepwise {ev['stepwise_scaled_rmse']:.6g} "
@@ -2561,7 +2583,7 @@ def _train_large(argv, label, steps_per_epoch, need):
     return res, ran
 
 
-def _large_step_numbers(argv, data_dir, label, steps):
+def _large_step_numbers(argv, data_dir, label, steps, tag="10e"):
     """A warm and a profiled epoch of ``train_large``'s own model and trainer on
     its dataset: ms per optimiser step, idle share, top rows and
     the peak memory of those epochs."""
@@ -2579,7 +2601,7 @@ def _large_step_numbers(argv, data_dir, label, steps):
     ms, idle, top = _epoch_numbers(trainer, data_dir, args.batch_size, steps,
                                    batch_mode="bucketed")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[10e] train step {label}: {ms:.4f} ms per optimiser step, idle share {idle:.4f}, "
+    log(f"[{tag}] train step {label}: {ms:.4f} ms per optimiser step, idle share {idle:.4f}, "
         f"peak memory {peak:.3f} GiB, top device rows {_rows(top)}")
     del trainer
     torch.cuda.empty_cache()
@@ -2780,6 +2802,162 @@ def phase11_parallel(tmp: str, card: str) -> dict:
     return launches
 
 
+def _reference_step_parts(trainer, train_dir: str, batch_size: int, reps: int = 5):
+    """One ``batch_mode="reference"`` optimiser step of the first file: a
+    quota of snapshots from each body-count bucket. Device ms of its exact
+    kNN graphs (one a snapshot) and of the model's forward and backward on
+    them, each profiled alone over ``reps`` calls; returns (graphs, kNN ms,
+    model ms, the model's top rows)."""
+    import torch
+
+    from nbody_tpu_torch.train.graphs import build_graph
+    from nbody_tpu_torch.train.trainer import _list_dataset_files
+    from nbody_tpu_torch.utils.timing import profile_ms
+
+    dev = trainer.device
+    buckets = trainer._device_buckets(_list_dataset_files(train_dir)[:1])
+    sizes = {n: b[0].shape[0] for n, b in buckets.items()}
+    steps = -(-sum(sizes.values()) // batch_size)
+    parts = []
+    for n in sorted(buckets):
+        q = -(-sizes[n] // steps)
+        parts.append(trainer._gather(buckets[n], torch.arange(q, device=dev),
+                                     torch.ones(q, dtype=torch.bool, device=dev)))
+    spec = trainer.model.graph_spec
+
+    def graphs():
+        return [build_graph(spec, x[..., :3], mask) for x, _, mask in parts]
+
+    built = graphs()
+
+    def model_step():
+        trainer.model.zero_grad(set_to_none=True)
+        sse = sum(((trainer.model(x, idx, valid, node_mask=mask) - y) ** 2
+                   * mask[..., None]).sum()
+                  for (x, y, mask), (idx, valid) in zip(parts, built))
+        sse.backward()
+
+    model_step()
+    knn_ms, _ = profile_ms(lambda: [graphs() for _ in range(reps)], dev)
+    model_ms, top = profile_ms(lambda: [model_step() for _ in range(reps)], dev, top=8)
+    return (sum(x.shape[0] for x, _, _ in parts), knn_ms / reps, model_ms / reps,
+            [(name, t / reps) for name, t in top])
+
+
+def phase14_training_configs(tmp: str) -> dict:
+    """The training configurations at full width: (a) the GNN and (b) the
+    ContConv recipe steps on the recipe cut, (c) ``train_large``'s 100k GNN.
+    The counters are set to 0 here and read at the end; returns them."""
+    import torch
+
+    from nbody_tpu_torch.config import ExperimentConfig
+    from nbody_tpu_torch.experiments.common import generate_data
+    from nbody_tpu_torch.ops import contconv_kernel as cck
+    from nbody_tpu_torch.train import Trainer
+    from nbody_tpu_torch.train.trainer import _list_dataset_files
+    from nbody_tpu_torch.utils.timing import device_time
+
+    dev = torch.device("cuda")
+    zero_counts()
+    train_dir = os.path.join(tmp, "recipe", "train")
+    window_dir = os.path.join(tmp, "window", "train")
+    t0 = time.perf_counter()
+    generate_data(train_dir, num_files=TRAIN_CUT_FILES, steps=RECIPE_STEPS, seed=42, device=dev)
+    generate_data(window_dir, num_files=1, steps=WINDOW_STEPS, seed=42, device=dev)
+    log(f"[14] recipe cut: {TRAIN_CUT_FILES} files of {len(RECIPE_N)} scenes x "
+        f"{RECIPE_STEPS} steps, and a window of 1 file x {WINDOW_STEPS} steps, in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def trainer_of(name):
+        cfg = ExperimentConfig.load(os.path.join(HERE, "configs", name))
+        model = cfg.build_model(torch.Generator().manual_seed(cfg.train.seed)).to(dev)
+        return cfg, Trainer(model, learning_rate=cfg.train.learning_rate, dt=cfg.train.dt,
+                            seed=cfg.train.seed)
+
+    def steps_of(trainer, data_dir, bs, merged):
+        """Optimiser steps of one epoch: a file a group (``reference``) or
+        every file merged into one pool (``mixed``)."""
+        snaps = [trainer._dataset(f).n_snapshots for f in _list_dataset_files(data_dir)]
+        return -(-sum(snaps) // bs) if merged else sum(-(-n // bs) for n in snaps)
+
+    def recipe_numbers(cfg, trainer):
+        """ms per optimiser step of one epoch of the recipe cut, and the idle
+        share and top device rows (ms a step) of the window's epochs (warm,
+        timed, profiled: a whole epoch of the cut is too many events for the
+        profiler); returns them and the steps of both."""
+        bs, merged = cfg.train.batch_size, cfg.train.merge_files
+        w_steps = steps_of(trainer, window_dir, bs, merged)
+        _, idle, top = _epoch_numbers(trainer, window_dir, bs, w_steps,
+                                      batch_mode=cfg.train.batch_mode, merge_files=merged)
+        steps = steps_of(trainer, train_dir, bs, merged)
+        (losses, _), sec = device_time(lambda: trainer.train_from_dir(
+            train_dir, epochs=1, batch_size=bs, verbose=False, merge_files=merged,
+            batch_mode=cfg.train.batch_mode), dev)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite training loss {losses}")
+        return 1e3 * sec / steps, idle, top, steps, w_steps
+
+    # (a) the GNN recipe step: a step takes a quota of every bucket of a file
+    cfg, trainer = trainer_of("gnn_reference.json")
+    bs = cfg.train.batch_size
+    ms, idle, top, steps, w_steps = recipe_numbers(cfg, trainer)
+    graphs, knn_ms, model_ms, model_top = _reference_step_parts(trainer, train_dir, bs)
+    log(f"[14a] GNN recipe step (gnn_reference.json: width {cfg.model.kwargs['gnn_dim']}, "
+        f"k {cfg.model.kwargs['neighbors']}, batch {bs}, {cfg.train.batch_mode}, exact kNN): "
+        f"{ms:.4f} ms per optimiser step over an epoch of {steps} steps; idle share "
+        f"{idle:.4f} and top device rows over the window's {w_steps} {_rows(top)}")
+    log(f"[14a] one step's parts: {graphs} exact kNN graphs {knn_ms:.4f} device ms, the "
+        f"model's forward and backward on them {model_ms:.4f} device ms (top rows "
+        f"{_rows(model_top)})")
+    if not all(math.isfinite(v) for v in (ms, knn_ms, model_ms)) or graphs < bs:
+        raise AssertionError(f"GNN recipe step: {ms}, {knn_ms}, {model_ms}, {graphs} graphs")
+    del trainer
+
+    # (b) the ContConv recipe step: B3-B5 launch twice a step, one a layer
+    cfg, trainer = trainer_of("contconv_adopted.json")
+    bs = cfg.train.batch_size
+    wrappers = (cck.contconv_collect, cck.contconv_bwd_filters, cck.contconv_bwd_feat,
+                cck.contconv_bwd_geom)
+    before = [w.launches for w in wrappers]
+    ms, idle, top, steps, w_steps = recipe_numbers(cfg, trainer)
+    counts = [w.launches - b for w, b in zip(wrappers, before)]
+    run = cfg.model.kwargs["continuous_conv_layers"] * (steps + 3 * w_steps)
+    log(f"[14b] ContConv recipe step (contconv_adopted.json: batch {bs}, "
+        f"{cfg.train.batch_mode}, merged): {ms:.4f} ms per optimiser step over an epoch of "
+        f"{steps} steps; idle share {idle:.4f} and top device rows over the window's "
+        f"{w_steps} {_rows(top)}; launches over the epoch and the window's 3 B3 {counts[0]}, "
+        f"B4 {counts[1]}, B5 {counts[2]}, B6 {counts[3]}")
+    if counts != [run] * 3 + [0]:
+        raise AssertionError(f"ContConv recipe launches B3-B6 {counts}: {run} each for B3-B5 "
+                             f"and 0 for B6 expected")
+    del trainer
+    torch.cuda.synchronize()
+    ran = read_counts()  # _train_large sets the counters to 0 again
+
+    # (c) train_large's GNN at 100k through its main
+    out = os.path.join(tmp, "train_100k.json")
+    res, large = _train_large([*TRAIN_LARGE_CUT, "--data-dir", os.path.join(tmp, "data"),
+                           "--out", out], "GNN N=100k, 1 scene of 40 steps, 2 epochs",
+                          10, ("b1", "b7", "b8", "b9", "b10", "b1n"), tag="14c")
+    tr, ev = res["training"], res["eval"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _large_step_numbers(TRAIN_LARGE_CUT, os.path.join(tmp, f"data{LARGE_N // 1000}k", "train"),
+                        f"GNN N={LARGE_N} k=10 fused, batch 1", 10, tag="14c")
+    log(f"[14c] train_large GNN N={LARGE_N}: s per epoch {tr['seconds_per_epoch']}, peak "
+        f"memory {peak:.3f} GiB, stepwise {ev['stepwise_scaled_rmse']:.6g} against the "
+        f"predict-zero baseline {ev['predict_zero_baseline_scaled_rmse']:.6g}")
+    if not (len(tr["seconds_per_epoch"]) == 2
+            and all(math.isfinite(v) for v in (tr["first_scaled_rmse"], tr["final_scaled_rmse"],
+                                               *tr["seconds_per_epoch"]))):
+        raise AssertionError(f"train_large GNN N={LARGE_N}: training {tr}")
+    ran = {k: ran[k] + c for k, c in large.items()}
+    log(f"[14] launches on the training configurations' paths: {ran}")
+    if min(ran[k] for k in ("b1", "b2", "b3", "b4", "b5", "b7", "b8", "b9", "b10", "b1n")) == 0 \
+            or ran["b6"] or ran["b11"]:
+        raise AssertionError(f"training configurations' launches {ran}")
+    return ran
+
+
 def main() -> int:
     card = phase0_device()
     import torch
@@ -2883,6 +3061,11 @@ def main() -> int:
     phase13_kernels()
     phase13_tier_paths()
     stamp("13")
+
+    # the training configurations at full width: counters at 0 in the phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_configs_") as tmp:
+        phase14_training_configs(tmp)
+    stamp("14")
 
     # B11 on the crossover path's own data: its launches are counted here
     zero_counts()

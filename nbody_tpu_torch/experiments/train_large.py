@@ -20,12 +20,15 @@ Usage::
     python -m nbody_tpu_torch.experiments.train_large --n-bodies 1000000 \\
         --neighbors 8 --remat --batch-size 1 --save-every 1
 
-Writes ``results/large_scale/train_<N>.json`` (the JAX script's keys), its
-``_epoch_loss.csv`` and the final weights ``_params.pt``. The flags are the
-JAX script's. What differs in the port:
+Writes ``results/large_scale_h100/train_<N><model>.json`` (the JAX script's
+keys), its ``_epoch_loss.csv`` and the final weights ``_params.pt``. The flags
+are the JAX script's. What differs in the port:
 
 - ``--device`` (default cuda; the CPU only as ``--device cpu``), and
   ``device_kind`` in the result;
+- the defaults of ``--out`` and ``--data-dir`` lie under
+  ``results/large_scale_h100/``, never on the JAX package's artifacts in
+  ``results/large_scale/``;
 - ``--conv-impl`` takes ``dense`` or ``kernel`` (the JAX ``xla`` /
   ``pallas``); unset, the ContConv layers choose for themselves (the kernels
   B3-B5 on a card), in training and in the rollout alike;
@@ -51,6 +54,8 @@ import torch
 from nbody_tpu_torch.experiments.common import resolve_device
 
 G, EPS, DT = 4.5e-6, 0.05, 1e-4
+# the port's answers stand beside the JAX artifacts of results/large_scale/
+RESULTS = "results/large_scale_h100"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recorded in the result and otherwise without effect: the "
                         "port dispatches training batch by batch, so there is no "
                         "scan whose length this could cap")
-    p.add_argument("--data-dir", default="results/large_scale/data")
+    p.add_argument("--data-dir", default=f"{RESULTS}/data")
     p.add_argument("--out", default=None)
     p.add_argument("--load-params", default=None,
                    help="skip training: load final weights from this state_dict "
@@ -117,6 +122,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (the CPU only as --device cpu)")
     return p
+
+
+def size_tag(n: int) -> str:
+    """``20k`` for 20,000 bodies, the JAX script's file tag."""
+    return f"{n // 1000}k" if n % 1000 == 0 else str(n)
+
+
+def default_out(args) -> str:
+    """The result JSON without ``--out``: ``train_<N><model>.json`` under
+    :data:`RESULTS`, the JAX artifact's name."""
+    mtag = "" if args.model == "gnn" else f"_{args.model}"
+    return f"{RESULTS}/train_{size_tag(args.n_bodies)}{mtag}.json"
 
 
 def build_model(args, dev: torch.device):
@@ -161,7 +178,7 @@ def main(argv=None) -> dict:
     from nbody_tpu_torch.train.trainer import Trainer
 
     n = args.n_bodies
-    tag = f"{n // 1000}k" if n % 1000 == 0 else str(n)
+    tag = size_tag(n)
     data_dir = args.data_dir + tag
     train_dir = os.path.join(data_dir, "train")
     test_dir = os.path.join(data_dir, "test")
@@ -196,8 +213,7 @@ def main(argv=None) -> dict:
     model = build_model(args, dev).to(dev)
     trainer = Trainer(model, learning_rate=args.lr, dt=DT, seed=0,
                       scheduler=PlateauScheduler(lr=args.lr, factor=0.25, patience=5))
-    mtag = "" if args.model == "gnn" else f"_{args.model}"
-    out = args.out or f"results/large_scale/train_{tag}{mtag}.json"
+    out = args.out or default_out(args)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     stem = out[:-5]
     csv_path = stem + "_epoch_loss.csv"

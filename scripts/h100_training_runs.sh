@@ -1,0 +1,193 @@
+#!/bin/bash
+# The JAX package's surrogate training configurations through the port, on
+# one CUDA card: the eight results/large_scale/train_*.json configurations at
+# their artifacts' knobs, the committed 1M weights' eval, and the two
+# 100-epoch reference experiments with run_experiments.sh's flags. Each lane
+# runs in its own process beside the others (they share the card); the lanes
+# are independent except that the reference lanes share one dataset, made
+# before any lane starts.
+#
+#   scripts/h100_training_runs.sh OUT LANE ...
+#
+# Lanes:
+#   small        train_20k, train_50k, train_100k, train_20k_contconv
+#   cc100k       train_100k_contconv_r3, train_100k_contconv
+#   r3           train_100k_r3
+#   1m           train_1m (23 epochs, JAX's run stopped there) and
+#                train_1m_committed_weights (eval of results/large_scale/
+#                train_1m_params.pt on the port's own 1M data)
+#   jaxinit      train_20k and train_100k from JAX's initial weights
+#                (CARRY/jaxinit/ckpt_0.pt, scripts/jax_initial_checkpoint.py)
+#                and train_20k again from the port's
+#   ics          scripts/ic_realizations.py at 1M on both packages'
+#                realisations (CARRY/jax_ics_1m.npz from its --dump-jax)
+#   refdata      the reference datasets made twice more, their digests beside
+#                OUT/ref_data.sha256 (is the datagen repeatable on one card?)
+#   gnn:E[:S]    E more epochs of gnn_experiment, resumed from the latest
+#                checkpoint, then its eval; S seconds at most (the epoch under
+#                way when they run out is lost, and the eval takes the latest
+#                checkpoint); E = 0 runs the eval alone
+#   contconv:E[:S]  the same for contconv_experiment
+#
+# OUT gets every lane's log, the train_large JSONs and epoch-loss CSVs (the
+# final weights go to WORK), and
+# for the reference lanes this call's epoch_loss.csv (the experiments write
+# the losses of the current call only: join the calls' files in order), the
+# result CSVs once evaluated, and the latest checkpoint. WORK (default _h100,
+# git-ignored) holds the datasets and checkpoints; CARRY (default
+# _h100carry) is read for a checkpoint to resume from when WORK has none, so
+# a checkpoint brought back from an earlier call's OUT continues there. The
+# reference datasets are regenerated from their seeds when WORK lacks them;
+# their digests (without the step_time column) go into OUT/ref_data.sha256,
+# which must match between calls that resume one run. The batch order is seeded from the dataset paths, so
+# keep WORK the same between calls.
+set -u
+OUT=$1; shift
+WORK=${WORK:-_h100}
+CARRY=${CARRY:-_h100carry}
+mkdir -p "$OUT/logs" "$WORK"
+export OMP_NUM_THREADS=${OMP_NUM_THREADS:-2} PYTHONUNBUFFERED=1
+T0=$(date +%s)
+stamp() { echo "[$(( $(date +%s) - T0 )) s] $*"; }
+clock() { while IFS= read -r line; do echo "[$(( $(date +%s) - T0 )) s] $line"; done; }
+# digests of a dataset's CSVs without their step_time column (a wall-clock
+# reading, so the one column that differs between two runs of the datagen)
+digests() { (cd "$1" && for f in data/*/*.csv; do
+    echo "$(cut -d, -f1-3,5- "$f" | sha256sum | cut -c1-64)  $f"; done); }
+
+large() {  # large NAME ARG... : one train_large run, its JSON and CSV into OUT
+    local name=$1; shift
+    stamp "train_large $name: start"
+    python -m nbody_tpu_torch.experiments.train_large "$@" --out "$OUT/$name.json"
+    stamp "train_large $name: exit $?"
+    # the final weights stay in WORK, so that OUT holds only the small files
+    mv "$OUT/${name}_params.pt" "$WORK/" 2>/dev/null
+}
+
+# the artifacts' knobs (results/large_scale/train_*.json: dataset, training,
+# eval.rollout_horizon); the rest are the JAX script's defaults
+K400=(--steps 400 --stride 4 --bh-near 48 --lr 1e-3)
+K20K=(--n-bodies 20000 --train-scenes 2 "${K400[@]}" --epochs 20)
+K100K=(--n-bodies 100000 --train-scenes 2 "${K400[@]}" --epochs 20 --batch-size 1)
+K100K_R3=(--n-bodies 100000 --train-scenes 4 "${K400[@]}" --batch-size 1 --rollout-steps 400)
+K1M=(--n-bodies 1000000 --train-scenes 2 --steps 100 --stride 1 --bh-near 48 --neighbors 8
+     --remat --batch-size 1 --lr 1e-3 --scan-chunk 8 --epochs 23 --rollout-steps 96)
+
+lane_small() {
+    local d=$WORK/data
+    large train_20k "${K20K[@]}" --batch-size 2 --data-dir "$d"
+    large train_50k --n-bodies 50000 --train-scenes 2 "${K400[@]}" --epochs 20 \
+        --batch-size 2 --data-dir "$d"
+    large train_100k "${K100K[@]}" --data-dir "$d"
+    large train_20k_contconv --model contconv "${K20K[@]}" --batch-size 1 --skip-datagen \
+        --data-dir "$d"
+}
+
+lane_cc100k() {  # train_100k's data (made here if missing), then the 4-scene data
+    large train_100k_contconv_r3 --model contconv "${K100K_R3[@]}" --epochs 20 \
+        --skip-datagen --data-dir "$WORK/data_r3_"
+    large train_100k_contconv --model contconv "${K100K[@]}" --skip-datagen \
+        --data-dir "$WORK/data"
+}
+
+lane_r3() {  # on the 4-scene data that lane cc100k makes when it runs beside
+    if [[ " $* " == *" cc100k "* ]]; then
+        until [ -f "$WORK/data_r3_100k/test/test.npz" ]; do sleep 10; done
+    fi
+    large train_100k_r3 "${K100K_R3[@]}" --epochs 40 --skip-datagen --data-dir "$WORK/data_r3_"
+}
+
+lane_1m() {
+    local m=("${K1M[@]}" --data-dir "$WORK/data1m_")
+    large train_1m "${m[@]}" --save-every 1 --time-chunks 4
+    rm -rf "$OUT/train_1m_ckpt"
+    large train_1m_committed_weights "${m[@]}" --skip-datagen \
+        --load-params results/large_scale/train_1m_params.pt
+}
+
+lane_jaxinit() {  # train_20k and train_100k from JAX's initial weights, and a rerun of
+    # train_20k from the port's (the same data as lane small's, made again from its seeds)
+    local name
+    for name in train_20k train_100k; do
+        mkdir -p "$OUT/${name}_jaxinit_ckpt"
+        cp "$CARRY/jaxinit/ckpt_0.pt" "$OUT/${name}_jaxinit_ckpt/"
+    done
+    large train_20k_jaxinit "${K20K[@]}" --batch-size 2 --save-every 20 --skip-datagen \
+        --data-dir "$WORK/data"
+    large train_100k_jaxinit "${K100K[@]}" --save-every 20 --skip-datagen --data-dir "$WORK/data"
+    large train_20k_rerun "${K20K[@]}" --batch-size 2 --skip-datagen --data-dir "$WORK/data"
+    rm -rf "$OUT"/*_jaxinit_ckpt
+}
+
+lane_refdata() {
+    local d
+    for d in a b; do
+        python -c "
+from nbody_tpu_torch.experiments.common import generate_data
+generate_data('$WORK/ref_$d/data/train', num_files=10, seed=42)
+generate_data('$WORK/ref_$d/data/test', num_files=1, seed=43)"
+        digests "$WORK/ref_$d" > "$OUT/ref_data_$d.sha256"
+        stamp "reference datasets again ($d)"
+    done
+}
+
+lane_ics() {  # the 1M eval's readings on both packages' realisations
+    python scripts/ic_realizations.py --jax "$CARRY/jax_ics_1m.npz" --n-bodies 1000000 \
+        --seeds 42 43 1042 1043 1044 1045 1046 1047 --out "$OUT/ic_realizations_1m.json"
+}
+
+lane_ref() {  # lane_ref gnn|contconv EPOCHS [SECONDS]
+    local name=$1 epochs=$2 secs=${3:-0} base=$WORK/ref rc
+    local flags=(--seed 42 --batch-mode reference)
+    [ "$name" = contconv ] && flags=(--seed 42 --merge-files --batch-mode mixed --lr 0.001)
+    local ckpts=$base/${name}_weights
+    if [ -z "$(ls "$ckpts" 2>/dev/null)" ] && [ -d "$CARRY/${name}_weights" ]; then
+        mkdir -p "$ckpts" && cp "$CARRY/${name}_weights"/ckpt_*.pt "$ckpts"/
+    fi
+    stamp "${name}_experiment: $epochs more epochs from $(ls "$ckpts" 2>/dev/null)"
+    rm -f "$base/results/$name/epoch_loss.csv"
+    [ "$secs" -gt 0 ] || secs=0  # timeout 0: no limit
+    timeout -s TERM "$secs" python -m "nbody_tpu_torch.experiments.${name}_experiment" \
+        "${flags[@]}" --base "$base" --epochs "$epochs" --save-every 1 2>&1 | clock
+    rc=${PIPESTATUS[0]}
+    stamp "${name}_experiment: exit $rc"
+    if [ "$rc" = 124 ]; then  # out of time: evaluate the epochs reached
+        python -m "nbody_tpu_torch.experiments.${name}_experiment" "${flags[@]}" \
+            --base "$base" --epochs 0 2>&1 | clock
+        stamp "${name}_experiment eval of the latest checkpoint: exit ${PIPESTATUS[0]}"
+    fi
+    mkdir -p "$OUT/$name/${name}_weights"
+    cp "$base/results/$name"/*.csv "$OUT/$name/" 2>/dev/null
+    local last
+    last=$(ls "$ckpts" 2>/dev/null | grep -E '^ckpt_[0-9]+\.pt$' | sort -t_ -k2 -n | tail -n 1)
+    [ -n "$last" ] && cp "$ckpts/$last" "$OUT/$name/${name}_weights/"
+}
+
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
+df -h "$WORK" | tail -n 1
+for lane in "$@"; do
+    case $lane in gnn:*|contconv:*)
+        # the reference experiments' shared dataset: run_experiment's datagen
+        # with --seed 42 (train) and 43 (test), once for every lane
+        python -c "
+from nbody_tpu_torch.experiments.common import generate_data
+generate_data('$WORK/ref/data/train', num_files=10, seed=42)
+generate_data('$WORK/ref/data/test', num_files=1, seed=43)"
+        stamp "reference datasets ready"
+        digests "$WORK/ref" > "$OUT/ref_data.sha256"
+        break;;
+    esac
+done
+pids=()
+for lane in "$@"; do
+    IFS=: read -r name a b <<< "$lane"
+    case $name in
+        small|cc100k|r3|1m|jaxinit|ics|refdata) "lane_$name" "$@" > "$OUT/logs/$name.log" 2>&1 & ;;
+        gnn|contconv) lane_ref "$name" "$a" "${b:-0}" > "$OUT/logs/$name.log" 2>&1 & ;;
+        *) echo "unknown lane $lane"; exit 2;;
+    esac
+    pids+=($!)
+done
+for p in "${pids[@]}"; do wait "$p"; done
+stamp "all lanes done"
+grep -h "train_large .*exit\|experiment: exit\|Traceback\|Error" "$OUT"/logs/*.log

@@ -180,15 +180,11 @@ def test_train_large_contconv_in_node_chunks(gnn_run, tmp_path, monkeypatch):
                           "--out", str(tmp_path / "never.json"), "--device", "cpu"])
 
 
-def test_train_large_shaped_losses_match_jax_trainer(gnn_run):
-    """The slice as a whole: ``train_large``'s dataset, its model (Morton graphs,
-    fused EdgeConv, remat, output scale) and its training call, from the
-    same converted weights in both packages."""
-    root, _, _, _ = gnn_run
-    train_dir = str(root / f"data{N}" / "train")
-    kw = dict(input_dim=4, gnn_dim=8, message_passing_steps=2, aggr="mean", neighbors=4,
-              scale_factor=1e6, knn_method="morton", fused_edgeconv=True, remat=True,
-              output_scale=1e6)
+def _losses_from_the_same_weights(train_dir, **kw):
+    """Three epochs of ``train_large``'s training call in both packages from
+    the same converted weights: (JAX's losses, the port's)."""
+    kw = dict(input_dim=4, message_passing_steps=2, aggr="mean", scale_factor=1e6,
+              knn_method="morton", fused_edgeconv=True, output_scale=1e6, **kw)
     jt = JTrainer(JGraphModel(**kw, knn_impl="xla"), learning_rate=1e-3, dt=1e-4, seed=0,
                   scheduler=JPlateau(lr=1e-3, factor=0.25, patience=5))
     ds = JSnapshotDataset.from_file(os.path.join(train_dir, "train_0.npz"))
@@ -201,6 +197,24 @@ def test_train_large_shaped_losses_match_jax_trainer(gnn_run):
     call = dict(epochs=3, batch_size=1, batch_mode="bucketed", verbose=False)
     want, _ = jt.train_from_dir(train_dir, **call)
     got, _ = tt.train_from_dir(train_dir, **call)
+    return want, got
+
+
+def test_train_large_shaped_losses_match_jax_trainer(gnn_run):
+    """The slice as a whole: ``train_large``'s dataset, its model (Morton graphs,
+    fused EdgeConv, remat, output scale) and its training call, from the
+    same converted weights in both packages."""
+    root, _, _, _ = gnn_run
+    want, got = _losses_from_the_same_weights(str(root / f"data{N}" / "train"), gnn_dim=8,
+                                              neighbors=4, remat=True)
+    np.testing.assert_allclose(got, want, rtol=2e-4)
+
+
+def test_train_large_shaped_losses_match_jax_trainer_without_remat(gnn_run):
+    """The 20k-100k artifacts' GNN: no ``--remat``, k = 10."""
+    root, _, _, _ = gnn_run
+    want, got = _losses_from_the_same_weights(str(root / f"data{N}" / "train"), gnn_dim=8,
+                                              neighbors=10, remat=False)
     np.testing.assert_allclose(got, want, rtol=2e-4)
 
 

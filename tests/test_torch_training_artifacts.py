@@ -1,0 +1,147 @@
+"""The port's answers to the JAX package's training artifacts.
+
+``results/large_scale_h100/train_*.json`` answer ``results/large_scale/``'s
+files of the same names (and ``train_1m_committed_weights.json`` evaluates
+the committed 1M weights on the port's own data); ``results/gnn_h100/`` and
+``results/contconv_h100/`` answer the two reference experiments. These tests
+hold their form to the reference's: the same keys, the same knobs, a card's
+name and power limit, the same CSV headers and row counts. ``train_large``'s defaults must
+never point at the reference's own files. Reads JSON and CSV only.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import os
+
+import pytest
+
+from nbody_tpu_torch.experiments import train_large
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_DIR = os.path.join(ROOT, "results", "large_scale")
+PORT_DIR = os.path.join(ROOT, "results", "large_scale_h100")
+
+# answer -> the JAX artifact it answers
+ANSWERS = {f"train_{t}": f"train_{t}" for t in (
+    "20k", "50k", "100k", "100k_r3", "20k_contconv", "100k_contconv", "100k_contconv_r3",
+    "1m")}
+ANSWERS["train_1m_committed_weights"] = "train_1m"
+# fields the JAX script writes (nbody_tpu/experiments/train_large.py:357-436)
+# that its older artifacts predate; the port writes them always
+JAX_SCRIPT_FIELDS = {"": {"model"}, "training": {"neighbors", "scan_chunk", "remat"}}
+# what the port adds: the card's name
+PORT_FIELDS = {"": {"device_kind"}}
+# epochs each reference experiment has run on the card: the ContConv run
+# stopped at its last checkpoint when the card time ran out (PERF.md, PR 17)
+EPOCHS_REACHED = {"gnn": 100, "contconv": 18}
+# readings, not knobs
+READINGS = {"datagen_seconds", "seconds_total", "seconds_per_epoch", "final_scaled_rmse",
+            "first_scaled_rmse"}
+
+
+def _load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _pair(name):
+    return _load(os.path.join(PORT_DIR, name + ".json")), _load(
+        os.path.join(JAX_DIR, ANSWERS[name] + ".json"))
+
+
+def _csv(path):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def _epochs_run(name, jax):
+    """The epochs the JAX artifact's weights saw: its ``epochs`` knob, except
+    the 1M run, whose ``--epochs 60`` session ended at epoch 23 and was
+    evaluated from that checkpoint (its epoch-loss CSV has 23 rows)."""
+    if ANSWERS[name] == "train_1m":
+        return len(_csv(os.path.join(JAX_DIR, "train_1m_epoch_loss.csv"))[1])
+    return jax["training"]["epochs"]
+
+
+def test_train_large_defaults_stay_off_the_reference_artifacts():
+    reference = os.path.realpath(JAX_DIR)
+    p = train_large.build_parser()
+    paths = [p.parse_args([]).data_dir + train_large.size_tag(20_000)]
+    for argv in ([], ["--model", "contconv"], ["--n-bodies", "1000000", "--neighbors", "8"],
+                 ["--model", "contconv", "--n-bodies", "100000"]):
+        paths.append(train_large.default_out(p.parse_args(argv)))
+    for path in paths:
+        full = os.path.realpath(os.path.join(ROOT, path))
+        assert os.path.commonpath([full, reference]) != reference, path
+        assert os.path.commonpath([full, os.path.realpath(PORT_DIR)]) == os.path.realpath(
+            PORT_DIR), path
+    assert paths[1].endswith("/train_20k.json")
+    assert paths[2].endswith("/train_20k_contconv.json")
+
+
+@pytest.mark.parametrize("name", sorted(ANSWERS))
+def test_answer_has_the_artifacts_keys(name):
+    port, jax = _pair(name)
+    for section in ("", "dataset", "training", "eval"):
+        have = set(port[section] if section else port)
+        want = set(jax[section] if section else jax)
+        extra = JAX_SCRIPT_FIELDS.get(section, set()) | PORT_FIELDS.get(section, set())
+        assert want <= have, (section, want - have)
+        assert have - want <= extra, (section, have - want)
+    # the eval-only answer trained nothing (its weights came from --load-params)
+    assert (port["training"]["seconds_per_epoch"] == []) == name.endswith("_committed_weights")
+    assert port["device_kind"].startswith("NVIDIA"), port["device_kind"]
+    assert port["device"] == "gpu"
+
+
+@pytest.mark.parametrize("name", sorted(ANSWERS))
+def test_answer_ran_at_the_artifacts_knobs(name):
+    port, jax = _pair(name)
+    assert port["n_bodies"] == jax["n_bodies"]
+    assert port.get("model", "gnn") == jax.get("model", "gnn")
+    for section in ("dataset", "training"):
+        for key, value in jax[section].items():
+            if key in READINGS:
+                continue
+            want = _epochs_run(name, jax) if (section, key) == ("training", "epochs") else value
+            assert port[section][key] == want, (section, key, port[section][key], want)
+    assert port["eval"]["rollout_horizon"] == jax["eval"]["rollout_horizon"]
+    steps = [r["step"] for r in port["eval"]["rollout_pos_rmse"]]
+    assert steps == [r["step"] for r in jax["eval"]["rollout_pos_rmse"]]
+
+
+@pytest.mark.parametrize("name", sorted(n for n in ANSWERS if n != "train_1m_committed_weights"))
+def test_answer_epoch_loss_csv_has_the_artifacts_header(name):
+    port, jax = _pair(name)
+    header, rows = _csv(os.path.join(PORT_DIR, name + "_epoch_loss.csv"))
+    assert header == ["epoch", "loss", "mse_loss", "wall_s"]
+    assert [int(r[0]) for r in rows] == list(range(1, _epochs_run(name, jax) + 1))
+    assert float(rows[-1][1]) == pytest.approx(port["training"]["final_scaled_rmse"])
+
+
+@pytest.mark.parametrize("experiment", ["gnn", "contconv"])
+@pytest.mark.parametrize("table", ["epoch_loss", "test_results_stepwise",
+                                   "test_results_rollout"])
+def test_reference_experiment_csv_has_the_references_form(experiment, table):
+    ref_header, ref_rows = _csv(os.path.join(ROOT, "results", experiment, table + ".csv"))
+    header, rows = _csv(os.path.join(ROOT, "results", experiment + "_h100", table + ".csv"))
+    assert header == ref_header
+    if table == "epoch_loss":  # one row an epoch, the reference's 100 at most
+        assert len(rows) == EPOCHS_REACHED[experiment] <= len(ref_rows)
+    else:  # the same files, scenes and steps in the same order
+        assert len(rows) == len(ref_rows)
+        key = slice(0, 3 if table == "test_results_rollout" else 2)
+        assert [r[key] for r in rows] == [r[key] for r in ref_rows]
+
+
+@pytest.mark.parametrize("path", ["large_scale_h100/train_card.txt", "gnn_h100/card.txt",
+                                  "contconv_h100/card.txt"])
+def test_answers_name_their_card(path):
+    """Beside the answers, the card's ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` line of the runs that made them."""
+    with open(os.path.join(ROOT, "results", path)) as f:
+        name, limit = f.read().strip().split(", ")
+    assert name.startswith("NVIDIA") and limit.endswith(" W")
