@@ -7,7 +7,11 @@ Builds the hand-written CUDA kernels from ``nbody_tpu_torch/csrc`` and drives
 the port's main path once:
 
 0. device and build: the card's name and power limit, full-f32 matmuls, the
-   kernels built with nvcc for sm_90a;
+   kernels built with nvcc for sm_90a; (b) ``utils.prng``, JAX's keyed
+   random streams, on the card: JAX's known answers, 100,000 draws of each
+   kind the CPU's bits, the card's 100,000-body spiral against the CPU's,
+   and the time of a 10,000,000-body spiral drawn on the card; every galaxy
+   of the phases below is drawn from ``prng.PRNGKey``;
 1. every kernel against its plain-torch twin on spiral initial conditions,
    with kernel and twin times (B2 also its device time and kernels a call),
    and the kernel simulate path against the dense one;
@@ -290,6 +294,61 @@ TRAIN_LARGE_CUT = ["--n-bodies", str(LARGE_N), "--train-scenes", "1", "--steps",
                    "--stride", "4", "--bh-near", "48", "--epochs", "2", "--batch-size", "1"]
 
 
+# Known answers of ``nbody_tpu_torch.utils.prng``, copied from JAX 0.9 on the
+# CPU (``tests/test_torch_prng.py`` holds JAX and the port to them):
+# threefry's published vector for key (0, 0) and count (0, 0), and draws of
+# ``PRNGKey(42)``. Phase 0b and ``tests/test_torch_gpu.py`` check them on the
+# card, where there is no JAX.
+KNOWN_ANSWERS = {
+    "threefry_00": [0x6B200159, 0x99BA4EFE],
+    "split_42_6": [[1832780943, 270669613], [64467757, 2916123636],
+                   [2465931498, 255383827], [3134548294, 894150801],
+                   [2954079971, 3276725750], [2765691542, 824333390]],
+    "bits_42_4": [2098992034, 2919706841, 2646866425, 2409546199],
+    "choice_42_1000_4": [955, 914, 121, 753],
+    "uniform_42_4": [0.48870956897735596, 0.6797971725463867, 0.6162714958190918,
+                     0.5610160827636719],
+    "normal_42_4": [-0.02830461598932743, 0.4671318531036377, 0.2957029640674591,
+                    0.15354591608047485],
+    "gamma2_42_4": [3.6725165843963623, 1.0923854112625122, 3.5018391609191895,
+                    1.146207571029663],
+}
+
+
+def known_answers(device=None) -> dict:
+    """The port's draws for each entry of ``KNOWN_ANSWERS``, drawn on
+    ``device``, as lists."""
+    import torch
+
+    from nbody_tpu_torch.utils import prng
+
+    k = prng.PRNGKey(42, device)
+    zero = torch.zeros(2, dtype=torch.int64, device=k.device)
+    return {
+        "threefry_00": [int(w) for w in prng.threefry_2x32(zero[0], zero[1], zero[0], zero[1])],
+        "split_42_6": prng.split(k, 6).tolist(),
+        "bits_42_4": prng.random_bits(k, 4).tolist(),
+        "choice_42_1000_4": prng.choice(k, 1000, (4,)).tolist(),
+        "uniform_42_4": prng.uniform(k, 4).tolist(),
+        "normal_42_4": prng.normal(k, 4).tolist(),
+        "gamma2_42_4": prng.gamma(k, 2.0, 4).tolist(),
+    }
+
+
+def known_answer_mismatches(device=None) -> list:
+    """Names of the entries of ``KNOWN_ANSWERS`` that the draws on
+    ``device`` miss: every entry bit for bit (floats as float32)."""
+    import numpy as np
+
+    def arr(v):
+        a = np.asarray(v)
+        return a.astype(np.float32) if a.dtype.kind == "f" else a.astype(np.int64)
+
+    got = known_answers(device)
+    return [name for name, want in KNOWN_ANSWERS.items()
+            if not np.array_equal(arr(got[name]), arr(want))]
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -438,11 +497,67 @@ def phase0_device():
     return card
 
 
+def phase0b_prng(card: str) -> None:
+    """``utils.prng`` on the card: JAX's known answers; 100,000 draws of
+    each kind (split, bits, uniform, normal, gamma(2), choice) the CPU's bits;
+    the 100,000-body spiral of seed 1042 drawn on the card against the CPU's
+    (positions within rtol 1e-5 and 1e-6 of max |x|, velocities 1e-4 of
+    max |v|, masses equal: the galaxy takes its functions through float64,
+    so the two differ only where a double rounding does); the wall time of
+    a 10,000,000-body spiral drawn on the card, twice."""
+    import torch
+
+    from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.utils import prng
+
+    cuda = torch.device("cuda")
+    miss = known_answer_mismatches(cuda)
+    if miss:
+        raise AssertionError(f"prng known answers missed on the card: {miss}")
+    log(f"[0b] prng known answers on the card: all {len(KNOWN_ANSWERS)} equal "
+        f"(threefry (0, 0), split, bits, choice, uniform, normal, gamma)")
+    k, n = prng.PRNGKey(1042), 100_000
+    draws = {"split": lambda d: prng.split(k, n, d),
+             "bits": lambda d: prng.random_bits(k, n, d),
+             "uniform": lambda d: prng.uniform(k, n, -1.0, 1.0, d),
+             "normal": lambda d: prng.normal(k, n, d),
+             "gamma": lambda d: prng.gamma(k, 2.0, n, d),
+             "choice": lambda d: prng.choice(k, n, (4096,), device=d)}
+    for name, draw in draws.items():
+        got, want = draw(cuda).cpu(), draw("cpu")
+        unequal = int((got != want).sum())
+        log(f"[0b] {name} x {want.numel()}: card vs CPU, {unequal} unequal")
+        if unequal:
+            raise AssertionError(f"prng {name}: the card's draws differ from the CPU's")
+    got = [t.cpu() for t in generate_spiral(k, n, device=cuda)]
+    want = generate_spiral(k, n, device="cpu")
+    for name, g, w, frac in zip(("positions", "velocities", "masses"), got, want,
+                                (1e-6, 1e-4, 0.0)):
+        atol = frac * float(w.abs().max())
+        d = (g - w).abs()
+        log(f"[0b] spiral {n} (seed 1042) {name}: card vs CPU max |d| {float(d.max()):.3e}, "
+            f"{float((d > 0).float().mean()):.4f} unequal (rtol 1e-5, atol {atol:.3e})")
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=atol)
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pos, vel, mass = generate_spiral(prng.PRNGKey(0), 10_000_000, device=cuda)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not all(bool(torch.isfinite(t).all()) for t in (pos, vel, mass)):
+            raise AssertionError("the 10M spiral is not finite")
+        log(f"[0b] 10,000,000-body spiral (seed 0) drawn on the card in {secs:.3f} s "
+            f"(draw {rep + 1}; {card})")
+    del pos, vel, mass
+    torch.cuda.empty_cache()
+
+
 def phase1_kernels():
     """Each kernel against its twin; returns the 20k-shape numbers."""
     import torch
 
     from nbody_tpu_torch.core import SimulationConfig, simulate
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.ops import pairwise as pw
     from nbody_tpu_torch.utils.timing import cuda_time_ms, kernel_events
@@ -450,7 +565,7 @@ def phase1_kernels():
     dev = torch.device("cuda")
     results = {}
     for n in (500, 1_000, BIG_N):
-        pos, _, mass = generate_spiral(torch.Generator().manual_seed(n), n, device=dev)
+        pos, _, mass = generate_spiral(prng.PRNGKey(n), n, device=dev)
         acc_k = pw.partial_accelerations(pos, pos, mass, G, EPS)
         acc_t = pw.partial_accelerations_torch(pos, pos, mass, G, EPS)
         d_acc = float((acc_k - acc_t).abs().max())
@@ -494,7 +609,7 @@ def phase1_kernels():
         results[n] = dict(b1=(d_acc, ms_k, ms_t, bound(*pw.force_work(n, n))),
                           b2=(d_u, ms_uk, ms_ut, bnd_u))
 
-    pos, _, mass = generate_spiral(torch.Generator().manual_seed(8), 8_000, device=dev)
+    pos, _, mass = generate_spiral(prng.PRNGKey(8), 8_000, device=dev)
     a, ma, b, mb = pos[:3_000], mass[:3_000], pos[3_000:], mass[3_000:]
     a, b = a.contiguous(), b.contiguous()
     x_k = pw.pair_potential(a, ma, b, mb, G, EPS, masked=False)
@@ -508,7 +623,7 @@ def phase1_kernels():
     if not rel_x <= B2_TOL:
         raise AssertionError(f"B2 (cross) disagrees with its twin: {rel_x}")
     # the kernel backend against the dense torch path on the card
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(3), 256,
+    pos, vel, mass = generate_spiral(prng.PRNGKey(3), 256,
                                      device=torch.device("cuda"))
     cfg = dict(g_const=G, softening=EPS, dt=DT, calc_energy=True)
     tk = simulate(pos, vel, mass, 100, SimulationConfig(**cfg, force_backend="kernel"))
@@ -777,11 +892,12 @@ def energy_kernels_per_energy(n: int = RECIPE_N[-1], steps: int = 20):
     import torch
 
     from nbody_tpu_torch.core import SimulationConfig, simulate
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.ops import pairwise as pw
     from nbody_tpu_torch.utils.timing import device_time, kernel_events
 
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(42), n,
+    pos, vel, mass = generate_spiral(prng.PRNGKey(42), n,
                                      device=torch.device("cuda"))
     cfg = SimulationConfig(g_const=G, softening=EPS, dt=DT, calc_energy=True,
                            force_backend="kernel")
@@ -931,6 +1047,7 @@ def phase5_large_n_kernels():
     import torch
 
     from nbody_tpu_torch.experiments.knn_recall import recall_of
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.experiments.select_bench import merge_edge_rows
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.models import ContinuousConvModel
@@ -945,7 +1062,7 @@ def phase5_large_n_kernels():
     dev = torch.device("cuda")
     out = {}
     for n in (BIG_N, LARGE_N):
-        pos, _, _ = generate_spiral(torch.Generator().manual_seed(n + 5), n, device=dev)
+        pos, _, _ = generate_spiral(prng.PRNGKey(n + 5), n, device=dev)
         order = sp._curve_order(pos, None, 4)
         cand, qg = sp._candidates(pos, order, 256)
         for k, inc in ((8, False), (10, False), (32, True))[n == BIG_N:]:
@@ -1047,7 +1164,7 @@ def phase5_large_n_kernels():
     # the full-width model: kernels on the card, twins on the CPU, same weights
     model = ContinuousConvModel(**FULL_CONTCONV,
                                 generator=torch.Generator().manual_seed(4)).eval()
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(2), GRAD_N)
+    pos, vel, mass = generate_spiral(prng.PRNGKey(2), GRAD_N)
     a_cpu = predict_accelerations(model, pos, vel, mass)
     model.to(dev)
     before = cck.contconv_collect.launches
@@ -1070,6 +1187,7 @@ def phase6_large_n_path(exact_20k_ms: float):
     import torch
 
     from nbody_tpu_torch.experiments import large_scale
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.models import GraphModel
     from nbody_tpu_torch.train import autoregressive_rollout
@@ -1097,7 +1215,7 @@ def phase6_large_n_path(exact_20k_ms: float):
         log(f"[6] {name}: {wall:.2f} s wall with warm-ups")
 
     dev = torch.device("cuda")
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(7), BIG_N, device=dev)
+    pos, vel, mass = generate_spiral(prng.PRNGKey(7), BIG_N, device=dev)
     model = GraphModel(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean",
                        neighbors=10, scale_factor=1e6, knn_method="morton",
                        knn_impl="kernel",
@@ -1220,6 +1338,7 @@ def phase7_backward_kernels():
     import torch
 
     from nbody_tpu_torch.experiments.contconv_bench import b6_bound_ms
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.models.contconv import conv_geometry
     from nbody_tpu_torch.ops.radius import radius_neighbors
@@ -1247,7 +1366,7 @@ def phase7_backward_kernels():
                        time_it=False)
     _b6_pass_against_plain(edge_args, dout, d, "on grid, clamped and zero-window edges")
 
-    pos, _, _ = generate_spiral(torch.Generator().manual_seed(LARGE_N + 5), LARGE_N,
+    pos, _, _ = generate_spiral(prng.PRNGKey(LARGE_N + 5), LARGE_N,
                                 device=dev)
     idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
     geom = conv_geometry(pos[None], idx[None], valid[None], 1.0)
@@ -1289,6 +1408,7 @@ def phase7_caps() -> None:
     import torch
 
     from nbody_tpu_torch.experiments.knn_recall import recall_of
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.experiments.select_bench import merge_edge_rows
     from nbody_tpu_torch.ics import generate_spiral
     from nbody_tpu_torch.models import ContinuousConv
@@ -1321,7 +1441,7 @@ def phase7_caps() -> None:
     n, ci = 500, 136
     layer = ContinuousConv(ci, 8, filter_resolution=4, radius=1.0,
                            generator=torch.Generator().manual_seed(24)).to(dev)
-    pos, _, _ = generate_spiral(torch.Generator().manual_seed(25), n, device=dev)
+    pos, _, _ = generate_spiral(prng.PRNGKey(25), n, device=dev)
     idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
     feat = torch.randn(1, n, ci, generator=gen).to(dev)
     cot = torch.randn(1, n, 8, generator=gen).to(dev)
@@ -1345,7 +1465,7 @@ def phase7_caps() -> None:
 
     # the Morton search at k = 40: B7 in slabs of 32, B8 on rows of 160
     k = 40
-    pos, _, _ = generate_spiral(torch.Generator().manual_seed(BIG_N + k), BIG_N, device=dev)
+    pos, _, _ = generate_spiral(prng.PRNGKey(BIG_N + k), BIG_N, device=dev)
     runs = (sp.morton_select.launches, sp.morton_merge.launches)
     got = sp.knn_morton(pos, k, impl="kernel")
     ran = (sp.morton_select.launches - runs[0], sp.morton_merge.launches - runs[1])
@@ -1374,6 +1494,7 @@ def phase7_model_gradients() -> int:
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.models import ContinuousConvModel
     from nbody_tpu_torch.ops import contconv_kernel as cck
     from nbody_tpu_torch.train.graphs import build_graph
@@ -1381,7 +1502,7 @@ def phase7_model_gradients() -> int:
     dev = torch.device("cuda")
     model = ContinuousConvModel(**FULL_CONTCONV,
                                 generator=torch.Generator().manual_seed(5)).to(dev).train()
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(6), GRAD_N, device=dev)
+    pos, vel, mass = generate_spiral(prng.PRNGKey(6), GRAD_N, device=dev)
     x = torch.cat([pos, vel, mass[:, None]], -1)[None]
     idx, valid = build_graph(model.graph_spec, pos[None])
     cot = torch.randn(1, GRAD_N, 3, generator=torch.Generator().manual_seed(7)).to(dev)
@@ -1709,8 +1830,9 @@ def _tree_shapes(n, seed, build, knobs, tag="9a"):
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.utils import prng
 
-    pos, _, mass = generate_spiral(torch.Generator().manual_seed(seed), n,
+    pos, _, mass = generate_spiral(prng.PRNGKey(seed), n,
                                    device=torch.device("cuda"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1841,11 +1963,12 @@ def phase9_engines():
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.ops import pairwise as pw
     from nbody_tpu_torch.ops import treeforce as tf
     from nbody_tpu_torch.utils.timing import cuda_time_ms
 
-    pos, _, mass = generate_spiral(torch.Generator().manual_seed(TREE_N + 11), TREE_N,
+    pos, _, mass = generate_spiral(prng.PRNGKey(TREE_N + 11), TREE_N,
                                    device=torch.device("cuda"))
     exact = pw.accelerations(pos, mass, G, EPS)
     two = dict(n_near=32, block=128, coarse=16, rc=32)
@@ -1936,8 +2059,9 @@ def _stacked_spirals(s, n, seed):
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.utils import prng
 
-    ics = [generate_spiral(torch.Generator().manual_seed(seed + i), n,
+    ics = [generate_spiral(prng.PRNGKey(seed + i), n,
                            device=torch.device("cuda")) for i in range(s)]
     return tuple(torch.stack([x[f] for x in ics]) for f in range(3))
 
@@ -2224,11 +2348,12 @@ def phase13_tier_paths() -> None:
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.ops import pairwise as pw
     from nbody_tpu_torch.ops import treeforce as tf
 
     n, dev = 10_000_000, torch.device("cuda")
-    pos, _, mass = generate_spiral(torch.Generator().manual_seed(0), n, device=dev)
+    pos, _, mass = generate_spiral(prng.PRNGKey(0), n, device=dev)
     part = tf.build_bh3_partition(pos, mass, **BH3_10M_TIER)
     runs = {impl: tf.bh3_accelerations(pos, mass, G, EPS, partition=part, near_impl=impl)
             for impl in ("kernel", "dense")}
@@ -2456,12 +2581,13 @@ def phase10_fused_forward():
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.models import GraphModel
     from nbody_tpu_torch.train.graphs import build_graph
     from nbody_tpu_torch.utils.timing import cuda_time_ms
 
     dev = torch.device("cuda")
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), LARGE_N, device=dev)
+    pos, vel, mass = generate_spiral(prng.PRNGKey(0), LARGE_N, device=dev)
     x = torch.cat([pos, vel, mass[:, None]], -1)[None]
     outs, peaks, times = [], [], []
     idx = valid = None
@@ -2524,12 +2650,13 @@ def _profile_1m_rollout(steps: int = 10, refresh: int = 8):
     import torch
 
     from nbody_tpu_torch.ics import generate_spiral
+    from nbody_tpu_torch.utils import prng
     from nbody_tpu_torch.models import GraphModel
     from nbody_tpu_torch.train import autoregressive_rollout
     from nbody_tpu_torch.utils.timing import device_time, profile_ms
 
     dev = torch.device("cuda")
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), TREE_1M, device=dev)
+    pos, vel, mass = generate_spiral(prng.PRNGKey(0), TREE_1M, device=dev)
     model = GraphModel(**GNN_1M, fused_edgeconv=True)
     model.load_state_dict(torch.load(PARAMS_1M, map_location="cpu", weights_only=True))
     model.to(dev).eval()
@@ -2965,6 +3092,8 @@ def main() -> int:
     from nbody_tpu_torch.ops import pairwise as pw
 
     stamp("0 (build)")
+    phase0b_prng(card)
+    stamp("0b (prng)")
     big = phase1_kernels()
     stamp("1")
     slice2 = phase5_large_n_kernels()

@@ -5,7 +5,8 @@ The JAX package ``nbody_tpu`` is the reference; this package keeps its
 subpackage layout, public names, argument order and array layouts:
 
 - ``core``    — direct-sum physics engine and integrators
-- ``ics``     — galaxy initial-condition generators (``torch.Generator``)
+- ``ics``     — galaxy initial-condition generators, drawn from
+                ``jax.random``'s keyed streams (``utils.prng``)
 - ``ops``     — the hand-written CUDA kernels (``csrc/``) with their torch
                 twins, exact and Morton kNN, radius search, trilinear
                 interpolation, the ContConv collect and masked reductions
@@ -15,7 +16,7 @@ subpackage layout, public names, argument order and array layouts:
 - ``train``   — graph building, autoregressive rollout, and evaluation
 - ``experiments`` — ``python -m nbody_tpu_torch.experiments.large_scale``
 - ``cli``     — ``python -m nbody_tpu_torch.cli.datagen``
-- ``utils``   — device timing
+- ``utils``   — device timing and ``prng``, ``jax.random``'s threefry streams
 
 It imports ``torch``, ``numpy`` and ``pandas``, never ``jax``.
 """

@@ -1,10 +1,13 @@
 """Trajectory dataset generation — the port of ``nbody_tpu/data/generate.py``
 (reference ``src/s01-dataset-generation.py``).
 
-Each scene's initial conditions are drawn on the CPU from a seeded
-``torch.Generator`` (so a seed gives the same galaxy on every device), the
-rollout runs on the requested device through ``core.simulate``, and the
-trajectory comes back to the host once. Consecutive scenes that differ only
+Each scene's initial conditions are drawn on the requested device from
+``utils.prng.PRNGKey(seed)``, ``jax.random``'s stream, so a seed gives the
+JAX package's galaxy (the random draws are the same bits on every device;
+the spiral's too but for a rare double rounding, the disk's float32
+functions round as that device rounds), the
+rollout runs there through ``core.simulate``, and the trajectory comes back
+to the host once. Consecutive scenes that differ only
 by seed run as one group: one rollout over a leading scene axis, whose
 kernels (the direct sum's, or a treecode's) launch once a step for the
 whole group. Every function runs on the CUDA device unless the caller names
@@ -30,6 +33,7 @@ import torch
 from nbody_tpu_torch.core.simulate import (TREECODE_BACKENDS, SimulationConfig,
                                            Trajectory, resolve_backend, simulate)
 from nbody_tpu_torch.data.schema import CSV_FIELDS
+from nbody_tpu_torch.utils import prng
 from nbody_tpu_torch.utils.device import resolve_device
 from nbody_tpu_torch.ics import GENERATORS
 from nbody_tpu_torch.utils.timing import device_time
@@ -74,22 +78,21 @@ def scenario_product(**kwargs) -> List[ScenarioConfig]:
             for combo in itertools.product(*(params[k] for k in keys))]
 
 
-def scenario_generator(cfg: ScenarioConfig) -> torch.Generator:
-    """Per-scene CPU generator seeded from the seed alone, so the same seed
-    reproduces the same galaxy for identical parameters (the reference
-    reseeds inside every generator call); fresh entropy when seed is None."""
-    gen = torch.Generator()
+def scenario_key(cfg: ScenarioConfig, device=None) -> torch.Tensor:
+    """Per-scene key from the seed alone, ``prng.PRNGKey(cfg.seed)`` as in
+    the JAX package, so the same seed reproduces the same galaxy for
+    identical parameters (the reference reseeds inside every generator
+    call); fresh entropy ``% 2**31`` when seed is None."""
     if cfg.seed is None:
-        gen.seed()
-    else:
-        gen.manual_seed(cfg.seed)
-    return gen
+        return prng.PRNGKey(np.random.SeedSequence().entropy % (2 ** 31), device)
+    return prng.PRNGKey(cfg.seed, device)
 
 
-def make_initial_conditions(cfg: ScenarioConfig, generator=None, device=None):
-    """Dispatch to the galaxy generator of this scene."""
-    if generator is None:
-        generator = scenario_generator(cfg)
+def make_initial_conditions(cfg: ScenarioConfig, key=None, device=None):
+    """Dispatch to the galaxy generator of this scene; the draws run on
+    ``device`` (default: the key's)."""
+    if key is None:
+        key = scenario_key(cfg, device)
     common = dict(
         n_bodies=cfg.n_bodies,
         total_mass=cfg.total_mass,
@@ -100,10 +103,10 @@ def make_initial_conditions(cfg: ScenarioConfig, generator=None, device=None):
         device=device,
     )
     if cfg.sim_type == "disk":
-        return GENERATORS["disk"](generator, **common)
+        return GENERATORS["disk"](key, **common)
     if cfg.sim_type == "spiral":
         return GENERATORS["spiral"](
-            generator, **common, n_arms=cfg.n_arms,
+            key, **common, n_arms=cfg.n_arms,
             pitch_angle=cfg.pitch_angle, arm_strength=cfg.arm_strength)
     raise ValueError(f"unknown sim_type {cfg.sim_type!r}")
 
@@ -128,7 +131,7 @@ def _load_kernels(sim_cfg: SimulationConfig, device: torch.device) -> None:
         load_kernels()
 
 
-def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
+def run_scenario(cfg: ScenarioConfig, key=None, time_chunks: int = 1,
                  device=None):
     """ICs and the full rollout on ``device`` (default: the CUDA device;
     raises without one). Returns (trajectory on ``device``, masses as numpy,
@@ -136,7 +139,7 @@ def run_scenario(cfg: ScenarioConfig, generator=None, time_chunks: int = 1,
     when ``time_chunks > 1`` (the rollout then runs as that many
     sequentially timed segments)."""
     device = resolve_device(device)
-    pos, vel, mass = make_initial_conditions(cfg, generator, device=device)
+    pos, vel, mass = make_initial_conditions(cfg, key, device=device)
     sim_cfg = simulation_config(cfg)
     _load_kernels(sim_cfg, device)
 
@@ -166,7 +169,8 @@ def run_scenario_group(cfgs: Sequence[ScenarioConfig], device=None):
     """Run scenarios that share every parameter but the seed as ONE rollout
     over a leading scene axis (``jax.vmap`` in the JAX package) on
     ``device`` (default: the CUDA device; raises without one): each scene's
-    ICs from its own generator (so they equal its ungrouped ICs), stacked,
+    ICs from ``PRNGKey`` of its own seed (so they equal its ungrouped ICs,
+    and JAX's vmap over the scenes' keys), stacked,
     then one step loop whose kernels launch once a step for the whole
     group: B1 and B2 for the direct sum, or for a treecode (``bh``, ``bh2``,
     ``bh3``) one partition of the group, rebuilt for every scene at once,

@@ -42,6 +42,7 @@ from nbody_tpu_torch.experiments.common import resolve_device
 from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.ops import pairwise
 from nbody_tpu_torch.utils.timing import device_time, profile_ms
+from nbody_tpu_torch.utils import prng
 
 G, EPS, DT = 4.5e-6, 0.05, 1e-4
 
@@ -110,8 +111,7 @@ def sampled_force_error(pos, mass, cfg: SimulationConfig, sample: int) -> dict:
     over ``sample`` receivers, against the exact sum over all sources (B1;
     a self-pair adds an exact zero)."""
     n = pos.shape[0]
-    idx = torch.randperm(n, generator=torch.Generator().manual_seed(42))[:sample]
-    idx = idx.to(pos.device)
+    idx = prng.choice(prng.PRNGKey(42), n, (sample,), device=pos.device)
     exact = pairwise.partial_accelerations(pos[idx].contiguous(), pos, mass, G, EPS)
     build, acc = treecode_fns(mass, cfg)
     approx = acc(pos, build(pos))[idx]
@@ -126,7 +126,7 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), args.n_bodies,
+    pos, vel, mass = generate_spiral(prng.PRNGKey(0), args.n_bodies,
                                      device=dev)
     cfg = engine_config(args)
     if dev.type == "cuda":

@@ -38,7 +38,7 @@ from nbody_tpu_torch.models.contconv import conv_geometry
 from nbody_tpu_torch.ops import contconv_kernel as cck
 from nbody_tpu_torch.ops.interpolate import trilinear_corners
 from nbody_tpu_torch.ops.radius import radius_neighbors
-from nbody_tpu_torch.utils import timing
+from nbody_tpu_torch.utils import prng, timing
 from nbody_tpu_torch.utils.timing import cuda_time_ms, profile_ms
 
 
@@ -94,7 +94,7 @@ def bench(n: int, d: int, k: int, width: int, dev: torch.device, reps: int = 5,
     ``digests``, B3's, B4's and B5's output digests go in under this row's
     key, or are compared with the ones there."""
     gen = torch.Generator().manual_seed(n + d)
-    pos, _, _ = generate_spiral(torch.Generator().manual_seed(n + 5), n, device=dev)
+    pos, _, _ = generate_spiral(prng.PRNGKey(n + 5), n, device=dev)
     impl = "kernel" if dev.type == "cuda" else "dense"
     idx, valid = radius_neighbors(pos, 1.0, k, method="morton", impl=impl)
     geom = conv_geometry(pos[None], idx[None], valid[None], 1.0)

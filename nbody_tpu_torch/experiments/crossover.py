@@ -41,6 +41,7 @@ from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.models import GraphModel
 from nbody_tpu_torch.train.rollout import autoregressive_rollout
 from nbody_tpu_torch.utils.timing import device_time
+from nbody_tpu_torch.utils import prng
 
 G, EPS, DT = 4.5e-6, 0.05, 1e-4
 MODES = ["direct", "surrogate", "bh", "bh2", "bh3"]
@@ -151,7 +152,7 @@ def main(argv=None):
                 dict(force_backend="bh3", bh_sub_block=32, bh_n_sub=args.n_sub, **two_level)),
     }
     for n in args.n_bodies:
-        pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), n, device=dev)
+        pos, vel, mass = generate_spiral(prng.PRNGKey(0), n, device=dev)
         for mode, (tag, knobs) in engines.items():
             if mode not in modes:
                 continue

@@ -46,7 +46,7 @@ from nbody_tpu_torch.models.common import select_input_features
 from nbody_tpu_torch.ops import edgeconv_kernel as ek
 from nbody_tpu_torch.ops.spatial import morton_keys
 from nbody_tpu_torch.train.graphs import build_graph
-from nbody_tpu_torch.utils import timing
+from nbody_tpu_torch.utils import prng, timing
 
 WINDOW = dict(tile=256, half=384)  # the JAX module's defaults
 # the crossover / train_1m GNN (results/large_scale/train_1m.json) and its
@@ -80,7 +80,7 @@ def synthetic(n: int, dev):
 def path_data(n: int, dev):
     """(pos, mass, u', v, idx, valid): ``n`` Morton-sorted spiral bodies,
     their k = 8 Morton graph and the first EdgeConv of the 1M model."""
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), n, device=dev)
+    pos, vel, mass = generate_spiral(prng.PRNGKey(0), n, device=dev)
     order = torch.sort(morton_keys(pos), stable=True).indices
     pos, vel, mass = pos[order], vel[order], mass[order]
     model = GraphModel(**GNN_1M, fused_edgeconv=True)

@@ -51,7 +51,7 @@ import torch
 from nbody_tpu_torch.experiments.common import resolve_device
 from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.ops import pairwise
-from nbody_tpu_torch.utils import timing
+from nbody_tpu_torch.utils import prng, timing
 
 G, EPS = 4.5e-6, 0.05
 
@@ -66,7 +66,7 @@ def bench(ni: int, nj: int, eps: float, dev: torch.device, reps: int,
           check_rows: int) -> dict:
     """One row for ``ni`` targets among ``nj`` spiral bodies at softening
     ``eps``."""
-    pos, _, mass = generate_spiral(torch.Generator().manual_seed(nj), nj, device=dev)
+    pos, _, mass = generate_spiral(prng.PRNGKey(nj), nj, device=dev)
     gen = torch.Generator().manual_seed(ni)
     tgt = pos if ni == nj else pos[torch.randperm(nj, generator=gen)[:ni].to(dev)]
     cuda = dev.type == "cuda"
@@ -116,7 +116,7 @@ def energy_row(text: str, dev: torch.device, reps: int) -> dict:
     (cross, ``AxB``)."""
     a, _, b = text.partition("x")
     ni, nj = int(a), int(b or 0)
-    pos, _, mass = generate_spiral(torch.Generator().manual_seed(ni + nj), ni + nj, device=dev)
+    pos, _, mass = generate_spiral(prng.PRNGKey(ni + nj), ni + nj, device=dev)
     masked = nj == 0
     if masked:
         args = (pos, mass, pos, mass)
@@ -156,7 +156,7 @@ def chunked_row(text: str, dev: torch.device) -> dict:
     """``chunked_potential_energy`` of N spiral bodies in CHUNK-row pieces,
     host-timed (it reads one float a launch)."""
     n, chunk = (int(v) for v in text.split(":"))
-    pos, _, mass = generate_spiral(torch.Generator().manual_seed(n), n, device=dev)
+    pos, _, mass = generate_spiral(prng.PRNGKey(n), n, device=dev)
     pairwise.chunked_potential_energy(pos[:2 * chunk], mass[:2 * chunk], G, EPS, chunk)
     before = pairwise.pair_potential.launches
     u, sec = timing.device_time(

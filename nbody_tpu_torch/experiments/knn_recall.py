@@ -34,6 +34,7 @@ from nbody_tpu_torch.ics import generate_disk, generate_spiral
 from nbody_tpu_torch.ops.knn import knn_neighbors
 from nbody_tpu_torch.ops.spatial import knn_morton
 from nbody_tpu_torch.utils.timing import cuda_time_ms, device_time
+from nbody_tpu_torch.utils import prng
 
 _PROFILES = {"disk": generate_disk, "spiral": generate_spiral}
 
@@ -81,7 +82,7 @@ def main(argv=None):
 
     for profile in args.profiles:
         for n in args.n_bodies:
-            pos, _, _ = _PROFILES[profile](torch.Generator().manual_seed(7), n, device=dev)
+            pos, _, _ = _PROFILES[profile](prng.PRNGKey(7), n, device=dev)
             exact, t_exact = _timed(lambda: knn_neighbors(pos, args.k), dev)
             record(profile, n, "exact", t_exact, 1.0)
             for w in args.windows:

@@ -43,6 +43,7 @@ from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.models import ContinuousConvModel, GraphModel
 from nbody_tpu_torch.train.rollout import autoregressive_rollout
 from nbody_tpu_torch.utils.timing import device_time, profile_ms
+from nbody_tpu_torch.utils import prng
 
 G, EPS, DT = 4.5e-6, 0.05, 1e-4
 
@@ -106,7 +107,7 @@ def main(argv=None):
     default_impl = "kernel" if dev.type == "cuda" else "dense"
     args.knn_impl = args.knn_impl or default_impl
     args.conv_impl = args.conv_impl or default_impl
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), n, device=dev)
+    pos, vel, mass = generate_spiral(prng.PRNGKey(0), n, device=dev)
     model = build_model(args, torch.Generator().manual_seed(1)).to(dev).eval()
     cfg = SimulationConfig(g_const=G, softening=EPS, dt=DT, integrator="leapfrog",
                            calc_energy=False, force_backend="kernel")

@@ -36,7 +36,7 @@ import torch
 from nbody_tpu_torch.experiments.common import resolve_device
 from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.ops import spatial as sp
-from nbody_tpu_torch.utils import timing
+from nbody_tpu_torch.utils import prng, timing
 
 BLOCK, COPIES = 256, 4  # knn_morton's defaults
 B8_NAME = "merge"  # a substring of B8's kernel name, as the profiler reports it
@@ -101,7 +101,7 @@ def parse_case(text: str):
 
 
 def bench(n: int, k: int, include_self: bool, dev: torch.device, reps: int) -> dict:
-    pos, _, _ = generate_spiral(torch.Generator().manual_seed(n + 5), n, device=dev)
+    pos, _, _ = generate_spiral(prng.PRNGKey(n + 5), n, device=dev)
     order = sp._curve_order(pos, None, COPIES)
     cand, qg = sp._candidates(pos, order, BLOCK)
     ids, d2 = sp.morton_select(cand, k, BLOCK, include_self)

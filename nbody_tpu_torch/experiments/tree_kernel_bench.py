@@ -59,6 +59,7 @@ from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.ops import pairwise as pw
 from nbody_tpu_torch.ops import treeforce as tf
 from nbody_tpu_torch.utils.timing import bound_ms, cuda_time_ms, kernel_events
+from nbody_tpu_torch.utils import prng
 
 G, EPS = 4.5e-6, 0.05
 BH = dict(n_near=32, block=256)
@@ -71,7 +72,7 @@ KERNEL_NAMES = {"B9": "multipole_far", "B10": "multipole_grouped", "B1n": "near_
 
 
 def _spiral(n: int, seed: int):
-    pos, _, mass = generate_spiral(torch.Generator().manual_seed(seed), n,
+    pos, _, mass = generate_spiral(prng.PRNGKey(seed), n,
                                    device=torch.device("cuda"))
     return pos, mass
 

@@ -35,6 +35,7 @@ from nbody_tpu_torch.experiments.common import resolve_device
 from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.ops import pairwise
 from nbody_tpu_torch.utils.timing import cuda_time_ms, synchronize
+from nbody_tpu_torch.utils import prng
 
 G, EPS = 4.5e-6, 0.05
 
@@ -104,7 +105,7 @@ def main(argv=None) -> list:
         t0 = time.perf_counter()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        pos, _, mass = generate_spiral(torch.Generator().manual_seed(args.seed), n,
+        pos, _, mass = generate_spiral(prng.PRNGKey(args.seed), n,
                                        device=dev)
         build, acc = treecode_fns(mass, cfg, i_chunk=args.i_chunk)
 
@@ -125,8 +126,7 @@ def main(argv=None) -> list:
         if n <= error_cap:
             exact, approx = pairwise.accelerations(pos, mass, G, EPS), force(pos)
         elif args.error_sample:
-            idx = torch.randperm(n, generator=torch.Generator().manual_seed(42))
-            idx = idx[:args.error_sample].to(dev)
+            idx = prng.choice(prng.PRNGKey(42), n, (args.error_sample,), device=dev)
             exact = pairwise.partial_accelerations(pos[idx].contiguous(), pos, mass, G, EPS)
             approx = force(pos)[idx]
             row["error_sample"] = int(idx.shape[0])

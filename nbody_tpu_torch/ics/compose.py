@@ -15,8 +15,9 @@ def compose(
 
     Example — two-disk collision:
 
-        a = generate_disk(g1, 5000, offset=(-10, 0, 0), initial_vel=(0.001, 0, 0))
-        b = generate_disk(g2, 5000, offset=(10, 0, 0), initial_vel=(-0.001, 0, 0))
+        k1, k2 = prng.split(prng.PRNGKey(0))
+        a = generate_disk(k1, 5000, offset=(-10, 0, 0), initial_vel=(0.001, 0, 0))
+        b = generate_disk(k2, 5000, offset=(10, 0, 0), initial_vel=(-0.001, 0, 0))
         pos, vel, mass = compose(a, b)
     """
     if not systems:

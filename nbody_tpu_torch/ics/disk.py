@@ -1,8 +1,8 @@
 """Disk-galaxy initial conditions — the port of ``nbody_tpu/ics/disk.py``
 (reference ``src/galaxify/galaxies.py:54-192``).
 
-Same distributions as the reference, drawn from an explicit
-``torch.Generator``: exponential radial sampling, rim-tapered heights,
+Drawn from ``jax.random``'s keyed streams (``utils.prng``), so a key gives
+the JAX package's galaxy: exponential radial sampling, rim-tapered heights,
 Hernquist mass weights, enclosed-mass circular velocities. The enclosed mass
 is a sort + prefix sum + searchsorted, O(N log N) and exact under ties.
 """
@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from nbody_tpu_torch.ics.profiles import _F32_EPS, spherical_hernquist_distribution
+from nbody_tpu_torch.utils import prng
 
 
 def euler_rotation_matrix(angle) -> torch.Tensor:
@@ -40,7 +41,7 @@ def enclosed_mass(distances: torch.Tensor, masses: torch.Tensor) -> torch.Tensor
 
 
 def generate_disk(
-    generator: torch.Generator,
+    key: torch.Tensor,
     n_bodies: int,
     total_mass: float = 1.0,
     radial_scale: float = 3.0,
@@ -60,30 +61,28 @@ def generate_disk(
     heights, Hernquist-weighted masses and circular orbital velocities from
     the enclosed mass.
 
-    :param generator: the random stream (replaces the reference's
-        ``np.random.seed``); draws happen on its device.
-    :param device: where the result goes (default: the generator's device).
+    :param key: a ``utils.prng`` key (``prng.PRNGKey(seed)``; replaces the
+        reference's ``np.random.seed``), split as JAX splits it.
+    :param device: where the draws run and the result goes (default: the
+        key's device).
     :return: (positions (N,3), velocities (N,3), masses (N,)) float32.
     """
-    gdev = generator.device
+    gdev = key.device if device is None else torch.device(device)
     f32 = torch.float32
-
-    def uniform(lo, hi):
-        return lo + (hi - lo) * torch.rand(n_bodies, generator=generator,
-                                           device=gdev, dtype=f32)
-
+    k_r, k_z, k_phi = prng.split(key, 3, gdev)
     is_star = torch.arange(n_bodies, device=gdev) != 0  # body 0 = black hole
 
     # Exponential radial sampling: -R_d * log(1 - U), U in [eps, 1)
-    distances = -radial_scale * torch.log(1.0 - uniform(_F32_EPS, 1.0))
+    distances = -radial_scale * torch.log(1.0 - prng.uniform(k_r, n_bodies, _F32_EPS, 1.0))
     distances = torch.where(is_star, distances, 0.0)
 
     # Height tapering toward the rim; the reference keeps the (possibly
     # negative) 1 - sqrt(d) factor as-is, and so does this.
-    zs = uniform(-1.0, 1.0) * height_scale * (1.0 - torch.sqrt(distances))
+    zs = (prng.uniform(k_z, n_bodies, -1.0, 1.0) * height_scale
+          * (1.0 - torch.sqrt(distances)))
     zs = torch.where(is_star, zs, 0.0)
 
-    phi = uniform(0.0, 2 * math.pi)
+    phi = prng.uniform(k_phi, n_bodies, 0.0, 2 * math.pi)
     positions = torch.stack(
         [torch.cos(phi) * distances, torch.sin(phi) * distances, zs], dim=1)
 
@@ -108,5 +107,4 @@ def generate_disk(
     rot = euler_rotation_matrix(angle).to(gdev)
     positions = positions @ rot.T + torch.tensor(offset, dtype=f32, device=gdev)
     velocities = velocities @ rot.T + torch.tensor(initial_vel, dtype=f32, device=gdev)
-    dev = gdev if device is None else device
-    return positions.to(dev), velocities.to(dev), masses.to(dev)
+    return positions, velocities, masses

@@ -55,6 +55,7 @@ import torch.distributed as dist
 from nbody_tpu_torch.parallel.launch import imported_jax, rank_device, run_ranks
 from nbody_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 from nbody_tpu_torch.utils.timing import device_time
+from nbody_tpu_torch.utils import prng
 
 G, EPS = 4.5e-6, 0.05
 
@@ -164,7 +165,7 @@ def _system(n, seed, device):
 def _spiral(n, seed, device):
     from nbody_tpu_torch.ics import generate_spiral
 
-    return generate_spiral(torch.Generator().manual_seed(seed), n, device=device)
+    return generate_spiral(prng.PRNGKey(seed), n, device=device)
 
 
 # ------------------------------------------------------------------- paths

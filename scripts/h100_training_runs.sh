@@ -19,8 +19,9 @@
 #   jaxinit      train_20k and train_100k from JAX's initial weights
 #                (CARRY/jaxinit/ckpt_0.pt, scripts/jax_initial_checkpoint.py)
 #                and train_20k again from the port's
-#   ics          scripts/ic_realizations.py at 1M on both packages'
-#                realisations (CARRY/jax_ics_1m.npz from its --dump-jax)
+#   ics          scripts/ic_realizations.py at 1M on the port's ICs, and on the
+#                JAX package's arrays where CARRY/jax_ics_1m.npz (its
+#                --dump-jax) is there
 #   refdata      the reference datasets made twice more, their digests beside
 #                OUT/ref_data.sha256 (is the datagen repeatable on one card?)
 #   gnn:E[:S]    E more epochs of gnn_experiment, resumed from the latest
@@ -131,8 +132,11 @@ generate_data('$WORK/ref_$d/data/test', num_files=1, seed=43)"
     done
 }
 
-lane_ics() {  # the 1M eval's readings on both packages' realisations
-    python scripts/ic_realizations.py --jax "$CARRY/jax_ics_1m.npz" --n-bodies 1000000 \
+lane_ics() {  # the 1M eval's readings on the port's ICs (JAX's galaxies), and on the
+    # JAX package's own arrays where CARRY holds them
+    local jax=()
+    [ -f "$CARRY/jax_ics_1m.npz" ] && jax=(--jax "$CARRY/jax_ics_1m.npz")
+    python scripts/ic_realizations.py ${jax[@]+"${jax[@]}"} --n-bodies 1000000 \
         --seeds 42 43 1042 1043 1044 1045 1046 1047 --out "$OUT/ic_realizations_1m.json"
 }
 

@@ -3,11 +3,12 @@
 to the ``bh`` treecode's targets.
 
 Both readings are RMS values over every body, so a few bodies with large
-accelerations, or with large errors in their targets, move them. The JAX package
-draws its ICs with ``jax.random``, the port with ``torch.Generator``: the
-same distribution, other samples. This script takes both packages'
-realisations of the same scenes and reads, at step 0, with the exact
-direct sum (B1 on the card) as the targets:
+accelerations, or with large errors in their targets, move them. Both
+packages draw their ICs from ``jax.random``'s keyed streams (the port
+through ``utils.prng``), so a seed gives both the same galaxy; ``--jax``
+carries the JAX package's own arrays across, which differ from the port's
+by float32 rounding. This script reads, at step 0 of each scene, with the
+exact direct sum (B1 on the card) as the targets:
 
 - ``baseline``: 1e6 x the RMS of the exact accelerations (the predict-zero
   baseline of ``train_large``'s eval, on one snapshot);
@@ -18,12 +19,14 @@ direct sum (B1 on the card) as the targets:
 - ``bh_rms``: 1e6 x the RMS error of the ``bh`` treecode at
   ``train_large``'s knobs (M = 48, B = 256), which made the training
   targets, against the exact sum, its median relative error, and the three
-  bodies it misses most (id, 1e6 x error, 1e6 x exact |a|).
+  bodies it misses most (id, 1e6 x error, 1e6 x exact |a|);
+- ``jax_bh_*``: the same of JAX's own ``bh`` (``--jax-bh``, computed on
+  the CPU with JAX), and 1e6 x the RMS of its difference from the port's.
 
 Two steps. On a CPU with JAX, write JAX's realisations::
 
     JAX_PLATFORMS=cpu python scripts/ic_realizations.py --dump-jax ICS.npz \\
-        --n-bodies 1000000 --seeds 42 43 1042
+        --n-bodies 1000000 --seeds 42 43 1042 [--jax-bh]
 
 then on the card (no JAX needed)::
 
@@ -45,9 +48,12 @@ sys.path.insert(0, ROOT)
 G, EPS = 4.5e-6, 0.05
 
 
-def dump_jax(path: str, n: int, seeds) -> None:
-    """JAX's spiral ICs of ``train_large``'s scenes (positions and masses)."""
+def dump_jax(path: str, n: int, seeds, bh: bool = False) -> None:
+    """JAX's spiral ICs of ``train_large``'s scenes (positions and masses)
+    and, with ``bh``, JAX's own ``bh`` accelerations of them at
+    ``train_large``'s knobs (``near_impl="xla"``, the CPU's path)."""
     from nbody_tpu.data.generate import ScenarioConfig, make_initial_conditions
+    from nbody_tpu.ops.treeforce import bh_accelerations
 
     out = {}
     for s in seeds:
@@ -55,8 +61,12 @@ def dump_jax(path: str, n: int, seeds) -> None:
             n_bodies=n, sim_type="spiral", seed=s, softening=EPS, g=G))
         out[f"pos_{s}"] = np.asarray(pos, np.float32)
         out[f"mass_{s}"] = np.asarray(mass, np.float32)
+        if bh:
+            out[f"bh_{s}"] = np.asarray(bh_accelerations(
+                pos, mass, G, EPS, n_near=48, block=256, near_impl="xla"), np.float32)
     np.savez(path, **out)
-    print(f"wrote {path}: JAX's ICs of seeds {list(seeds)} at N={n}")
+    print(f"wrote {path}: JAX's ICs{' and bh forces' if bh else ''} of seeds "
+          f"{list(seeds)} at N={n}")
 
 
 def main(argv=None) -> list:
@@ -64,6 +74,8 @@ def main(argv=None) -> list:
     p.add_argument("--n-bodies", type=int, default=1_000_000)
     p.add_argument("--seeds", type=int, nargs="+", default=[42, 43, 1042])
     p.add_argument("--dump-jax", metavar="NPZ", default=None)
+    p.add_argument("--jax-bh", action="store_true",
+                   help="with --dump-jax: JAX's bh accelerations of each scene too")
     p.add_argument("--jax", metavar="NPZ", default=None,
                    help="JAX's realisations written by --dump-jax")
     p.add_argument("--weights", default=os.path.join(
@@ -73,7 +85,7 @@ def main(argv=None) -> list:
     p.add_argument("--device", default=None)
     args = p.parse_args(argv)
     if args.dump_jax:
-        dump_jax(args.dump_jax, args.n_bodies, args.seeds)
+        dump_jax(args.dump_jax, args.n_bodies, args.seeds, args.jax_bh)
         return []
 
     import torch
@@ -96,7 +108,16 @@ def main(argv=None) -> list:
     def rms(a):
         return float(1e6 * torch.sqrt((a.double() ** 2).mean()))
 
-    def row(source, seed, pos, mass, vel=None):
+    def bh_error(r, key, bh, a):
+        err = (bh - a).norm(dim=1)
+        r[f"{key}_rms"] = rms(bh - a)
+        r[f"{key}_median_rel_err"] = float((err / a.norm(dim=1).clamp_min(1e-30)).median())
+        # the bodies whose bh force is farthest off, and their exact field
+        worst = torch.topk(err, 3).indices
+        r[f"{key}_worst"] = [[int(i), 1e6 * float(err[i]), 1e6 * float(a[i].norm())]
+                             for i in worst]
+
+    def row(source, seed, pos, mass, vel=None, jax_bh=None):
         pos = pos.to(dev, torch.float32)
         mass = mass.to(dev, torch.float32)
         a = accelerations(pos, mass, G, EPS)
@@ -111,26 +132,26 @@ def main(argv=None) -> list:
         r = {"source": source, "seed": seed, "n": pos.shape[0], "baseline": rms(a),
              "top_share": float(top), "stepwise": rms(pred - a)}
         bh = bh_accelerations(pos, mass, G, EPS, n_near=48, block=256)
-        err = (bh - a).norm(dim=1)
-        r["bh_rms"] = rms(bh - a)
-        r["bh_median_rel_err"] = float((err / a.norm(dim=1).clamp_min(1e-30)).median())
-        # the bodies whose bh force is farthest off, and their exact field
-        worst = torch.topk(err, 3).indices
-        r["bh_worst"] = [[int(i), 1e6 * float(err[i]), 1e6 * float(a[i].norm())] for i in worst]
+        bh_error(r, "bh", bh, a)
+        if jax_bh is not None:  # JAX's own bh on these arrays, against the same sum
+            jax_bh = jax_bh.to(dev, torch.float32)
+            bh_error(r, "jax_bh", jax_bh, a)
+            r["jax_bh_vs_port_bh_rms"] = rms(jax_bh - bh)
         print(json.dumps(r), flush=True)
         return r
 
     rows = []
     for s in args.seeds:
         pos, vel, mass = make_initial_conditions(ScenarioConfig(
-            n_bodies=args.n_bodies, sim_type="spiral", seed=s, softening=EPS, g=G))
+            n_bodies=args.n_bodies, sim_type="spiral", seed=s, softening=EPS, g=G), device=dev)
         rows.append(row("port", s, pos, mass, vel))
     if args.jax:
         ics = np.load(args.jax)
         for s in args.seeds:
             if f"pos_{s}" in ics:
+                jax_bh = torch.from_numpy(ics[f"bh_{s}"]) if f"bh_{s}" in ics else None
                 rows.append(row("jax", s, torch.from_numpy(ics[f"pos_{s}"]),
-                                torch.from_numpy(ics[f"mass_{s}"])))
+                                torch.from_numpy(ics[f"mass_{s}"]), jax_bh=jax_bh))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": torch.cuda.get_device_name(dev) if dev.type == "cuda"

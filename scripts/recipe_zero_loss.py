@@ -3,10 +3,11 @@ either package: the floor that the GNN reference experiment's converged
 loss is read against.
 
 The GNN experiment's scaled loss is 1e6 x the RMS error over a step's
-bodies; a model that predicts zero scores 1e6 x the RMS of the targets. The
-JAX package draws the recipe's galaxies with ``jax.random`` and the port
-with ``torch.Generator``: the same distribution, other samples, and at 3-500
-bodies a scene the targets' RMS moves with the sample. This script makes the
+bodies; a model that predicts zero scores 1e6 x the RMS of the targets.
+Both packages draw the recipe's galaxies from ``jax.random``'s keyed
+streams (the port through ``utils.prng``), so the two training sets hold
+the same galaxies, and at 3-500 bodies a scene the targets' RMS moves with
+the sample: the two floors agree where the realisations do. This script makes the
 training set of ``run_experiments.sh`` (10 files, seed 42, 1000 steps) with
 one package on the CPU, unless DIR already holds it, and prints the RMS of
 its targets by body count and the mean over an epoch of a zero predictor's
@@ -16,8 +17,9 @@ step, 64 snapshots a step)::
     JAX_PLATFORMS=cpu python scripts/recipe_zero_loss.py --package jax --dir DIR_J
     python scripts/recipe_zero_loss.py --package port --dir DIR_P
 
-The port's datagen runs here with ``device="cpu"``: the same ICs as on the
-card, trajectories equal to float32 rounding.
+The port's datagen runs here with ``device="cpu"``: its random draws are
+the card's bits, and its ICs and trajectories equal the card's to float32
+rounding.
 """
 
 from __future__ import annotations

@@ -30,6 +30,29 @@ def _assert_same_dataset(a, b):
     assert a.scene_ids() == b.scene_ids()
 
 
+def test_first_snapshot_matches_jax(tmp_path):
+    """The same scenes through both packages' ``generate_dataset`` (two
+    seeds of a spiral as one group, a disk): the first snapshot's rows,
+    the ICs drawn from the same ``jax.random`` keys, within the bounds of
+    ``tests/test_torch_ics.py``; its accelerations within 1e-5 of max |a|."""
+    kw = [dict(sim_type="spiral", seed=42), dict(sim_type="spiral", seed=43),
+          dict(sim_type="disk", seed=7)]
+    common = dict(n_bodies=48, steps=2, force_backend="dense")
+    port, jax_out = str(tmp_path / "port.csv"), str(tmp_path / "jax.csv")
+    generate_dataset([ScenarioConfig(**common, **k) for k in kw], port, verbose=False,
+                     write_csv_file=False, device="cpu")
+    jgenerate_dataset([JScenario(**common, **k) for k in kw], jax_out, verbose=False,
+                      write_csv_file=False)
+    with np.load(port[:-4] + ".npz") as a, np.load(jax_out[:-4] + ".npz") as b:
+        for i in range(len(kw)):
+            for field, frac in (("pos", 1e-6), ("vel", 1e-4), ("acc", 1e-5), ("mass", 0.0)):
+                got, want = a[f"scene{i}_{field}"], b[f"scene{i}_{field}"]
+                if field != "mass":
+                    got, want = got[0], want[0]
+                np.testing.assert_allclose(got, want, rtol=1e-5,
+                                           atol=frac * np.abs(want).max())
+
+
 def test_csv_fields_match_jax():
     assert CSV_FIELDS == J_CSV_FIELDS
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from nbody_tpu_torch.ics import generate_spiral
+from nbody_tpu_torch.utils import prng
 from nbody_tpu_torch.models import GraphModel
 from nbody_tpu_torch.models.common import select_input_features
 from nbody_tpu_torch.ops import edgeconv_kernel as ek
@@ -242,7 +243,7 @@ def test_edge_message_sum_on_a_real_layer(aggr):
     Morton-sorted spiral bodies: ``edge_message_sum`` equals the layer's own
     masked tanh sum (1e-5 of max), and the layer's output follows from it."""
     n = 1200
-    pos, vel, mass = generate_spiral(torch.Generator().manual_seed(0), n)
+    pos, vel, mass = generate_spiral(prng.PRNGKey(0), n)
     order = torch.sort(morton_keys(pos), stable=True).indices
     pos, vel, mass = pos[order], vel[order], mass[order]
     model = GraphModel(input_dim=4, gnn_dim=16, message_passing_steps=2, aggr=aggr,

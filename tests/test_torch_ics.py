@@ -1,6 +1,9 @@
 """Port initial-condition generators: the checks of tests/test_ics.py on the
-port, plus distributional agreement with the JAX generators (the two draw
-from different random streams, so only distributions can agree)."""
+port, and the port's galaxies against the JAX generators' on the same key
+(``utils.prng`` draws ``jax.random``'s streams), elementwise at rtol 1e-5
+with an atol of 1e-6 of max |pos| for positions (float32 trig of angles up
+to 2 pi + 0.3 at radii up to ~30) and 1e-4 of max |vel| for velocities
+(the cancellation in ``1 - e^-x (1 + x)`` at small radii); masses equal."""
 
 import jax
 import numpy as np
@@ -14,12 +17,20 @@ from nbody_tpu.ics.profiles import spherical_hernquist_distribution as jhernquis
 from nbody_tpu_torch.ics import compose, generate_disk, generate_spiral
 from nbody_tpu_torch.ics.disk import enclosed_mass
 from nbody_tpu_torch.ics.profiles import spherical_hernquist_distribution
+from nbody_tpu_torch.utils import prng
 
 G = 4.5e-6
+ATOL_FRACTION = (1e-6, 1e-4, 0.0)  # positions, velocities, masses: of max |x|
 
 
 def _gen(seed):
-    return torch.Generator().manual_seed(seed)
+    return prng.PRNGKey(seed)
+
+
+def _assert_galaxy_close(got, want):
+    for g, w, frac in zip(got, want, ATOL_FRACTION):
+        w = np.asarray(w)
+        np.testing.assert_allclose(np.asarray(g), w, rtol=1e-5, atol=frac * np.abs(w).max())
 
 
 def test_hernquist_profile_values():
@@ -106,26 +117,55 @@ def test_spiral_velocity_magnitude_tracks_vcirc():
 
 
 def test_radial_distributions_match_jax():
-    """Disk radii ~ Exp(Rd) (mean Rd); spiral radii ~ Gamma(2, Rd) (mean
-    2 Rd, variance 2 Rd^2), drawn in the port as two exponentials. Both
-    packages' samples agree in mean and spread."""
+    """Disk radii ~ Exp(Rd), spiral radii ~ Gamma(2, Rd): the same bodies
+    as the JAX generators' for the same key, not just the same
+    distributions."""
     n, rs = 5000, 2.0
-    pd_, _, _ = generate_disk(_gen(4), n, radial_scale=rs)
-    jd, _, _ = jgenerate_disk(jax.random.PRNGKey(4), n, radial_scale=rs)
-    r_t = np.linalg.norm(pd_.numpy()[1:, :2], axis=1)
-    r_j = np.linalg.norm(np.asarray(jd)[1:, :2], axis=1)
-    assert abs(r_t.mean() - rs) < 0.1 * rs
-    assert abs(r_t.mean() - r_j.mean()) < 0.1 * rs
+    _assert_galaxy_close(generate_disk(_gen(4), n, radial_scale=rs),
+                         jgenerate_disk(jax.random.PRNGKey(4), n, radial_scale=rs))
+    ps = generate_spiral(_gen(5), n, radial_scale=rs)
+    _assert_galaxy_close(ps, jgenerate_spiral(jax.random.PRNGKey(5), n, radial_scale=rs))
+    r = np.linalg.norm(ps[0].numpy()[1:, :2], axis=1)
+    assert abs(r.mean() - 2 * rs) < 0.05 * 2 * rs
 
-    ps, _, _ = generate_spiral(_gen(5), n, radial_scale=rs)
-    js, _, _ = jgenerate_spiral(jax.random.PRNGKey(5), n, radial_scale=rs)
-    r_t = np.linalg.norm(ps.numpy()[1:, :2], axis=1)
-    r_j = np.linalg.norm(np.asarray(js)[1:, :2], axis=1)
-    assert abs(r_t.mean() - 2 * rs) < 0.05 * 2 * rs
-    assert abs(r_t.std() - np.sqrt(2) * rs) < 0.1 * np.sqrt(2) * rs
-    assert abs(r_t.mean() - r_j.mean()) < 0.075 * 2 * rs  # ~5 sigma of the difference
-    z_t, z_j = ps.numpy()[1:, 2], np.asarray(js)[1:, 2]
-    assert abs(z_t.std() - z_j.std()) < 0.05 * 0.3
+
+@pytest.mark.parametrize("seed", [0, 42, 1042])
+@pytest.mark.parametrize("kind", ["disk", "spiral"])
+def test_galaxy_matches_jax_elementwise(kind, seed):
+    port, jax_gen = {"disk": (generate_disk, jgenerate_disk),
+                     "spiral": (generate_spiral, jgenerate_spiral)}[kind]
+    _assert_galaxy_close(port(_gen(seed), 4096), jax_gen(jax.random.PRNGKey(seed), 4096))
+
+
+def test_disk_options_match_jax():
+    kw = dict(total_mass=2.0, radial_scale=1.5, height_scale=0.2, black_hole_mass=0.05,
+              offset=(1.0, -2.0, 0.5), initial_vel=(0.01, 0.0, -0.02), clockwise=False,
+              angle=(0.3, -0.2, 1.0))
+    _assert_galaxy_close(generate_disk(_gen(9), 700, **kw),
+                         jgenerate_disk(jax.random.PRNGKey(9), 700, **kw))
+
+
+def test_scene_group_ics_match_alone_and_jax_vmap():
+    """A group's ICs (``make_initial_conditions`` a scene, stacked) equal its
+    scenes drawn one at a time, and JAX's ``vmap`` over the scenes' keys."""
+    from nbody_tpu.data.generate import ScenarioConfig as JScenario
+    from nbody_tpu.data.generate import make_initial_conditions as jmake
+    from nbody_tpu_torch.data.generate import (ScenarioConfig, make_initial_conditions,
+                                               scenario_key)
+
+    seeds, n = [3, 4, 1042], 500
+    cfgs = [ScenarioConfig(n_bodies=n, sim_type="spiral", seed=s) for s in seeds]
+    group = [torch.stack(x) for x in zip(*(make_initial_conditions(c, device="cpu")
+                                           for c in cfgs))]
+    for i, s in enumerate(seeds):
+        alone = generate_spiral(prng.PRNGKey(s), n)
+        assert all(torch.equal(g[i], a) for g, a in zip(group, alone))
+    assert scenario_key(cfgs[2]).tolist() == [0, 1042]
+    jcfg = JScenario(n_bodies=n, sim_type="spiral")
+    keys = jax.numpy.stack([jax.random.PRNGKey(s) for s in seeds])
+    jgroup = jax.vmap(lambda k: jmake(jcfg, k))(keys)
+    for i in range(len(seeds)):
+        _assert_galaxy_close([g[i] for g in group], [np.asarray(j)[i] for j in jgroup])
 
 
 def test_compose_concatenates():

@@ -28,6 +28,7 @@ from nbody_tpu.ops import radius as jradius
 from nbody_tpu.ops import spatial as jsp
 from nbody_tpu_torch.experiments.select_bench import merge_edge_rows
 from nbody_tpu_torch.ics import generate_disk, generate_spiral
+from nbody_tpu_torch.utils import prng
 from nbody_tpu_torch.models import GraphModel
 from nbody_tpu_torch.ops import knn as tknn
 from nbody_tpu_torch.ops import radius as tradius
@@ -125,7 +126,7 @@ def test_knn_morton_masked_matches_jax(impl):
 @pytest.mark.parametrize("impl", ["kernel", "dense"])
 @pytest.mark.parametrize("maker", [generate_disk, generate_spiral])
 def test_knn_morton_recall(impl, maker):
-    pos, _, _ = maker(torch.Generator().manual_seed(11), 3000)
+    pos, _, _ = maker(prng.PRNGKey(11), 3000)
     exact = tknn.knn_neighbors(pos, 10)
     got = tsp.knn_morton(pos, 10, block=128, impl=impl)
     assert _recall(got, exact) >= 0.99
@@ -305,7 +306,7 @@ def _select_slab_plain(cand, k, block, include_self, floor):
 def _window_candidates(n, block):
     """B7's input for a spiral of ``n`` bodies, 5% of them masked: their
     sentinels sit in curve order, inside windows."""
-    pos, _, _ = generate_spiral(torch.Generator().manual_seed(6), n)
+    pos, _, _ = generate_spiral(prng.PRNGKey(6), n)
     mask = torch.ones(n, dtype=torch.bool)
     mask[torch.randperm(n, generator=torch.Generator().manual_seed(n))[:n // 20]] = False
     order = tsp._curve_order(pos, None, 4)
