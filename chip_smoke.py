@@ -11,7 +11,11 @@ the port's main path once:
    random streams, on the card: JAX's known answers, 100,000 draws of each
    kind the CPU's bits, the card's 100,000-body spiral against the CPU's,
    and the time of a 10,000,000-body spiral drawn on the card; every galaxy
-   of the phases below is drawn from ``prng.PRNGKey``;
+   of the phases below is drawn from ``prng.PRNGKey``; (c) flax's streams
+   (``models/init.py``): both reference configurations' initial models
+   from ``split(PRNGKey(0))[1]`` drawn on the card, JAX's known answers and
+   every parameter the CPU's bits, and one step's dropout mask the CPU's;
+   every model below is drawn from a key (a trainer's from its seed);
 1. every kernel against its plain-torch twin on spiral initial conditions,
    with kernel and twin times (B2 also its device time and kernels a call),
    and the kernel simulate path against the dense one;
@@ -32,9 +36,9 @@ the port's main path once:
    4 single-scene calls and their bound;
 3. one 20,000-body spiral scene of 200 steps with energies; after the
    counts are read, B2's share of 20 more steps' device time;
-4. the EdgeConv surrogate at the reference width (seeded random weights):
-   stepwise and 500-step rollout evaluation over the phase-2 dataset, then
-   a 50-step rollout at 20,000 bodies;
+4. the EdgeConv surrogate at the reference width (JAX's initial weights of
+   ``PRNGKey(0)``): stepwise and 500-step rollout evaluation over the
+   phase-2 dataset, then a 50-step rollout at 20,000 bodies;
 5. the large-N kernels against their twins on spiral initial conditions:
    the Morton select (B7) and merge (B8) at 20,000 and 100,000 bodies for
    kNN(10) and the radius search's k = 32 with self edges (and kNN(8), the
@@ -349,6 +353,72 @@ def known_answer_mismatches(device=None) -> list:
             if not np.array_equal(arr(got[name]), arr(want))]
 
 
+# Known answers of the initial models (``nbody_tpu_torch/models/init.py``):
+# the first values of a few flax leaves of both reference configurations'
+# models drawn from ``PRNGKey(0)``'s init key, ``split(PRNGKey(0))[1]``,
+# copied from ``jax.jit(model.init)`` (JAX 0.9, Flax 0.12, CPU;
+# ``tests/test_torch_flax_init.py`` holds JAX and the port to them).
+INIT_KNOWN_ANSWERS = {
+    "gnn/EdgeConv_0/Dense_0/kernel": [-0.038854505866765976, -0.03841238468885422,
+                                      -0.25455567240715027, 0.2057279497385025],
+    "gnn/EdgeConv_1/Dense_1/bias": [0.09818804264068604, -0.09256896376609802,
+                                    -0.037334978580474854, -0.09418684244155884],
+    "gnn/OutputHead_0/Dense_0/kernel": [0.11670973151922226, 0.004411700647324324,
+                                        -0.018527014181017876, 0.08726978302001953],
+    "contconv/MLP_0/Dense_0/kernel": [-0.2451390027999878, -0.45490705966949463,
+                                      0.43691563606262207, -0.12301206588745117],
+    "contconv/MLP_0/Dense_1/bias": [-0.08366638422012329, 0.004427863750606775,
+                                    -0.09716706722974777, -0.11459457874298096],
+    "contconv/ContinuousConv_0/filters": [-0.5277038216590881, 0.1619403213262558,
+                                          -2.736171007156372, -1.3793786764144897],
+    "contconv/ContinuousConv_1/filters": [0.0029054409824311733, -1.0645835399627686,
+                                          1.4939717054367065, -1.2173986434936523],
+    "contconv/OutputHead_0/Dense_1/kernel": [0.07679480314254761, -0.037468403577804565,
+                                             0.030574917793273926, 0.12390217185020447],
+}
+
+
+def _reference_models():
+    """The models of ``configs/gnn_reference.json`` and
+    ``configs/contconv_adopted.json``, waiting for their weights."""
+    from nbody_tpu_torch.config import ExperimentConfig
+
+    return {name: ExperimentConfig.load(os.path.join(HERE, "configs", f)).build_model()
+            for name, f in (("gnn", "gnn_reference.json"),
+                            ("contconv", "contconv_adopted.json"))}
+
+
+def init_known_answers(device=None) -> dict:
+    """The port's draws of each entry of ``INIT_KNOWN_ANSWERS``, drawn on
+    ``device``, as lists."""
+    from nbody_tpu_torch.models.init import contconv_model_variables, graph_model_params
+    from nbody_tpu_torch.utils import prng
+
+    key = prng.split(prng.PRNGKey(0, device))[1]
+    models = _reference_models()
+    trees = {"gnn": graph_model_params(models["gnn"], key),
+             "contconv": contconv_model_variables(models["contconv"], key)["params"]}
+    out = {}
+    for name, want in INIT_KNOWN_ANSWERS.items():
+        model, *path = name.split("/")
+        leaf = trees[model]
+        for part in path:
+            leaf = leaf[part]
+        out[name] = leaf.reshape(-1)[:len(want)].tolist()
+    return out
+
+
+def init_known_answer_mismatches(device=None) -> list:
+    """Names of the entries of ``INIT_KNOWN_ANSWERS`` that the draws on
+    ``device`` miss, bit for bit as float32."""
+    import numpy as np
+
+    got = init_known_answers(device)
+    return [name for name, want in INIT_KNOWN_ANSWERS.items()
+            if not np.array_equal(np.asarray(got[name], np.float32),
+                                  np.asarray(want, np.float32))]
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -550,6 +620,79 @@ def phase0b_prng(card: str) -> None:
             f"(draw {rep + 1}; {card})")
     del pos, vel, mass
     torch.cuda.empty_cache()
+
+
+def init_card_vs_cpu(cuda) -> dict:
+    """Flax's streams (``models/init.py``) on the card against the CPU:
+    both reference configurations' models drawn from ``PRNGKey(0)``'s init
+    key ``split(PRNGKey(0))[1]`` on ``cuda`` and on the CPU (values and
+    unequal ones), the wall seconds of each card draw, and one step's
+    dropout mask: the first step key of a seed-0 trainer's first bucket on
+    a recipe GNN batch (64 x 500 bodies x 64 features, rate 0.1), on the
+    card whole and as the second of two ranks' rows, against the CPU's."""
+    import torch
+
+    from nbody_tpu_torch.models.mlp import Dropout, set_dropout_key
+    from nbody_tpu_torch.utils import prng
+
+    out = {}
+    key = prng.split(prng.PRNGKey(0))[1]
+    card_models = {k: m.to(cuda) for k, m in _reference_models().items()}
+    for name, cpu_model in _reference_models().items():
+        model = card_models[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.draw_weights(key.to(cuda))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cpu_model.draw_weights(key)
+        want = cpu_model.state_dict()
+        got = {k: v.cpu() for k, v in model.state_dict().items()}
+        out[name] = {"values": sum(v.numel() for v in want.values()),
+                     "unequal": sum(int((got[k] != v).sum()) for k, v in want.items()),
+                     "draw_s": secs}
+    rng = prng.split(prng.PRNGKey(0))[0]  # a seed-0 trainer's key after its init split
+    sub = prng.split(rng)[1]               # its first bucket's
+    step = prng.split(sub, 188)[0]         # the bucket's first step key
+    x = prng.normal(prng.PRNGKey(7), (64, 500, 64))
+    layer = Dropout(0.1, ("MLP_0", "Dropout_0")).train()
+    set_dropout_key(layer, step)
+    want = layer(x)
+    set_dropout_key(layer, step.to(cuda))
+    got = layer(x.to(cuda)).cpu()
+    set_dropout_key(layer, step.to(cuda), rows=(32, 64))
+    rows = layer(x[32:].to(cuda)).cpu()
+    out["dropout"] = {"values": want.numel(), "kept": float((want != 0).float().mean()),
+                      "unequal": int((got != want).sum()),
+                      "rows_unequal": int((rows != want[32:]).sum())}
+    return out
+
+
+def phase0c_flax_init(card: str) -> None:
+    """``models/init.py`` on the card: JAX's initial models' known answers
+    drawn there, both reference models and one step's dropout mask the
+    CPU's bits (:func:`init_card_vs_cpu`)."""
+    import torch
+
+    cuda = torch.device("cuda")
+    miss = init_known_answer_mismatches(cuda)
+    if miss:
+        raise AssertionError(f"initial-model known answers missed on the card: {miss}")
+    log(f"[0c] initial-model known answers on the card: all {len(INIT_KNOWN_ANSWERS)} "
+        f"equal (JAX's jit(model.init) values)")
+    res = init_card_vs_cpu(cuda)
+    for name in ("gnn", "contconv"):
+        r = res[name]
+        log(f"[0c] {name} reference model from split(PRNGKey(0))[1]: {r['values']} values "
+            f"drawn on the card in {r['draw_s']:.3f} s, {r['unequal']} unequal to the "
+            f"CPU's ({card})")
+    d = res["dropout"]
+    log(f"[0c] dropout mask of one step (64 x 500 x 64, rate 0.1): {d['values']} values, "
+        f"kept share {d['kept']:.5f}, card vs CPU {d['unequal']} unequal, a rank's rows "
+        f"{d['rows_unequal']} unequal")
+    if res["gnn"]["unequal"] or res["contconv"]["unequal"] or d["unequal"] \
+            or d["rows_unequal"]:
+        raise AssertionError(f"flax draws on the card differ from the CPU's: {res}")
 
 
 def phase1_kernels():
@@ -985,11 +1128,12 @@ def phase4_surrogate(data_dir: str, traj):
     from nbody_tpu_torch.models import GraphModel
     from nbody_tpu_torch.train import Trainer, autoregressive_rollout, predict_accelerations
     from nbody_tpu_torch.utils.timing import device_time
+    from nbody_tpu_torch.utils import prng
 
     dev = torch.device("cuda")
     kw = dict(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean",
               neighbors=10, scale_factor=1e6)
-    model = GraphModel(**kw, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    model = GraphModel(**kw, key=prng.PRNGKey(0)).to(dev).eval()
 
     # the model on the card against the same weights on the CPU
     cpu_model = GraphModel(**kw).eval()
@@ -1162,8 +1306,7 @@ def phase5_large_n_kernels():
             raise AssertionError(f"B8 disagrees with its plain version on edge rows, w={w}")
 
     # the full-width model: kernels on the card, twins on the CPU, same weights
-    model = ContinuousConvModel(**FULL_CONTCONV,
-                                generator=torch.Generator().manual_seed(4)).eval()
+    model = ContinuousConvModel(**FULL_CONTCONV, key=prng.PRNGKey(4)).eval()
     pos, vel, mass = generate_spiral(prng.PRNGKey(2), GRAD_N)
     a_cpu = predict_accelerations(model, pos, vel, mass)
     model.to(dev)
@@ -1218,8 +1361,7 @@ def phase6_large_n_path(exact_20k_ms: float):
     pos, vel, mass = generate_spiral(prng.PRNGKey(7), BIG_N, device=dev)
     model = GraphModel(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean",
                        neighbors=10, scale_factor=1e6, knn_method="morton",
-                       knn_impl="kernel",
-                       generator=torch.Generator().manual_seed(0)).to(dev).eval()
+                       knn_impl="kernel", key=prng.PRNGKey(0)).to(dev).eval()
     autoregressive_rollout(model, pos, vel, mass, 2, DT)
     (ps, _, _), sec = device_time(
         lambda: autoregressive_rollout(model, pos, vel, mass, SURR_STEPS, DT), dev)
@@ -1439,8 +1581,7 @@ def phase7_caps() -> None:
 
     # a layer's position gradient at ci = 136: B6 on 136 channels
     n, ci = 500, 136
-    layer = ContinuousConv(ci, 8, filter_resolution=4, radius=1.0,
-                           generator=torch.Generator().manual_seed(24)).to(dev)
+    layer = ContinuousConv(ci, 8, filter_resolution=4, radius=1.0, key=prng.PRNGKey(24)).to(dev)
     pos, _, _ = generate_spiral(prng.PRNGKey(25), n, device=dev)
     idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
     feat = torch.randn(1, n, ci, generator=gen).to(dev)
@@ -1500,8 +1641,7 @@ def phase7_model_gradients() -> int:
     from nbody_tpu_torch.train.graphs import build_graph
 
     dev = torch.device("cuda")
-    model = ContinuousConvModel(**FULL_CONTCONV,
-                                generator=torch.Generator().manual_seed(5)).to(dev).train()
+    model = ContinuousConvModel(**FULL_CONTCONV, key=prng.PRNGKey(5)).to(dev).train()
     pos, vel, mass = generate_spiral(prng.PRNGKey(6), GRAD_N, device=dev)
     x = torch.cat([pos, vel, mass[:, None]], -1)[None]
     idx, valid = build_graph(model.graph_spec, pos[None])
@@ -1623,8 +1763,8 @@ def elastic_on_the_card(cfg, train_dir: str, save_path: str) -> None:
     from nbody_tpu_torch.train import Trainer, all_finite, elastic_train
 
     dev = torch.device("cuda")
-    trainer = Trainer(cfg.build_model(torch.Generator().manual_seed(2)).to(dev),
-                      learning_rate=cfg.train.learning_rate, dt=cfg.train.dt)
+    trainer = Trainer(cfg.build_model().to(dev), learning_rate=cfg.train.learning_rate,
+                      dt=cfg.train.dt, seed=2)
     seen, state = [], {"armed": True}
 
     def poison_once(epoch, losses, mses):
@@ -1716,8 +1856,8 @@ def phase8_training(tmp: str):
     cfg = ExperimentConfig.load(cfg_path).apply_overrides(RUN_SETS)
     snaps = sum(again["trainer"]._dataset(f).n_snapshots for f in _list_dataset_files(train_dir))
     steps = -(-snaps // cfg.train.batch_size)
-    trainer = Trainer(cfg.build_model(torch.Generator().manual_seed(0)).to(dev),
-                      learning_rate=cfg.train.learning_rate, dt=cfg.train.dt)
+    trainer = Trainer(cfg.build_model().to(dev), learning_rate=cfg.train.learning_rate,
+                      dt=cfg.train.dt)
     ms, idle, top = _epoch_numbers(trainer, train_dir, cfg.train.batch_size, steps,
                                    merge_files=True, batch_mode="mixed")
     log(f"[8a] recipe-shape train step (mixed batches of {cfg.train.batch_size} padded to "
@@ -1749,8 +1889,8 @@ def phase8_training(tmp: str):
         cfg_n = cfg.apply_overrides(["model.kwargs.radius_method=morton",
                                      "model.kwargs.radius_impl=kernel",
                                      f"model.kwargs.conv_impl={impl}"])
-        trainer = Trainer(cfg_n.build_model(torch.Generator().manual_seed(1)).to(dev),
-                          learning_rate=cfg.train.learning_rate, dt=DT)
+        trainer = Trainer(cfg_n.build_model().to(dev), learning_rate=cfg.train.learning_rate,
+                          dt=DT, seed=1)
         snaps = trainer._dataset(_list_dataset_files(data_dir)[0]).n_snapshots
         return _epoch_numbers(trainer, data_dir, 1, snaps), snaps
 
@@ -2996,8 +3136,11 @@ def phase14_training_configs(tmp: str) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
 
     def trainer_of(name):
+        """The config's model and trainer as its drivers build them: the
+        trainer draws JAX's initial weights on the card at first use, from
+        ``split(PRNGKey(train.seed))[1]``."""
         cfg = ExperimentConfig.load(os.path.join(HERE, "configs", name))
-        model = cfg.build_model(torch.Generator().manual_seed(cfg.train.seed)).to(dev)
+        model = cfg.build_model().to(dev)
         return cfg, Trainer(model, learning_rate=cfg.train.learning_rate, dt=cfg.train.dt,
                             seed=cfg.train.seed)
 
@@ -3094,6 +3237,8 @@ def main() -> int:
     stamp("0 (build)")
     phase0b_prng(card)
     stamp("0b (prng)")
+    phase0c_flax_init(card)
+    stamp("0c (flax init)")
     big = phase1_kernels()
     stamp("1")
     slice2 = phase5_large_n_kernels()

@@ -149,17 +149,20 @@ class ExperimentConfig:
                     kw[impl] = "kernel" if device.type == "cuda" else "dense"
         return kw
 
-    def build_model(self, generator=None, device=None):
+    def build_model(self, key=None, device=None):
         """The port's surrogate of ``model.type`` from ``model.kwargs``;
-        ``generator`` draws its initial weights, ``device`` resolves an
-        unset Morton search impl (:meth:`model_kwargs`). The model is built
-        on the CPU: the caller moves it."""
+        ``key`` (a ``utils.prng`` key) gives it the JAX package's
+        ``model.init(key, ...)`` weights, drawn on the key's device; without
+        one a ``Trainer`` draws them at first use from
+        ``split(PRNGKey(seed))[1]``, as the JAX trainer does. ``device``
+        resolves an unset Morton search impl (:meth:`model_kwargs`). The
+        model is built on the CPU: the caller moves it."""
         from nbody_tpu_torch.models import ContinuousConvModel, GraphModel
 
         models = {"gnn": GraphModel, "contconv": ContinuousConvModel}
         if self.model.type not in models:
             raise ValueError(f"unknown model type {self.model.type!r}")
-        return models[self.model.type](**self.model_kwargs(device), generator=generator)
+        return models[self.model.type](**self.model_kwargs(device), key=key)
 
     def scenarios(self, seed: Optional[int] = None) -> List[ScenarioConfig]:
         from nbody_tpu_torch.data.generate import scenario_product

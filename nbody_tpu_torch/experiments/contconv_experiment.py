@@ -14,8 +14,6 @@ train through the B3 collect kernel and its B4/B5 backward, as
 
 from __future__ import annotations
 
-import torch
-
 from nbody_tpu_torch.experiments.gnn_experiment import parser, run_experiment
 from nbody_tpu_torch.models import ContinuousConvModel
 
@@ -40,8 +38,7 @@ def main(argv=None):
         decoder_hiddens=(64, 32),
         scale_factor=1e6,
         zero_init_output=not args.reference_init,
-        generator=torch.Generator().manual_seed(args.train_seed),
-    )
+    )  # the trainer draws its weights from split(PRNGKey(train_seed))[1]
     return run_experiment("contconv", args, model)  # torch's plateau defaults
 
 

@@ -167,7 +167,8 @@ def main(argv=None):
             input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean",
             neighbors=args.neighbors, scale_factor=1e6, knn_method="morton",
             knn_impl=knn_impl, knn_copies=args.knn_copies, knn_block=args.knn_block,
-            fused_edgeconv=not args.no_fused, generator=torch.Generator().manual_seed(1))
+            fused_edgeconv=not args.no_fused,
+            key=prng.PRNGKey(1))  # the JAX script's init key
         if args.load_params:
             model.load_state_dict(torch.load(args.load_params, map_location="cpu",
                                              weights_only=True))

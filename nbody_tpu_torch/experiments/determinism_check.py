@@ -47,9 +47,10 @@ from nbody_tpu_torch.utils.timing import device_time
 
 
 def _epoch(cfg: ExperimentConfig, train_dir: str, dev: torch.device):
-    """One epoch of the config's model from its seed: (loss, seconds)."""
-    model = cfg.build_model(generator=torch.Generator().manual_seed(cfg.train.seed),
-                            device=dev).to(dev)
+    """One epoch of the config's model from its seed (the trainer draws
+    its initial weights from ``split(PRNGKey(train.seed))[1]``): (loss,
+    seconds)."""
+    model = cfg.build_model(device=dev).to(dev)
     trainer = Trainer(model, learning_rate=cfg.train.learning_rate, dt=cfg.train.dt,
                       seed=cfg.train.seed,
                       scheduler=PlateauScheduler(lr=cfg.train.learning_rate,

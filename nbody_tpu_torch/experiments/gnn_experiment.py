@@ -18,7 +18,6 @@ import argparse
 import contextlib
 
 import numpy as np
-import torch
 
 from nbody_tpu_torch.experiments.common import (generate_data, loss_writer, resolve_device,
                                                 setup_dirs, write_results)
@@ -122,8 +121,7 @@ def main(argv=None):
         neighbors=10,
         scale_factor=1e6,
         zero_init_output=args.zero_init,
-        generator=torch.Generator().manual_seed(args.train_seed),
-    )
+    )  # the trainer draws its weights from split(PRNGKey(train_seed))[1]
     return run_experiment("gnn", args, model, factor=0.25, patience=5)
 
 

@@ -48,8 +48,9 @@ from nbody_tpu_torch.utils import prng
 G, EPS, DT = 4.5e-6, 0.05, 1e-4
 
 
-def build_model(args, generator: torch.Generator):
-    """The surrogate of ``--model``, with seeded random weights."""
+def build_model(args, key: torch.Tensor):
+    """The surrogate of ``--model`` with the JAX package's ``model.init(key)``
+    weights (``utils.prng`` key; drawn on the key's device)."""
     if args.model == "contconv":
         # reference ContConv recipe (configs/contconv_adopted.json widths)
         # with the Morton radius search for large N
@@ -59,13 +60,12 @@ def build_model(args, generator: torch.Generator):
             continuous_conv_layers=2, continuous_conv_dim=128,
             encoder_hiddens=(32, 64), decoder_hiddens=(64, 32),
             scale_factor=1e6, radius_method="morton",
-            radius_impl=args.knn_impl, conv_impl=args.conv_impl,
-            generator=generator)
+            radius_impl=args.knn_impl, conv_impl=args.conv_impl, key=key)
     return GraphModel(
         input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean",
         neighbors=args.neighbors, scale_factor=1e6,
         knn_method=args.knn_method, knn_window=args.knn_window,
-        knn_impl=args.knn_impl, generator=generator)
+        knn_impl=args.knn_impl, key=key)
 
 
 def main(argv=None):
@@ -108,7 +108,8 @@ def main(argv=None):
     args.knn_impl = args.knn_impl or default_impl
     args.conv_impl = args.conv_impl or default_impl
     pos, vel, mass = generate_spiral(prng.PRNGKey(0), n, device=dev)
-    model = build_model(args, torch.Generator().manual_seed(1)).to(dev).eval()
+    # the JAX script's init key (nbody_tpu/experiments/large_scale.py:98)
+    model = build_model(args, prng.PRNGKey(1, dev)).to(dev).eval()
     cfg = SimulationConfig(g_const=G, softening=EPS, dt=DT, integrator="leapfrog",
                            calc_energy=False, force_backend="kernel")
 

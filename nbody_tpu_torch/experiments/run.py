@@ -21,8 +21,6 @@ import argparse
 import os
 import random
 
-import torch
-
 from nbody_tpu_torch.config import ExperimentConfig
 from nbody_tpu_torch.data.generate import generate_dataset
 from nbody_tpu_torch.experiments.common import (loss_writer, resolve_device, setup_dirs,
@@ -47,8 +45,9 @@ def run(cfg: ExperimentConfig, device=None) -> dict:
             generate_dataset(cfg.scenarios(seed=rng.randint(0, 1000)),
                              os.path.join(out_dir, f"output_file_{i}.csv"), device=dev)
 
-    model = cfg.build_model(generator=torch.Generator().manual_seed(cfg.train.seed),
-                            device=dev).to(dev)
+    # the trainer draws JAX's initial weights at first use, from
+    # split(PRNGKey(train.seed))[1]
+    model = cfg.build_model(device=dev).to(dev)
     print(f"model {cfg.model.type} on {dev}: graph spec {model.graph_spec}")
     scheduler = PlateauScheduler(lr=cfg.train.learning_rate,
                                  factor=cfg.train.scheduler_factor,

@@ -137,9 +137,11 @@ def default_out(args) -> str:
 
 
 def build_model(args, dev: torch.device):
-    """The surrogate of ``--model`` with seeded initial weights."""
+    """The surrogate of ``--model``, waiting for its weights: the
+    ``Trainer`` draws the JAX package's ``model.init`` at first use from
+    its seed (``Trainer(seed=0)``, the JAX script's), or ``--load-params``
+    loads them."""
     impl = "kernel" if dev.type == "cuda" else "dense"
-    gen = torch.Generator().manual_seed(0)
     if args.model == "contconv":
         from nbody_tpu_torch.models import ContinuousConvModel
 
@@ -151,8 +153,7 @@ def build_model(args, dev: torch.device):
             continuous_conv_dim=128, encoder_hiddens=(32, 64), decoder_hiddens=(64, 32),
             scale_factor=1e6, radius_method="morton", radius_impl=impl,
             zero_init_output=args.zero_init_output, output_scale=args.output_scale,
-            conv_impl=args.conv_impl, conv_node_chunks=args.conv_node_chunks,
-            generator=gen)
+            conv_impl=args.conv_impl, conv_node_chunks=args.conv_node_chunks)
     from nbody_tpu_torch.models import GraphModel
 
     return GraphModel(
@@ -160,7 +161,7 @@ def build_model(args, dev: torch.device):
         neighbors=args.neighbors, scale_factor=1e6, knn_method="morton", knn_impl=impl,
         fused_edgeconv=True,  # same function and parameters, one k-sized tensor a layer
         zero_init_output=args.zero_init_output, output_scale=args.output_scale,
-        remat=args.remat, generator=gen)
+        remat=args.remat)
 
 
 def main(argv=None) -> dict:

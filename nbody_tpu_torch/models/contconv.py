@@ -40,8 +40,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from nbody_tpu_torch.models.common import gather_neighbors, select_input_features
-from nbody_tpu_torch.models.mlp import MLP, OutputHead, reset_dense
+from nbody_tpu_torch.models.convert import contconv_model_state_dict
+from nbody_tpu_torch.models.init import contconv_model_variables, flax_key, init_weights
+from nbody_tpu_torch.models.mlp import MLP, Dropout, OutputHead
 from nbody_tpu_torch.ops.contconv_kernel import contconv_collect, contconv_collect_torch
+from nbody_tpu_torch.utils import prng
 
 DEFAULT_RADIUS_KMAX = 32  # PyG radius_graph's max_num_neighbors default
 CONV_IMPLS = (None, "dense", "kernel")
@@ -80,14 +83,15 @@ def conv_geometry(pos, nbr_idx, nbr_valid, radius, pos_src=None):
 
 class ContinuousConv(nn.Module):
     """One continuous-convolution layer (reference ``contconv.py:10-98``).
-    ``filters`` is (D, D, D, ci, co), drawn from N(0, 1) like the
-    reference's ``torch.randn``; ``generator`` draws it."""
+    ``filters`` is (D, D, D, ci, co), N(0, 1) like the reference's
+    ``torch.randn``: with ``key`` (a ``utils.prng`` key) the JAX layer's
+    ``init(key, ...)`` draw, ``normal(flax_key(key, 1))``; a model draws
+    its layers' filters itself (``models/init.py``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  filter_resolution: int = 4, radius: float = 0.5,
                  agg: str = "mean", impl: Optional[str] = None,
-                 node_chunks: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 node_chunks: int = 0, key: Optional[torch.Tensor] = None):
         super().__init__()
         if impl not in CONV_IMPLS:
             raise ValueError(f"unknown ContinuousConv impl {impl!r}: one of {CONV_IMPLS}")
@@ -106,7 +110,10 @@ class ContinuousConv(nn.Module):
         self.node_chunks = node_chunks
         self.filters = nn.Parameter(torch.empty(d, d, d, in_channels, out_channels))
         with torch.no_grad():
-            self.filters.normal_(generator=generator)
+            if key is None:
+                self.filters.normal_()
+            else:
+                self.filters.copy_(prng.normal(flax_key(key, 1), tuple(self.filters.shape)))
 
     def forward(self, pos, feat, nbr_idx, nbr_valid, geom=None, feat_src=None):
         """:param pos: (B, N, 3); :param feat: (B, N, ci).
@@ -163,7 +170,13 @@ class ContinuousConvModel(nn.Module):
     """Constructor fields of the JAX ``ContinuousConvModel`` (reference
     ``contconv.py:102-134``). ``filter_resolution`` is an int or one value
     per layer. ``radius_impl`` and ``conv_impl`` take the port's names,
-    "dense" and "kernel". ``generator`` draws the initial weights."""
+    "dense" and "kernel".
+
+    :param key: a ``utils.prng`` key: the weights and batch statistics are
+        the JAX package's ``ContinuousConvModel.init(key, ...)``
+        (``models/init.py``). Without one the model waits for a ``Trainer``
+        to draw them from its init key (``draw_pending``), or for a
+        ``state_dict``."""
 
     def __init__(
         self,
@@ -188,7 +201,7 @@ class ContinuousConvModel(nn.Module):
         radius_impl: Optional[str] = None,
         conv_impl: Optional[str] = None,
         conv_node_chunks: int = 0,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
     ):
         super().__init__()
         self.in_channels = in_channels
@@ -226,13 +239,20 @@ class ContinuousConvModel(nn.Module):
             ci = in_channels if (i == 0 and not encoder_hiddens) else dim
             self.convs.append(ContinuousConv(
                 ci, dim, filter_resolution=res, radius=radius, agg=agg,
-                impl=conv_impl, node_chunks=conv_node_chunks, generator=generator))
-        self.conv_dropout = nn.Dropout(continuous_conv_dropout)
+                impl=conv_impl, node_chunks=conv_node_chunks))
+        # flax names the model's own dropouts Dropout_i, one a conv layer
+        self.conv_dropouts = nn.ModuleList(
+            Dropout(continuous_conv_dropout, (f"Dropout_{i}",)) for i in range(len(self.convs)))
         self.norm = nn.LayerNorm(enc_width + dim, eps=1e-5)
         self.head = OutputHead(enc_width + dim, decoder_hiddens, out_channels,
                                zero_init=zero_init_output)
-        if generator is not None:
-            reset_dense(self, generator)
+        init_weights(self, key)
+
+    def draw_weights(self, key: torch.Tensor) -> None:
+        """Set the weights and batch statistics to flax's ``init(key)``
+        draws, made on the key's device."""
+        with torch.no_grad():
+            self.load_state_dict(contconv_model_state_dict(contconv_model_variables(self, key)))
 
     @property
     def graph_spec(self):
@@ -267,8 +287,8 @@ class ContinuousConvModel(nn.Module):
             x = self.encoder(x, mask=node_mask)
         encoder_output = x
         geom = conv_geometry(pos, nbr_idx, nbr_valid, self.radius)
-        for conv in self.convs:
-            x = self.conv_dropout(torch.tanh(conv(pos, x, nbr_idx, nbr_valid, geom=geom)))
+        for conv, drop in zip(self.convs, self.conv_dropouts):
+            x = drop(torch.tanh(conv(pos, x, nbr_idx, nbr_valid, geom=geom)))
         out = self.head(self.norm(torch.cat([encoder_output, x], dim=-1)))
         if self.output_scale != 1.0:
             out = out / self.output_scale

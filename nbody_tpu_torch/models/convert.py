@@ -3,7 +3,8 @@
 
 The input is the flax parameter tree with numpy arrays as leaves (for
 example ``jax.tree_util.tree_map(np.asarray, variables)``), so this module
-needs no JAX. Name map:
+needs no JAX, or with torch tensors as leaves (``models.init``'s draws,
+kept on their device). Name map:
 
 - ``MLP_0/Dense_i``        -> ``encoder.layers.i``
 - ``EdgeConv_i/Dense_j``   -> ``convs.i.dense{j}``
@@ -33,10 +34,17 @@ import torch
 _DENSE = re.compile(r"Dense_(\d+)$")
 
 
+def _vector(x) -> torch.Tensor:
+    """A float32 copy of a numpy or torch leaf (a torch leaf stays on its
+    device)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).clone()
+    return torch.from_numpy(np.asarray(x, np.float32).copy())
+
+
 def _dense(prefix: str, tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
-    out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(
-        np.asarray(tree["kernel"], np.float32).T))
-    out[f"{prefix}.bias"] = torch.from_numpy(np.asarray(tree["bias"], np.float32).copy())
+    out[f"{prefix}.weight"] = _vector(tree["kernel"]).T.contiguous()
+    out[f"{prefix}.bias"] = _vector(tree["bias"])
 
 
 def _dense_layers(prefix: str, tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
@@ -62,17 +70,13 @@ def graph_model_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             for dname, dsub in sub.items():
                 _dense(f"convs.{i}.dense{_DENSE.match(dname).group(1)}", dsub, out)
         elif name == "LayerNorm_0":
-            out["norm.weight"] = torch.from_numpy(np.asarray(sub["scale"], np.float32).copy())
-            out["norm.bias"] = torch.from_numpy(np.asarray(sub["bias"], np.float32).copy())
+            out["norm.weight"] = _vector(sub["scale"])
+            out["norm.bias"] = _vector(sub["bias"])
         elif name == "OutputHead_0":
             _dense_layers("head.layers", sub, out)
         else:
             raise KeyError(f"unexpected parameter group {name}")
     return out
-
-
-def _vector(x) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(x, np.float32).copy())
 
 
 def contconv_model_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:

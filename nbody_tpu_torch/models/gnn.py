@@ -27,7 +27,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from nbody_tpu_torch.models.common import gather_neighbors, select_input_features
-from nbody_tpu_torch.models.mlp import MLP, Dense, OutputHead, reset_dense
+from nbody_tpu_torch.models.init import graph_model_params, init_weights
+from nbody_tpu_torch.models.convert import graph_model_state_dict
+from nbody_tpu_torch.models.mlp import MLP, Dense, OutputHead
 from nbody_tpu_torch.ops.segment import masked_aggregate
 
 # Node features of the datasets: [pos(3) | vel(3) | mass(1)].
@@ -99,7 +101,12 @@ class EdgeConv(nn.Module):
 class GraphModel(nn.Module):
     """Constructor arguments of the JAX ``GraphModel`` (reference
     ``gnn.py:26-53``); ``neighbors`` is the kNN degree of the graphs built
-    for this model. ``generator`` draws the initial weights."""
+    for this model.
+
+    :param key: a ``utils.prng`` key: the weights are the JAX package's
+        ``GraphModel.init(key, ...)["params"]`` (``models/init.py``). Without
+        one the model waits for a ``Trainer`` to draw them from its init key
+        (``draw_pending``), or for a ``state_dict``."""
 
     def __init__(
         self,
@@ -122,7 +129,7 @@ class GraphModel(nn.Module):
         knn_block: int = 256,
         fused_edgeconv: bool = False,
         remat: bool = False,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
     ):
         super().__init__()
         if knn_method == "approx":
@@ -165,8 +172,13 @@ class GraphModel(nn.Module):
         self.norm = nn.LayerNorm(enc_width + width, eps=1e-5)
         self.head = OutputHead(enc_width + width, output_hiddens, output_dim,
                                zero_init=zero_init_output)
-        if generator is not None:
-            reset_dense(self, generator)
+        init_weights(self, key)
+
+    def draw_weights(self, key: torch.Tensor) -> None:
+        """Set the weights to flax's ``init(key)`` draws, made on the key's
+        device."""
+        with torch.no_grad():
+            self.load_state_dict(graph_model_state_dict(graph_model_params(self, key)))
 
     @property
     def graph_spec(self):

@@ -1,40 +1,84 @@
 """Linear layers, masked batch norm, the MLP block and the decoder head —
 the port of ``nbody_tpu/models/mlp.py``.
 
-``Dense`` is ``nn.Linear`` with its default initialisation, U(-1/sqrt(fan_in),
-1/sqrt(fan_in)) for weight and bias, drawn from an explicit
-``torch.Generator`` when one is given. The JAX package's ``Dense`` copies
-exactly this initialisation, so the two start from the same distribution.
-Weights are stored (out, in) as in torch; ``models.convert`` transposes the
-flax (in, out) kernels.
+``Dense`` is ``nn.Linear``: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and
+bias, the initialisation the JAX package's ``Dense`` copies. A model's
+weights are drawn from flax's streams (``models/init.py``). Weights are
+stored (out, in) as in torch; ``models.convert`` transposes the flax (in,
+out) kernels. ``Dropout`` is flax's, on the trainer's ``dropout`` keys.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from nbody_tpu_torch.models.init import flax_key
+from nbody_tpu_torch.utils import prng
+
 
 class Dense(nn.Linear):
-    """``nn.Linear`` whose initialisation can draw from a given generator."""
-
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        bound = 1.0 / math.sqrt(self.in_features)
-        with torch.no_grad():
-            self.weight.uniform_(-bound, bound, generator=generator)
-            if self.bias is not None:
-                self.bias.uniform_(-bound, bound, generator=generator)
+    """``nn.Linear``, whose own initialisation is the reference's
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias."""
 
 
-def reset_dense(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Re-draw every :class:`Dense` of ``module`` from ``generator``, in
-    registration order (zero-initialised heads are left at zero)."""
-    for m in module.modules():
-        if isinstance(m, Dense) and not getattr(m, "zero_init", False):
-            m.reset_parameters(generator)
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` (``flax/linen/stochastic.py``) on the step's
+    ``dropout`` key: in training it keeps ``x / keep_prob`` where
+    ``bernoulli(flax_key(key, *path, 1), keep_prob, x.shape)`` and writes 0
+    elsewhere, ``keep_prob = 1 - rate``; in eval mode, or at rate 0, it
+    passes ``x`` through.
+
+    :param path: the flax module path, e.g. ``("MLP_0", "Dropout_0")``.
+
+    ``key`` is set before each training forward (``set_dropout_key``: the
+    ``Trainer`` sets each step's key, as the JAX trainer passes
+    ``rngs={"dropout": key}``); a training forward without one raises.
+    ``rows = (first, total)`` makes the mask this rank's rows ``first ..`` of
+    the mask of a ``total``-row batch (``Trainer(mesh=)``): an element's
+    bits depend on its index alone.
+    """
+
+    def __init__(self, rate: float, path: Sequence[str]):
+        super().__init__()
+        self.rate = float(rate)
+        self.path = tuple(path)
+        self.key: Optional[torch.Tensor] = None
+        self.rows: Optional[Tuple[int, int]] = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if self.key is None:
+            raise RuntimeError(
+                f"dropout {'/'.join(self.path)} is training without a key: the Trainer "
+                "sets each step's (set_dropout_key)")
+        keep = 1.0 - self.rate
+        offset = 0 if self.rows is None else self.rows[0] * math.prod(x.shape[1:])
+        mask = prng.bernoulli(flax_key(self.key, *self.path, 1), keep, tuple(x.shape),
+                              device=x.device, offset=offset)
+        # divide by a tensor on x's device: torch's CUDA division by a
+        # Python number multiplies by the reciprocal
+        return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device), 0.0)
+
+
+def set_dropout_key(model: nn.Module, key: Optional[torch.Tensor],
+                    rows: Optional[Tuple[int, int]] = None) -> None:
+    """Give every :class:`Dropout` of ``model`` the step's ``dropout`` key
+    (and ``rows``)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.key, m.rows = key, rows
+
+
+def has_dropout(model: nn.Module) -> bool:
+    """Whether a training forward of ``model`` draws dropout masks."""
+    return any(isinstance(m, Dropout) and 0.0 < m.rate < 1.0 for m in model.modules())
 
 
 class MaskedBatchNorm(nn.Module):
@@ -120,14 +164,16 @@ class MLP(nn.Module):
         self.layers = nn.ModuleList(Dense(a, b) for a, b in zip(dims, dims[1:]))
         self.norms = (nn.ModuleList(MaskedBatchNorm(f) for f in features[:-1])
                       if norm == "batch_norm" else None)
-        self.dropout = nn.Dropout(dropout)
+        # both models' encoder is flax's MLP_0
+        self.dropouts = nn.ModuleList(Dropout(dropout, ("MLP_0", f"Dropout_{i}"))
+                                      for i in range(len(features) - 1))
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
         for i, layer in enumerate(self.layers[:-1]):
             x = layer(x)
             if self.norms is not None:
                 x = self.norms[i](x, mask=mask)
-            x = self.dropout(torch.tanh(x))
+            x = self.dropouts[i](torch.tanh(x))
         return self.layers[-1](x)
 
 
@@ -142,11 +188,9 @@ class OutputHead(nn.Module):
         dims = [in_features, *(hiddens or ()), output_dim]
         self.layers = nn.ModuleList(Dense(a, b) for a, b in zip(dims, dims[1:]))
         if zero_init:
-            last = self.layers[-1]
-            last.zero_init = True
             with torch.no_grad():
-                last.weight.zero_()
-                last.bias.zero_()
+                self.layers[-1].weight.zero_()
+                self.layers[-1].bias.zero_()
 
     def forward(self, x):
         for layer in self.layers[:-1]:

@@ -261,7 +261,7 @@ def _gnn(device, s, mesh, rank0, reps, launches):
     from nbody_tpu_torch.parallel.surrogate import sharded_rollout
     from nbody_tpu_torch.train.rollout import autoregressive_rollout
 
-    model = GraphModel(**s["kwargs"], generator=torch.Generator().manual_seed(0))
+    model = GraphModel(**s["kwargs"], key=prng.PRNGKey(0))
     if s.get("weights"):
         model.load_state_dict(torch.load(s["weights"], map_location="cpu", weights_only=True))
     model = model.to(device)
@@ -286,11 +286,10 @@ def _contconv_model(s, device):
         from nbody_tpu_torch.config import ExperimentConfig
 
         cfg = ExperimentConfig.load(s["config"]).apply_overrides(s.get("overrides", []))
-        return cfg.build_model(torch.Generator().manual_seed(s.get("seed", 0))).to(device)
+        return cfg.build_model(key=prng.PRNGKey(s.get("seed", 0))).to(device)
     from nbody_tpu_torch.models import ContinuousConvModel
 
-    return ContinuousConvModel(**s["kwargs"],
-                               generator=torch.Generator().manual_seed(0)).to(device)
+    return ContinuousConvModel(**s["kwargs"], key=prng.PRNGKey(0)).to(device)
 
 
 def _pre_norm_biases(model) -> set:

@@ -146,7 +146,7 @@ def _contconv_forward_local(model, pos_l, vel_l, mass_l, mesh, axis):
     for li, conv in enumerate(model.convs):
         out = conv(pos_l[None], h_l[None], idx[None], valid[None], geom=geom,
                    feat_src=h_full[None])
-        h_l = model.conv_dropout(torch.tanh(out))[0]
+        h_l = model.conv_dropouts[li](torch.tanh(out))[0]
         if li < len(model.convs) - 1:
             h_full = all_gather(h_l, mesh, axis)
     return _head(model, enc_l, h_l)

@@ -118,9 +118,11 @@ def elastic_train(
 
     # the scratch-restart state (a fault before the first save rolls back to
     # it, not to the corrupted weights), with the scheduler's plateau
-    # counters and LR, which the faulted run changed
+    # counters and LR, which the faulted run changed; a model that waits
+    # for its weights waits again, and draws them from the same key
     model0 = copy.deepcopy(trainer.model.state_dict())
-    rng0 = None if trainer.rng_state is None else trainer.rng_state.clone()
+    pending0 = getattr(trainer.model, "draw_pending", False)
+    rng0 = trainer.rng.clone()
     sched0 = trainer.scheduler.state_dict() if trainer.scheduler else None
 
     loss_by_epoch: dict = {}
@@ -143,8 +145,9 @@ def elastic_train(
         if resumed == 0 and restarts:
             # no healthy checkpoint: a full scratch restart
             trainer.model.load_state_dict(model0)
+            trainer.model.draw_pending = pending0
             trainer.optimizer = None
-            trainer.rng_state = rng0
+            trainer.rng = rng0.clone()
             trainer._ensure_state()
             trainer.epoch = 0
             if sched0 is not None:

@@ -23,6 +23,17 @@ the encoder's batch norms take their statistics over every rank's valid
 rows. Only global rank 0 writes checkpoints; every rank resumes from the
 same file.
 
+Random keys follow the JAX trainer's chain (``utils/prng.py``):
+``rng = PRNGKey(seed)``; at first use ``rng, init_key = split(rng)``, and a
+model that waits for its weights (built without ``key``) draws flax's
+``init(init_key)``; a model handed weights (built with a key, loaded or
+resumed) keeps them. Every bucket of an epoch then takes ``rng, sub =
+split(rng)`` and its optimiser steps the keys ``split(sub, steps)``,
+whether or not the model has dropout; a step's key is the ``dropout`` key
+of each forward in it (the same for every bucket of a ``reference`` step),
+and with a mesh each rank draws its rows of the batch's mask. Checkpoints
+hold the key.
+
 Not taken from the JAX trainer: ``scan_chunk`` (a cap on batches per TPU
 dispatch, which does not change the math; the port dispatches each step
 from Python).
@@ -43,12 +54,13 @@ import torch
 
 from nbody_tpu_torch.data.dataset import BatchIterator, SnapshotDataset
 from nbody_tpu_torch.models.common import masked_mse, scaled_rmse_and_mse
-from nbody_tpu_torch.models.mlp import MaskedBatchNorm
+from nbody_tpu_torch.models.mlp import MaskedBatchNorm, has_dropout, set_dropout_key
 from nbody_tpu_torch.parallel.mesh import DATA_AXIS, psum, psum_all
 from nbody_tpu_torch.train.checkpoint import CheckpointManager
 from nbody_tpu_torch.train.graphs import build_graph
 from nbody_tpu_torch.train.optim import PlateauScheduler, make_optimizer
 from nbody_tpu_torch.train.rollout import autoregressive_rollout
+from nbody_tpu_torch.utils import prng
 from nbody_tpu_torch.utils.timing import device_time
 
 
@@ -85,9 +97,8 @@ class Trainer:
     :param scheduler: optional :class:`PlateauScheduler` stepped once per
         epoch on the mean loss.
     :param dt: rollout timestep.
-    :param seed: seeds the random stream that dropout draws from during
-        training; the trainer keeps that stream apart from the process's
-        and checkpoints it.
+    :param seed: the trainer's key is ``prng.PRNGKey(seed)``: the init key
+        and the dropout keys come from it (see the module notes).
     :param mesh: optional ``parallel.mesh.Mesh`` with a ``"data"`` axis:
         data-parallel training over its ranks (see the module notes).
     """
@@ -108,9 +119,8 @@ class Trainer:
         self.dt = dt
         self.learning_rate = learning_rate
         self.scheduler = scheduler
-        self.seed = seed
         self.optimizer: Optional[torch.optim.Optimizer] = None
-        self.rng_state: Optional[torch.Tensor] = None
+        self.rng = prng.PRNGKey(seed)
         self.epoch = 0  # resume-aware epoch counter
         self._ds_cache: Dict[str, SnapshotDataset] = {}
         self._dev_cache: Dict[tuple, dict] = {}
@@ -178,30 +188,27 @@ class Trainer:
 
     # ----------------------------------------------------------- state mgmt
     def _ensure_state(self) -> None:
-        """The optimiser over the model's parameters and the dropout stream,
-        made at first use (after the model has moved to its device)."""
-        if self.optimizer is None:
-            self.optimizer = make_optimizer(self.model.parameters(), self.learning_rate)
-        if self.rng_state is None:
-            self.rng_state = torch.Generator(device=self.device).manual_seed(
-                self.seed).get_state()
+        """At first use (after the model has moved to its device): the init
+        key split off the trainer's key, the weights of a model that waits
+        for them drawn from it on the model's device, and the optimiser."""
+        if self.optimizer is not None:
+            return
+        self.rng, init_key = prng.split(self.rng)
+        if getattr(self.model, "draw_pending", False):
+            self.model.draw_weights(init_key.to(self.device))
+        self.optimizer = make_optimizer(self.model.parameters(), self.learning_rate)
+
+    def _step_keys(self, steps: int) -> Optional[torch.Tensor]:
+        """The next ``steps`` optimiser steps' dropout keys, on the model's
+        device: ``rng, sub = split(rng)``, then ``split(sub, steps)``. The
+        split is made for every bucket; the keys only where dropout draws
+        masks."""
+        self.rng, sub = prng.split(self.rng)
+        return prng.split(sub, steps).to(self.device) if has_dropout(self.model) else None
 
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-
-    @contextlib.contextmanager
-    def _rng_scope(self):
-        """Run dropout on the trainer's own stream (the device's default
-        generator, forked and restored around the block)."""
-        dev = self.device
-        cuda = dev.type == "cuda"
-        with torch.random.fork_rng(devices=[dev] if cuda else []):
-            gen = (torch.cuda.default_generators[dev.index or 0] if cuda
-                   else torch.default_generator)
-            gen.set_state(self.rng_state)
-            yield
-            self.rng_state = gen.get_state()
 
     def _ckpt_tree(self) -> dict:
         return {
@@ -209,14 +216,12 @@ class Trainer:
             "optimizer": self.optimizer.state_dict(),
             "scheduler": self.scheduler.state_dict() if self.scheduler else None,
             "epoch": self.epoch,
-            "rng": self.rng_state,
-            "rng_device": self.device.type,
+            "rng": self.rng,
         }
 
     def _try_resume(self, save_path: str) -> None:
         """Latest-by-step resume: weights, optimiser, scheduler, epoch and
-        the dropout stream (the stream only from a checkpoint written on the
-        same kind of device)."""
+        the trainer's key."""
         self._ensure_state()
         mgr = CheckpointManager(save_path)
         step, tree = mgr.restore_latest()
@@ -229,12 +234,20 @@ class Trainer:
 
     def _restore(self, tree: dict) -> None:
         """Take a checkpoint's state (``_ckpt_tree``); the optimiser must
-        exist (``_ensure_state``)."""
+        exist (``_ensure_state``). A checkpoint whose ``rng`` is not a key (a
+        torch generator state, from before the trainer drew JAX's keys) is
+        refused: its run cannot go on with JAX's dropout keys."""
+        rng = tree.get("rng")
+        if ("rng_device" in tree or not isinstance(rng, torch.Tensor)
+                or tuple(rng.shape) != (2,) or rng.dtype != torch.int64):
+            raise ValueError(
+                "this checkpoint holds a torch generator state, not a prng key: it was "
+                "written before the trainer followed the JAX trainer's keys, and cannot "
+                "be resumed; train again from the start")
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         self.epoch = int(tree["epoch"])
-        if tree["rng_device"] == self.device.type:
-            self.rng_state = tree["rng"]
+        self.rng = rng.clone()
         if self.scheduler and tree["scheduler"] is not None:
             self.scheduler.load_state_dict(tree["scheduler"])
             self._set_lr(self.scheduler.lr)
@@ -311,7 +324,9 @@ class Trainer:
         bucket_keys = list(dev.keys())
         rng_np.shuffle(bucket_keys)
         scale = self.model.scale_factor
-        mine = self._my_rows(self._padded(batch_size))
+        width = self._padded(batch_size)
+        mine = self._my_rows(width)
+        rows = None if self.mesh is None else (mine.start, width)
         for n in bucket_keys:
             s = dev[n][0].shape[0]
             nb = -(-s // batch_size)
@@ -323,7 +338,9 @@ class Trainer:
                 sels[b, :len(sel)] = sel
                 valids[b, :len(sel)] = True
             sels_d, valids_d = self._to_dev(sels[:, mine]), self._to_dev(valids[:, mine])
+            keys = self._step_keys(nb)
             for b in range(nb):
+                set_dropout_key(self.model, None if keys is None else keys[b], rows)
                 x, y, mask = self._gather(dev[n], sels_d[b], valids_d[b])
                 pred = self._forward(x, mask)
                 if self.mesh is None:
@@ -349,7 +366,7 @@ class Trainer:
         sizes = [dev[n][0].shape[0] for n in ns]
         steps = -(-sum(sizes) // batch_size)
         rng_np = _group_rng(self.epoch, group)
-        sels, valids = [], []
+        sels, valids, rows = [], [], []
         for s in sizes:
             # with a mesh the quota is padded to the data axis (valid=False)
             q = self._padded(-(-s // steps))
@@ -361,15 +378,19 @@ class Trainer:
             mine = self._my_rows(q)
             sels.append(self._to_dev(sel[:, mine]))
             valids.append(self._to_dev(val[:, mine]))
+            rows.append(None if self.mesh is None else (mine.start, q))
         norms = [m for m in self.model.modules() if isinstance(m, MaskedBatchNorm)]
         scale = self.model.scale_factor
+        keys = self._step_keys(steps)
         for step in range(steps):
             start = [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
             sse, cnt = 0.0, 0.0
-            for n, sel, val in zip(ns, sels, valids):
+            for n, sel, val, rows_n in zip(ns, sels, valids, rows):
                 for m, (mean, var) in zip(norms, start):
                     m.running_mean.copy_(mean)
                     m.running_var.copy_(var)
+                # every bucket's forward of a step takes the step's key
+                set_dropout_key(self.model, None if keys is None else keys[step], rows_n)
                 x, y, mask = self._gather(dev[n], sel[step], val[step])
                 pred = self._forward(x, mask)
                 w = mask.to(pred.dtype)[..., None]
@@ -441,7 +462,7 @@ class Trainer:
         for e in range(epochs):
             losses: list = []
             mses: list = []
-            with self._rng_scope(), self._batch_norms_over_ranks():
+            with self._batch_norms_over_ranks():
                 for group in groups:
                     if mode == "reference":
                         self._train_group_reference(group, batch_size, losses, mses)

@@ -4,9 +4,10 @@ draws the JAX package's galaxy.
 A standalone port of JAX 0.9's defaults (``jax_threefry_partitionable``,
 the ``threefry2x32`` implementation): ``jax/_src/prng.py``
 (``threefry_seed``, ``iota_2x32_shape``, ``threefry_2x32``,
-``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``) and
-``jax/_src/random.py`` (``_split``, ``_uniform``, ``_shuffle``,
-``choice``, ``_normal_real``, ``_gamma_one``, ``_gamma_impl``).
+``_threefry_split_foldlike``, ``threefry_fold_in``,
+``_threefry_random_bits_partitionable``) and ``jax/_src/random.py``
+(``_split``, ``_uniform``, ``_bernoulli``, ``_shuffle``, ``choice``,
+``_normal_real``, ``_gamma_one``, ``_gamma_impl``).
 
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words
 (torch's ``uint32`` lacks the shifts and xors these need). Every draw runs
@@ -17,13 +18,12 @@ square roots taken in float64 and rounded to float32, since torch's CUDA
 float32 ``sqrt`` is not correctly rounded), so a key draws the same bits on
 the CPU and on a card:
 
-- ``PRNGKey``, ``split``, ``random_bits``, ``permutation``, ``choice`` and
-  ``uniform`` are JAX's bits;
+- ``PRNGKey``, ``split``, ``fold_in``, ``random_bits``, ``permutation``,
+  ``choice``, ``uniform`` and ``bernoulli`` are JAX's bits;
 - ``normal`` is XLA's float32 ``erf_inv`` on a uniform, with XLA's CPU
   ``log1p`` (Cephes' rational, then Cephes' ``logf``) and its contracted
-  products (:func:`_fma`) written out: against JAX 0.9 on the CPU, 2 to 5
-  draws in 100,000 differ, by at most 2 ulps, where XLA's ``log`` rounds
-  differently;
+  products (:func:`_fma`) written out: JAX 0.9's bits on the draws checked
+  (3 x 3,538,944), and ``log`` XLA's on every float in [0.25, 1);
 - ``gamma`` runs ``_gamma_one``'s loop with that ``normal`` and ``log``:
   JAX's bits on the draws checked (20,000 each for seeds 0, 42, 1042).
 """
@@ -80,17 +80,20 @@ def threefry_2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
     return x1, x2
 
 
-def _iota_2x32(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _iota_2x32(shape: Tuple[int, ...], device, offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """``iota_2x32_shape``: the row-major index of every element as (high,
-    low) 32-bit words; a shape-``()`` draw is counter ``(0, 0)``."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(shape)
+    low) 32-bit words, plus ``offset``; a shape-``()`` draw is counter
+    ``(0, 0)``."""
+    n = math.prod(shape)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device).reshape(shape)
     return idx >> 32, idx & MASK
 
 
-def _hash(keys: torch.Tensor, shape: Tuple[int, ...]):
-    """Threefry of every counter of ``shape`` under every key of ``keys``
-    (``(..., 2)``): two words of shape ``keys.shape[:-1] + shape``."""
-    hi, lo = _iota_2x32(shape, keys.device)
+def _hash(keys: torch.Tensor, shape: Tuple[int, ...], offset: int = 0):
+    """Threefry of every counter of ``shape`` (starting at ``offset``) under
+    every key of ``keys`` (``(..., 2)``): two words of shape
+    ``keys.shape[:-1] + shape``."""
+    hi, lo = _iota_2x32(shape, keys.device, offset)
     tail = (1,) * len(shape)
     k1 = keys[..., 0].reshape(keys.shape[:-1] + tail)
     k2 = keys[..., 1].reshape(keys.shape[:-1] + tail)
@@ -104,10 +107,29 @@ def split(key: torch.Tensor, num: Shape = 2, device=None) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: Shape = (), device=None) -> torch.Tensor:
+def fold_in(key: torch.Tensor, data: int, device=None) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the key hashed with the counter
+    ``threefry_seed(uint32(data))`` = ``(0, data)``, for ``data`` in [0,
+    2**32)."""
+    data = int(data)
+    if not 0 <= data <= MASK:
+        raise OverflowError(f"fold_in data {data} is not a uint32")
+    key = _on(key, device)
+    b1, b2 = threefry_2x32(key[..., 0], key[..., 1], torch.zeros_like(key[..., 0]),
+                           torch.full_like(key[..., 1], data))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: Shape = (), device=None,
+                offset: int = 0) -> torch.Tensor:
     """``jax.random.bits`` at 32 bits: ``bits1 ^ bits2`` of each counter, as
-    int64 in [0, 2**32). A batch of keys draws ``shape`` under each one."""
-    b1, b2 = _hash(_on(key, device), _shape(shape))
+    int64 in [0, 2**32). A batch of keys draws ``shape`` under each one.
+
+    ``offset`` draws the elements ``offset ..`` of a larger array of the
+    same key instead (JAX's threefry is partitionable: an element's bits
+    depend on its row-major index alone), so a rank can draw its rows of a
+    global array."""
+    b1, b2 = _hash(_on(key, device), _shape(shape), offset)
     return b1 ^ b2
 
 
@@ -117,13 +139,23 @@ def _unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
-            maxval: float = 1.0, device=None) -> torch.Tensor:
+            maxval: float = 1.0, device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: ``max(minval, f * (maxval -
-    minval) + minval)``, the range taken in float32 as JAX takes it."""
-    f = _unit(random_bits(key, shape, device))
+    minval) + minval)``, the range taken in float32 as JAX takes it and the
+    product and sum contracted as XLA's CPU code contracts them
+    (:func:`_fma`; ``offset`` as in :func:`random_bits`)."""
+    f = _unit(random_bits(key, shape, device, offset))
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)  # exact float32 values as Python scalars
-    return (f * span + float(lo)).clamp_min(float(lo))
+    return _fma(f, span, float(lo)).clamp_min(float(lo))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Shape = (), device=None,
+              offset: int = 0) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode ``"low"``): a float32
+    uniform below ``p`` rounded to float32, as a bool tensor (``offset`` as
+    in :func:`random_bits`)."""
+    return uniform(key, shape, device=device, offset=offset) < float(np.float32(p))
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -185,8 +217,9 @@ def log(y: torch.Tensor) -> torch.Tensor:
     y0 = _fma(_fma(torch.full_like(xd, _LOG_P[0]), xd, _LOG_P[1]), xd, _LOG_P[2])
     y1 = _fma(_fma(torch.full_like(xd, _LOG_P[3]), xd, _LOG_P[4]), xd, _LOG_P[5])
     y2 = _fma(_fma(torch.full_like(xd, _LOG_P[6]), xd, _LOG_P[7]), xd, _LOG_P[8])
-    r = _fma(_fma(y0, x3, y1.double()), x3, y2.double()) * x3.float()
-    r = _fma(e, float(np.float32(-2.12194440e-4)), r.double())
+    # the last product is contracted with the exponent's rounded low part
+    lo = (e * float(np.float32(-2.12194440e-4))).double()
+    r = _fma(_fma(_fma(y0, x3, y1.double()), x3, y2.double()), x3, lo)
     x = _fma(x2, -0.5, xd)
     return _fma(e, 0.693359375, (x + r).double())
 
@@ -312,5 +345,5 @@ def choice(key: torch.Tensor, n: int, shape: Shape = (), replace: bool = False,
     return permutation(key, n, device)[:draws].reshape(shape)
 
 
-__all__ = ["PRNGKey", "split", "random_bits", "uniform", "normal", "gamma",
-           "permutation", "choice", "erf_inv", "threefry_2x32"]
+__all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform", "bernoulli",
+           "normal", "gamma", "permutation", "choice", "erf_inv", "threefry_2x32"]

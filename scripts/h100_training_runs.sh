@@ -16,9 +16,6 @@
 #   1m           train_1m (23 epochs, JAX's run stopped there) and
 #                train_1m_committed_weights (eval of results/large_scale/
 #                train_1m_params.pt on the port's own 1M data)
-#   jaxinit      train_20k and train_100k from JAX's initial weights
-#                (CARRY/jaxinit/ckpt_0.pt, scripts/jax_initial_checkpoint.py)
-#                and train_20k again from the port's
 #   ics          scripts/ic_realizations.py at 1M on the port's ICs, and on the
 #                JAX package's arrays where CARRY/jax_ics_1m.npz (its
 #                --dump-jax) is there
@@ -106,20 +103,6 @@ lane_1m() {
         --load-params results/large_scale/train_1m_params.pt
 }
 
-lane_jaxinit() {  # train_20k and train_100k from JAX's initial weights, and a rerun of
-    # train_20k from the port's (the same data as lane small's, made again from its seeds)
-    local name
-    for name in train_20k train_100k; do
-        mkdir -p "$OUT/${name}_jaxinit_ckpt"
-        cp "$CARRY/jaxinit/ckpt_0.pt" "$OUT/${name}_jaxinit_ckpt/"
-    done
-    large train_20k_jaxinit "${K20K[@]}" --batch-size 2 --save-every 20 --skip-datagen \
-        --data-dir "$WORK/data"
-    large train_100k_jaxinit "${K100K[@]}" --save-every 20 --skip-datagen --data-dir "$WORK/data"
-    large train_20k_rerun "${K20K[@]}" --batch-size 2 --skip-datagen --data-dir "$WORK/data"
-    rm -rf "$OUT"/*_jaxinit_ckpt
-}
-
 lane_refdata() {
     local d
     for d in a b; do
@@ -186,7 +169,7 @@ pids=()
 for lane in "$@"; do
     IFS=: read -r name a b <<< "$lane"
     case $name in
-        small|cc100k|r3|1m|jaxinit|ics|refdata) "lane_$name" "$@" > "$OUT/logs/$name.log" 2>&1 & ;;
+        small|cc100k|r3|1m|ics|refdata) "lane_$name" "$@" > "$OUT/logs/$name.log" 2>&1 & ;;
         gnn|contconv) lane_ref "$name" "$a" "${b:-0}" > "$OUT/logs/$name.log" 2>&1 & ;;
         *) echo "unknown lane $lane"; exit 2;;
     esac

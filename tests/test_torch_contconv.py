@@ -37,6 +37,7 @@ from nbody_tpu_torch.ops import contconv_kernel as cck
 from nbody_tpu_torch.ops import interpolate as tinterp
 from nbody_tpu_torch.train import autoregressive_rollout
 from nbody_tpu_torch.train.graphs import build_graph
+from nbody_tpu_torch.utils import prng
 
 FULL = dict(in_channels=4, out_channels=3, filter_resolution=(6, 4), radius=1.0,
             agg="mean", self_loops=True, continuous_conv_layers=2,
@@ -398,7 +399,7 @@ def test_node_chunked_layer_equals_unchunked(chunks, monkeypatch):
     t_idx, t_valid = build_graph(("radius", {"radius": radius, "k_max": 6}),
                                  torch.from_numpy(pos))
     kw = dict(filter_resolution=4, radius=radius, agg="mean", impl="kernel")
-    plain = ContinuousConv(5, 4, **kw, generator=torch.Generator().manual_seed(3))
+    plain = ContinuousConv(5, 4, **kw, key=prng.PRNGKey(3))
     chunked = ContinuousConv(5, 4, **kw, node_chunks=chunks)
     chunked.load_state_dict(plain.state_dict())
     want = _chunk_grads(plain, pos, feat, cot, t_idx, t_valid)
@@ -451,8 +452,7 @@ def test_node_chunked_model_trains_like_unchunked():
     path on the CPU too (its plain twin): same loss and gradients."""
     kw = dict(in_channels=4, filter_resolution=(3, 2), radius=1.2, continuous_conv_layers=2,
               continuous_conv_dim=8, encoder_hiddens=(6,), decoder_hiddens=(6,))
-    plain = ContinuousConvModel(**kw, conv_impl="kernel",
-                                generator=torch.Generator().manual_seed(8))
+    plain = ContinuousConvModel(**kw, conv_impl="kernel", key=prng.PRNGKey(8))
     chunked = ContinuousConvModel(**kw, conv_node_chunks=3)
     assert [c.node_chunks for c in chunked.convs] == [3, 3]
     assert list(chunked.state_dict()) == list(plain.state_dict())

@@ -248,7 +248,7 @@ def test_edge_message_sum_on_a_real_layer(aggr):
     pos, vel, mass = pos[order], vel[order], mass[order]
     model = GraphModel(input_dim=4, gnn_dim=16, message_passing_steps=2, aggr=aggr,
                        neighbors=6, knn_method="morton", fused_edgeconv=True,
-                       generator=torch.Generator().manual_seed(1)).eval()
+                       key=prng.PRNGKey(1)).eval()
     conv = model.convs[0]
     with torch.no_grad():
         idx, valid = build_graph(model.graph_spec, pos[None])

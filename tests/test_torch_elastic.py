@@ -23,6 +23,7 @@ from nbody_tpu_torch.data.generate import ScenarioConfig, generate_dataset
 from nbody_tpu_torch.models import GraphModel
 from nbody_tpu_torch.train import (CheckpointManager, PlateauScheduler, Trainer,
                                    TrainingFault, all_finite, elastic_train)
+from nbody_tpu_torch.utils import prng
 
 DT = 1e-4
 
@@ -39,8 +40,7 @@ def tiny_data(tmp_path_factory):
 
 def _trainer(seed=0, lr=0.01, **kw):
     model = GraphModel(input_dim=4, gnn_dim=16, message_passing_steps=2, aggr="mean",
-                       neighbors=4, scale_factor=1e6,
-                       generator=torch.Generator().manual_seed(seed))
+                       neighbors=4, scale_factor=1e6, key=prng.PRNGKey(seed))
     return Trainer(model, learning_rate=lr, dt=DT, seed=0, **kw)
 
 

@@ -23,13 +23,14 @@ B11 rtol = atol = 2e-6 (attic/test_edgeconv_kernel.py:44); the sharded
 paths of ``parallel/`` at the dryrun's bars (``parallel/dryrun.py``);
 ``utils.prng``'s draws the CPU's bits and JAX's known answers, a galaxy
 drawn on the card the CPU's within the bounds of
-``tests/test_torch_ics.py`` against JAX."""
+``tests/test_torch_ics.py`` against JAX; the initial models and a dropout
+mask drawn on the card the CPU's bits and JAX's known answers."""
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import known_answer_mismatches
+from chip_smoke import init_card_vs_cpu, init_known_answer_mismatches, known_answer_mismatches
 from nbody_tpu_torch.core import SimulationConfig, simulate
 from nbody_tpu_torch.ics import generate_spiral
 from nbody_tpu_torch.models import GraphModel
@@ -70,6 +71,17 @@ def test_prng_on_the_card_matches_the_cpu(cuda):
     want = generate_spiral(k, n, device="cpu")
     for g, w, frac in zip(got, want, (1e-6, 1e-4, 0.0)):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=frac * float(w.abs().max()))
+
+
+def test_flax_init_on_the_card_matches_the_cpu(cuda):
+    """JAX's initial-model known answers drawn on the card; both reference
+    models from ``split(PRNGKey(0))[1]`` and one step's dropout mask (whole
+    and a rank's rows) the CPU's bits (``chip_smoke.init_card_vs_cpu``)."""
+    assert init_known_answer_mismatches(cuda) == []
+    res = init_card_vs_cpu(cuda)
+    assert res["gnn"]["unequal"] == 0 and res["contconv"]["unequal"] == 0
+    assert res["contconv"]["values"] == 4_617_635
+    assert res["dropout"]["unequal"] == 0 and res["dropout"]["rows_unequal"] == 0
 
 
 @pytest.mark.parametrize("n", [1, 31, 257, 1000, 20_000])
@@ -262,7 +274,7 @@ def test_simulate_kernel_backend_matches_dense_on_card(cuda):
 def test_surrogate_rollout_on_card_matches_cpu(cuda):
     pos, vel, mass = _spiral(200, 9, torch.device("cpu"))
     model = GraphModel(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean",
-                       neighbors=10, generator=torch.Generator().manual_seed(0)).eval()
+                       neighbors=10, key=prng.PRNGKey(0)).eval()
     want = autoregressive_rollout(model, pos, vel, mass, 10, 1e-4)
     got = autoregressive_rollout(model.to(cuda), pos.to(cuda), vel.to(cuda),
                                  mass.to(cuda), 10, 1e-4)
@@ -725,14 +737,14 @@ def test_contconv_layer_kernel_matches_dense_on_card(cuda):
     feat = torch.randn(1, 3000, 128, generator=torch.Generator().manual_seed(0)).to(cuda)
     idx, valid = radius_neighbors(pos, 1.0, 32, method="morton", impl="kernel")
     layer = ContinuousConv(128, 128, filter_resolution=6, radius=1.0, impl="dense",
-                           generator=torch.Generator().manual_seed(1)).to(cuda)
+                           key=prng.PRNGKey(1)).to(cuda)
     with torch.no_grad():
         want = layer(pos[None], feat, idx[None], valid[None])
         layer.impl = "kernel"
         got = layer(pos[None], feat, idx[None], valid[None])
     assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
     coarse = ContinuousConv(128, 128, filter_resolution=1, radius=1.0, impl="kernel",
-                            generator=torch.Generator().manual_seed(2)).to(cuda)
+                            key=prng.PRNGKey(2)).to(cuda)
     with pytest.raises(RuntimeError), torch.no_grad():  # D = 1: no kernel, no twin
         coarse(pos[None], feat, idx[None], valid[None])
 
@@ -1300,7 +1312,7 @@ def test_fused_remat_and_chunked_layers_on_the_card(cuda):
 
     ckw = dict(in_channels=4, filter_resolution=(4, 3), radius=1.0, continuous_conv_layers=2,
                continuous_conv_dim=32, radius_method="morton", radius_impl="kernel")
-    plain = ContinuousConvModel(**ckw, generator=torch.Generator().manual_seed(1)).to(cuda)
+    plain = ContinuousConvModel(**ckw, key=prng.PRNGKey(1)).to(cuda)
     chunked = ContinuousConvModel(**ckw, conv_node_chunks=3).to(cuda)
     chunked.load_state_dict(plain.state_dict())
     idx, valid = build_graph(plain.graph_spec, pos[None])

@@ -18,6 +18,7 @@ from nbody_tpu_torch.models.common import (gather_neighbors, masked_mse,
                                            scaled_rmse_and_mse, select_input_features)
 from nbody_tpu_torch.ops import knn as tknn
 from nbody_tpu_torch.ops import segment as tseg
+from nbody_tpu_torch.utils import prng
 
 
 def _sets(idx, valid):
@@ -149,7 +150,7 @@ def test_converted_graph_model_matches_flax(cfg):
 def test_graph_model_padding_invariance():
     x = torch.from_numpy(_inputs(b=1, n=16, seed=2))
     model = GraphModel(input_dim=4, gnn_dim=16, message_passing_steps=2, aggr="mean",
-                       neighbors=4, generator=torch.Generator().manual_seed(2)).eval()
+                       neighbors=4, key=prng.PRNGKey(2)).eval()
     idx, valid = tknn.batched_knn_neighbors(x[..., :3], 4)
     x_pad = torch.cat([x, torch.ones(1, 6, 7)], dim=1)
     mask = torch.arange(22)[None, :] < 16
@@ -162,13 +163,13 @@ def test_graph_model_padding_invariance():
 def test_seeded_init_and_config():
     kw = dict(input_dim=4, gnn_dim=64, message_passing_steps=2, aggr="mean",
               neighbors=10, scale_factor=1e6)
-    a = GraphModel(**kw, generator=torch.Generator().manual_seed(0))
-    b = GraphModel(**kw, generator=torch.Generator().manual_seed(0))
-    c = GraphModel(**kw, generator=torch.Generator().manual_seed(1))
+    a = GraphModel(**kw, key=prng.PRNGKey(0))
+    b = GraphModel(**kw, key=prng.PRNGKey(0))
+    c = GraphModel(**kw, key=prng.PRNGKey(1))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["convs.0.dense0.weight"], sc["convs.0.dense0.weight"])
-    w = sa["convs.0.dense0.weight"]  # torch nn.Linear init: U(+-1/sqrt(fan_in))
+    w = sa["convs.0.dense0.weight"]  # flax variance_scaling(1/3): U(+-1/sqrt(fan_in))
     assert w.shape == (64, 8) and float(w.abs().max()) <= 8 ** -0.5
     assert a.graph_spec == ("knn", {"k": 10, "include_self": False, "method": "exact"})
     assert a.get_config() == JGraphModel(**kw).get_config()

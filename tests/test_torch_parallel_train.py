@@ -12,7 +12,8 @@ data-parallel run against a one-device one (``tests/test_trainer.py``,
 ``test_data_parallel_reference_batch_mode``), in the bucketed, reference
 batch modes (the dryrun's check adds the mixed one), for the GNN and for a
 ContConv model whose encoder batch norm must see the statistics of the
-whole batch; the trained weights
+whole batch, and for a GNN with encoder dropout, whose ranks draw their
+rows of each step's mask; the trained weights
 and running statistics rtol 2e-4, atol 1e-6, leaving out the biases that
 feed a batch norm and the running means after them (their gradient is
 rounding noise, ``tests/test_torch_train.py``).
@@ -48,8 +49,14 @@ CONTCONV = dict(in_channels=4, out_channels=3, filter_resolution=(3, 2), radius=
                 agg="mean", self_loops=True, continuous_conv_layers=2,
                 continuous_conv_dim=8, encoder_hiddens=(8, 12), decoder_hiddens=(8,),
                 scale_factor=1e6)
+GNN_DROPOUT = dict(GNN, node_encoder_dims=(16,), encoder_dropout=0.1)
+KINDS = {"gnn": (JGraphModel, GNN), "contconv": (JContConv, CONTCONV),
+         "gnn_dropout": (JGraphModel, GNN_DROPOUT)}
+# "mixed": the dryrun's training check; dropout in bucketed mode, whose
+# batches the data axis divides (a reference quota padded to the axis
+# draws a mask of another shape than one process's)
 CASES = [("gnn", "bucketed"), ("gnn", "reference"), ("contconv", "bucketed"),
-         ("contconv", "reference")]  # "mixed": the dryrun's training check
+         ("contconv", "reference"), ("gnn_dropout", "bucketed")]
 EPOCHS, BATCH = 2, 8
 
 
@@ -58,9 +65,8 @@ def _name(kind, mode):
 
 
 def _jax_trainer(kind, mesh=None):
-    return JTrainer((JGraphModel if kind == "gnn" else JContConv)(
-        **(GNN if kind == "gnn" else CONTCONV)), learning_rate=0.01, dt=1e-4, seed=0,
-        mesh=mesh)
+    cls, kw = KINDS[kind]
+    return JTrainer(cls(**kw), learning_rate=0.01, dt=1e-4, seed=0, mesh=mesh)
 
 
 def _flax(kind, train_dir):
@@ -70,13 +76,14 @@ def _flax(kind, train_dir):
     jt._ensure_state(next(iter(JBatchIterator(ds, BATCH, shuffle=False))))
     tree = jax.tree_util.tree_map(np.asarray, {"params": jt.state.params,
                                                "batch_stats": jt.state.batch_stats})
-    sd = (graph_model_state_dict(tree["params"]) if kind == "gnn"
-          else contconv_model_state_dict(tree))
+    sd = (contconv_model_state_dict(tree) if kind == "contconv"
+          else graph_model_state_dict(tree["params"]))
     return (jt.state, jt._has_bn), {k: v.numpy() for k, v in sd.items()}
 
 
 def _port_model(kind, state):
-    model = GraphModel(**GNN) if kind == "gnn" else ContinuousConvModel(**CONTCONV)
+    model = (ContinuousConvModel(**CONTCONV) if kind == "contconv"
+             else GraphModel(**KINDS[kind][1]))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return model
 
@@ -97,8 +104,8 @@ def run(tmp_path_factory):
     for kind, mode in CASES:
         if kind not in states:
             jax_states[kind], states[kind] = _flax(kind, str(train_dir))
-        cases[_name(kind, mode)] = {"model": {"family": "gnn" if kind == "gnn" else "cc",
-                                              "kwargs": GNN if kind == "gnn" else CONTCONV,
+        cases[_name(kind, mode)] = {"model": {"family": "cc" if kind == "contconv" else "gnn",
+                                              "kwargs": KINDS[kind][1],
                                               "state": states[kind]},
                                     "mode": mode, "epochs": EPOCHS, "batch_size": BATCH}
     inp = {"dir": str(train_dir), "cases": cases, "dryrun_dir": str(dry_dir),
@@ -129,6 +136,7 @@ def test_data_parallel_epochs_match_one_process_and_jax(run, kind, mode):
     jt = _jax_trainer(kind, mesh=make_mesh(2, axis_names=("data",)))
     state, jt._has_bn = run["jax_states"][kind]  # the initial state, drawn once
     jt.state = jax.tree_util.tree_map(jnp.array, state)  # a copy: training donates buffers
+    jt.rng = jax.random.split(jt.rng)[0]  # the key after _ensure_state's init split
     jax_losses, _ = jt.train_from_dir(run["dir"], epochs=EPOCHS, batch_size=BATCH,
                                       batch_mode=mode, verbose=False)
     np.testing.assert_allclose(got["losses"], jax_losses, rtol=2e-4)

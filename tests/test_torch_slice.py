@@ -140,7 +140,7 @@ datagen.main(["--n-bodies", "5", "9", "--sim-type", "spiral", "--steps", "4",
               "--seed", "1", "--force-backend", "kernel", "--device", "cpu",
               "--output", os.path.join(d, "t.csv")])
 m = GraphModel(input_dim=4, gnn_dim=8, message_passing_steps=2, aggr="mean",
-               neighbors=3, generator=torch.Generator().manual_seed(0))
+               neighbors=3, key=utils.prng.PRNGKey(0))
 s, r = Trainer(m, dt=1e-4).test_from_dir(d, sim_steps=4)
 assert len(s) == 2 and len(r) == 8
 from nbody_tpu_torch.experiments import large_scale

@@ -35,6 +35,7 @@ from nbody_tpu_torch.models import (ContinuousConvModel, GraphModel, MaskedBatch
                                     contconv_model_state_dict, graph_model_state_dict)
 from nbody_tpu_torch.train import CheckpointManager, PlateauScheduler, Trainer, make_optimizer
 from nbody_tpu_torch.train.graphs import build_graph
+from nbody_tpu_torch.utils import prng
 
 DT = 1e-4
 GNN = dict(input_dim=4, gnn_dim=16, message_passing_steps=2, aggr="mean",
@@ -162,7 +163,7 @@ def test_batch_norm_statistics_of_a_step_match_jax(tiny_data):
 def _dropout_trainer():
     model = GraphModel(input_dim=4, gnn_dim=8, message_passing_steps=1, aggr="mean",
                        neighbors=4, scale_factor=1e6, node_encoder_dims=(8,),
-                       encoder_dropout=0.3, generator=torch.Generator().manual_seed(0))
+                       encoder_dropout=0.3, key=prng.PRNGKey(0))
     return Trainer(model, learning_rate=0.01, dt=DT, seed=0,
                    scheduler=PlateauScheduler(lr=0.01, factor=0.5, patience=1))
 
@@ -205,7 +206,7 @@ def test_test_from_dir_loads_the_checkpoint(tiny_data, tmp_path):
     trained = Trainer(GraphModel(**GNN), dt=DT)
     trained.train_from_dir(train_dir, epochs=1, batch_size=8, save_every=1, save_path=save,
                            verbose=False)
-    fresh = Trainer(GraphModel(**GNN, generator=torch.Generator().manual_seed(5)), dt=DT)
+    fresh = Trainer(GraphModel(**GNN, key=prng.PRNGKey(5)), dt=DT)
     df_step, df_roll = fresh.test_from_dir(test_dir, model_path=save, sim_steps=10)
     for a, b in zip(trained.model.state_dict().values(), fresh.model.state_dict().values()):
         assert torch.equal(a, b)
@@ -245,7 +246,7 @@ def test_rollout_and_predict_run_in_eval_mode_and_restore_the_mode(tiny_data):
     from nbody_tpu_torch.train import autoregressive_rollout, predict_accelerations
 
     train_dir, _ = tiny_data
-    trainer = Trainer(ContinuousConvModel(**CONTCONV, generator=torch.Generator().manual_seed(2)),
+    trainer = Trainer(ContinuousConvModel(**CONTCONV, key=prng.PRNGKey(2)),
                       learning_rate=0.01, dt=DT)
     trainer.train_from_dir(train_dir, epochs=1, batch_size=8, verbose=False)
     model = trainer.model
