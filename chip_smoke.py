@@ -178,6 +178,19 @@ the port's main path once:
     40 steps, stride 4, 2 epochs and the eval, with s per epoch, the peak
     memory and the stepwise error against the predict-zero baseline, every
     number finite.
+15. the JAX package's sub-2M sweeps through ``scripts/h100_treecode_runs.py``
+    (each row's entry point at the row's own knobs, read from
+    ``results/large_scale/``), each artifact's rows driven with the counters
+    at 0 just before them and read just after, and held by
+    ``scripts/answer_ratios.py``'s bars: ``treeforce_bench`` bh at 1M, M =
+    16, B = 512 (``bh.json``, the full exact sum), bh2 at 1M, rc = 12
+    (``bh2.json``) and bh3 at ``bh3_1m_rc48_ns64.json``'s knobs (4096
+    sampled receivers), each median within 0.8-1.25x JAX's and each p99
+    within 0.5-2.0x; ``knn_recall`` on the 100,000-body spiral,
+    ``morton(W=64)`` and the kernels' ``morton-pallas(B=256)`` (B7 + B8),
+    recall within 5e-4 of JAX's and the exact row 1.0; ``crossover``
+    direct and surrogate (refresh 8) at 20,000 bodies, 50 steps
+    (``crossover_r3.json``), every final state finite.
 
 Every phase raises on failure, so the exit code is non-zero and no result
 line is printed. Informative lines come first. The last three lines are a
@@ -290,6 +303,18 @@ BH3_10M_TIER = dict(n_near=48, block=512, coarse=16, rc=48, sub_block=32, n_sub=
 BH2_10M_MEDIAN = 0.03   # bh_rollout_10m.json: 0.0195 after 200 steps
 BH3_10M_MEDIAN = 0.0105  # 1.5 x bh3_10m_tier_rc96.json's 0.00698
 BH2_2M_DRIFT = 1e-5
+# phase 15: rows of the JAX package's sub-2M sweeps (results/large_scale/),
+# each answered by scripts/h100_treecode_runs.py and held by answer_ratios.py's
+# bars; (artifact, JAX row filter, kernels its entry point must launch)
+SWEEP_ROWS = [
+    ("bh", lambda r: r["n"] == 1_000_000 and r["n_near"] == 16 and r["block"] == 512,
+     ("b1", "b1n", "b9", "b10")),
+    ("bh2", lambda r: r["n"] == 1_000_000 and r.get("rc") == 12, ("b1", "b1n", "b9", "b10")),
+    ("bh3_1m_rc48_ns64", lambda r: True, ("b1", "b1n", "b9", "b10")),
+    ("knn_recall", lambda r: (r["profile"], r["n"]) == ("spiral", 100_000)
+     and r["method"] in ("exact", "morton(W=64)", "morton-pallas(B=256)"), ("b7", "b8")),
+    ("crossover_r3", lambda r: r["n"] == 20_000, ("b1", "b7", "b8")),
+]
 # phase 14: the recipe cut to 2 train files (configs/*.json: 10), seed 42 as
 # in run_experiments.sh; train_large's GNN at 100k cut to 1 scene of 40 steps
 TRAIN_CUT_FILES = 2
@@ -2521,6 +2546,57 @@ def phase13_tier_paths() -> None:
     torch.cuda.empty_cache()
 
 
+def _script(name: str):
+    """``scripts/NAME.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "scripts",
+                                                                      name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase15_sweeps(card: str) -> dict:
+    """Rows of the JAX package's sub-2M treecode sweeps, kNN recall table and
+    crossover study answered through their entry points and held to
+    ``scripts/answer_ratios.py``'s bars; returns the launches of each
+    artifact's rows."""
+    import torch
+
+    runs, ratios = _script("h100_treecode_runs"), _script("answer_ratios")
+    launches = {}
+    for name, select, need in SWEEP_ROWS:
+        torch.cuda.empty_cache()
+        zero_counts()
+        t0 = time.perf_counter()
+        ans = runs.answer(name, card=card, select=select)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = launches[name] = read_counts()
+        log(f"[15] {name}: launches {ran}; wall time {wall:.3f} s")
+        if min(ran[k] for k in need) == 0 or ran["b6"] or ran["b11"]:
+            raise AssertionError(f"{name}: launches {ran}; {need} must be above 0, B6 and "
+                                 f"B11 at 0")
+        want = runs.jax_artifact(name)
+        want = {**want, "rows": [r for r in want["rows"] if select(r)]}
+        if ans["device_kind"] != torch.cuda.get_device_name(0) or ans["card"] != card:
+            raise AssertionError(f"{name}: answer header {ans}")
+        rows = ratios.compare(name, ans, want)
+        for r in rows:
+            ratio = "-" if r[5] is None else f"{r[5]:.4f}"
+            log(f"[15] {name} {r[1]} {r[2]}: JAX {r[3]}, port {r[4]}, port / JAX {ratio}, "
+                f"bar {r[6]}: {r[7]}")
+        bad = [r for r in rows if r[7] in ("MISSED", "MISSING", "not run")]
+        barred = [r for r in rows if r[7] == "met"]
+        if bad or not barred and not name.startswith("crossover"):
+            raise AssertionError(f"{name}: {bad or 'no barred reading'}")
+        for r in ans["rows"]:
+            if "mode" in r and not (r["finite"] and math.isfinite(r["ms_per_step"])):
+                raise AssertionError(f"{name}: {r}")
+    return launches
+
+
 def _b11_case(label, u, vpad, idx, mask, dtype, tile, half, time_it):
     """B11 against its plain version on one input, twice for the same bits;
     returns (max abs err, ms, plain ms, bound)."""
@@ -3335,6 +3411,10 @@ def main() -> int:
     phase13_kernels()
     phase13_tier_paths()
     stamp("13")
+
+    # the sub-2M sweeps: counters at 0 before each artifact's rows
+    phase15_sweeps(card)
+    stamp("15")
 
     # the training configurations at full width: counters at 0 in the phase
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_configs_") as tmp:

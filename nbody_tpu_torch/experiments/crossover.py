@@ -21,6 +21,7 @@ replaced, and a file measured at another ``--steps`` is refused under
 
 - ``--device`` (default cuda; the CPU only as ``--device cpu``), and
   ``device`` / ``device_kind`` in the artifact;
+- each row's ``finite``: the timed run's final positions are all finite;
 - ``--knn-impl`` takes ``dense`` or ``kernel`` (the JAX ``xla`` / ``pallas``)
   and defaults to ``kernel`` (B7 + B8) on a CUDA device;
 - ``--load-params`` reads a ``state_dict`` written by ``torch.save`` (the
@@ -47,11 +48,13 @@ G, EPS, DT = 4.5e-6, 0.05, 1e-4
 MODES = ["direct", "surrogate", "bh", "bh2", "bh3"]
 
 
-def _timed(fn, dev) -> float:
-    """Seconds of a second run of ``fn`` (the first warms the allocator,
-    the library handles and any kernel build)."""
+def _timed(fn, dev) -> tuple:
+    """(seconds of a second run of ``fn``, whether that run's final positions
+    are all finite); the first run warms the allocator, the library handles
+    and any kernel build. ``fn`` returns its positions, steps first."""
     fn()
-    return device_time(fn, dev)[1]
+    pos, seconds = device_time(fn, dev)
+    return seconds, bool(torch.isfinite(pos[-1]).all())
 
 
 def _norm(mode: str) -> str:
@@ -157,9 +160,10 @@ def main(argv=None):
             if mode not in modes:
                 continue
             cfg = SimulationConfig(g_const=G, softening=EPS, dt=DT, calc_energy=False, **knobs)
-            el = _timed(lambda: simulate(pos, vel, mass, args.steps, cfg), dev)
+            el, finite = _timed(lambda: simulate(pos, vel, mass, args.steps, cfg).positions,
+                                dev)
             record({"n": n, "mode": tag, "ms_per_step": el / args.steps * 1e3,
-                    "psteps_per_s": n * args.steps / el})
+                    "psteps_per_s": n * args.steps / el, "finite": finite})
 
         if "surrogate" not in modes:
             continue
@@ -178,11 +182,12 @@ def main(argv=None):
         model.to(dev).eval()
         impl_tag = f"{args.knn_impl}," if args.knn_impl else ""
         for r in args.graph_refresh:
-            el = _timed(lambda r=r: autoregressive_rollout(
-                model, pos, vel, mass, args.steps + 1, DT, graph_refresh=r), dev)
+            el, finite = _timed(lambda r=r: autoregressive_rollout(
+                model, pos, vel, mass, args.steps + 1, DT, graph_refresh=r)[0], dev)
             record({"n": n, "mode": f"surrogate({impl_tag}refresh={r})",
                     "ms_per_step": el / args.steps * 1e3,
-                    "psteps_per_s": n * args.steps / el, "params": params_tag})
+                    "psteps_per_s": n * args.steps / el, "finite": finite,
+                    "params": params_tag})
 
     if args.out:
         print(f"wrote {args.out}")

@@ -21,7 +21,8 @@ The surrogates carry seeded random weights (a speed demo, as in the JAX
 script without ``--weights``). Prints one JSON line per mode with the JAX
 script's keys: wall seconds (synchronised host timer, after one warm-up
 run), particle-steps per second and, for the surrogate when the direct
-rollout ran too, the RMS final-position distance from the direct sum.
+rollout ran too, the RMS final-position distance from the direct sum; and
+``finite``, whether the timed run's final positions are all finite.
 On a CUDA device ``--knn-impl`` and ``--conv-impl`` default to ``kernel``
 (B7 + B8, B3), as the JAX script picks its Pallas search on a TPU;
 ``dense`` picks the plain-torch paths. ``--profile`` adds, per mode, the
@@ -135,7 +136,8 @@ def main(argv=None):
     for mode in [m for m in runs if m in args.modes]:
         runs[mode]()  # warm-up
         finals[mode], el = device_time(runs[mode], dev)
-        r = results[mode] = {"seconds": el, "psteps_per_s": n * steps / el}
+        r = results[mode] = {"seconds": el, "psteps_per_s": n * steps / el,
+                             "finite": bool(torch.isfinite(finals[mode]).all())}
         if mode == "surrogate":
             r["graph_refresh"] = args.graph_refresh
             if "direct" in finals:

@@ -1,15 +1,30 @@
 """The port's answers against the JAX package's artifacts of the same name:
 each reading of ``results/large_scale_h100/NAME.json`` beside
-``results/large_scale/NAME.json`` and their ratio (port / JAX), as a
-markdown table::
+``results/large_scale/NAME.json``, their ratio (port / JAX) and, where the
+reading has a bar, its verdict, as a markdown table::
 
     python scripts/answer_ratios.py [--port DIR] [--jax DIR] [NAME ...]
 
-Readings: for ``train_*`` the final training loss, stepwise error,
-predict-zero baseline, median and relative RMS force error, and the
-rollout's position RMSE at its horizon; for the
-treecode answers the sampled (or full) median and p99 relative force error,
-or for rollouts ``E0`` and the energy drift, or the sampled audit.
+Artifacts with rows are matched row by row on a key (the k-th JAX row of a
+key with the k-th answer of that key):
+
+- treecode sweeps: ``(n, n_near, block, coarse, rc, sub_block, n_sub,
+  engine)``; the median relative force error must lie within 0.8-1.25x
+  JAX's, its p99 and ``err_over_rms_p99`` within 0.5-2.0x; the times are
+  printed for information;
+- ``knn_recall``: ``(profile, n, k, method)`` (the port's
+  ``morton-kernel`` is JAX's ``morton-pallas``); an ``exact`` row's recall
+  must be 1.0, a Morton row's within 5e-4 of JAX's; rows that did not run
+  say so;
+- ``crossover*`` and ``contconv_large``: ``(n, mode)``, the kNN impl tag
+  left out; ms a step for information, the run's final state finite.
+
+Artifacts without rows: for ``train_*`` the final training loss, stepwise
+error, predict-zero baseline, median and relative RMS force error, and the
+rollout's position RMSE at its horizon; for rollouts ``E0``, the energy
+drift (``bh_rollout`` held below ``DRIFT_BAR``) or the sampled audit; for
+``contconv_large_r3`` the surrogate's seconds. These have no bar unless
+named here.
 """
 
 from __future__ import annotations
@@ -18,12 +33,97 @@ import argparse
 import glob
 import json
 import os
+import re
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RATIO_BARS = {"rel_err_median": (0.8, 1.25), "rel_err_p99": (0.5, 2.0),
+              "err_over_rms_p99": (0.5, 2.0)}
+RECALL_TOL = 5e-4
+DRIFT_BAR = {"bh_rollout": 1.1e-6}  # twice the artifact's 5.44e-7
+TREE_KEY = ("n", "n_near", "block", "coarse", "rc", "sub_block", "n_sub", "engine")
+TREE_INFO = ("exact_ms", "bh_fresh_ms", "bh_reused_ms", "partition_ms")
+
+
+def tree_engine(row: dict) -> str:
+    if row.get("engine") in ("bh", "bh2", "bh3"):
+        return row["engine"]
+    if "sub_block" in row:
+        return "bh3"
+    if "coarse" in row and row.get("engine") != "bh1-baseline":
+        return "bh2"
+    return "bh"
+
+
+def row_key(row: dict) -> tuple:
+    if "method" in row:
+        return (row["profile"], row["n"], row["k"],
+                row["method"].replace("morton-kernel", "morton-pallas"))
+    if "mode" in row:
+        return (row["n"], re.sub(r"(pallas|xla|kernel|dense),", "", row["mode"]))
+    engine = tree_engine(row)
+    used = {"bh": 3, "bh2": 5, "bh3": 7}[engine]  # bh has no coarse level, bh2 no sub-blocks
+    return tuple(row.get(k) for k in TREE_KEY[:used]) + (None,) * (7 - used) + (engine,)
+
+
+def pair_rows(jax_rows: list, port_rows: list) -> list:
+    """(JAX row, its answer or None) in JAX's order."""
+    pool = {}
+    for r in port_rows:
+        pool.setdefault(row_key(r), []).append(r)
+    pairs = []
+    for r in jax_rows:
+        left = pool.get(row_key(r), [])
+        pairs.append((r, left.pop(0) if left else None))
+    return pairs
+
+
+def _ratio(mine, ref):
+    return mine / ref if ref else float("nan")
+
+
+def row_readings(want: dict, got) -> list:
+    """(reading, JAX, port, ratio, bar, verdict) of one matched row pair."""
+    if got is None:
+        return [("row", None, None, None, "answered", "MISSING")]
+    out = []
+    if "method" in want:
+        if got.get("not_run"):
+            return [("recall", want["recall"], None, None, "-", "not run")]
+        if want["method"] == "exact":
+            ok = got["recall"] == 1.0
+            out.append(("recall", want["recall"], got["recall"], _ratio(got["recall"],
+                        want["recall"]), "== 1.0", "met" if ok else "MISSED"))
+        else:
+            ok = abs(got["recall"] - want["recall"]) <= RECALL_TOL
+            out.append(("recall", want["recall"], got["recall"],
+                        _ratio(got["recall"], want["recall"]),
+                        f"+- {RECALL_TOL:g}", "met" if ok else "MISSED"))
+        out.append(("seconds", want["seconds"], got["seconds"],
+                    _ratio(got["seconds"], want["seconds"]), "-", "info"))
+        return out
+    if "mode" in want:
+        finite = got.get("finite", True)
+        out.append(("ms_per_step", want["ms_per_step"], got["ms_per_step"],
+                    _ratio(got["ms_per_step"], want["ms_per_step"]), "finite",
+                    "info" if finite else "MISSED"))
+        return out
+    for key, (lo, hi) in RATIO_BARS.items():
+        if key not in want:
+            continue
+        if key not in got:
+            out.append((key, want[key], None, None, f"{lo}-{hi}x", "MISSING"))
+            continue
+        r = _ratio(got[key], want[key])
+        out.append((key, want[key], got[key], r, f"{lo}-{hi}x",
+                    "met" if lo <= r <= hi else "MISSED"))
+    for key in TREE_INFO:
+        if key in want and key in got:
+            out.append((key, want[key], got[key], _ratio(got[key], want[key]), "-", "info"))
+    return out
 
 
 def readings(a: dict) -> dict:
-    """The comparable numbers of one answer or artifact."""
+    """The comparable numbers of one answer or artifact without rows."""
     if "training" in a:
         e = a["eval"]
         return {"final": a["training"]["final_scaled_rmse"],
@@ -33,11 +133,38 @@ def readings(a: dict) -> dict:
                 "rel_rmse": e.get("final_acc_rel_rmse_vs_exact"),
                 "pos_rmse": (e["rollout_pos_rmse"][-1]["pos_rmse"]
                              if e.get("rollout_pos_rmse") else None)}
-    if "rows" in a:
-        r = a["rows"][0]
-        return {"median": r.get("rel_err_median"), "p99": r.get("rel_err_p99")}
+    if "results" in a:
+        return {"surrogate_seconds": a["results"]["surrogate"]["seconds"]}
     return {k: a.get(k) for k in ("E0", "rel_energy_drift", "end_rel_err_median",
-                                  "end_rel_err_p99") if k in a}
+                                  "end_rel_err_p99", "ms_per_step") if k in a}
+
+
+def compare(name: str, mine: dict, theirs: dict) -> list:
+    """(answer, row, reading, JAX, port, ratio, bar, verdict) for one answer."""
+    if "rows" in theirs:
+        rows = []
+        for i, (want, got) in enumerate(pair_rows(theirs["rows"], mine.get("rows", []))):
+            label = f"{i}: " + " ".join(str(x) for x in row_key(want) if x is not None)
+            rows += [(name, label, *r) for r in row_readings(want, got)]
+        return rows
+    rows = []
+    mine_r, theirs_r = readings(mine), readings(theirs)
+    for key, value in mine_r.items():
+        ref = theirs_r.get(key)
+        if value is None or ref is None:
+            continue
+        bar, verdict = "-", "-"
+        if key == "rel_energy_drift" and name in DRIFT_BAR:
+            bar = f"< {DRIFT_BAR[name]:g}"
+            verdict = "met" if abs(value) < DRIFT_BAR[name] else "MISSED"
+        rows.append((name, "-", key, ref, value, _ratio(value, ref), bar, verdict))
+    return rows
+
+
+def _fmt(x) -> str:
+    if x is None:
+        return "-"
+    return f"{x:.6g}" if isinstance(x, float) else str(x)
 
 
 def main(argv=None) -> list:
@@ -49,22 +176,24 @@ def main(argv=None) -> list:
     names = args.names or sorted(os.path.basename(f)[:-5]
                                  for f in glob.glob(os.path.join(args.port, "*.json")))
     rows = []
-    print("| answer | reading | JAX | port | port / JAX |\n| --- | --- | --- | --- | --- |")
+    print("| answer | row | reading | JAX | port | port / JAX | bar | verdict |\n"
+          "| --- | --- | --- | --- | --- | --- | --- | --- |")
     for name in names:
         jax_path = os.path.join(args.jax, name + ".json")
         if not os.path.exists(jax_path):
             continue
         with open(os.path.join(args.port, name + ".json")) as f:
-            mine = readings(json.load(f))
+            mine = json.load(f)
         with open(jax_path) as f:
-            theirs = readings(json.load(f))
-        for key, value in mine.items():
-            ref = theirs.get(key)
-            if value is None or ref is None:
-                continue
-            ratio = value / ref if ref else float("nan")
-            rows.append((name, key, ref, value, ratio))
-            print(f"| {name} | {key} | {ref:.6g} | {value:.6g} | {ratio:.4f} |")
+            theirs = json.load(f)
+        for r in compare(name, mine, theirs):
+            rows.append(r)
+            ratio = "-" if r[5] is None else f"{r[5]:.4f}"
+            print(f"| {r[0]} | {r[1]} | {r[2]} | {_fmt(r[3])} | {_fmt(r[4])} | {ratio} | "
+                  f"{r[6]} | {r[7]} |")
+    missed = [r for r in rows if r[7] in ("MISSED", "MISSING")]
+    print(f"\n{len(missed)} reading(s) outside their bar" if missed
+          else "\nevery barred reading within its bar")
     return rows
 
 

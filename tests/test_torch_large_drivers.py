@@ -250,9 +250,9 @@ def test_crossover_rows_merge_and_steps_mismatch(tmp_path, capsys):
                      "surrogate(refresh=2)"]
     for r in rows:
         surrogate = r["mode"].startswith("surrogate")
-        assert set(r) == {"n", "mode", "ms_per_step", "psteps_per_s"} | (
+        assert set(r) == {"n", "mode", "ms_per_step", "psteps_per_s", "finite"} | (
             {"params"} if surrogate else set())
-        assert r["n"] == N and r["ms_per_step"] > 0
+        assert r["n"] == N and r["ms_per_step"] > 0 and r["finite"] is True
         assert r["psteps_per_s"] == pytest.approx(N / r["ms_per_step"] * 1e3)
         assert not surrogate or r["params"] == str(PARAMS_1M)
     art = json.loads(out.read_text())

@@ -15,11 +15,11 @@ import pytest
 from nbody_tpu_torch.experiments import large_scale
 
 REPO = Path(__file__).resolve().parents[1]
-# keys of the JAX script's lines per mode
-KEYS = {"direct": {"mode", "n_bodies", "steps", "seconds", "psteps_per_s"},
-        "surrogate": {"mode", "n_bodies", "steps", "seconds", "psteps_per_s",
+# keys of the JAX script's lines per mode, and whether the final state is finite
+KEYS = {"direct": {"mode", "n_bodies", "steps", "seconds", "psteps_per_s", "finite"},
+        "surrogate": {"mode", "n_bodies", "steps", "seconds", "psteps_per_s", "finite",
                       "graph_refresh", "final_pos_rmse_vs_direct"},
-        "hybrid": {"mode", "n_bodies", "steps", "seconds", "psteps_per_s"}}
+        "hybrid": {"mode", "n_bodies", "steps", "seconds", "psteps_per_s", "finite"}}
 
 
 @pytest.mark.parametrize("argv", [
@@ -38,7 +38,7 @@ def test_large_scale_all_modes(argv, capsys, tmp_path):
     for r in lines:
         assert set(r) == KEYS[r["mode"]]
         assert r["n_bodies"] == 600 and r["steps"] == 3
-        assert math.isfinite(r["seconds"]) and r["psteps_per_s"] > 0
+        assert math.isfinite(r["seconds"]) and r["psteps_per_s"] > 0 and r["finite"] is True
     rmse = lines[1]["final_pos_rmse_vs_direct"]
     assert math.isfinite(rmse) and rmse < 1e-3  # 3 steps of dt 1e-4 apart
     assert json.loads(out.read_text())["device"] == "cpu"
