@@ -174,10 +174,14 @@ the port's main path once:
     each profiled alone (device ms); (b) the ContConv recipe step at
     ``configs/contconv_adopted.json`` (batch 16, mixed, merged) on the same
     files, the same readings; (c)
-    ``train_large`` GNN at 100,000 bodies through its ``main``: 1 scene of
-    40 steps, stride 4, 2 epochs and the eval, with s per epoch, the peak
-    memory and the stepwise error against the predict-zero baseline, every
-    number finite.
+    ``train_large`` GNN at 100,000 bodies through its ``main``, at
+    ``train_20k``'s command line from ``scripts/h100_treecode_runs.py`` cut
+    to 1 scene of 40 steps, stride 4, 2 epochs and the eval, with s per
+    epoch, the peak memory and the stepwise error against the predict-zero
+    baseline, every number finite; then the same cut (whose line carries
+    ``--zero-init-output``, as the 2-scene JAX runs did) for 1 epoch on that
+    data: in both runs the first prediction is exactly zero before any
+    step, and B7 and B8 launch as often a step.
 15. the JAX package's sub-2M sweeps through ``scripts/h100_treecode_runs.py``
     (each row's entry point at the row's own knobs, read from
     ``results/large_scale/``), each artifact's rows driven with the counters
@@ -216,6 +220,7 @@ package beside this script, it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -319,8 +324,9 @@ SWEEP_ROWS = [
 # in run_experiments.sh; train_large's GNN at 100k cut to 1 scene of 40 steps
 TRAIN_CUT_FILES = 2
 WINDOW_STEPS = 100  # the profiled window: 1 file of the recipe at 100 steps
+# (train_20k's command line from scripts/h100_treecode_runs.py, cut to this size)
 TRAIN_LARGE_CUT = ["--n-bodies", str(LARGE_N), "--train-scenes", "1", "--steps", "40",
-                   "--stride", "4", "--bh-near", "48", "--epochs", "2", "--batch-size", "1"]
+                   "--stride", "4", "--epochs", "2", "--batch-size", "1", "--rollout-steps", "0"]
 
 
 # Known answers of ``nbody_tpu_torch.utils.prng``, copied from JAX 0.9 on the
@@ -2926,6 +2932,31 @@ def _train_large(argv, label, steps_per_epoch, need, tag="10e"):
     return res, ran
 
 
+@contextlib.contextmanager
+def _training_forwards():
+    """Each forward in training mode of the models that ``train_large`` builds
+    meanwhile, as (the launch counts so far, the largest |prediction|) in
+    order, in the list this yields."""
+    from nbody_tpu_torch.experiments import train_large
+
+    seen, build = [], train_large.build_model
+
+    def hook(model, _inputs, out):
+        if model.training:
+            seen.append((read_counts(), float(out.detach().abs().max())))
+
+    def build_and_hook(*a, **kw):
+        model = build(*a, **kw)
+        model.register_forward_hook(hook)
+        return model
+
+    train_large.build_model = build_and_hook
+    try:
+        yield seen
+    finally:
+        train_large.build_model = build
+
+
 def _large_step_numbers(argv, data_dir, label, steps, tag="10e"):
     """A warm and a profiled epoch of ``train_large``'s own model and trainer on
     its dataset: ms per optimiser step, idle share, top rows and
@@ -3280,15 +3311,38 @@ def phase14_training_configs(tmp: str) -> dict:
     torch.cuda.synchronize()
     ran = read_counts()  # _train_large sets the counters to 0 again
 
-    # (c) train_large's GNN at 100k through its main
-    out = os.path.join(tmp, "train_100k.json")
-    res, large = _train_large([*TRAIN_LARGE_CUT, "--data-dir", os.path.join(tmp, "data"),
-                           "--out", out], "GNN N=100k, 1 scene of 40 steps, 2 epochs",
-                          10, ("b1", "b7", "b8", "b9", "b10", "b1n"), tag="14c")
+    # (c) train_large's GNN at 100k through its main, at train_20k's command
+    # line as the answer runner builds it, cut to size
+    runs = _script("h100_treecode_runs")
+    cut = runs.with_flags(runs.train_argv("train_20k"), TRAIN_LARGE_CUT)
+    data = ["--data-dir", os.path.join(tmp, "data")]
+    with _training_forwards() as fwd:
+        res, large = _train_large([*cut, *data, "--out", os.path.join(tmp, "train_100k.json")],
+                                  "GNN N=100k, 1 scene of 40 steps, 2 epochs", 10,
+                                  ("b1", "b7", "b8", "b9", "b10", "b1n"), tag="14c")
     tr, ev = res["training"], res["eval"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    _large_step_numbers(TRAIN_LARGE_CUT, os.path.join(tmp, f"data{LARGE_N // 1000}k", "train"),
+    _large_step_numbers(cut, os.path.join(tmp, f"data{LARGE_N // 1000}k", "train"),
                         f"GNN N={LARGE_N} k=10 fused, batch 1", 10, tag="14c")
+    # train_20k's line carries --zero-init-output (the runner's EXTRA); the cut
+    # once more with it, 1 epoch on the same data: in both runs the first
+    # prediction is exactly zero before any step, and a step builds its graph
+    # with the same launches
+    zero = runs.with_flags(cut, ["--epochs", "1", "--zero-init-output", "--skip-datagen"])
+    with _training_forwards() as fwd0:
+        _, large0 = _train_large([*zero, *data, "--out", os.path.join(tmp, "train_100k_zero.json")],
+                                 "GNN N=100k zero-init output, 1 epoch", 10, ("b1", "b7", "b8"),
+                                 tag="14c")
+    # launches from the first training forward to the last, a step
+    per_step = [{k: (f[-1][0][k] - f[0][0][k]) / (len(f) - 1) for k in ("b7", "b8")}
+                for f in (fwd, fwd0)]
+    log(f"[14c] zero-init output: first prediction's largest |value| {fwd0[0][1]} (2-epoch "
+        f"run {fwd[0][1]}), B7 and B8 launches a training step {per_step[1]} (2-epoch run "
+        f"{per_step[0]}); forwards {len(fwd0)} and {len(fwd)}")
+    if "--zero-init-output" not in cut or fwd0[0][1] != 0.0 or fwd[0][1] != 0.0 \
+            or per_step[0] != per_step[1] or per_step[0]["b7"] < 1 or len(fwd) != 2 * len(fwd0):
+        raise AssertionError(f"zero-init output runs: first |pred| {fwd0[0][1]} and "
+                             f"{fwd[0][1]}, launches a step {per_step}")
     log(f"[14c] train_large GNN N={LARGE_N}: s per epoch {tr['seconds_per_epoch']}, peak "
         f"memory {peak:.3f} GiB, stepwise {ev['stepwise_scaled_rmse']:.6g} against the "
         f"predict-zero baseline {ev['predict_zero_baseline_scaled_rmse']:.6g}")
@@ -3296,7 +3350,7 @@ def phase14_training_configs(tmp: str) -> dict:
             and all(math.isfinite(v) for v in (tr["first_scaled_rmse"], tr["final_scaled_rmse"],
                                                *tr["seconds_per_epoch"]))):
         raise AssertionError(f"train_large GNN N={LARGE_N}: training {tr}")
-    ran = {k: ran[k] + c for k, c in large.items()}
+    ran = {k: ran[k] + c + large0[k] for k, c in large.items()}
     log(f"[14] launches on the training configurations' paths: {ran}")
     if min(ran[k] for k in ("b1", "b2", "b3", "b4", "b5", "b7", "b8", "b9", "b10", "b1n")) == 0 \
             or ran["b6"] or ran["b11"]:

@@ -19,10 +19,16 @@ key with the k-th answer of that key):
 - ``crossover*`` and ``contconv_large``: ``(n, mode)``, the kNN impl tag
   left out; ms a step for information, the run's final state finite.
 
-Artifacts without rows: for ``train_*`` the final training loss, stepwise
-error, predict-zero baseline, median and relative RMS force error, and the
-rollout's position RMSE at its horizon; for rollouts ``E0``, the energy
-drift (``bh_rollout`` held below ``DRIFT_BAR``) or the sampled audit; for
+Artifacts without rows: for ``train_*`` the first and final epoch losses,
+the stepwise error and the predict-zero baseline, each held to
+``TRAIN_BARS``, then the median and relative RMS force error and the
+rollout's position RMSE at its horizon for information. The first epoch's
+loss is row 1 of the ``_epoch_loss.csv`` beside the JSON where there is one
+(``first_scaled_rmse`` is the first epoch of a run's last session, so epoch
+23 in JAX's resumed ``train_1m``). At 1M bodies the stepwise error and the
+baseline carry the bh treecode's float32 near/far seam (``ROADMAP.md`` C,
+known differences) and have no bar. For rollouts ``E0``, the energy drift
+(``bh_rollout`` held below ``DRIFT_BAR``) or the sampled audit; for
 ``contconv_large_r3`` the surrogate's seconds. These have no bar unless
 named here.
 """
@@ -30,6 +36,7 @@ named here.
 from __future__ import annotations
 
 import argparse
+import csv
 import glob
 import json
 import os
@@ -42,6 +49,12 @@ RECALL_TOL = 5e-4
 DRIFT_BAR = {"bh_rollout": 1.1e-6}  # twice the artifact's 5.44e-7
 TREE_KEY = ("n", "n_near", "block", "coarse", "rc", "sub_block", "n_sub", "engine")
 TREE_INFO = ("exact_ms", "bh_fresh_ms", "bh_reused_ms", "partition_ms")
+TRAIN_BARS = {"first_scaled_rmse": (0.8, 1.25), "final_scaled_rmse": (0.8, 1.25),
+              "stepwise_scaled_rmse": (0.8, 1.25),
+              "predict_zero_baseline_scaled_rmse": (0.99, 1.01)}
+# training answers at SEAM_N: these readings carry the seam and have no bar
+SEAM_N, SEAM_KEYS = 1_000_000, ("stepwise_scaled_rmse", "predict_zero_baseline_scaled_rmse")
+SEAM = "none: the bh near/far seam"
 
 
 def tree_engine(row: dict) -> str:
@@ -125,10 +138,11 @@ def row_readings(want: dict, got) -> list:
 def readings(a: dict) -> dict:
     """The comparable numbers of one answer or artifact without rows."""
     if "training" in a:
-        e = a["eval"]
-        return {"final": a["training"]["final_scaled_rmse"],
-                "stepwise": e["stepwise_scaled_rmse"],
-                "zero": e["predict_zero_baseline_scaled_rmse"],
+        e, t = a["eval"], a["training"]
+        return {"first_scaled_rmse": a.get("epoch_1_loss", t["first_scaled_rmse"]),
+                "final_scaled_rmse": t["final_scaled_rmse"],
+                "stepwise_scaled_rmse": e["stepwise_scaled_rmse"],
+                "predict_zero_baseline_scaled_rmse": e["predict_zero_baseline_scaled_rmse"],
                 "median": e.get("final_acc_median_rel_err_vs_exact"),
                 "rel_rmse": e.get("final_acc_rel_rmse_vs_exact"),
                 "pos_rmse": (e["rollout_pos_rmse"][-1]["pos_rmse"]
@@ -153,12 +167,29 @@ def compare(name: str, mine: dict, theirs: dict) -> list:
         ref = theirs_r.get(key)
         if value is None or ref is None:
             continue
-        bar, verdict = "-", "-"
+        bar, verdict, r = "-", "-", _ratio(value, ref)
         if key == "rel_energy_drift" and name in DRIFT_BAR:
             bar = f"< {DRIFT_BAR[name]:g}"
             verdict = "met" if abs(value) < DRIFT_BAR[name] else "MISSED"
-        rows.append((name, "-", key, ref, value, _ratio(value, ref), bar, verdict))
+        elif key in TRAIN_BARS:
+            lo, hi = TRAIN_BARS[key]
+            if mine.get("n_bodies") == SEAM_N and key in SEAM_KEYS:
+                bar = SEAM
+            else:
+                bar, verdict = f"{lo}-{hi}x", "met" if lo <= r <= hi else "MISSED"
+        rows.append((name, "-", key, ref, value, r, bar, verdict))
     return rows
+
+
+def with_epoch_1(a: dict, directory: str, name: str) -> dict:
+    """A training answer or artifact with ``epoch_1_loss``, row 1's loss of
+    ``NAME_epoch_loss.csv`` in ``directory``, where that file has one."""
+    path = os.path.join(directory, name + "_epoch_loss.csv")
+    if "training" not in a or not os.path.exists(path):
+        return a
+    with open(path, newline="") as f:
+        first = next(csv.DictReader(f), None)
+    return a if first is None else {**a, "epoch_1_loss": float(first["loss"])}
 
 
 def _fmt(x) -> str:
@@ -183,9 +214,9 @@ def main(argv=None) -> list:
         if not os.path.exists(jax_path):
             continue
         with open(os.path.join(args.port, name + ".json")) as f:
-            mine = json.load(f)
+            mine = with_epoch_1(json.load(f), args.port, name)
         with open(jax_path) as f:
-            theirs = json.load(f)
+            theirs = with_epoch_1(json.load(f), args.jax, name)
         for r in compare(name, mine, theirs):
             rows.append(r)
             ratio = "-" if r[5] is None else f"{r[5]:.4f}"

@@ -13,9 +13,11 @@
 #   small        train_20k, train_50k, train_100k, train_20k_contconv
 #   cc100k       train_100k_contconv_r3, train_100k_contconv
 #   r3           train_100k_r3
-#   1m           train_1m (23 epochs, JAX's run stopped there) and
+#   1m           train_1m, train_1m_r3 (both on one 1M dataset, made once) and
 #                train_1m_committed_weights (eval of results/large_scale/
-#                train_1m_params.pt on the port's own 1M data)
+#                train_1m_params.pt on that data)
+#   train:NAME   the one answer NAME (any name the runner knows), on data of its
+#                own that it makes
 #   ics          scripts/ic_realizations.py at 1M on the port's ICs, and on the
 #                JAX package's arrays where CARRY/jax_ics_1m.npz (its
 #                --dump-jax) is there
@@ -27,8 +29,12 @@
 #                checkpoint); E = 0 runs the eval alone
 #   contconv:E[:S]  the same for contconv_experiment
 #
-# OUT gets every lane's log, the train_large JSONs and epoch-loss CSVs (the
-# final weights go to WORK), and
+# Each train_large run takes its knobs from its JAX artifact through
+# scripts/h100_treecode_runs.py --argv NAME (what the artifact records, then
+# the flags it leaves out, each with its source); a lane adds only where the
+# files go. OUT gets every lane's log, the train_large JSONs and epoch-loss
+# CSVs (the final weights go to WORK), each run's command line in
+# OUT/train_commands.txt, and
 # for the reference lanes this call's epoch_loss.csv (the experiments write
 # the losses of the current call only: join the calls' files in order), the
 # result CSVs once evaluated, and the latest checkpoint. WORK (default _h100,
@@ -53,54 +59,48 @@ clock() { while IFS= read -r line; do echo "[$(( $(date +%s) - T0 )) s] $line"; 
 digests() { (cd "$1" && for f in data/*/*.csv; do
     echo "$(cut -d, -f1-3,5- "$f" | sha256sum | cut -c1-64)  $f"; done); }
 
-large() {  # large NAME ARG... : one train_large run, its JSON and CSV into OUT
+large() {  # large NAME ARG... : one train_large run at NAME's knobs, placed by
+    # ARG..., its JSON and CSV into OUT
     local name=$1; shift
+    local knobs
+    mapfile -t knobs < <(python scripts/h100_treecode_runs.py --argv "$name")
+    [ "${#knobs[@]}" -gt 0 ] || { stamp "train_large $name: no knobs"; return 1; }
+    local argv=("${knobs[@]}" "$@" --out "$OUT/$name.json")
+    echo "$name: python -m nbody_tpu_torch.experiments.train_large ${argv[*]}" \
+        >> "$OUT/train_commands.txt"
     stamp "train_large $name: start"
-    python -m nbody_tpu_torch.experiments.train_large "$@" --out "$OUT/$name.json"
+    python -m nbody_tpu_torch.experiments.train_large "${argv[@]}"
     stamp "train_large $name: exit $?"
     # the final weights stay in WORK, so that OUT holds only the small files
     mv "$OUT/${name}_params.pt" "$WORK/" 2>/dev/null
 }
 
-# the artifacts' knobs (results/large_scale/train_*.json: dataset, training,
-# eval.rollout_horizon); the rest are the JAX script's defaults
-K400=(--steps 400 --stride 4 --bh-near 48 --lr 1e-3)
-K20K=(--n-bodies 20000 --train-scenes 2 "${K400[@]}" --epochs 20)
-K100K=(--n-bodies 100000 --train-scenes 2 "${K400[@]}" --epochs 20 --batch-size 1)
-K100K_R3=(--n-bodies 100000 --train-scenes 4 "${K400[@]}" --batch-size 1 --rollout-steps 400)
-K1M=(--n-bodies 1000000 --train-scenes 2 --steps 100 --stride 1 --bh-near 48 --neighbors 8
-     --remat --batch-size 1 --lr 1e-3 --scan-chunk 8 --epochs 23 --rollout-steps 96)
-
 lane_small() {
     local d=$WORK/data
-    large train_20k "${K20K[@]}" --batch-size 2 --data-dir "$d"
-    large train_50k --n-bodies 50000 --train-scenes 2 "${K400[@]}" --epochs 20 \
-        --batch-size 2 --data-dir "$d"
-    large train_100k "${K100K[@]}" --data-dir "$d"
-    large train_20k_contconv --model contconv "${K20K[@]}" --batch-size 1 --skip-datagen \
-        --data-dir "$d"
+    large train_20k --data-dir "$d"
+    large train_50k --data-dir "$d"
+    large train_100k --data-dir "$d"
+    large train_20k_contconv --skip-datagen --data-dir "$d"
 }
 
 lane_cc100k() {  # train_100k's data (made here if missing), then the 4-scene data
-    large train_100k_contconv_r3 --model contconv "${K100K_R3[@]}" --epochs 20 \
-        --skip-datagen --data-dir "$WORK/data_r3_"
-    large train_100k_contconv --model contconv "${K100K[@]}" --skip-datagen \
-        --data-dir "$WORK/data"
+    large train_100k_contconv_r3 --skip-datagen --data-dir "$WORK/data_r3_"
+    large train_100k_contconv --skip-datagen --data-dir "$WORK/data"
 }
 
 lane_r3() {  # on the 4-scene data that lane cc100k makes when it runs beside
     if [[ " $* " == *" cc100k "* ]]; then
         until [ -f "$WORK/data_r3_100k/test/test.npz" ]; do sleep 10; done
     fi
-    large train_100k_r3 "${K100K_R3[@]}" --epochs 40 --skip-datagen --data-dir "$WORK/data_r3_"
+    large train_100k_r3 --skip-datagen --data-dir "$WORK/data_r3_"
 }
 
 lane_1m() {
-    local m=("${K1M[@]}" --data-dir "$WORK/data1m_")
-    large train_1m "${m[@]}" --save-every 1 --time-chunks 4
+    local d=$WORK/data1m_
+    large train_1m --save-every 1 --data-dir "$d"
     rm -rf "$OUT/train_1m_ckpt"
-    large train_1m_committed_weights "${m[@]}" --skip-datagen \
-        --load-params results/large_scale/train_1m_params.pt
+    large train_1m_r3 --skip-datagen --data-dir "$d"
+    large train_1m_committed_weights --skip-datagen --data-dir "$d"
 }
 
 lane_refdata() {
@@ -171,6 +171,8 @@ for lane in "$@"; do
     case $name in
         small|cc100k|r3|1m|ics|refdata) "lane_$name" "$@" > "$OUT/logs/$name.log" 2>&1 & ;;
         gnn|contconv) lane_ref "$name" "$a" "${b:-0}" > "$OUT/logs/$name.log" 2>&1 & ;;
+        train) large "$a" --skip-datagen --data-dir "$WORK/${a}_data" \
+            > "$OUT/logs/$a.log" 2>&1 & ;;
         *) echo "unknown lane $lane"; exit 2;;
     esac
     pids+=($!)

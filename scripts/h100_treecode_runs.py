@@ -37,6 +37,20 @@ the card's ``device_kind`` and ``nvidia-smi`` line (``card``).
 ``crossover_window.json`` and ``gather_microbench.json`` have no entry point
 in the JAX package that makes them, and ``ring_tpu.json`` is a scope cut:
 none of them is answered.
+
+The training artifacts ``train_*`` are answered by ``train_large``, one
+process a run, in the lanes of ``scripts/h100_training_runs.sh``, which share
+the card. Their command lines come from here: the knobs each artifact
+records (``n_bodies``, ``model``, ``dataset``'s scenes, steps, stride and
+``bh_near``, ``training``'s epochs, batch size, lr, output scale,
+neighbours, scan chunk and remat, ``eval.rollout_horizon``), then the
+``EXTRA`` rows. A lane adds only where the files go (``--data-dir``,
+``--out``, ``--skip-datagen``, ``--save-every``)::
+
+    python scripts/h100_treecode_runs.py --argv train_20k   # one argument a line
+
+``train_1m_committed_weights`` evaluates ``train_1m``'s committed weights at
+``train_1m``'s knobs.
 """
 
 from __future__ import annotations
@@ -71,14 +85,37 @@ CROSSOVER = ["crossover", "crossover_pallas", "crossover_pallas_fast", "crossove
              "crossover_r4", "crossover_r4_direct", "crossover_r5"]
 NAMES = TREECODE + ROLLOUTS + ["knn_recall"] + CROSSOVER + ["contconv_large",
                                                              "contconv_large_r3"]
-# Flags of JAX's command lines that the artifacts do not record:
-# crossover_r3 `scripts/_tpu_queue.sh` job 4; crossover_pallas_fast the
-# 2-copy, B=512 search (`ROUND2_NOTES.md`); crossover_r4 and _r5
-# `scripts/tpu_queue11.sh` and `tpu_queue19.sh`.
-EXTRA = {"crossover_r3": ["--knn-copies", "2"],
-         "crossover_pallas_fast": ["--knn-copies", "2", "--knn-block", "512"],
-         "crossover_r4": ["--neighbors", "8"],
-         "crossover_r5": ["--neighbors", "8"]}
+TRAINING = ["train_20k", "train_50k", "train_100k", "train_100k_r3", "train_20k_contconv",
+            "train_100k_contconv", "train_100k_contconv_r3", "train_1m", "train_1m_r3",
+            "train_1m_committed_weights"]
+TRAIN_ARTIFACT = {"train_1m_committed_weights": "train_1m"}
+# Flags of JAX's runs that the artifacts do not record, each with its source:
+# (flags, source) rows by answer. A flag given here replaces the artifact's
+# value of it. JAX's --conv-impl pallas (scripts/_tpu_queue3.sh:17) is the
+# port's default on a card, so no row gives --conv-impl.
+ZERO_INIT = [(["--zero-init-output"],
+              "PERF.md, Findings, the zero-init probe: JAX's 2-scene runs started from a "
+              "zero output head; with it the port's epoch 1 is JAX's (train_20k 1.0001x, "
+              "the 20k ContConv 1.0046x on an H100), and on the CPU the port follows the "
+              "JAX package of train_20k's commit d7ef376 with and without it "
+              "(scripts/old_commit_train_check.sh)")]
+TRAIN_1M = [(["--epochs", "23"], "results/large_scale/train_1m_epoch_loss.csv: the "
+             "--epochs 60 sessions of scripts/tpu_queue20.sh:50-56,92-98 reached epoch 23 "
+             "under their --train-time-budget, and that epoch's weights were evaluated"),
+            (["--time-chunks", "4"], "scripts/tpu_queue20.sh:52")]
+EXTRA = {"crossover_r3": [(["--knn-copies", "2"], "scripts/_tpu_queue.sh job 4")],
+         "crossover_pallas_fast": [(["--knn-copies", "2", "--knn-block", "512"],
+                                    "ROUND2_NOTES.md: the 2-copy, B=512 search")],
+         "crossover_r4": [(["--neighbors", "8"], "scripts/tpu_queue11.sh")],
+         "crossover_r5": [(["--neighbors", "8"], "scripts/tpu_queue19.sh")],
+         **{n: ZERO_INIT for n in ("train_20k", "train_50k", "train_100k",
+                                   "train_20k_contconv", "train_100k_contconv")},
+         "train_1m": TRAIN_1M,
+         "train_1m_r3": [(["--time-chunks", "4"], "scripts/_tpu_queue5.sh:17-21")],
+         "train_1m_committed_weights": TRAIN_1M + [
+             (["--load-params", "results/large_scale/train_1m_params.pt"],
+              "results/large_scale/train_1m_params.msgpack, the weights train_1m.json "
+              "evaluated, converted once to a state_dict")]}
 NOT_RUN_APPROX = ("not run: lax.approx_max_k is a TPU-only selection; the port has no "
                   "approximate top-k and raises on knn_method='approx' (scope cut)")
 
@@ -143,8 +180,49 @@ def crossover_jobs(name: str, art: dict) -> list:
             if vals:
                 (v,) = vals
                 argv += [flag, v]
-        jobs.append(([str(x) for x in argv + EXTRA.get(name, [])], rows))
+        jobs.append((with_extra([str(x) for x in argv], name), rows))
     return jobs
+
+
+def with_flags(argv: list, flags: list) -> list:
+    """``argv`` with ``flags``: a flag already there takes their values, any
+    other is added."""
+    argv = list(argv)
+    starts = [i for i, a in enumerate(flags) if a.startswith("--")] + [len(flags)]
+    for i, j in zip(starts, starts[1:]):
+        flag, values = flags[i], flags[i + 1:j]
+        if flag in argv:
+            k = argv.index(flag)
+            argv[k + 1:k + 1 + len(values)] = values
+        else:
+            argv += [flag, *values]
+    return argv
+
+
+def with_extra(argv: list, name: str) -> list:
+    """``argv`` with ``name``'s ``EXTRA`` rows."""
+    for flags, _ in EXTRA.get(name, []):
+        argv = with_flags(argv, flags)
+    return argv
+
+
+def train_argv(name: str) -> list:
+    """``train_large``'s knobs for ``results/large_scale/NAME.json``: what the
+    artifact records, then ``EXTRA``."""
+    art = jax_artifact(TRAIN_ARTIFACT.get(name, name))
+    d, t = art["dataset"], art["training"]
+    argv = ["--model", art.get("model", "gnn"), "--n-bodies", art["n_bodies"],
+            "--train-scenes", d["train_scenes"], "--steps", d["steps"], "--stride",
+            d["stride"], "--bh-near", d["bh_near"], "--epochs", t["epochs"], "--batch-size",
+            t["batch_size"], "--lr", t["lr"], "--output-scale", t["output_scale"],
+            "--rollout-steps", art["eval"]["rollout_horizon"]]
+    if "neighbors" in t:
+        argv += ["--neighbors", t["neighbors"]]
+    if t.get("scan_chunk") is not None:
+        argv += ["--scan-chunk", t["scan_chunk"]]
+    if t.get("remat"):
+        argv.append("--remat")
+    return with_extra([str(x) for x in argv], name)
 
 
 def knn_argv(art: dict) -> list:
@@ -187,6 +265,8 @@ def jobs_of(name: str, select=None) -> list:
     """(module, argv, JAX rows answered) for every call that answers ``name``
     (with ``select``, the rows for which ``select(row)`` is true); JAX rows
     is None for an artifact without rows."""
+    if name in TRAINING:
+        return [("train_large", train_argv(name), None)]
     art = jax_artifact(name)
     if select is not None and "rows" in art:
         art = {**art, "rows": [r for r in art["rows"] if select(r)]}
@@ -295,15 +375,19 @@ def answer(name: str, device: str = "cuda", card: str = None, select=None) -> di
     return {**header, **keep, "rows": rows}
 
 
-def selected(patterns: list) -> list:
-    """The artifacts whose names match any of ``patterns`` (all without)."""
-    return [n for n in NAMES if not patterns or any(fnmatch(n, p) for p in patterns)]
+def selected(patterns: list, names: list = NAMES) -> list:
+    """The artifacts of ``names`` that match any of ``patterns`` (all without)."""
+    return [n for n in names if not patterns or any(fnmatch(n, p) for p in patterns)]
 
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
+    if args[:1] == ["--argv"]:
+        (name,) = args[1:]
+        print("\n".join(train_argv(name)))
+        return 0
     if "--print" in args:
-        for name in selected([a for a in args[1:] if a != "--print"]):
+        for name in selected([a for a in args if a != "--print"], NAMES + TRAINING):
             for module, cmd, _ in jobs_of(name):
                 print(f"[{name}] {command(module, cmd)}")
         return 0

@@ -180,18 +180,21 @@ def test_train_large_contconv_in_node_chunks(gnn_run, tmp_path, monkeypatch):
                           "--out", str(tmp_path / "never.json"), "--device", "cpu"])
 
 
-def _losses_from_the_same_weights(train_dir, **kw):
+def _losses_from_the_same_weights(train_dir, converted=True, **kw):
     """Three epochs of ``train_large``'s training call in both packages from
-    the same converted weights: (JAX's losses, the port's)."""
+    the same weights: (JAX's losses, the port's). The port's model takes the
+    converted JAX weights, or (``converted=False``) its trainer draws them
+    from the seed as ``train_large`` does."""
     kw = dict(input_dim=4, message_passing_steps=2, aggr="mean", scale_factor=1e6,
               knn_method="morton", fused_edgeconv=True, output_scale=1e6, **kw)
     jt = JTrainer(JGraphModel(**kw, knn_impl="xla"), learning_rate=1e-3, dt=1e-4, seed=0,
                   scheduler=JPlateau(lr=1e-3, factor=0.25, patience=5))
-    ds = JSnapshotDataset.from_file(os.path.join(train_dir, "train_0.npz"))
-    jt._ensure_state(next(iter(JBatchIterator(ds, 1, shuffle=False))))
     model = GraphModel(**kw, knn_impl="dense")
-    model.load_state_dict(graph_model_state_dict(
-        jax.tree_util.tree_map(np.asarray, jt.state.params)))
+    if converted:
+        ds = JSnapshotDataset.from_file(os.path.join(train_dir, "train_0.npz"))
+        jt._ensure_state(next(iter(JBatchIterator(ds, 1, shuffle=False))))
+        model.load_state_dict(graph_model_state_dict(
+            jax.tree_util.tree_map(np.asarray, jt.state.params)))
     tt = Trainer(model, learning_rate=1e-3, dt=1e-4, seed=0,
                  scheduler=PlateauScheduler(lr=1e-3, factor=0.25, patience=5))
     call = dict(epochs=3, batch_size=1, batch_mode="bucketed", verbose=False)
@@ -200,13 +203,18 @@ def _losses_from_the_same_weights(train_dir, **kw):
     return want, got
 
 
-def test_train_large_shaped_losses_match_jax_trainer(gnn_run):
+@pytest.mark.parametrize("case", ["converted", "zero_init_from_the_seed"])
+def test_train_large_shaped_losses_match_jax_trainer(gnn_run, case):
     """The slice as a whole: ``train_large``'s dataset, its model (Morton graphs,
     fused EdgeConv, remat, output scale) and its training call, from the
-    same converted weights in both packages."""
+    same converted weights in both packages; and with ``--zero-init-output``
+    (the flag of the 2-scene artifacts), each package drawing its weights
+    from the seed alone."""
     root, _, _, _ = gnn_run
-    want, got = _losses_from_the_same_weights(str(root / f"data{N}" / "train"), gnn_dim=8,
-                                              neighbors=4, remat=True)
+    zero = case == "zero_init_from_the_seed"
+    want, got = _losses_from_the_same_weights(str(root / f"data{N}" / "train"),
+                                              converted=not zero, gnn_dim=8, neighbors=4,
+                                              remat=True, zero_init_output=zero)
     np.testing.assert_allclose(got, want, rtol=2e-4)
 
 

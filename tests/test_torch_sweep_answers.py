@@ -197,6 +197,38 @@ def test_ratio_table_matches_rows_and_holds_bars(tmp_path, capsys):
     assert "5 reading(s) outside their bar" in table
 
 
+def test_ratio_table_holds_training_bars(tmp_path, capsys):
+    """A hand-made training pair: epoch 1 read from the epoch-loss CSVs (not
+    ``first_scaled_rmse``, a resumed session's first epoch), inside its bar;
+    the final loss outside; and a 1M pair whose stepwise error and baseline
+    have no bar (the bh seam)."""
+    def art(n, first, final, stepwise, zero):
+        return {"n_bodies": n, "training": {"first_scaled_rmse": first,
+                                            "final_scaled_rmse": final},
+                "eval": {"stepwise_scaled_rmse": stepwise,
+                         "predict_zero_baseline_scaled_rmse": zero}}
+
+    _write(tmp_path, "train_2k", art(2000, 0.5, 0.02, 0.03, 0.09),
+           art(2000, 0.9, 0.026, 0.036, 0.0905))
+    _write(tmp_path, "train_1m", art(1_000_000, 0.04, 0.04, 0.04, 0.09),
+           art(1_000_000, 0.09, 0.04, 0.06, 0.1))
+    for side, e1 in (("jax", 0.05), ("port", 0.06)):
+        (tmp_path / side / "train_2k_epoch_loss.csv").write_text(
+            f"epoch,loss,mse_loss,wall_s\n1,{e1},1e-15,1.0\n2,0.02,1e-15,1.0\n")
+    rows = ratios.main(["--port", str(tmp_path / "port"), "--jax", str(tmp_path / "jax")])
+    got = {(r[0], r[2]): r for r in rows}
+    assert got[("train_2k", "first_scaled_rmse")][5] == pytest.approx(1.2)
+    assert got[("train_2k", "first_scaled_rmse")][7] == "met"
+    assert got[("train_2k", "final_scaled_rmse")][7] == "MISSED"            # 1.3x
+    assert got[("train_2k", "stepwise_scaled_rmse")][7] == "met"            # 1.2x
+    assert got[("train_2k", "predict_zero_baseline_scaled_rmse")][7] == "met"
+    assert got[("train_1m", "first_scaled_rmse")][7] == "MISSED"            # 2.25x
+    assert got[("train_1m", "final_scaled_rmse")][7] == "met"
+    for key in ("stepwise_scaled_rmse", "predict_zero_baseline_scaled_rmse"):
+        assert got[("train_1m", key)][6].endswith("seam") and got[("train_1m", key)][7] == "-"
+    assert "2 reading(s) outside their bar" in capsys.readouterr().out
+
+
 # the artifacts answered with their command lines and the card's line (the
 # 2M-10M answers before them hold neither)
 SWEEPS = runs.selected(["bh", "bh2", "bh3", "bh3_1m_*", "bh_rollout", "knn_recall",

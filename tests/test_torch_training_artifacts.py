@@ -6,14 +6,21 @@ the committed 1M weights on the port's own data); ``results/gnn_h100/`` and
 ``results/contconv_h100/`` answer the two reference experiments. These tests
 hold their form to the reference's: the same keys, the same knobs, a card's
 name and power limit, the same CSV headers and row counts. ``train_large``'s defaults must
-never point at the reference's own files. Reads JSON and CSV only.
+never point at the reference's own files. The command lines come from
+``scripts/h100_treecode_runs.py``: for every JAX artifact they parse to its
+recorded knobs, every flag it leaves out names its source, and each answer
+was made by the line that ``results/large_scale_h100/train_commands.txt``
+holds for it. Reads JSON and CSV only.
 """
 
 from __future__ import annotations
 
 import csv
+import glob
+import importlib.util
 import json
 import os
+import shlex
 
 import pytest
 
@@ -23,10 +30,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_DIR = os.path.join(ROOT, "results", "large_scale")
 PORT_DIR = os.path.join(ROOT, "results", "large_scale_h100")
 
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "scripts",
+                                                                      name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+runs, ratios = _script("h100_treecode_runs"), _script("answer_ratios")
+
 # answer -> the JAX artifact it answers
 ANSWERS = {f"train_{t}": f"train_{t}" for t in (
     "20k", "50k", "100k", "100k_r3", "20k_contconv", "100k_contconv", "100k_contconv_r3",
-    "1m")}
+    "1m", "1m_r3")}
 ANSWERS["train_1m_committed_weights"] = "train_1m"
 # fields the JAX script writes (nbody_tpu/experiments/train_large.py:357-436)
 # that its older artifacts predate; the port writes them always
@@ -145,3 +163,85 @@ def test_answers_name_their_card(path):
     with open(os.path.join(ROOT, "results", path)) as f:
         name, limit = f.read().strip().split(", ")
     assert name.startswith("NVIDIA") and limit.endswith(" W")
+
+
+# flags a lane adds: where the files go, never what is computed
+PLACEMENT = {"data_dir", "out", "skip_datagen", "save_every"}
+# an artifact's knobs as train_large's arguments: (section, key) -> argument
+KNOBS = {("dataset", "train_scenes"): "train_scenes", ("dataset", "steps"): "steps",
+         ("dataset", "stride"): "stride", ("dataset", "bh_near"): "bh_near",
+         ("training", "epochs"): "epochs", ("training", "batch_size"): "batch_size",
+         ("training", "lr"): "lr", ("training", "output_scale"): "output_scale",
+         ("training", "neighbors"): "neighbors", ("training", "scan_chunk"): "scan_chunk",
+         ("training", "remat"): "remat", ("eval", "rollout_horizon"): "rollout_steps"}
+
+
+def _args(argv):
+    return vars(train_large.build_parser().parse_args(argv))
+
+
+def test_the_runner_answers_every_training_artifact():
+    names = {os.path.basename(p)[:-5] for p in glob.glob(os.path.join(JAX_DIR, "train_*.json"))}
+    assert names <= set(runs.TRAINING)
+    assert set(runs.TRAINING) == names | set(runs.TRAIN_ARTIFACT) == set(ANSWERS) | {
+        "train_1m_committed_weights"}
+
+
+@pytest.mark.parametrize("name", runs.TRAINING)
+def test_runner_argv_gives_the_artifacts_knobs(name):
+    """The runner's command line parses with ``train_large``'s own parser and
+    gives back every knob the artifact records, except where an ``EXTRA``
+    row, which names its source, replaces it."""
+    art = runs.jax_artifact(runs.TRAIN_ARTIFACT.get(name, name))
+    args = _args(runs.train_argv(name))
+    extra = runs.EXTRA.get(name, [])
+    replaced = {f[2:].replace("-", "_") for flags, _ in extra for f in flags
+                if f.startswith("--")}
+    for flags, source in extra:
+        assert flags[0].startswith("--") and len(source) > 10, (flags, source)
+    assert (args["n_bodies"], args["model"]) == (art["n_bodies"], art.get("model", "gnn"))
+    for (section, key), arg in KNOBS.items():
+        if key in art[section] and arg not in replaced:
+            assert args[arg] == art[section][key], (section, key, args[arg])
+    assert not replaced & PLACEMENT
+
+
+def _commands():
+    """``train_commands.txt``: answer name -> the ``train_large`` argv that made it."""
+    with open(os.path.join(PORT_DIR, "train_commands.txt")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln and not ln.startswith("#")]
+    out = {}
+    for ln in lines:
+        name, cmd = ln.split(": ", 1)
+        words = shlex.split(cmd)
+        assert words[:3] == ["python", "-m", "nbody_tpu_torch.experiments.train_large"], ln
+        out[name] = words[3:]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(ANSWERS))
+def test_answer_was_made_by_the_runners_command_line(name):
+    """Each answer's line in ``train_commands.txt`` is the runner's command line
+    plus where the files go, and the answer records those knobs."""
+    got, want = _args(_commands()[name]), _args(runs.train_argv(name))
+    assert {k: v for k, v in got.items() if k not in PLACEMENT} == {
+        k: v for k, v in want.items() if k not in PLACEMENT}
+    assert os.path.basename(got["out"]) == name + ".json"
+    port = _load(os.path.join(PORT_DIR, name + ".json"))
+    assert (port["n_bodies"], port["model"]) == (got["n_bodies"], got["model"])
+    for (section, key), arg in KNOBS.items():
+        assert port[section][key] == got[arg], (section, key)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in ANSWERS if n == ANSWERS[n]))
+def test_committed_answer_holds_its_training_bars(name):
+    """``scripts/answer_ratios.py``'s bars on each committed answer, epoch 1
+    read from both epoch-loss CSVs: every barred reading met, and only the 1M
+    stepwise and baseline unbarred."""
+    port, jax = _pair(name)
+    port, jax = (ratios.with_epoch_1(port, PORT_DIR, name),
+                 ratios.with_epoch_1(jax, JAX_DIR, name))
+    rows = {r[2]: r for r in ratios.compare(name, port, jax)}
+    for key in ratios.TRAIN_BARS:
+        unbarred = port["n_bodies"] == ratios.SEAM_N and key in ratios.SEAM_KEYS
+        assert rows[key][7] == ("-" if unbarred else "met"), rows[key]
