@@ -18,12 +18,16 @@ from nbody_tpu_torch.experiments.gnn_experiment import parser, run_experiment
 from nbody_tpu_torch.models import ContinuousConvModel
 
 
-def main(argv=None):
+def build_parser():
     p = parser("contconv_experiment", batch_size=16)
     p.add_argument("--reference-init", action="store_true",
                    help="torch-style init for the decoder head (the default "
                         "zero-init avoids the saturation collapse)")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     model = ContinuousConvModel(
         in_channels=4,
         out_channels=3,

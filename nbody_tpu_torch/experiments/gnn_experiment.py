@@ -105,11 +105,15 @@ def run_experiment(name: str, args, model, **plateau) -> dict:
     return {"trainer": trainer, "epoch_loss": epoch_loss, "paths": paths}
 
 
-def main(argv=None):
+def build_parser():
     p = parser("gnn_experiment", batch_size=64)
     p.add_argument("--zero-init", action="store_true",
                    help="zero-init the decoder head (see models/mlp.py)")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     model = GraphModel(
         input_dim=4,
         node_encoder_dims=None,

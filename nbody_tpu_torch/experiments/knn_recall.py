@@ -3,12 +3,12 @@
 
 - ``exact``: the streamed O(N^2) top-k (``ops/knn.py``), the ground truth
   and its cost;
+- ``approx``: ``knn_neighbors(approx=True)``, the JAX package's
+  ``lax.approx_max_k`` selection as XLA computes it off the TPU (the exact
+  top-k; JAX's TPU rows read recall 0.980-0.988);
 - ``morton(W=w)``: the space-filling-curve search, ``impl="dense"``;
 - ``morton-kernel(B=b)``: the same search on B7 + B8 (``impl="kernel"``;
   their plain versions on the CPU), the JAX rows ``morton-pallas``.
-
-The JAX script's ``approx`` row times ``lax.approx_max_k``, a selection that
-exists only on the TPU: the port has no such search and prints no such row.
 
 Usage::
 
@@ -85,6 +85,8 @@ def main(argv=None):
             pos, _, _ = _PROFILES[profile](prng.PRNGKey(7), n, device=dev)
             exact, t_exact = _timed(lambda: knn_neighbors(pos, args.k), dev)
             record(profile, n, "exact", t_exact, 1.0)
+            got, t = _timed(lambda: knn_neighbors(pos, args.k, approx=True), dev)
+            record(profile, n, "approx", t, recall_of(*got, *exact))
             for w in args.windows:
                 got, t = _timed(lambda w=w: knn_morton(pos, args.k, window=w), dev)
                 record(profile, n, f"morton(W={w})", t, recall_of(*got, *exact))

@@ -86,7 +86,8 @@ def main(argv=None):
     p.add_argument("--modes", nargs="+", default=["direct", "surrogate", "hybrid"])
     p.add_argument("--knn-method", default="morton",
                    choices=["exact", "approx", "morton"],
-                   help="GNN neighbour search (approx is TPU-only and raises)")
+                   help="GNN neighbour search (approx: lax.approx_max_k as XLA "
+                        "computes it off the TPU, the exact selection)")
     p.add_argument("--knn-window", type=int, default=64)
     p.add_argument("--knn-impl", default=None, choices=["dense", "kernel"],
                    help="Morton search implementation; default kernel on a "

@@ -12,10 +12,10 @@ edge MLP, masked-reduce over k. ``fused_edgeconv=True`` computes the same
 function with one k-sized tensor per layer (see :class:`EdgeConv`), and
 ``remat=True`` recomputes each EdgeConv in the backward pass instead of
 keeping its k-sized tensors; both leave the parameter names as they are.
-The approximate (TPU-only) neighbour search raises
-``NotImplementedError``. ``knn_method="morton"`` builds graphs with
-``ops/spatial.py``; ``knn_impl`` takes the port's names, "dense" and
-"kernel".
+``knn_method="approx"`` builds the graphs that ``lax.approx_max_k`` gives
+off the TPU, the exact ones (``ops/knn.py``). ``knn_method="morton"`` builds
+graphs with ``ops/spatial.py``; ``knn_impl`` takes the port's names, "dense"
+and "kernel".
 """
 
 from __future__ import annotations
@@ -132,11 +132,7 @@ class GraphModel(nn.Module):
         key: Optional[torch.Tensor] = None,
     ):
         super().__init__()
-        if knn_method == "approx":
-            raise NotImplementedError(
-                "knn_method='approx' selects with lax.approx_max_k, a TPU-only "
-                "top-k; use 'exact' or 'morton'")
-        if knn_method not in (None, "exact", "morton"):
+        if knn_method not in (None, "exact", "approx", "morton"):
             raise ValueError(f"unknown knn_method {knn_method!r}")
         self.input_dim = input_dim
         self.output_hiddens = output_hiddens

@@ -13,8 +13,9 @@ def build_graph(graph_spec, pos, mask=None):
     """:param graph_spec: ("knn", {k, include_self[, method, window, block,
         n_copies, impl]}) or ("radius", {radius, k_max, include_self[,
         method, impl]}) from ``model.graph_spec``. kNN methods: "exact"
-        (default) and "morton" (``ops/spatial.py``; impl "dense" or
-        "kernel"); "approx" is TPU-only and raises.
+        (default), "approx" (``lax.approx_max_k`` as XLA computes it off
+        the TPU: the exact selection) and "morton" (``ops/spatial.py``;
+        impl "dense" or "kernel").
     :param pos: (B, N, 3) positions.
     :param mask: optional (B, N) node validity.
     :return: (idx, valid) padded neighbour lists, both (B, N, k).

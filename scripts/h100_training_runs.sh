@@ -2,7 +2,7 @@
 # The JAX package's surrogate training configurations through the port, on
 # one CUDA card: the eight results/large_scale/train_*.json configurations at
 # their artifacts' knobs, the committed 1M weights' eval, and the two
-# 100-epoch reference experiments with run_experiments.sh's flags. Each lane
+# 100-epoch reference experiments with run_experiments.sh's own flags. Each lane
 # runs in its own process beside the others (they share the card); the lanes
 # are independent except that the reference lanes share one dataset, made
 # before any lane starts.
@@ -29,6 +29,11 @@
 #                checkpoint); E = 0 runs the eval alone
 #   contconv:E[:S]  the same for contconv_experiment
 #
+# The reference lanes take their flags from run_experiments.sh's two lines
+# (scripts/h100_treecode_runs.py --ref-argv NAME) and add only placement
+# (--base, --epochs, --save-every); each command line as run goes into
+# OUT/NAME/commands.txt.
+#
 # Each train_large run takes its knobs from its JAX artifact through
 # scripts/h100_treecode_runs.py --argv NAME (what the artifact records, then
 # the flags it leaves out, each with its source); a lane adds only where the
@@ -43,13 +48,21 @@
 # a checkpoint brought back from an earlier call's OUT continues there. The
 # reference datasets are regenerated from their seeds when WORK lacks them;
 # their digests (without the step_time column) go into OUT/ref_data.sha256,
-# which must match between calls that resume one run. The batch order is seeded from the dataset paths, so
-# keep WORK the same between calls.
+# which must match between calls that resume one run. The reference lanes
+# run with WORK/ref as their working directory and --base ., so their dataset
+# paths are run_experiments.sh's own (./data/train/...): the batch order is
+# seeded from those paths, and so is the JAX package's reference runs'. They
+# never run in the checkout, whose results/gnn/ and results/contconv/ hold the
+# JAX package's answers.
 set -u
+ROOT=$(cd "$(dirname "$0")/.." && pwd -P)
 OUT=$1; shift
 WORK=${WORK:-_h100}
 CARRY=${CARRY:-_h100carry}
-mkdir -p "$OUT/logs" "$WORK"
+mkdir -p "$OUT/logs" "$WORK/ref"
+if [ "$(cd "$WORK/ref" && pwd -P)" = "$ROOT" ]; then
+    echo "WORK/ref is the checkout: the reference lanes would write over results/"; exit 2
+fi
 export OMP_NUM_THREADS=${OMP_NUM_THREADS:-2} PYTHONUNBUFFERED=1
 T0=$(date +%s)
 stamp() { echo "[$(( $(date +%s) - T0 )) s] $*"; }
@@ -123,31 +136,45 @@ lane_ics() {  # the 1M eval's readings on the port's ICs (JAX's galaxies), and o
         --seeds 42 43 1042 1043 1044 1045 1046 1047 --out "$OUT/ic_realizations_1m.json"
 }
 
-lane_ref() {  # lane_ref gnn|contconv EPOCHS [SECONDS]
-    local name=$1 epochs=$2 secs=${3:-0} base=$WORK/ref rc
-    local flags=(--seed 42 --batch-mode reference)
-    [ "$name" = contconv ] && flags=(--seed 42 --merge-files --batch-mode mixed --lr 0.001)
-    local ckpts=$base/${name}_weights
+ref_run() {  # ref_run NAME SECONDS ARG... : NAME_experiment with run_experiments.sh's
+    # flags and ARG... (placement only), its command line into OUT/NAME/commands.txt
+    local name=$1 secs=$2; shift 2
+    local flags
+    mapfile -t flags < <(python "$ROOT/scripts/h100_treecode_runs.py" --ref-argv "$name")
+    [ "${#flags[@]}" -gt 0 ] || { stamp "${name}_experiment: no flags"; return 1; }
+    local argv=("${flags[@]}" "$@")
+    mkdir -p "$OUT/$name"
+    echo "python -m nbody_tpu_torch.experiments.${name}_experiment ${argv[*]}" \
+        >> "$OUT/$name/commands.txt"
+    timeout -s TERM "$secs" python -m "nbody_tpu_torch.experiments.${name}_experiment" \
+        "${argv[@]}" 2>&1 | clock
+    return "${PIPESTATUS[0]}"
+}
+
+lane_ref() {  # lane_ref gnn|contconv EPOCHS [SECONDS], in WORK/ref at --base .
+    local name=$1 epochs=$2 secs=${3:-0} rc
+    local ckpts=$WORK/ref/${name}_weights
     if [ -z "$(ls "$ckpts" 2>/dev/null)" ] && [ -d "$CARRY/${name}_weights" ]; then
         mkdir -p "$ckpts" && cp "$CARRY/${name}_weights"/ckpt_*.pt "$ckpts"/
     fi
-    stamp "${name}_experiment: $epochs more epochs from $(ls "$ckpts" 2>/dev/null)"
-    rm -f "$base/results/$name/epoch_loss.csv"
+    OUT=$(cd "$OUT" && pwd -P)  # the lane runs in a subshell of its own
+    cd "$WORK/ref" || return 1
+    export PYTHONPATH=$ROOT${PYTHONPATH:+:$PYTHONPATH}
+    stamp "${name}_experiment: $epochs more epochs from $(ls "${name}_weights" 2>/dev/null)"
+    rm -f "results/$name/epoch_loss.csv"
     [ "$secs" -gt 0 ] || secs=0  # timeout 0: no limit
-    timeout -s TERM "$secs" python -m "nbody_tpu_torch.experiments.${name}_experiment" \
-        "${flags[@]}" --base "$base" --epochs "$epochs" --save-every 1 2>&1 | clock
-    rc=${PIPESTATUS[0]}
+    ref_run "$name" "$secs" --base . --epochs "$epochs" --save-every 1
+    rc=$?
     stamp "${name}_experiment: exit $rc"
     if [ "$rc" = 124 ]; then  # out of time: evaluate the epochs reached
-        python -m "nbody_tpu_torch.experiments.${name}_experiment" "${flags[@]}" \
-            --base "$base" --epochs 0 2>&1 | clock
-        stamp "${name}_experiment eval of the latest checkpoint: exit ${PIPESTATUS[0]}"
+        ref_run "$name" 0 --base . --epochs 0
+        stamp "${name}_experiment eval of the latest checkpoint: exit $?"
     fi
     mkdir -p "$OUT/$name/${name}_weights"
-    cp "$base/results/$name"/*.csv "$OUT/$name/" 2>/dev/null
+    cp "results/$name"/*.csv "$OUT/$name/" 2>/dev/null
     local last
-    last=$(ls "$ckpts" 2>/dev/null | grep -E '^ckpt_[0-9]+\.pt$' | sort -t_ -k2 -n | tail -n 1)
-    [ -n "$last" ] && cp "$ckpts/$last" "$OUT/$name/${name}_weights/"
+    last=$(ls "${name}_weights" 2>/dev/null | grep -E '^ckpt_[0-9]+\.pt$' | sort -t_ -k2 -n | tail -n 1)
+    [ -n "$last" ] && cp "${name}_weights/$last" "$OUT/$name/${name}_weights/"
 }
 
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"

@@ -26,7 +26,8 @@ the card's ``device_kind`` and ``nvidia-smi`` line (``card``).
   knobs and chunks, and its audit: the exact energy, or the chunked exact
   energy, or (``error_sample``) the sampled force audit.
 - ``knn_recall``: one ``knn_recall`` call over the artifact's profiles, Ns,
-  windows and blocks; its ``approx`` rows are written as not run.
+  windows and blocks; its ``approx`` rows are ``lax.approx_max_k``'s
+  selection as XLA computes it off the TPU (``ops/knn.py``).
 - ``crossover*``: ``crossover``, one call an N, each mode parsed from the
   row (``surrogate(pallas,...)`` runs the Morton kernels B7 + B8, an untagged
   surrogate the dense search, JAX's ``xla``), plus the flags that JAX's
@@ -51,6 +52,12 @@ neighbours, scan chunk and remat, ``eval.rollout_horizon``), then the
 
 ``train_1m_committed_weights`` evaluates ``train_1m``'s committed weights at
 ``train_1m``'s knobs.
+
+The two reference experiments take their flags from ``run_experiments.sh``'s
+own lines, the one place that holds them; a lane adds only placement
+(``--base``, ``--epochs``, ``--save-every``, ``--device``)::
+
+    python scripts/h100_treecode_runs.py --ref-argv gnn   # one argument a line
 """
 
 from __future__ import annotations
@@ -116,8 +123,15 @@ EXTRA = {"crossover_r3": [(["--knn-copies", "2"], "scripts/_tpu_queue.sh job 4")
              (["--load-params", "results/large_scale/train_1m_params.pt"],
               "results/large_scale/train_1m_params.msgpack, the weights train_1m.json "
               "evaluated, converted once to a state_dict")]}
-NOT_RUN_APPROX = ("not run: lax.approx_max_k is a TPU-only selection; the port has no "
-                  "approximate top-k and raises on knn_method='approx' (scope cut)")
+
+
+def reference_argv(name: str) -> list:
+    """The flags that ``run_experiments.sh`` gives ``NAME_experiment``, without
+    its forwarded ``"$@"``."""
+    with open(os.path.join(ROOT, "run_experiments.sh")) as f:
+        lines = [shlex.split(line) for line in f if f"experiments.{name}_experiment " in line]
+    (words,) = lines
+    return words[words.index(f"nbody_tpu.experiments.{name}_experiment") + 1:words.index("$@")]
 
 
 def jax_artifact(name: str) -> dict:
@@ -318,17 +332,7 @@ def run_job(module: str, argv: list, jax_rows, device: str):
         return [row]
     if module == "bh_rollout":
         return {**main(full), "argv": cmd}
-    if module == "knn_recall":
-        got = {row_key(r): r for r in main(full)}
-        out = []
-        for want in jax_rows:
-            if want["method"] == "approx":
-                out.append({**{k: want[k] for k in ("profile", "n", "k", "method")},
-                            "seconds": None, "recall": None, "not_run": NOT_RUN_APPROX})
-            else:
-                out.append({**got[row_key(want)], "argv": cmd})
-        return out
-    if module == "crossover":
+    if module in ("knn_recall", "crossover"):
         got = {row_key(r): r for r in main(full)}
         return [{**got[row_key(w)], "argv": cmd} for w in jax_rows]
     if module == "large_scale":
@@ -382,9 +386,9 @@ def selected(patterns: list, names: list = NAMES) -> list:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if args[:1] == ["--argv"]:
+    if args[:1] in (["--argv"], ["--ref-argv"]):
         (name,) = args[1:]
-        print("\n".join(train_argv(name)))
+        print("\n".join((train_argv if args[0] == "--argv" else reference_argv)(name)))
         return 0
     if "--print" in args:
         for name in selected([a for a in args if a != "--print"], NAMES + TRAINING):

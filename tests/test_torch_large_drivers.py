@@ -298,13 +298,14 @@ def test_knn_recall_rows(tmp_path, capsys):
                             "--kernel-blocks", "128", "--kernel-copies", "4", "2",
                             "--device", "cpu", "--out", str(out)])
     assert rows == _json_lines(capsys.readouterr().out) == json.loads(out.read_text())["rows"]
-    assert [r["method"] for r in rows[:4]] == ["exact", "morton(W=64)", "morton-kernel(B=128)",
+    assert [r["method"] for r in rows[:5]] == ["exact", "approx", "morton(W=64)",
+                                               "morton-kernel(B=128)",
                                                "morton-kernel(B=128,C=2)"]
-    assert [r["profile"] for r in rows] == ["disk"] * 4 + ["spiral"] * 4
+    assert [r["profile"] for r in rows] == ["disk"] * 5 + ["spiral"] * 5
     for r in rows:
         assert set(r) == {"profile", "n", "k", "method", "seconds", "recall"}
         assert r["seconds"] > 0 and 0.9 <= r["recall"] <= 1.0
-    assert rows[0]["recall"] == 1.0 and not any("approx" in r["method"] for r in rows)
+    assert all(r["recall"] == 1.0 for r in rows if r["method"] in ("exact", "approx"))
     assert set(json.loads(out.read_text())) == {"device", "device_kind", "methodology", "rows"}
 
 
@@ -338,7 +339,7 @@ res = train_large.main(["--n-bodies", "600", "--train-scenes", "1", "--steps", "
                         "--device", "cpu"])
 assert res["eval"]["rollout_horizon"] == 2
 assert len(knn_recall.main(["--n-bodies", "600", "--windows", "64", "--kernel-blocks", "128",
-                            "--profiles", "spiral", "--device", "cpu"])) == 3
+                            "--profiles", "spiral", "--device", "cpu"])) == 4
 g = torch.Generator().manual_seed(0)
 u, v = torch.randn(64, 8, generator=g), torch.randn(64, 8, generator=g)
 idx = torch.randint(0, 64, (64, 3), generator=g).to(torch.int32)

@@ -70,7 +70,12 @@ def test_large_scale_cli_runs_on_cpu():
     assert line["mode"] == "surrogate" and line["graph_refresh"] == 1
 
 
-def test_approx_knn_raises():
-    with pytest.raises(NotImplementedError):
-        large_scale.main(["--n-bodies", "600", "--steps", "2", "--device", "cpu",
-                          "--knn-method", "approx", "--modes", "surrogate"])
+def test_approx_knn_raises(tmp_path):
+    """``--knn-method approx`` no longer raises: it runs the surrogate on the
+    graphs that ``lax.approx_max_k`` gives off the TPU, the exact ones."""
+    out = tmp_path / "approx.json"
+    res = large_scale.main(["--n-bodies", "600", "--steps", "2", "--device", "cpu",
+                            "--knn-method", "approx", "--modes", "surrogate",
+                            "--out", str(out)])
+    assert res["surrogate"]["finite"]
+    assert json.loads(out.read_text())["knn_method"] == "approx"

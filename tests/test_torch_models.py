@@ -68,15 +68,18 @@ def test_chunked_knn_equals_dense():
 
 
 def test_batched_knn_matches_jax_and_approx_raises():
+    """Batched kNN against JAX's, exact and ``approx`` (which no longer
+    raises: off the TPU it is the exact selection in both packages)."""
     pos = np.random.default_rng(3).normal(size=(3, 25, 3)).astype(np.float32)
     mask = np.ones((3, 25), bool)
     mask[1, 20:] = False
-    got = tknn.batched_knn_neighbors(torch.from_numpy(pos), 4, mask=torch.from_numpy(mask))
-    want = jknn.batched_knn_neighbors(jnp.asarray(pos), 4, mask=jnp.asarray(mask))
-    assert got[0].shape == (3, 25, 4)
-    _assert_same_graph(got, want)
-    with pytest.raises(NotImplementedError):
-        tknn.knn_neighbors(torch.from_numpy(pos[0]), 4, approx=True)
+    for approx in (False, True):
+        got = tknn.batched_knn_neighbors(torch.from_numpy(pos), 4,
+                                         mask=torch.from_numpy(mask), approx=approx)
+        want = jknn.batched_knn_neighbors(jnp.asarray(pos), 4, mask=jnp.asarray(mask),
+                                          approx=approx)
+        assert got[0].shape == (3, 25, 4)
+        _assert_same_graph(got, want)
 
 
 @pytest.mark.parametrize("how", ["sum", "mean"])
@@ -175,9 +178,12 @@ def test_seeded_init_and_config():
     assert a.get_config() == JGraphModel(**kw).get_config()
 
 
-@pytest.mark.parametrize("bad", [dict(knn_method="approx")])
+@pytest.mark.parametrize("bad", [dict(knn_approx=True)])
 def test_unported_options_raise(bad):
-    with pytest.raises(NotImplementedError):
+    """The JAX model's deprecated ``knn_approx`` alias is not ported
+    (``knn_method="approx"`` is)."""
+    assert all(hasattr(JGraphModel, k) for k in bad)
+    with pytest.raises(TypeError, match=f"unexpected keyword argument '{next(iter(bad))}'"):
         GraphModel(**bad)
 
 

@@ -127,12 +127,14 @@ def test_answers_from_hand_made_artifacts_on_the_cpu(tmp_path, monkeypatch):
     knn = json.loads((port / "knn_recall.json").read_text())["rows"]
     assert [r["method"] for r in knn] == [
         "exact", "approx", "morton(W=64)", "morton-kernel(B=128)"] * 2
-    assert all(r["not_run"] for r in knn if r["method"] == "approx")
+    assert all(r["recall"] == 1.0 and r["argv"] for r in knn if r["method"] == "approx")
     cross = json.loads((port / "crossover_r3.json").read_text())
     assert cross["steps"] == 2 and all(r["finite"] for r in cross["rows"])
     rows = ratios.main(["--port", str(port), "--jax", str(jax)])
     verdicts = {(r[0], r[2], r[7]) for r in rows}
-    assert ("knn_recall", "recall", "not run") in verdicts
+    assert ("knn_recall", "recall", "met") in verdicts
+    assert all(r[7] == "met" for r in rows if r[0] == "knn_recall" and r[2] == "recall"
+               and r[1].endswith(" approx"))
     assert {r[7] for r in rows if r[0] == "crossover_r3"} == {"info"}
     drift = [r for r in rows if r[0] == "bh_rollout" and r[2] == "rel_energy_drift"]
     assert len(drift) == 1 and drift[0][6:] == ("< 1.1e-06", "met")
@@ -163,15 +165,15 @@ def test_ratio_table_matches_rows_and_holds_bars(tmp_path, capsys):
                   "engine": "bh2", "rel_err_median": 0.05, "err_over_rms_p99": 0.49},
                  {"n": 100, "n_near": 32, "block": 256, "engine": "bh", "bh_fresh_ms": 2.0}]
     _write(tmp_path, "sweep", {"rows": jax_rows}, {"rows": port_rows})
-    # pair 2: recall rows, one of them not run and one answer missing
+    # pair 2: recall rows, an approx row at JAX's recall or above, one answer missing
     jax_knn = [{"profile": "spiral", "n": 10, "k": 2, "method": m, "seconds": 1.0,
                 "recall": r} for m, r in (("exact", 1.0), ("approx", 0.98),
                                           ("morton(W=64)", 0.99), ("morton-pallas(B=256)", 0.99),
                                           ("morton(W=96)", 0.995))]
     port_knn = [{"profile": "spiral", "n": 10, "k": 2, "method": "exact", "seconds": 0.5,
                  "recall": 1.0},
-                {"profile": "spiral", "n": 10, "k": 2, "method": "approx", "seconds": None,
-                 "recall": None, "not_run": "TPU-only"},
+                {"profile": "spiral", "n": 10, "k": 2, "method": "approx", "seconds": 0.5,
+                 "recall": 1.0},
                 {"profile": "spiral", "n": 10, "k": 2, "method": "morton(W=64)",
                  "seconds": 0.5, "recall": 0.9904},
                 {"profile": "spiral", "n": 10, "k": 2, "method": "morton-kernel(B=256)",
@@ -190,7 +192,7 @@ def test_ratio_table_matches_rows_and_holds_bars(tmp_path, capsys):
     assert got[("sweep", "2", "err_over_rms_p99")][7] == "MISSED"   # 0.49x
     assert got[("sweep", "3", "bh_fresh_ms")][5] == pytest.approx(2 / 3)
     assert got[("knn_recall", "0", "recall")][7] == "met"
-    assert got[("knn_recall", "1", "recall")][7] == "not run"
+    assert got[("knn_recall", "1", "recall")][7] == "met"            # 1.0 >= 0.98
     assert got[("knn_recall", "2", "recall")][7] == "met"           # +4e-4
     assert got[("knn_recall", "3", "recall")][7] == "MISSED"        # -6e-4
     assert got[("knn_recall", "4", "row")][7] == "MISSING"
@@ -239,19 +241,19 @@ SWEEPS = runs.selected(["bh", "bh2", "bh3", "bh3_1m_*", "bh_rollout", "knn_recal
 def test_committed_answer_holds_its_bars(name):
     """``results/large_scale_h100/NAME.json``: one row for each JAX row with the
     command line that gives it, the card's name and ``nvidia-smi`` line, every
-    barred reading within its bar, only the ``approx`` rows not run, and
-    every speed row's final state finite."""
+    barred reading within its bar (``approx`` rows answered, their recall
+    at least JAX's), and every speed row's final state finite."""
     ans = json.loads((REPO / "results" / "large_scale_h100" / f"{name}.json").read_text())
     art = runs.jax_artifact(name)
     assert ans["device"] == "gpu" and ans["device_kind"].startswith("NVIDIA")
     assert ans["card"].startswith(ans["device_kind"] + ", ") and ans["card"].endswith(" W")
     assert len(ans.get("rows", [])) == len(art.get("rows", []))
     want = [runs.command(module, argv) for module, argv, rows in runs.jobs_of(name)
-            for r in (rows or [{}]) if r.get("method") != "approx"]
-    assert [r.get("argv") for r in ans.get("rows", [ans]) if not r.get("not_run")] == want
+            for r in (rows or [{}])]
+    assert [r.get("argv") for r in ans.get("rows", [ans])] == want
     rows = ratios.compare(name, ans, art)
-    assert rows and all(r[7] in ("met", "info", "-", "not run") for r in rows), rows
-    assert all(r[1].endswith(" approx") for r in rows if r[7] == "not run")
+    assert rows and all(r[7] in ("met", "info", "-") for r in rows), rows
+    assert all(r[6] == ">= JAX" for r in rows if r[1].endswith(" approx") and r[2] == "recall")
     assert all(r["finite"] for r in ans.get("rows", []) if "mode" in r)
     if "results" in ans:
         assert ans["results"]["surrogate"]["finite"]
